@@ -1,0 +1,119 @@
+"""Build and load the package's hand-written CUDA kernels.
+
+Every `csrc/*.cu` file is compiled by `nvcc` into ONE shared library with a
+plain C interface (`sm_90a`, no PyTorch headers, so the build takes seconds)
+and loaded with `ctypes`.  The library lives in `_build/` beside this file,
+keyed by a hash of the sources and flags: a changed source rebuilds it, an
+unchanged one is loaded as it is.  Nothing here runs at import time — the
+first kernel launch builds — and a failed build or load raises.
+
+No `--use_fast_math`: the beam kernel's parity with its plain PyTorch version
+needs IEEE `expf`/`log1pf`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+import time
+from pathlib import Path
+
+_CSRC = Path(__file__).resolve().parent / 'csrc'
+_OUT = Path(__file__).resolve().parent / '_build'
+_NAME = 'libreverb_kernels'
+_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
+          '-shared', '-Xcompiler', '-fPIC', '-lineinfo']
+
+_lock = threading.Lock()
+_lib = None
+# wall seconds the last build took in this process (None: loaded as built)
+build_seconds = None
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_int64
+_F = ctypes.c_float
+_SIGNATURES = {
+    # dtype, q k v p u vb kv_lens out, B H Tq Tk, q/k/v/out strides
+    # (batch, head, time) ×4, p strides (head, time), scale, stream
+    'reverb_rel_pos_attention_fwd': [_I] + [_P] * 8 + [_I] * 4 + [_L] * 14
+                                    + [_F, _P],
+    # logp idx ts valid bacc hskip, 8 emit arrays, wval, final s ns vs vns
+    # plen, B T K K2 blank_id, stream
+    'reverb_beam_scan_forward': [_P] * 20 + [_I] * 5 + [_P],
+    # 8 emit arrays, wval, order, sel_ns, prefixes, times, B T K L, stream
+    'reverb_beam_backtrace': [_P] * 13 + [_I] * 4 + [_P],
+}
+
+
+def _nvcc() -> str:
+    home = os.environ.get('CUDA_HOME') or os.environ.get('CUDA_PATH')
+    if home and (Path(home) / 'bin' / 'nvcc').exists():
+        return str(Path(home) / 'bin' / 'nvcc')
+    found = shutil.which('nvcc')
+    if found:
+        return found
+    default = Path('/usr/local/cuda/bin/nvcc')
+    if default.exists():
+        return str(default)
+    raise RuntimeError('nvcc not found (set CUDA_HOME); the CUDA kernels '
+                       'cannot be built')
+
+
+def _sources():
+    return sorted(_CSRC.glob('*.cu'))
+
+
+def _digest(srcs) -> str:
+    h = hashlib.sha256(' '.join(_FLAGS).encode())
+    for p in srcs + sorted(_CSRC.glob('*.cuh')):
+        h.update(p.name.encode())
+        h.update(p.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def build() -> Path:
+    """Compile the kernels unless a library for these sources exists.
+    Returns the library path."""
+    global build_seconds
+    srcs = _sources()
+    digest = _digest(srcs)
+    lib = _OUT / f'{_NAME}.so'
+    stamp = _OUT / f'{_NAME}.hash'
+    if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        return lib
+    _OUT.mkdir(parents=True, exist_ok=True)
+    tmp = _OUT / f'{_NAME}.{os.getpid()}.tmp.so'
+    t0 = time.perf_counter()
+    cmd = [_nvcc(), *_FLAGS, '-o', str(tmp), *map(str, srcs)]
+    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
+    if res.returncode != 0:
+        raise RuntimeError(f'nvcc failed ({res.returncode}):\n{res.stderr}')
+    os.replace(tmp, lib)                 # atomic: concurrent loaders see
+    stamp.write_text(digest)             # either the old or the new file
+    build_seconds = time.perf_counter() - t0
+    return lib
+
+
+def load():
+    """The loaded kernel library (built on first use)."""
+    global _lib
+    with _lock:
+        if _lib is None:
+            lib = ctypes.CDLL(str(build()))
+            for name, argtypes in _SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = argtypes
+                fn.restype = ctypes.c_int
+            _lib = lib
+    return _lib
+
+
+def check(rc: int, name: str):
+    """Raise on a non-zero cudaError_t returned by a C entry point."""
+    if rc != 0:
+        raise RuntimeError(f'{name}: CUDA error {rc} at launch')

@@ -1,0 +1,43 @@
+"""Positional encodings (sinusoidal absolute + WeNet relative).
+
+Counterpart of reverb_tpu/models/embedding.py; the table is built on the
+host in float32 exactly as there.
+"""
+
+from __future__ import annotations
+
+import functools
+import math
+
+import numpy as np
+import torch
+
+
+@functools.lru_cache(maxsize=16)
+def pe_table(d_model: int, max_len: int = 5000) -> np.ndarray:
+    """(max_len, d_model) sinusoidal table: even dims sin, odd dims cos."""
+    pe = np.zeros((max_len, d_model), dtype=np.float32)
+    position = np.arange(max_len, dtype=np.float32)[:, None]
+    div_term = np.exp(np.arange(0, d_model, 2, dtype=np.float32)
+                      * -(math.log(10000.0) / d_model))
+    pe[:, 0::2] = np.sin(position * div_term)
+    pe[:, 1::2] = np.cos(position * div_term)
+    return pe
+
+
+def _pe(d_model: int, T: int, x):
+    return torch.from_numpy(pe_table(d_model)[:T]).to(device=x.device,
+                                                       dtype=x.dtype)[None]
+
+
+def abs_position_encoding(x):
+    """x (B, T, D) → (x·√d + pe, pe (1, T, D))."""
+    d = x.shape[-1]
+    pe = _pe(d, x.shape[1], x)
+    return x * math.sqrt(d) + pe, pe
+
+
+def rel_position_encoding(x):
+    """x (B, T, D) → (x·√d, pos_emb (1, T, D))."""
+    d = x.shape[-1]
+    return x * math.sqrt(d), _pe(d, x.shape[1], x)

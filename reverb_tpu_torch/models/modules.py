@@ -1,0 +1,183 @@
+"""Parameter-holding layers with the JAX package's numerics.
+
+Counterpart of reverb_tpu/models/modules.py.  Each layer keeps its
+parameters in float32 under WeNet's state-dict names (`weight`, `bias`,
+`running_mean`, ...) and casts them to the activation dtype at the point of
+use, as the JAX functions do, so a bf16 forward rounds exactly where the
+reference rounds.  Every layer also knows its own random initialization
+(`reset_parameters(generator)`, torch-default bounds as in the JAX init),
+so a model is built on the meta device and filled on its target device.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def _uniform(t: torch.Tensor, bound: float, g):
+    with torch.no_grad():
+        t.uniform_(-bound, bound, generator=g)
+
+
+class Linear(nn.Module):
+    """y = x Wᵀ + b with W (out, in) cast to x.dtype."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 bias: bool = True):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+
+    def reset_parameters(self, g):
+        bound = math.sqrt(1.0 / self.weight.shape[1])
+        _uniform(self.weight, math.sqrt(3.0) * bound, g)
+        if self.bias is not None:
+            _uniform(self.bias, bound, g)
+
+    def forward(self, x):
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
+
+
+class Conv1d(nn.Module):
+    """Conv1d parameters (out, in/groups, k) + bias, used pointwise (as a
+    matmul over channels) or depthwise over time in (B, T, C) layout."""
+
+    def __init__(self, in_ch: int, out_ch: int, k: int, groups: int = 1,
+                 bias: bool = True):
+        super().__init__()
+        self.groups = groups
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, k))
+        self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+
+    def reset_parameters(self, g):
+        fan_in = self.weight.shape[1] * self.weight.shape[2]
+        bound = math.sqrt(1.0 / fan_in)
+        _uniform(self.weight, math.sqrt(3.0) * bound, g)
+        if self.bias is not None:
+            _uniform(self.bias, bound, g)
+
+    def pointwise(self, x):
+        """1×1 conv over the channel axis of x (B, T, C_in)."""
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight[:, :, 0].to(x.dtype), b)
+
+    def depthwise(self, x, padding: int):
+        """Depthwise conv over time of x (B, T, C) → (B, T', C)."""
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        y = F.conv1d(x.transpose(1, 2), self.weight.to(x.dtype), b,
+                     padding=padding, groups=self.groups)
+        return y.transpose(1, 2)
+
+
+class Conv2d(nn.Module):
+    def __init__(self, in_ch: int, out_ch: int, kh: int, kw: int,
+                 stride=(1, 1)):
+        super().__init__()
+        self.stride = stride
+        self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kh, kw))
+        self.bias = nn.Parameter(torch.empty(out_ch))
+
+    def reset_parameters(self, g):
+        w = self.weight
+        bound = math.sqrt(1.0 / (w.shape[1] * w.shape[2] * w.shape[3]))
+        _uniform(w, math.sqrt(3.0) * bound, g)
+        _uniform(self.bias, bound, g)
+
+    def forward(self, x):
+        return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
+                        stride=self.stride)
+
+
+class LayerNorm(nn.Module):
+    """LayerNorm with one-pass f32 statistics (E[x²] − E[x]², clamped at
+    0), normalized values cast to x.dtype BEFORE the affine
+    (reverb_tpu/models/modules.py:layer_norm)."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+
+    def reset_parameters(self, g):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+
+    def forward(self, x):
+        xf = x.to(torch.float32)
+        mean = xf.mean(-1, keepdim=True)
+        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
+                          min=0.0)
+        y = ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
+        return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+
+
+class BatchNorm(nn.Module):
+    """Inference BatchNorm over the LAST axis of (B, T, C) from running
+    stats; scale/shift are folded in f32 and cast to x.dtype."""
+
+    def __init__(self, dim: int, eps: float = 1e-5):
+        super().__init__()
+        self.eps = eps
+        self.weight = nn.Parameter(torch.empty(dim))
+        self.bias = nn.Parameter(torch.empty(dim))
+        self.register_buffer('running_mean', torch.empty(dim))
+        self.register_buffer('running_var', torch.empty(dim))
+
+    def reset_parameters(self, g):
+        with torch.no_grad():
+            self.weight.fill_(1.0)
+            self.bias.zero_()
+            self.running_mean.zero_()
+            self.running_var.fill_(1.0)
+
+    def forward(self, x):
+        rstd = torch.rsqrt(self.running_var + self.eps)
+        scale = (self.weight * rstd).to(x.dtype)
+        shift = (self.bias - self.weight * self.running_mean * rstd
+                 ).to(x.dtype)
+        return x * scale + shift
+
+
+class Embedding(nn.Module):
+    def __init__(self, num: int, dim: int):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(num, dim))
+
+    def reset_parameters(self, g):
+        with torch.no_grad():
+            self.weight.normal_(generator=g)
+
+    def forward(self, ids):
+        return self.weight[ids]
+
+
+def swish(x):
+    return x * torch.sigmoid(x)
+
+
+def glu(x, dim: int = -1):
+    a, b = x.chunk(2, dim=dim)
+    return a * torch.sigmoid(b)
+
+
+ACTIVATIONS = {
+    'relu': torch.relu,
+    'swish': swish,
+    'silu': swish,
+    'gelu': F.gelu,
+    'tanh': torch.tanh,
+}
+
+
+def reset_parameters(model: nn.Module, generator: torch.Generator):
+    """Initialize every layer of `model` from `generator`, in module order."""
+    for m in model.modules():
+        if hasattr(m, 'reset_parameters'):
+            m.reset_parameters(generator)
