@@ -3,27 +3,39 @@
 
     python3 chip_smoke.py
 
+    python3 chip_smoke.py --phases kernels      # only the kernel checks
+
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 reverb_tpu_torch/csrc, holds each kernel to its plain PyTorch version at
-the serving shapes, then drives the serving path through the user entry
-point — `ReverbASR.transcribe_modes(['ctc_prefix_beam_search',
-'attention_rescoring'], format='ctm')` — on a reverb_large-width model
-(18-layer LSL conformer, d=1024, 16 heads, 6+3-layer bitransformer
-decoder, V=10000, bf16) with seeded random weights and a synthetic 164 s
-wav (8 chunks of 2051 frames).  Every phase raises on failure; the exit
-code is 0 only when all of them pass.
+the shapes of the paths below, then drives two paths on a reverb_large-
+width model (18-layer LSL conformer, d=1024, 16 heads, 6+3-layer
+bitransformer decoder, V=10000) with seeded random weights:
+
+- serving: `ReverbASR.transcribe_modes(['ctc_prefix_beam_search',
+  'attention_rescoring'], format='ctm')` in bf16 on a synthetic 164 s wav
+  (8 chunks of 2051 frames) — kernels K1, K2, K3, K5;
+- training: `make_train_step` (hybrid CTC/attention loss, dropout 0.1,
+  Adam with warmuplr, clip 50) — first one f32 step at B = 2 through the
+  kernels and through the plain versions with the same dropout draws, then
+  4 bf16 steps at B = 8 utterances of 1600-2051 frames — kernels K1 (with
+  the dropout keep-mask), K4, K5, K6.
+
+Each path runs with the launch counters set to 0 just before it and read
+just after.  Every phase raises on failure; the exit code is 0 only when
+all of them pass.
 
 Output: progress lines, then the card's `nvidia-smi` name and power limit,
-then one JSON line {"kernels": [...]} (each kernel's launches on the
-serving path, its error against the plain version, and both times), and
-last {"ok": true, "device": {...}}.
+then one JSON line {"kernels": [...]} (each kernel's launches on the two
+paths, its error against the plain version, and both times), and last
+{"ok": true, "device": {...}}.
 """
 
 from __future__ import annotations
 
+import argparse
 import json
 import math
-import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -39,6 +51,8 @@ CHUNK = 2051                 # frames per chunk (CLI default)
 N_CHUNKS = 8                 # one full batch of the auto batcher
 VOCAB = 10000
 SEED = 0                     # weights, audio and beam inputs
+LAYERS_ENC, LN_ENC, LN_DEC = 18, 91, 29   # reverb_large: per-step counts
+TRAIN_B, TRAIN_STEPS = 8, 4
 
 
 def log(msg):
@@ -289,26 +303,19 @@ def reference_check(asr, feats, dev):
     from reverb_tpu_torch.decode import api
     from reverb_tpu_torch.models.asr_model import build_model
     from reverb_tpu_torch.ops import beam_scan as bs
-    from reverb_tpu_torch.ops import flash_attention as fa
     model = asr.model
     f32 = build_model(model.cfg.with_compute_dtype(torch.float32), dev,
                       state_dict=model.state_dict())
     x = feats[None, :CHUNK]
     lens = torch.tensor([CHUNK], device=dev)
     cat = torch.tensor([1.0, 0.0], device=dev)
-    saved = (fa.rel_pos_attention, bs.beam_scan_forward, bs.beam_backtrace)
-    plain = (fa.rel_pos_attention_plain, bs.beam_scan_forward_plain,
-             bs.beam_backtrace_plain)
+    plain = {(bs, 'beam_scan_forward'): bs.beam_scan_forward_plain,
+             (bs, 'beam_backtrace'): bs.beam_backtrace_plain,
+             **plain_versions()}
 
     def run(kernels: bool, fn):
-        (fa.rel_pos_attention, bs.beam_scan_forward,
-         bs.beam_backtrace) = saved if kernels else plain
-        try:
-            with torch.inference_mode():
-                return fn()
-        finally:
-            fa.rel_pos_attention, bs.beam_scan_forward, bs.beam_backtrace = \
-                saved
+        with swapped({} if kernels else plain), torch.inference_mode():
+            return fn()
 
     def encode():
         return api.encode_and_ctc_topk(f32, x, lens, cat, 10)
@@ -343,6 +350,7 @@ def run_slice(dev, seed, workdir: Path):
     from reverb_tpu_torch.cli import reverb as rv
     from reverb_tpu_torch.ops import beam_scan as bs
     from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
     asr = build_asr(dev, seed, workdir)
     n_samples = 400 + 160 * (N_CHUNKS * CHUNK - 1)
     wav = workdir / 'long.wav'
@@ -366,7 +374,8 @@ def run_slice(dev, seed, workdir: Path):
         return out
     rv.decode_modes_fn = recording_decode
     walls, outputs = [], []
-    fa.LAUNCHES = bs.FWD_LAUNCHES = bs.BT_LAUNCHES = 0
+    ln_calls, hooks = ln_call_counter(asr.model)
+    fa.LAUNCHES = bs.FWD_LAUNCHES = bs.BT_LAUNCHES = ln.LAUNCHES = 0
     try:
         for kwargs in ({}, {'blank_skip_threshold': 0.95}):
             torch.cuda.synchronize()
@@ -377,13 +386,19 @@ def run_slice(dev, seed, workdir: Path):
             walls.append(time.perf_counter() - t0)
     finally:
         rv.decode_modes_fn = decode_fn
+        for h in hooks:
+            h.remove()
     launches = {'K1': fa.LAUNCHES, 'K2': bs.FWD_LAUNCHES,
-                'K3': bs.BT_LAUNCHES}
+                'K3': bs.BT_LAUNCHES, 'K5': ln.LAUNCHES}
     n_enc = len(captured)              # one encoder pass per decode batch
     layers = asr.model.cfg.encoder.num_blocks
-    want = {'K1': layers * n_enc, 'K2': n_enc, 'K3': n_enc}
+    want = {'K1': layers * n_enc, 'K2': n_enc, 'K3': n_enc,
+            'K5': ln_calls[0]}
     log(f'serving path launches {launches}, expected {want} '
-        f'({n_enc} encoder calls x {layers} layers)')
+        f'({n_enc} encoder calls x {layers} layers; K5 = LayerNorm calls '
+        f'on the path)')
+    if ln_calls[0] < LN_ENC * n_enc:
+        raise AssertionError('fewer LayerNorm calls than the encoder has')
     if launches != want:
         raise AssertionError('the serving path did not run every kernel the '
                              'expected number of times')
@@ -417,7 +432,340 @@ def run_slice(dev, seed, workdir: Path):
     return launches, walls, audio_s
 
 
+
+# ------------------------------ shared helpers ------------------------------
+
+class swapped:
+    """Context manager: set module attributes {(module, name): value} for
+    its body, restore them after."""
+
+    def __init__(self, table):
+        self.table = table
+        self.saved = {}
+
+    def __enter__(self):
+        for (mod, name), val in self.table.items():
+            self.saved[(mod, name)] = getattr(mod, name)
+            setattr(mod, name, val)
+        return self
+
+    def __exit__(self, *exc):
+        for (mod, name), val in self.saved.items():
+            setattr(mod, name, val)
+        return False
+
+
+def plain_versions():
+    """The plain versions of K1/K4 (autograd through the plain attention)
+    and K5/K6, as module attributes to swap in."""
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    return {(fa, 'rel_pos_attention'): fa.rel_pos_attention_plain,
+            (ln, 'layer_norm_fwd'): ln.layer_norm_plain,
+            (ln, 'layer_norm_bwd'): ln.layer_norm_bwd_plain}
+
+
+def ln_call_counter(model):
+    """Forward hooks counting the model's LayerNorm calls on CUDA inputs
+    of a shape K5 takes.  Returns ([count], hooks)."""
+    from reverb_tpu_torch.models.modules import LayerNorm
+    from reverb_tpu_torch.ops import layer_norm as ln
+    calls = [0]
+
+    def hook(mod, args, out):
+        if args[0].is_cuda and ln.eligible(args[0]):
+            calls[0] += 1
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, LayerNorm)]
+    return calls, hooks
+
+
+def rel_err(got, want) -> float:
+    """max |got − want| / max |want| (want's scale floored at 1e-30)."""
+    return float((got.float() - want.float()).abs().max()) / max(
+        float(want.float().abs().max()), 1e-30)
+
+
+# ------------------------------ phase 6: K1 with mask + K4 ---------------
+
+def check_k1_mask_k4(dev):
+    """K1 with the dropout keep-mask and K4 against the plain forward and
+    its autograd backward at B·H = 8·16, T = 512, dk = 64, ragged kv_lens
+    (with 0 and 1), rate 0.1, a mask from a seeded generator; the
+    cotangent is 0 on padded query rows.  Each of out, dq, dk, dv, dp, du,
+    dvb within tol of its largest value: f32 1e-3 (summation order; D is
+    rowsum(g∘out)), bf16 5e-2 (the plain backward rounds its intermediate
+    gradients to bf16 where autograd passes the casts, the kernel only at
+    the end).  Times the forward (with mask) and the backward alone, every
+    row at full length."""
+    import torch
+    from reverb_tpu_torch.ops import flash_attention as fa
+    B, H, T, dk, rate = 8, 16, 512, 64, 0.1
+    lens = torch.tensor([512, 300, 1, 0, 512, 17, 64, 65], device=dev)
+    gen = torch.Generator(device=dev).manual_seed(1)
+    names = ('out', 'dq', 'dk', 'dv', 'dp', 'du', 'dvb')
+    res = {}
+    for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
+        def rnd(*shape):
+            return (torch.rand(*shape, device=dev, generator=gen) * 2 - 1
+                    ).to(dtype)
+        q, k, v = (rnd(B, T, H, dk).transpose(1, 2) for _ in range(3))
+        pos = rnd(1, H, T, dk)
+        u, vb = rnd(H, dk).float() * 0.1, rnd(H, dk).float() * 0.1
+        mask = (torch.rand(B, H, T, T, device=dev, generator=gen)
+                < 1 - rate).to(torch.int8)
+        row_ok = (torch.arange(T, device=dev)[None, :]
+                  < lens.clamp(min=1)[:, None])[:, None, :, None]
+        g = rnd(B, H, T, dk) * row_ok
+        outs = []
+        for fn in (fa.rel_pos_attention, fa.rel_pos_attention_plain):
+            ins = [t.detach().clone().requires_grad_(True)
+                   for t in (q, k, v, pos, u, vb)]
+            out = fn(*ins, lens, mask, rate)
+            out.backward(g)
+            outs.append([out.detach() * row_ok] + [t.grad for t in ins])
+        torch.cuda.synchronize()
+        errs = {n: float((a.float() - b.float()).abs().max())
+                for n, a, b in zip(names, *outs)}
+        rels = {n: rel_err(a, b) for n, a, b in zip(names, *outs)}
+        bad = {n: r for n, r in rels.items() if not r <= tol}
+        if bad:
+            raise AssertionError(f'K1 mask/K4 {dtype}: relative errors {bad} '
+                                 f'> {tol}')
+        if torch.count_nonzero(outs[0][0][3]):
+            raise AssertionError('K1 mask: kv_len 0 row is not 0')
+        # timing: every row at full length
+        full = torch.full_like(lens, T)
+        args = (q, k, v, pos, u, vb, full, mask, rate)
+        fwd_ms = cuda_time_ms(lambda: fa.rel_pos_attention(*args), 10)
+        fwd_plain = cuda_time_ms(lambda: fa.rel_pos_attention_plain(*args),
+                                 10)
+        p = pos[0]
+        uc, vbc = u.to(dtype).contiguous(), vb.to(dtype).contiguous()
+        lens32 = full.to(torch.int32)
+        o, lse = fa._k1(q, k, v, p, uc, vbc, lens32, mask, rate, True)
+        bwd_ms = cuda_time_ms(lambda: fa._k4(q, k, v, p, uc, vbc, lens32,
+                                              mask, rate, o, lse, g), 10)
+        ins = [t.detach().clone().requires_grad_(True)
+               for t in (q, k, v, pos, u, vb)]
+        out_p = fa.rel_pos_attention_plain(*ins, full, mask, rate)
+        bwd_plain = cuda_time_ms(lambda: torch.autograd.grad(
+            out_p, ins, g, retain_graph=True), 10)
+        del out_p
+        log(f'K1+mask / K4 {dtype}: max abs err '
+            + ', '.join(f'{n}={errs[n]:.3e}' for n in names)
+            + f'; relative ' + ', '.join(f'{n}={rels[n]:.2e}' for n in names)
+            + f' (tol {tol}); all rows at T={T}, rate {rate}: K1+mask '
+            f'{fwd_ms:.4f} ms (plain {fwd_plain:.4f}), K4 {bwd_ms:.4f} ms '
+            f'(plain backward {bwd_plain:.4f})')
+        res[dtype] = dict(errs=errs, fwd=(fwd_ms, fwd_plain),
+                          bwd=(bwd_ms, bwd_plain))
+        torch.cuda.empty_cache()
+    return res
+
+
+# ------------------------------ phase 7: K5 + K6 -------------------------
+
+def check_ln(dev):
+    """K5/K6 against the plain versions on (4097, 1024) — a ragged row
+    count — in bf16 and f32, eps 1e-5 and 1e-12: y and dx within tol of
+    their largest value, dw/db (f32 sums over 4097 rows) too; f32 1e-4,
+    bf16 2e-2 (one bf16 ulp where the rounding points differ).  Times both
+    at the encoder's rows (8·512 + 1)."""
+    import torch
+    from reverb_tpu_torch.ops import layer_norm as ln
+    gen = torch.Generator(device=dev).manual_seed(2)
+    N, C = 4097, 1024
+    res = {}
+    for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
+        x = (torch.randn(N, C, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+        w = torch.rand(C, device=dev, generator=gen) + 0.5
+        b = torch.randn(C, device=dev, generator=gen)
+        gy = torch.randn(N, C, device=dev, generator=gen).to(dtype)
+        errs = {}
+        for eps in (1e-5, 1e-12):
+            got = (ln.layer_norm_fwd(x, w, b, eps),
+                   *ln.layer_norm_bwd(x, w, gy, eps))
+            want = (ln.layer_norm_plain(x, w, b, eps),
+                    *ln.layer_norm_bwd_plain(x, w, gy, eps))
+            torch.cuda.synchronize()
+            for n, a, c in zip(('y', 'dx', 'dw', 'db'), got, want):
+                r = rel_err(a, c)
+                if not r <= tol:
+                    raise AssertionError(f'K5/K6 {dtype} eps {eps}: {n} '
+                                         f'relative error {r} > {tol}')
+                errs[n] = max(errs.get(n, 0.0),
+                              float((a.float() - c.float()).abs().max()))
+        t = {'fwd': cuda_time_ms(lambda: ln.layer_norm_fwd(x, w, b, 1e-5),
+                                 20),
+             'fwd_plain': cuda_time_ms(
+                 lambda: ln.layer_norm_plain(x, w, b, 1e-5), 20),
+             'bwd': cuda_time_ms(lambda: ln.layer_norm_bwd(x, w, gy, 1e-5),
+                                 20),
+             'bwd_plain': cuda_time_ms(
+                 lambda: ln.layer_norm_bwd_plain(x, w, gy, 1e-5), 20)}
+        log(f'K5/K6 layer_norm {dtype} ({N}, {C}): max abs err '
+            + ', '.join(f'{n}={e:.3e}' for n, e in errs.items())
+            + f' (tol {tol} of scale); K5 {t["fwd"]:.4f} ms (plain '
+            f'{t["fwd_plain"]:.4f}), K6 {t["bwd"]:.4f} ms (plain '
+            f'{t["bwd_plain"]:.4f})')
+        res[dtype] = dict(errs=errs, t=t)
+    return res
+
+
+# ------------------------------ phase 8: the training slice --------------
+
+def train_batch(dev, B, seed, vocab):
+    """B utterances of 1600-2051 feature frames (unit-variance features,
+    zero past each length), 40-80 target tokens padded with -1, cat_embs
+    [1, 0]."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.randint(1600, CHUNK + 1, (B,), device=dev, generator=gen)
+    lens[0] = CHUNK
+    feats = torch.randn(B, CHUNK, 80, device=dev, generator=gen)
+    feats *= (torch.arange(CHUNK, device=dev)[None, :]
+              < lens[:, None])[..., None]
+    tlens = torch.randint(40, 81, (B,), device=dev, generator=gen)
+    target = torch.randint(1, vocab - 1, (B, 80), device=dev, generator=gen)
+    target[torch.arange(80, device=dev)[None, :] >= tlens[:, None]] = -1
+    return {'feats': feats, 'feats_lengths': lens, 'target': target,
+            'target_lengths': tlens,
+            'cat_embs': torch.tensor([[1.0, 0.0]] * B, device=dev)}
+
+
+def train_model(dev, seed, dtype):
+    import torch
+    from reverb_tpu_torch.models import presets
+    from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
+    from reverb_tpu_torch.train.trainer import (TrainConfig,
+                                                build_optimizer,
+                                                make_train_step)
+    configs = presets.reverb_large()
+    cfg = ModelConfig.from_config(configs).with_compute_dtype(dtype)
+    model = build_model(cfg, dev, generator=torch.Generator(
+        device=dev).manual_seed(seed), train=True)
+    tc = TrainConfig.from_config(configs)
+    opt, _ = build_optimizer(tc, model)
+    return model, opt, make_train_step(cfg, opt, tc.accum_grad, tc.grad_clip)
+
+
+def train_reference_check(dev, seed):
+    """reverb_large in f32 (TF32 off), B = 2, dropout on: one loss +
+    backward through the kernels and one through the plain versions, with
+    generators of the same seed, so the dropout draws match.  The loss
+    within 1e-5 relative; every gradient tensor within 1e-3 of its norm
+    (norms floored at 1e-4 of the global norm: the rel-pos key biases have
+    a gradient that is rounding noise, exactly 0 in exact arithmetic), the
+    global gradient within 1e-4."""
+    import torch
+    from reverb_tpu_torch.models.asr_model import compute_loss
+    model, _, _ = train_model(dev, seed, torch.float32)
+    batch = train_batch(dev, 2, seed + 1, model.cfg.vocab_size)
+    results = []
+    for kernels in (True, False):
+        with swapped({} if kernels else plain_versions()):
+            for p in model.parameters():
+                p.grad = None
+            out = compute_loss(model, batch,
+                               torch.Generator(device=dev).manual_seed(7))
+            out['loss'].backward()
+            torch.cuda.synchronize()
+            results.append((float(out['loss'].detach()),
+                            [p.grad.detach().clone() if p.grad is not None
+                             else torch.zeros_like(p)
+                             for p in model.parameters()]))
+    (loss_k, g_k), (loss_p, g_p) = results
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    norm_p = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in g_p])))
+    diff = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(a - b) for a, b in zip(g_k, g_p)])))
+    worst, worst_name = 0.0, ''
+    for (name, _), a, b in zip(model.named_parameters(), g_k, g_p):
+        r = float(torch.linalg.vector_norm(a - b)) / max(
+            float(torch.linalg.vector_norm(b)), 1e-4 * norm_p)
+        if r > worst:
+            worst, worst_name = r, name
+    log(f'train reference: reverb_large f32, B=2, dropout 0.1, kernels vs '
+        f'plain: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}); '
+        f'gradient rel err global {diff / norm_p:.2e}, worst tensor '
+        f'{worst:.2e} ({worst_name})')
+    if not (loss_rel <= 1e-5 and diff / norm_p <= 1e-4 and worst <= 1e-3):
+        raise AssertionError('train reference: kernels differ from the plain '
+                             'versions')
+    del model, results, g_k, g_p
+    torch.cuda.empty_cache()
+    return loss_rel, diff / norm_p, worst
+
+
+def run_train(dev, seed):
+    """4 bf16 steps of make_train_step at B = 8, full reverb_large width,
+    dropout 0.1, Adam (warmuplr 25000), clip 50."""
+    import torch
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    model, opt, step = train_model(dev, seed, torch.bfloat16)
+    n_params = sum(p.numel() for p in model.parameters())
+    batch = train_batch(dev, TRAIN_B, seed + 2, model.cfg.vocab_size)
+    audio_s = float(batch['feats_lengths'].sum()) / 100.0
+    before = [p.detach().clone() for p in model.parameters()]
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ln_calls, hooks = ln_call_counter(model)
+    walls, metrics = [], []
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ln.LAUNCHES = ln.BWD_LAUNCHES = 0
+    try:
+        for _ in range(TRAIN_STEPS):
+            t0 = time.perf_counter()
+            metrics.append(step(model, batch, gen))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = {'K1': fa.LAUNCHES, 'K4': fa.BWD_LAUNCHES,
+                'K5': ln.LAUNCHES, 'K6': ln.BWD_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    n = TRAIN_STEPS
+    want = {'K1': LAYERS_ENC * n, 'K4': LAYERS_ENC * n,
+            'K5': (LN_ENC + LN_DEC) * n, 'K6': (LN_ENC + LN_DEC) * n}
+    for i, m in enumerate(metrics):
+        log(f'  step {i}: ' + ', '.join(f'{k} {v:.4f}' for k, v in m.items())
+            + f'; {walls[i] * 1e3:.1f} ms')
+    log(f'training path launches {launches}, expected {want} ({n} steps; '
+        f'LayerNorm calls seen {ln_calls[0]})')
+    if launches != want or ln_calls[0] != want['K5']:
+        raise AssertionError('the training path did not run every kernel '
+                             'the expected number of times')
+    for m in metrics:
+        if not (math.isfinite(m['loss']) and math.isfinite(m['grad_norm'])
+                and m['skipped'] == 0.0):
+            raise AssertionError(f'train step: {m}')
+    changed = sum(int((a != p.detach()).sum())
+                  for a, p in zip(before, model.parameters()))
+    if changed < n_params // 2:
+        raise AssertionError(f'only {changed} of {n_params} parameter '
+                             f'elements changed')
+    ms = sum(walls[1:]) / (n - 1) * 1e3
+    log(f'train: reverb_large {n_params / 1e6:.1f}M params, bf16 with f32 '
+        f'master weights, B={TRAIN_B} ({audio_s:.2f} s of audio per step): '
+        f'{ms:.1f} ms/step (mean of steps 2-{n}; first step '
+        f'{walls[0] * 1e3:.1f} ms), {audio_s / ms * 1e3:.1f} audio-s/s, peak '
+        f'memory {peak / 2**30:.2f} GiB; {changed} of {n_params} parameter '
+        f'elements changed')
+    del model, opt, step, before
+    torch.cuda.empty_cache()
+    return launches, ms, peak
+
+
 def main():
+    ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
+    ap.add_argument('--phases', default='kernels,serve,train',
+                    help='comma list of kernels, serve, train (default all; '
+                         'the result lines need all three)')
+    phases = set(ap.parse_args().phases.split(','))
     if not (ROOT / 'reverb_tpu_torch' / '_build.py').is_file():
         print('chip_smoke.py: reverb_tpu_torch/ is not beside this script; '
               'run it from a checkout of the repository', file=sys.stderr)
@@ -443,19 +791,43 @@ def main():
     log(f'build: {time.perf_counter() - t0:.2f} s (nvcc '
         f'{_build.build_seconds if _build.build_seconds is not None else 0:.2f}'
         f' s)')
-    # phases 3-4: kernels against their plain versions
-    k1_err, k1_ms, k1_plain = check_k1(dev)
-    fwd_err, bt = check_beam(dev, SEED)
-    # phase 5: the serving path
-    with tempfile.TemporaryDirectory(prefix='reverb_smoke_') as tmp:
-        launches, walls, audio_s = run_slice(dev, SEED, Path(tmp))
+    spills = [ln for ln in _build.build_log.splitlines()
+              if 'spill' in ln and ' 0 bytes spill stores' not in ln]
+    regs = [int(w) for w in re.findall(r'Used (\d+) registers',
+                                       _build.build_log)]
+    log(f'ptxas: {len(regs)} kernels, at most {max(regs, default=0)} '
+        f'registers a thread; spills: {spills or "none"}')
+    if 'kernels' in phases:
+        # phases 3-4, 6-7: kernels against their plain versions
+        k1_err, k1_ms, k1_plain = check_k1(dev)
+        fwd_err, bt = check_beam(dev, SEED)
+        k4 = check_k1_mask_k4(dev)[torch.bfloat16]
+        lnr = check_ln(dev)[torch.bfloat16]
+    if 'serve' in phases:
+        # phase 5: the serving path
+        with tempfile.TemporaryDirectory(prefix='reverb_smoke_') as tmp:
+            launches, walls, audio_s = run_slice(dev, SEED, Path(tmp))
+    if 'train' in phases:
+        # phase 8: the training path
+        train_reference_check(dev, SEED)
+        t_launch, step_ms, peak = run_train(dev, SEED)
+    if phases != {'kernels', 'serve', 'train'}:
+        log(f'phases {sorted(phases)} passed; no result lines without all '
+            f'three')
+        return 1
 
+    both = {k: launches.get(k, 0) + t_launch.get(k, 0)
+            for k in ('K1', 'K5')}
     kernels = [
         {'name': 'rel_pos_attention_fwd', 'route': 'cuda',
          'source': 'reverb_tpu_torch/csrc/rel_pos_attention.cu',
          'replaces': 'reverb_tpu/ops/flash_attention.py:108',
-         'launches': launches['K1'], 'max_abs_err': k1_err, 'ms': k1_ms,
-         'plain_ms': k1_plain},
+         'launches': both['K1'],
+         'launches_by_path': {'serve': launches['K1'],
+                              'train': t_launch['K1']},
+         'max_abs_err': max(k1_err, k4['errs']['out']), 'ms': k1_ms,
+         'plain_ms': k1_plain, 'ms_with_mask': k4['fwd'][0],
+         'plain_ms_with_mask': k4['fwd'][1]},
         {'name': 'beam_scan_forward', 'route': 'cuda',
          'source': 'reverb_tpu_torch/csrc/beam_scan.cu',
          'replaces': 'reverb_tpu/ops/beam_scan.py:33',
@@ -466,9 +838,31 @@ def main():
          'replaces': 'reverb_tpu/ops/beam_scan.py:137',
          'launches': launches['K3'], 'max_abs_err': 0.0,
          'ms': bt['bt'], 'plain_ms': bt['bt_plain']},
+        {'name': 'rel_pos_attention_bwd', 'route': 'cuda',
+         'source': 'reverb_tpu_torch/csrc/rel_pos_attention.cu',
+         'replaces': 'reverb_tpu/ops/flash_attention.py:248',
+         'launches': t_launch['K4'],
+         'max_abs_err': max(v for n, v in k4['errs'].items() if n != 'out'),
+         'ms': k4['bwd'][0], 'plain_ms': k4['bwd'][1]},
+        {'name': 'layer_norm_fwd', 'route': 'cuda',
+         'source': 'reverb_tpu_torch/csrc/layer_norm.cu',
+         'replaces': 'reverb_tpu/ops/layer_norm.py:85',
+         'launches': both['K5'],
+         'launches_by_path': {'serve': launches['K5'],
+                              'train': t_launch['K5']},
+         'max_abs_err': lnr['errs']['y'], 'ms': lnr['t']['fwd'],
+         'plain_ms': lnr['t']['fwd_plain']},
+        {'name': 'layer_norm_bwd', 'route': 'cuda',
+         'source': 'reverb_tpu_torch/csrc/layer_norm.cu',
+         'replaces': 'reverb_tpu/ops/layer_norm.py:96',
+         'launches': t_launch['K6'],
+         'max_abs_err': max(lnr['errs'][n] for n in ('dx', 'dw', 'db')),
+         'ms': lnr['t']['bwd'], 'plain_ms': lnr['t']['bwd_plain']},
     ]
     log(f'slice: second transcribe_modes call {walls[1]:.4f} s for '
-        f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}, on {smi}')
+        f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; train '
+        f'{step_ms:.1f} ms/step at B={TRAIN_B}, peak {peak / 2**30:.2f} GiB; '
+        f'on {smi}')
     print(smi_line())
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {

@@ -1,10 +1,10 @@
 """reverb_tpu_torch — the PyTorch/CUDA port of reverb_tpu for NVIDIA Hopper.
 
 The package mirrors reverb_tpu's module paths (frontend/, models/, ops/,
-decode/, cli/).  It imports torch and never jax: the serving path
-(fbank → LSL conformer → CTC prefix beam → attention rescoring) runs as
-PyTorch ops plus hand-written CUDA kernels (csrc/, built on first use by
-_build.py).  Public API as in reverb_tpu: ``load_model(...)`` returns a
+decode/, cli/, train/).  It imports torch and never jax: the serving path
+(fbank → LSL conformer → CTC prefix beam → attention rescoring) and the
+training step (train/trainer.py) run as PyTorch ops plus hand-written CUDA
+kernels (csrc/, built on first use by _build.py).  Public API as in reverb_tpu: ``load_model(...)`` returns a
 ``ReverbASR`` with ``.transcribe(...)`` / ``.transcribe_modes(...)``.
 """
 

@@ -1,8 +1,9 @@
 """Build and load the package's hand-written CUDA kernels.
 
-Every `csrc/*.cu` file is compiled by `nvcc` into ONE shared library with a
-plain C interface (`sm_90a`, no PyTorch headers, so the build takes seconds)
-and loaded with `ctypes`.  The library lives in `_build/` beside this file,
+Every `csrc/*.cu` file is compiled by its own `nvcc` process, all started
+together, and the objects are linked into ONE shared library with a plain C
+interface (`sm_90a`, no PyTorch headers, so the build takes seconds) that
+is loaded with `ctypes`.  The library lives in `_build/` beside this file,
 keyed by a hash of the sources and flags: a changed source rebuilds it, an
 unchanged one is loaded as it is.  Nothing here runs at import time — the
 first kernel launch builds — and a failed build or load raises.
@@ -25,23 +26,36 @@ from pathlib import Path
 _CSRC = Path(__file__).resolve().parent / 'csrc'
 _OUT = Path(__file__).resolve().parent / '_build'
 _NAME = 'libreverb_kernels'
-_FLAGS = ['-gencode', 'arch=compute_90a,code=sm_90a', '-std=c++17', '-O3',
-          '-shared', '-Xcompiler', '-fPIC', '-lineinfo']
+_ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
+_FLAGS = _ARCH + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-lineinfo',
+                  '-Xptxas', '-v']
 
 _lock = threading.Lock()
 _lib = None
 # wall seconds the last build took in this process (None: loaded as built)
 build_seconds = None
+# nvcc's messages of that build (ptxas registers, shared memory, spills)
+build_log = ''
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _L = ctypes.c_int64
 _F = ctypes.c_float
 _SIGNATURES = {
-    # dtype, q k v p u vb kv_lens out, B H Tq Tk, q/k/v/out strides
-    # (batch, head, time) ×4, p strides (head, time), scale, stream
-    'reverb_rel_pos_attention_fwd': [_I] + [_P] * 8 + [_I] * 4 + [_L] * 14
-                                    + [_F, _P],
+    # dtype, q k v p u vb kv_lens mask out lse, B H Tq Tk, strides (host
+    # int64[23]), scale, keep_scale, stream
+    'reverb_rel_pos_attention_fwd': [_I] + [_P] * 10 + [_I] * 4
+                                    + [_P, _F, _F, _P],
+    # dtype, q k v p u vb kv_lens mask out g lse D dq dk dv dp_rows du_part
+    # dvb_part, B H Tq Tk, strides, scale, keep_scale, stream
+    'reverb_rel_pos_attention_bwd': [_I] + [_P] * 18 + [_I] * 4
+                                    + [_P, _F, _F, _P],
+    # C → rows per block of the LayerNorm kernels
+    'reverb_layer_norm_rows_per_block': [_I],
+    # dtype, x w b y, N C, eps, stream
+    'reverb_layer_norm_fwd': [_I] + [_P] * 4 + [_I] * 2 + [_F, _P],
+    # dtype, x w g dx part_w part_b dw db, N C blocks iters, eps, stream
+    'reverb_layer_norm_bwd': [_I] + [_P] * 8 + [_I] * 4 + [_F, _P],
     # logp idx ts valid bacc hskip, 8 emit arrays, wval, final s ns vs vns
     # plen, B T K K2 blank_id, stream
     'reverb_beam_scan_forward': [_P] * 20 + [_I] * 5 + [_P],
@@ -79,7 +93,7 @@ def _digest(srcs) -> str:
 def build() -> Path:
     """Compile the kernels unless a library for these sources exists.
     Returns the library path."""
-    global build_seconds
+    global build_seconds, build_log
     srcs = _sources()
     digest = _digest(srcs)
     lib = _OUT / f'{_NAME}.so'
@@ -87,12 +101,34 @@ def build() -> Path:
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         return lib
     _OUT.mkdir(parents=True, exist_ok=True)
-    tmp = _OUT / f'{_NAME}.{os.getpid()}.tmp.so'
+    tag = f'{os.getpid()}.tmp'
     t0 = time.perf_counter()
-    cmd = [_nvcc(), *_FLAGS, '-o', str(tmp), *map(str, srcs)]
-    res = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if res.returncode != 0:
-        raise RuntimeError(f'nvcc failed ({res.returncode}):\n{res.stderr}')
+    nvcc = _nvcc()
+    objs = [_OUT / f'{src.stem}.{tag}.o' for src in srcs]
+    procs = [subprocess.Popen([nvcc, *_FLAGS, '-c', '-o', str(obj), str(src)],
+                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                              text=True)
+             for src, obj in zip(srcs, objs)]
+    logs, failed = [], []
+    for src, proc in zip(srcs, procs):
+        out, err = proc.communicate()
+        logs.append(f'== {src.name}\n{out}{err}')
+        if proc.returncode != 0:
+            failed.append(f'{src.name} ({proc.returncode}):\n{err}')
+    build_log = ''.join(logs)
+    tmp = _OUT / f'{_NAME}.{tag}.so'
+    try:
+        if failed:
+            raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
+        res = subprocess.run([nvcc, *_ARCH, '-shared', '-o', str(tmp),
+                              *map(str, objs)], capture_output=True,
+                             text=True, check=False)
+        if res.returncode != 0:
+            raise RuntimeError(f'nvcc link failed ({res.returncode}):\n'
+                               f'{res.stderr}')
+    finally:
+        for obj in objs:
+            obj.unlink(missing_ok=True)
     os.replace(tmp, lib)                 # atomic: concurrent loaders see
     stamp.write_text(digest)             # either the old or the new file
     build_seconds = time.perf_counter() - t0

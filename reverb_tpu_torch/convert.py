@@ -7,6 +7,11 @@ port's modules use WeNet's keys as they are, so the bridge is a key walk:
 
     flat JAX keys (flatten_params / a reverb .pt / a JAX .npz)
         → re-nest `.conv_module.` → {key: float32 tensor} → load_state_dict
+
+and back (`flat_from_state_dict`), so a checkpoint the port writes loads
+into the JAX tree (`nest_state_dict`) and the other way round.  Every leaf
+crosses, the batch-norm running statistics and the CMVN stats included:
+both packages keep them as leaves of the trainable tree.
 """
 
 from __future__ import annotations
@@ -22,13 +27,20 @@ from reverb_tpu.convert.torch_ckpt import load_torch_state_dict
 _CONV_MODULE = re.compile(
     r'^(encoder\.encoders\.\d+\.)'
     r'(pointwise_conv1|depthwise_conv|pointwise_conv2|norm)\.')
+_PORT_CONV = re.compile(r'^(encoder\.encoders\.\d+\.)conv_module\.')
+
+
+def tree_key(name: str) -> str:
+    """The JAX tree's flat key of a port parameter name (the conv-module
+    parameters sit flat in the layer there)."""
+    return _PORT_CONV.sub(r'\1', name)
 
 
 def state_dict_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """`flatten_params(jax_params)` (or a converted checkpoint) → a state
     dict for `models.asr_model.ASRModel` (strict loading).  Floating values
-    become float32 tensors; the encoder's global_cmvn (mean, istd) and the
-    conv modules' batch-norm running stats are carried as buffers."""
+    become float32 tensors, the encoder's global_cmvn (mean, istd) and the
+    conv modules' batch-norm running stats included."""
     out = {}
     for key, val in flat.items():
         key = _CONV_MODULE.sub(r'\1conv_module.\2.', key)
@@ -37,6 +49,13 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             arr = arr.astype(np.float32)
         out[key] = torch.from_numpy(np.array(arr, copy=True))
     return out
+
+
+def flat_from_state_dict(state_dict) -> Dict[str, np.ndarray]:
+    """A port state dict → flat {JAX key: float32 array}, the inverse of
+    `state_dict_from_jax` (feeds reverb_tpu's nest_state_dict)."""
+    return {tree_key(k): v.detach().to('cpu', torch.float32).numpy()
+            for k, v in state_dict.items()}
 
 
 def load_flat_checkpoint(path: str) -> Dict[str, np.ndarray]:

@@ -1,9 +1,11 @@
-"""ASRModel: hybrid CTC/attention conformer — config, construction, encoder.
+"""ASRModel: hybrid CTC/attention conformer — config, construction, encoder,
+training loss.
 
 Counterpart of reverb_tpu/models/asr_model.py (`ModelConfig.from_config`,
-`forward_encoder`, init).  The model is an `nn.Module` whose state-dict keys
-are WeNet's (`encoder.*`, `decoder.left_decoder.*`, `ctc.ctc_lo.*`), so a
-reverb checkpoint loads into it by name (convert.py).  It is built on the
+`forward_encoder`, init, `compute_loss`, `loss_from_encoder`).  The model is
+an `nn.Module` whose state-dict keys are WeNet's (`encoder.*`,
+`decoder.left_decoder.*`, `ctc.ctc_lo.*`), so a reverb checkpoint loads into
+it by name (convert.py).  It is built on the
 meta device and then either filled from a state dict or initialized from an
 explicit `torch.Generator` on its target device.
 """
@@ -16,10 +18,13 @@ from typing import Dict, Optional
 import torch
 from torch import nn
 
+from reverb_tpu_torch.models import ctc as ctc_mod
 from reverb_tpu_torch.models.ctc import CTC
 from reverb_tpu_torch.models.decoder import DecoderConfig, build_decoder
 from reverb_tpu_torch.models.encoder import ConformerEncoder, EncoderConfig
 from reverb_tpu_torch.models.modules import reset_parameters
+from reverb_tpu_torch.utils.common import (IGNORE_ID, add_sos_eos,
+                                           reverse_sequence, th_accuracy)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -27,12 +32,20 @@ class ModelConfig:
     vocab_size: int
     encoder: EncoderConfig
     decoder: DecoderConfig
+    ctc_weight: float = 0.5
+    reverse_weight: float = 0.0
+    lsm_weight: float = 0.0
+    length_normalized_loss: bool = False
+    ignore_id: int = IGNORE_ID
     blank_id: int = 0
     sos: int = -1
     eos: int = -1
     lsl_enc: bool = False
     lsl_dec: bool = False
     apply_non_blank_embedding: bool = False
+    focal_ctc: bool = False
+    focal_alpha: float = 0.5
+    focal_gamma: float = 2.0
     compute_dtype: torch.dtype = torch.float32
 
     @staticmethod
@@ -84,8 +97,17 @@ class ModelConfig:
         if special:
             sos = special.get('<sos>', sos)
             eos = special.get('<eos>', eos)
+        focal = configs.get('focal_ctc', {}) or {}
         return ModelConfig(
             vocab_size=vocab_size, encoder=encoder, decoder=decoder,
+            ctc_weight=model_conf.get('ctc_weight', 0.5),
+            reverse_weight=model_conf.get('reverse_weight', 0.0),
+            lsm_weight=model_conf.get('lsm_weight', 0.0),
+            length_normalized_loss=model_conf.get('length_normalized_loss',
+                                                  False),
+            focal_ctc=bool(focal.get('enabled', False)),
+            focal_alpha=focal.get('alpha', 0.5),
+            focal_gamma=focal.get('gamma', 2.0),
             blank_id=(configs.get('ctc_conf', {}) or {}).get('ctc_blank_id',
                                                               0),
             sos=sos, eos=eos, lsl_enc=num_langs > 0,
@@ -111,18 +133,89 @@ class ASRModel(nn.Module):
         self.decoder = build_decoder(cfg.decoder)
         self.ctc = CTC(cfg.vocab_size, cfg.encoder.output_size)
 
-    def forward_encoder(self, feats, feats_lens, cat_embs=None):
-        """(B,T,F) features → (encoder_out (B,T',D), masks (B,1,T'))."""
+    def forward_encoder(self, feats, feats_lens, cat_embs=None,
+                        generator=None):
+        """(B,T,F) features → (encoder_out (B,T',D), masks (B,1,T'));
+        dropout when a generator is given."""
         feats = feats.to(self.cfg.compute_dtype)
         return self.encoder(feats, feats_lens,
-                            cat_embs if self.cfg.lsl_enc else None)
+                            cat_embs if self.cfg.lsl_enc else None, generator)
+
+
+def compute_loss(model: ASRModel, batch: Dict, generator=None) -> Dict:
+    """Training loss (reverb_tpu/models/asr_model.py:compute_loss).
+
+    batch: feats (B,T,F), feats_lengths (B,), target (B,L) padded with
+    ignore_id, target_lengths (B,), optional cat_embs (B, num_langs).
+    `generator` plays the part of the JAX rng: dropout runs only with one.
+    Returns {loss, loss_att, loss_ctc, th_accuracy} (None where a weight
+    switches a term off)."""
+    if model.cfg.apply_non_blank_embedding:
+        raise NotImplementedError('apply_non_blank_embedding is not ported')
+    if 'cv_list' in batch:
+        raise NotImplementedError('the context adaptor is not ported')
+    encoder_out, encoder_mask = model.forward_encoder(
+        batch['feats'], batch['feats_lengths'], batch.get('cat_embs'),
+        generator)
+    return loss_from_encoder(model, encoder_out, encoder_mask, batch,
+                             generator)
+
+
+def loss_from_encoder(model: ASRModel, encoder_out, encoder_mask,
+                      batch: Dict, generator=None) -> Dict:
+    """The post-encoder half of `compute_loss`: CTC and the label-smoothed
+    attention loss of both decoder directions, mixed by ctc_weight and
+    reverse_weight."""
+    cfg = model.cfg
+    cat_embs = batch.get('cat_embs')
+    encoder_out_lens = encoder_mask[:, 0, :].sum(-1)
+    text, text_lens = batch['target'], batch['target_lengths']
+    loss_ctc = None
+    if cfg.ctc_weight != 0.0:
+        loss_ctc = ctc_mod.ctc_loss(
+            model.ctc, encoder_out, encoder_out_lens,
+            torch.where(text == cfg.ignore_id, torch.zeros_like(text), text),
+            text_lens, cfg.blank_id, cfg.focal_ctc, cfg.focal_alpha,
+            cfg.focal_gamma)
+    loss_att = acc_att = None
+    if cfg.ctc_weight != 1.0:
+        ys_in, ys_out = add_sos_eos(text, text_lens, cfg.sos, cfg.eos,
+                                    cfg.ignore_id)
+        r_text = reverse_sequence(text, text_lens, cfg.ignore_id)
+        r_ys_in, r_ys_out = add_sos_eos(r_text, text_lens, cfg.sos, cfg.eos,
+                                        cfg.ignore_id)
+        l_x, r_x = model.decoder(encoder_out, encoder_mask, ys_in,
+                                 text_lens + 1, r_ys_in, cfg.reverse_weight,
+                                 cat_embs if cfg.lsl_dec else None,
+                                 generator=generator)
+        loss_att = ctc_mod.label_smoothing_loss(
+            l_x, ys_out, cfg.lsm_weight, cfg.vocab_size, cfg.ignore_id,
+            cfg.length_normalized_loss)
+        if r_x is not None:
+            r_loss = ctc_mod.label_smoothing_loss(
+                r_x, r_ys_out, cfg.lsm_weight, cfg.vocab_size, cfg.ignore_id,
+                cfg.length_normalized_loss)
+            loss_att = (loss_att * (1 - cfg.reverse_weight)
+                        + r_loss * cfg.reverse_weight)
+        acc_att = th_accuracy(l_x, ys_out, cfg.ignore_id)
+    if loss_ctc is None:
+        loss = loss_att
+    elif loss_att is None:
+        loss = loss_ctc
+    else:
+        loss = cfg.ctc_weight * loss_ctc + (1 - cfg.ctc_weight) * loss_att
+    return {'loss': loss, 'loss_att': loss_att, 'loss_ctc': loss_ctc,
+            'th_accuracy': acc_att}
 
 
 def build_model(cfg: ModelConfig, device, state_dict: Optional[dict] = None,
-                generator: Optional[torch.Generator] = None) -> ASRModel:
+                generator: Optional[torch.Generator] = None,
+                train: bool = False) -> ASRModel:
     """Build an ASRModel on `device`: from `state_dict` (strict; the encoder
     gets global CMVN when the state dict carries it) when given, else
-    randomly initialized from `generator` (a generator on `device`)."""
+    randomly initialized from `generator` (a generator on `device`).
+    Serving models come back in eval mode with gradients off; `train=True`
+    gives a trainable model in training mode."""
     with_cmvn = state_dict is not None and \
         'encoder.global_cmvn.mean' in state_dict
     with torch.device('meta'):
@@ -134,4 +227,6 @@ def build_model(cfg: ModelConfig, device, state_dict: Optional[dict] = None,
         if generator is None:
             raise ValueError('build_model needs a state_dict or a generator')
         reset_parameters(model, generator)
+    if train:
+        return model.train().requires_grad_(True)
     return model.eval().requires_grad_(False)

@@ -5,7 +5,13 @@ Counterpart of reverb_tpu/models/attention.py (`mha`, `rel_pos_mha`,
 `cross_kv_batched`, `mha_shared_kv_grouped`).  Scores are normalized in
 float32 whatever the activation dtype, and the probabilities are cast to
 V's dtype before the second product.  The encoder's rel-pos attention runs
-through kernel K1 (ops/flash_attention.py) with a key-padding mask.
+through kernels K1/K4 (ops/flash_attention.py) with a key-padding mask.
+
+Attention dropout (rate, generator) follows the JAX package: the vanilla
+paths drop the probabilities after their cast to V's dtype
+(forward_attention); the rel-pos path draws a (B, H, Tq, Tk) int8
+keep-mask outside the kernel and hands it over, as
+rel_pos_flash_attention does.
 """
 
 from __future__ import annotations
@@ -15,7 +21,7 @@ import math
 import torch
 from torch import nn
 
-from reverb_tpu_torch.models.modules import Linear
+from reverb_tpu_torch.models.modules import Linear, dropout
 from reverb_tpu_torch.ops import flash_attention as fa
 
 _MASK_VALUE = -1e9
@@ -31,16 +37,19 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(B, T, H * dk)
 
 
-def _masked_softmax_av(scores, mask, value):
+def _masked_softmax_av(scores, mask, value, rate: float = 0.0,
+                       generator=None):
     """f32 softmax of scores with bool `mask` (True = keep, broadcastable),
-    probabilities zeroed where masked and cast to value.dtype, then · V."""
+    probabilities zeroed where masked, cast to value.dtype and dropped out,
+    then · V."""
     s = scores.to(torch.float32)
     if mask is not None:
         s = s.masked_fill(~mask, _MASK_VALUE)
         attn = torch.softmax(s, dim=-1).masked_fill(~mask, 0.0)
     else:
         attn = torch.softmax(s, dim=-1)
-    return torch.matmul(attn.to(value.dtype), value)
+    attn = dropout(attn.to(value.dtype), rate, generator)
+    return torch.matmul(attn, value)
 
 
 class MultiHeadedAttention(nn.Module):
@@ -54,14 +63,17 @@ class MultiHeadedAttention(nn.Module):
         self.linear_v = Linear(n_feat, n_feat)
         self.linear_out = Linear(n_feat, n_feat)
 
-    def forward(self, query, key, value, mask):
-        """Vanilla MHA; mask bool (B, 1|T1, T2), True = keep."""
+    def forward(self, query, key, value, mask, rate: float = 0.0,
+                generator=None):
+        """Vanilla MHA; mask bool (B, 1|T1, T2), True = keep; attention
+        dropout at `rate` when a generator is given."""
         q = _split_heads(self.linear_q(query), self.h)
         k = _split_heads(self.linear_k(key), self.h)
         v = _split_heads(self.linear_v(value), self.h)
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
         m = None if mask is None else mask[:, None, :, :scores.shape[-1]]
-        return self.linear_out(_merge_heads(_masked_softmax_av(scores, m, v)))
+        return self.linear_out(_merge_heads(
+            _masked_softmax_av(scores, m, v, rate, generator)))
 
     def cross_kv(self, memory):
         """K/V heads of a memory shared by many query rows: (B,T,D) →
@@ -69,11 +81,14 @@ class MultiHeadedAttention(nn.Module):
         return (_split_heads(self.linear_k(memory), self.h),
                 _split_heads(self.linear_v(memory), self.h))
 
-    def forward_shared_kv_grouped(self, query, kv, mask, group: int):
+    def forward_shared_kv_grouped(self, query, kv, mask, group: int,
+                                  rate: float = 0.0, generator=None):
         """Each consecutive block of `group` query rows attends to one
         utterance's (k, v): query (B·group, L, D), kv from `cross_kv`, mask
         (B, 1, T).  The group's rows are one query stream of length
-        group·L, so every product is a plain batched matmul over B·H."""
+        group·L, so every product is a plain batched matmul over B·H.  With
+        group 1 this is plain cross-attention over a full memory (the
+        teacher-forced decoder), with attention dropout at `rate`."""
         BG, L, D = query.shape
         B = BG // group
         q = _split_heads(self.linear_q(query).reshape(B, group * L, D),
@@ -81,7 +96,7 @@ class MultiHeadedAttention(nn.Module):
         k, v = kv
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
         m = None if mask is None else mask[:, None, :, :scores.shape[-1]]
-        ctx = _masked_softmax_av(scores, m, v)
+        ctx = _masked_softmax_av(scores, m, v, rate, generator)
         return self.linear_out(_merge_heads(ctx)).reshape(BG, L, -1)
 
 
@@ -105,13 +120,20 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
             self.pos_bias_u.uniform_(-a, a, generator=g)
             self.pos_bias_v.uniform_(-a, a, generator=g)
 
-    def forward(self, x, kv_lens, pos_emb):
+    def forward(self, x, kv_lens, pos_emb, rate: float = 0.0,
+                generator=None):
         """Self-attention over x (B, T, D) with the first kv_lens[b] keys of
-        row b valid; pos_emb (1, T, D)."""
+        row b valid; pos_emb (1, T, D); attention dropout at `rate` when a
+        generator is given."""
         q = _split_heads(self.linear_q(x), self.h)
         k = _split_heads(self.linear_k(x), self.h)
         v = _split_heads(self.linear_v(x), self.h)
         pos = _split_heads(self.linear_pos(pos_emb), self.h)
+        mask = None
+        if generator is not None and rate > 0.0:
+            B, H, T, _ = q.shape
+            mask = (torch.rand((B, H, T, k.shape[2]), generator=generator,
+                               device=x.device) < 1.0 - rate).to(torch.int8)
         ctx = fa.rel_pos_attention(q, k, v, pos, self.pos_bias_u,
-                                   self.pos_bias_v, kv_lens)
+                                   self.pos_bias_v, kv_lens, mask, rate)
         return self.linear_out(_merge_heads(ctx))

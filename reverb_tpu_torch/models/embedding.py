@@ -1,7 +1,8 @@
 """Positional encodings (sinusoidal absolute + WeNet relative).
 
 Counterpart of reverb_tpu/models/embedding.py; the table is built on the
-host in float32 exactly as there.
+host in float32 exactly as there.  Positional dropout (rate, generator)
+applies to the scaled input and to the returned table, as there.
 """
 
 from __future__ import annotations
@@ -11,6 +12,8 @@ import math
 
 import numpy as np
 import torch
+
+from reverb_tpu_torch.models.modules import dropout
 
 
 @functools.lru_cache(maxsize=16)
@@ -30,14 +33,16 @@ def _pe(d_model: int, T: int, x):
                                                        dtype=x.dtype)[None]
 
 
-def abs_position_encoding(x):
-    """x (B, T, D) → (x·√d + pe, pe (1, T, D))."""
+def abs_position_encoding(x, rate: float = 0.0, generator=None):
+    """x (B, T, D) → (x·√d + pe, pe (1, T, D)), both through dropout."""
     d = x.shape[-1]
     pe = _pe(d, x.shape[1], x)
-    return x * math.sqrt(d) + pe, pe
+    return (dropout(x * math.sqrt(d) + pe, rate, generator),
+            dropout(pe, rate, generator))
 
 
-def rel_position_encoding(x):
-    """x (B, T, D) → (x·√d, pos_emb (1, T, D))."""
+def rel_position_encoding(x, rate: float = 0.0, generator=None):
+    """x (B, T, D) → (x·√d, pos_emb (1, T, D)), both through dropout."""
     d = x.shape[-1]
-    return x * math.sqrt(d), _pe(d, x.shape[1], x)
+    return (dropout(x * math.sqrt(d), rate, generator),
+            dropout(_pe(d, x.shape[1], x), rate, generator))

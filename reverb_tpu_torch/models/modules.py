@@ -7,6 +7,9 @@ use, as the JAX functions do, so a bf16 forward rounds exactly where the
 reference rounds.  Every layer also knows its own random initialization
 (`reset_parameters(generator)`, torch-default bounds as in the JAX init),
 so a model is built on the meta device and filled on its target device.
+
+Dropout draws from an explicit `torch.Generator` (the counterpart of the
+JAX package's rng): with no generator it is the identity, as with rng=None.
 """
 
 from __future__ import annotations
@@ -16,6 +19,20 @@ import math
 import torch
 import torch.nn.functional as F
 from torch import nn
+
+from reverb_tpu_torch.ops import layer_norm as ln_ops
+
+
+def dropout(x, rate: float, generator=None):
+    """reverb_tpu/models/modules.py:dropout — keep with probability
+    1 − rate and scale kept entries by 1/(1 − rate), in x's dtype; the
+    identity without a generator or at rate 0."""
+    if generator is None or rate <= 0.0:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
+                                                   device=x.device))
 
 
 def _uniform(t: torch.Tensor, bound: float, g):
@@ -96,7 +113,8 @@ class Conv2d(nn.Module):
 class LayerNorm(nn.Module):
     """LayerNorm with one-pass f32 statistics (E[x²] − E[x]², clamped at
     0), normalized values cast to x.dtype BEFORE the affine
-    (reverb_tpu/models/modules.py:layer_norm)."""
+    (reverb_tpu/models/modules.py:layer_norm), through kernels K5/K6
+    (ops/layer_norm.py) wherever the shape is eligible."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
@@ -110,25 +128,25 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
-        xf = x.to(torch.float32)
-        mean = xf.mean(-1, keepdim=True)
-        var = torch.clamp((xf * xf).mean(-1, keepdim=True) - mean * mean,
-                          min=0.0)
-        y = ((xf - mean) * torch.rsqrt(var + self.eps)).to(x.dtype)
-        return y * self.weight.to(x.dtype) + self.bias.to(x.dtype)
+        return ln_ops.layer_norm(x, self.weight, self.bias, self.eps)
 
 
 class BatchNorm(nn.Module):
-    """Inference BatchNorm over the LAST axis of (B, T, C) from running
-    stats; scale/shift are folded in f32 and cast to x.dtype."""
+    """BatchNorm over the LAST axis of (B, T, C) from running stats; scale/
+    shift are folded in f32 and cast to x.dtype.
+
+    As in the JAX package (batch_norm_last, init_batch_norm), the running
+    statistics are always used, also when training, and they are trainable
+    leaves: parameters that receive gradients and optimizer updates (the
+    state-dict keys stay WeNet's)."""
 
     def __init__(self, dim: int, eps: float = 1e-5):
         super().__init__()
         self.eps = eps
         self.weight = nn.Parameter(torch.empty(dim))
         self.bias = nn.Parameter(torch.empty(dim))
-        self.register_buffer('running_mean', torch.empty(dim))
-        self.register_buffer('running_var', torch.empty(dim))
+        self.running_mean = nn.Parameter(torch.empty(dim))
+        self.running_var = nn.Parameter(torch.empty(dim))
 
     def reset_parameters(self, g):
         with torch.no_grad():

@@ -1,0 +1,231 @@
+"""Training step: Adam/AdamW with a schedule, gradient accumulation, one
+global-norm pass for clipping, the non-finite skip and the metric, and the
+freeze rules.
+
+Counterpart of reverb_tpu/train/trainer.py (`TrainConfig`,
+`trainable_mask`, `build_optimizer`, `make_train_step`), with the same
+update arithmetic as its optax chain:
+
+    mu = b1·mu + (1−b1)·g,  nu = b2·nu + (1−b2)·g²        (g after the clip)
+    u  = (mu / (1−b1^n)) / (sqrt(nu / (1−b2^n)) + eps)  [+ wd·p]
+    p  = p − lr(count)·u                 n = count + 1, count from 0
+
+Every parameter takes a gradient and counts in the global norm, frozen ones
+included, as in JAX (whose grad covers the whole tree); frozen parameters
+(`freeze_modules`, `restrict_learning`, and always `global_cmvn`) are left
+out of the update, weight decay included.  A non-finite norm skips the
+update: parameters, moments and the schedule's count stay as they were.
+The skip decision reads the norm on the host once per step.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import re
+from typing import Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from reverb_tpu_torch.convert import tree_key
+from reverb_tpu_torch.models.asr_model import ModelConfig, compute_loss
+from reverb_tpu_torch.train.scheduler import build_scheduler
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    optim: str = 'adam'
+    optim_conf: Dict = dataclasses.field(default_factory=lambda: {'lr': 1e-3})
+    scheduler: str = 'warmuplr'
+    scheduler_conf: Dict = dataclasses.field(
+        default_factory=lambda: {'warmup_steps': 25000})
+    grad_clip: float = 50.0
+    accum_grad: int = 1
+    freeze_modules: List[str] = dataclasses.field(default_factory=list)
+    restrict_learning: Optional[List[Dict[str, str]]] = None
+
+    @staticmethod
+    def from_config(configs: Dict) -> 'TrainConfig':
+        return TrainConfig(
+            optim=configs.get('optim', 'adam'),
+            optim_conf=dict(configs.get('optim_conf', {'lr': 1e-3})),
+            scheduler=configs.get('scheduler', 'warmuplr'),
+            scheduler_conf=dict(configs.get('scheduler_conf', {}) or {}),
+            grad_clip=configs.get('grad_clip', 50.0),
+            accum_grad=configs.get('accum_grad', 1),
+            freeze_modules=list(configs.get('freeze_modules', []) or []),
+            restrict_learning=configs.get('restrict_learning'))
+
+
+def trainable_mask(model: torch.nn.Module, tc: TrainConfig) -> Dict[str, bool]:
+    """{parameter name: trains?}.  Rules match the JAX tree's path of the
+    parameter (the conv-module keys without `.conv_module.`): global_cmvn
+    never trains, then `freeze_modules` prefixes, then the
+    `restrict_learning` include/exclude regexes in order, first match
+    wins; the default is trainable."""
+    rules = []
+    for item in (tc.restrict_learning or []):
+        if 'include' in item:
+            rules.append((re.compile(item['include']), True))
+        if 'exclude' in item:
+            rules.append((re.compile(item['exclude']), False))
+
+    def decide(path: str) -> bool:
+        if 'global_cmvn' in path:
+            return False
+        if any(path.startswith(prefix) for prefix in tc.freeze_modules):
+            return False
+        for pat, keep in rules:
+            if pat.search(path):
+                return keep
+        return True
+
+    return {name: decide(tree_key(name))
+            for name, _ in model.named_parameters()}
+
+
+def _f32_pow_complement(decay: float, n: int) -> float:
+    """1 − decay^n in float32, as optax's bias correction computes it."""
+    return float(np.float32(1.0) - np.float32(decay) ** np.int32(n))
+
+
+class Adam:
+    """optax.adam / optax.adamw over the trainable parameters of a model.
+
+    `count` is the number of applied updates (optax's count); the schedule
+    is evaluated at it before it advances."""
+
+    def __init__(self, model: torch.nn.Module, schedule: Callable,
+                 trainable: Dict[str, bool], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0):
+        self.schedule = schedule
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, \
+            weight_decay
+        named = list(model.named_parameters())
+        self.names = [n for n, _ in named]
+        self.params = [p for _, p in named]
+        self.train_idx = [i for i, n in enumerate(self.names) if trainable[n]]
+        with torch.no_grad():
+            self.mu = [torch.zeros_like(self.params[i])
+                       for i in self.train_idx]
+            self.nu = [torch.zeros_like(self.params[i])
+                       for i in self.train_idx]
+        self.count = 0
+
+    def step(self, grads: List[torch.Tensor], scale: float = 1.0):
+        """One update from `grads` (aligned with self.params) × scale."""
+        lr = self.schedule(self.count)
+        self.count += 1
+        b1, b2 = self.b1, self.b2
+        with torch.no_grad():
+            params = [self.params[i] for i in self.train_idx]
+            g = [grads[i] for i in self.train_idx]
+            if scale != 1.0:
+                g = torch._foreach_mul(g, scale)
+            torch._foreach_mul_(self.mu, b1)
+            torch._foreach_add_(self.mu, g, alpha=1.0 - b1)
+            torch._foreach_mul_(self.nu, b2)
+            torch._foreach_addcmul_(self.nu, g, g, value=1.0 - b2)
+            denom = torch._foreach_div(
+                self.nu, _f32_pow_complement(b2, self.count))
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            upd = torch._foreach_div(self.mu,
+                                     _f32_pow_complement(b1, self.count))
+            torch._foreach_div_(upd, denom)
+            if self.weight_decay:
+                torch._foreach_add_(upd, params, alpha=self.weight_decay)
+            torch._foreach_add_(params, upd, alpha=-lr)
+
+    def state_dict(self) -> Dict:
+        names = [self.names[i] for i in self.train_idx]
+        return {'count': self.count,
+                'mu': dict(zip(names, self.mu)),
+                'nu': dict(zip(names, self.nu))}
+
+    def load_state_dict(self, state: Dict):
+        names = [self.names[i] for i in self.train_idx]
+        with torch.no_grad():
+            for dst, src in ((self.mu, state['mu']), (self.nu, state['nu'])):
+                for t, n in zip(dst, names):
+                    t.copy_(src[n])
+        self.count = int(state['count'])
+
+
+def build_optimizer(tc: TrainConfig, model: torch.nn.Module):
+    """adam / adamw with the configured schedule, betas, eps and weight
+    decay over the trainable parameters.  Returns (optimizer, schedule)."""
+    conf = tc.optim_conf
+    if conf.get('mu_dtype'):
+        raise NotImplementedError('optim_conf.mu_dtype is not ported')
+    schedule = build_scheduler(tc.scheduler, conf.get('lr', 1e-3),
+                               tc.scheduler_conf)
+    name = tc.optim.lower()
+    if name == 'novograd':
+        raise NotImplementedError('novograd is not ported')
+    if name not in ('adam', 'adamw'):
+        raise ValueError(f'unknown optimizer {tc.optim!r}')
+    b1, b2 = conf.get('betas', (0.9, 0.999))
+    opt = Adam(model, schedule, trainable_mask(model, tc), b1=b1, b2=b2,
+               eps=conf.get('eps', 1e-8),
+               weight_decay=conf.get('weight_decay', 0.0))
+    return opt, schedule
+
+
+def _micro_batches(batch: Dict, n: int):
+    """Split every tensor of the batch along its leading (batch) axis into
+    n equal micro-batches."""
+    B = batch['feats'].shape[0]
+    if B % n:
+        raise ValueError(f'batch {B} does not split into {n} micro-batches')
+    m = B // n
+    for i in range(n):
+        yield {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+
+
+def make_train_step(cfg: ModelConfig, optimizer: Adam, accum_grad: int = 1,
+                    grad_clip: float = 0.0):
+    """Returns train_step(model, batch, generator=None) → metrics {loss,
+    loss_att, loss_ctc, th_accuracy, grad_norm, skipped} as floats, for a
+    model of config `cfg` whose parameters `optimizer` updates.
+
+    With accum_grad > 1 the batch's leading axis is accum·micro; the
+    micro-batch gradients are summed and divided by accum_grad before ONE
+    update, and the metrics are the micro-batch means.  grad_clip > 0 scales
+    the gradients by clip/‖g‖ when ‖g‖ ≥ clip.  `generator` drives dropout
+    (None: no dropout, as rng=None)."""
+
+    def train_step(model, batch, generator=None) -> Dict[str, float]:
+        if model.cfg != cfg:
+            raise ValueError('train_step: the model has another config')
+        params = optimizer.params
+        for p in params:
+            p.grad = None
+        sums: Dict[str, float] = {}
+        for micro in _micro_batches(batch, accum_grad):
+            out = compute_loss(model, micro, generator)
+            out['loss'].backward()
+            for k, v in out.items():
+                sums[k] = sums.get(k, 0.0) + (0.0 if v is None
+                                              else v.detach())
+        grads = [p.grad if p.grad is not None else torch.zeros_like(p)
+                 for p in params]
+        if accum_grad > 1:
+            torch._foreach_div_(grads, float(accum_grad))
+        grad_norm = float(torch.linalg.vector_norm(
+            torch.stack(torch._foreach_norm(grads))))
+        finite = np.isfinite(grad_norm)
+        if finite:
+            scale = 1.0
+            if grad_clip > 0.0 and grad_norm >= grad_clip:
+                scale = float(np.float32(grad_clip) / np.float32(grad_norm))
+            optimizer.step(grads, scale)
+        for p in params:
+            p.grad = None
+        metrics = {k: float(v) / accum_grad for k, v in sums.items()}
+        metrics['grad_norm'] = grad_norm
+        metrics['skipped'] = 0.0 if finite else 1.0
+        return metrics
+
+    return train_step

@@ -17,3 +17,34 @@ def reverse_sequence(ys_pad, ys_lens, pad_value: int = IGNORE_ID):
                          torch.zeros_like(idx))
     rev = torch.gather(ys_pad, 1, gather.to(torch.int64))
     return torch.where(seq_mask, rev, torch.full_like(rev, pad_value))
+
+
+def add_sos_eos(ys_pad, ys_lens, sos: int, eos: int,
+                ignore_id: int = IGNORE_ID):
+    """(B, L) ys_pad padded with ignore_id → (ys_in (B, L+1): sos then the
+    tokens, padded with eos; ys_out (B, L+1): the tokens then eos, padded
+    with ignore_id)."""
+    B, L = ys_pad.shape
+    sos_col = torch.full((B, 1), sos, dtype=ys_pad.dtype,
+                         device=ys_pad.device)
+    body = torch.where(ys_pad == ignore_id, torch.full_like(ys_pad, eos),
+                       ys_pad)
+    ys_in = torch.cat([sos_col, body], 1)
+    idx = torch.arange(L + 1, device=ys_pad.device)[None, :]
+    ys_body = torch.cat([ys_pad, torch.full((B, 1), ignore_id,
+                                            dtype=ys_pad.dtype,
+                                            device=ys_pad.device)], 1)
+    lens = ys_lens[:, None]
+    ys_out = torch.where(idx == lens, torch.full_like(ys_body, eos),
+                         torch.where(idx < lens, ys_body,
+                                     torch.full_like(ys_body, ignore_id)))
+    return ys_in, ys_out
+
+
+def th_accuracy(pred, gold, ignore_label: int = IGNORE_ID):
+    """Token accuracy of (B, L, V) logits against (B, L) labels, padding
+    masked out; an f32 scalar tensor."""
+    mask = gold != ignore_label
+    num = ((pred.argmax(-1) == gold) & mask).sum()
+    den = torch.clamp(mask.sum(), min=1)
+    return num.to(torch.float32) / den.to(torch.float32)

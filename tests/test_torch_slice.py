@@ -147,6 +147,22 @@ _NO_JAX = textwrap.dedent('''
                  feats, torch.tensor([300, 200]), beam_size=4,
                  cat_embs=torch.tensor([1.0, 0.0]), ctc_weight=0.1)
     assert len(out['attention_rescoring']) == 2
+
+    # one training step of the port, and the LayerNorm kernel module
+    from reverb_tpu_torch.ops import layer_norm
+    from reverb_tpu_torch.train.trainer import (TrainConfig, build_optimizer,
+                                                make_train_step)
+    assert layer_norm.eligible(torch.zeros(2, 128))
+    model = build_model(cfg, 'cpu', generator=torch.Generator().manual_seed(0),
+                        train=True)
+    opt, _ = build_optimizer(TrainConfig.from_config(conf), model)
+    step = make_train_step(cfg, opt, grad_clip=50.0)
+    batch = {'feats': feats[:, :120], 'feats_lengths': torch.tensor([120, 90]),
+             'target': torch.tensor([[3, 4, 5], [6, 7, -1]]),
+             'target_lengths': torch.tensor([3, 2]),
+             'cat_embs': torch.tensor([[1.0, 0.0], [0.0, 1.0]])}
+    m = step(model, batch, torch.Generator().manual_seed(2))
+    assert m['skipped'] == 0.0 and m['loss'] > 0
     bad = [m for m in sys.modules if m.split('.')[0] in ('jax', 'jaxlib', 'yaml')]
     assert not bad, bad
     print('OK')
