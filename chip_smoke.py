@@ -5,9 +5,17 @@
 
     python3 chip_smoke.py --phases kernels      # only the kernel checks
 
+    python3 chip_smoke.py --profile             # + one profiled train step
+
+    python3 chip_smoke.py --ab-parent DIR       # + K1/K4 of the checkout
+                                                #   DIR, timed in turns
+
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 reverb_tpu_torch/csrc, holds each kernel to its plain PyTorch version at
-the shapes of the paths below, then drives two paths on a reverb_large-
+the shapes of the paths below (attention also at a ragged T = 333), times
+each beside its bound and the one PyTorch call that computes the same
+function (its library yardstick, which the port never calls), then drives
+two paths on a reverb_large-
 width model (18-layer LSL conformer, d=1024, 16 heads, 6+3-layer
 bitransformer decoder, V=10000) with seeded random weights:
 
@@ -26,7 +34,8 @@ all of them pass.
 
 Output: progress lines, then the card's `nvidia-smi` name and power limit,
 then one JSON line {"kernels": [...]} (each kernel's launches on the two
-paths, its error against the plain version, and both times), and last
+paths, its error against the plain version, its time, the plain
+version's, the library call's and the bound), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -40,6 +49,7 @@ import subprocess
 import sys
 import tempfile
 import time
+import warnings
 import wave
 from pathlib import Path
 
@@ -81,49 +91,165 @@ def cuda_time_ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
+# Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the bf16
+# tensor-core rate, the f32 rate outside the tensor cores, the HBM rate.
+PEAK_OPS = {'bf16': 989e12, 'f32': 67e12}
+HBM_BYTES_S = 3.35e12
+
+
+def nbytes(*objs) -> int:
+    """Bytes of every tensor in objs (nested tuples, lists, dicts)."""
+    import torch
+    total = 0
+    for o in objs:
+        if isinstance(o, torch.Tensor):
+            total += o.numel() * o.element_size()
+        elif isinstance(o, (tuple, list)):
+            total += nbytes(*o)
+        elif isinstance(o, dict):
+            total += nbytes(*o.values())
+    return total
+
+
+def bound(ops: float, n_bytes: int, kind: str):
+    """(bound_ms, bound_by): the least time the card could take — the
+    larger of the operations over the peak rate of their type and the bytes
+    (each input read once, each output written once) over the HBM rate."""
+    t_ops = ops / PEAK_OPS[kind] * 1e3
+    t_bytes = n_bytes / HBM_BYTES_S * 1e3
+    return (t_ops, 'operations') if t_ops >= t_bytes else (t_bytes, 'bytes')
+
+
+def attn_ops(T: int, backward: bool) -> float:
+    """Matrix-product operations of K1 (S over depth 128, P·V) or of K4 at
+    its minimum (S once, g·vᵀ, dv, dk, dp over depth 64, dq over depth 128)
+    for B·H rows of T queries against T keys, every row at full length."""
+    pairs = ATTN_B * ATTN_H * T * T
+    return pairs * (1024 if backward else 384)
+
+
 # ------------------------------ phase 3: K1 ------------------------------
 
+# the kernel checks' shapes: T = 512 (a full chunk) and a ragged T = 333
+# (a file's last chunk), kv_lens ragged with 0 and 1 among them
+ATTN_CASES = {512: [512, 300, 1, 0, 512, 17, 64, 65],
+              333: [333, 200, 1, 0, 333, 17, 64, 65]}
+ATTN_B, ATTN_H, ATTN_DK, ATTN_T = 8, 16, 64, 512   # timed at T = 512
+
+
+def attn_inputs(dev, gen, dtype, T):
+    """Unit-scale q, k, v (read through strides from (B, T, H, dk), as the
+    encoder passes them), the rel-pos table and the two biases."""
+    import torch
+    B, H, dk = ATTN_B, ATTN_H, ATTN_DK
+
+    def rnd(*shape):
+        return (torch.rand(*shape, device=dev, generator=gen) * 2 - 1).to(
+            dtype)
+    q, k, v = (rnd(B, T, H, dk).transpose(1, 2) for _ in range(3))
+    pos = rnd(1, H, T, dk)
+    u, vb = rnd(H, dk).float() * 0.1, rnd(H, dk).float() * 0.1
+    return q, k, v, pos, u, vb
+
+
 def check_k1(dev):
-    """K1 against its plain version at B·H = 8·16, T = 512, dk = 64, ragged
-    kv_lens, valid rows only.  f32: ≤ 1e-4 (summation order only).  bf16 on
-    unit-scale inputs (|out| ≤ 1): ≤ 2e-2 (the output is rounded to bf16)."""
+    """K1 against its plain version at B·H = 8·16, dk = 64, in each of
+    ATTN_CASES, valid rows only.  f32: ≤ 1e-4 (summation order only).
+    bf16 on unit-scale inputs (|out| ≤ 1): ≤ 2e-2 (the output is rounded to
+    bf16).  A kv_len of 0 gives a zero row.  Times kernel and plain version
+    at T = 512, every row at full length."""
     import torch
     from reverb_tpu_torch.ops import flash_attention as fa
-    B, H, T, dk = 8, 16, 512, 64
-    lens = torch.tensor([512, 300, 1, 0, 512, 17, 64, 65], device=dev)
-    g = torch.Generator(device=dev).manual_seed(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
     out = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        def rnd(*shape):
-            return (torch.rand(*shape, device=dev, generator=g) * 2 - 1).to(
-                dtype)
-        # (B, T, H, dk) projections read through strides, as in the encoder
-        q, k, v = (rnd(B, T, H, dk).transpose(1, 2) for _ in range(3))
-        pos = rnd(1, H, T, dk)
-        u, vb = rnd(H, dk).float() * 0.1, rnd(H, dk).float() * 0.1
-        args = (q, k, v, pos, u, vb, lens)
-        got = fa.rel_pos_attention(*args)
-        want = fa.rel_pos_attention_plain(*args)
-        torch.cuda.synchronize()
-        err = 0.0
-        for b in range(B):
-            L = int(lens[b])
-            if L == 0:
-                if torch.count_nonzero(got[b]):
-                    raise AssertionError('K1: kv_len 0 row is not 0')
-                continue
-            err = max(err, float((got[b, :, :L].float()
-                                  - want[b, :, :L].float()).abs().max()))
-        if not err <= tol:
-            raise AssertionError(f'K1 {dtype}: max abs err {err} > {tol}')
+        errs = {}
+        for T, lens in ATTN_CASES.items():
+            lens = torch.tensor(lens, device=dev)
+            args = (*attn_inputs(dev, gen, dtype, T), lens)
+            got = fa.rel_pos_attention(*args)
+            want = fa.rel_pos_attention_plain(*args)
+            torch.cuda.synchronize()
+            err = 0.0
+            for b in range(ATTN_B):
+                L = int(lens[b])
+                if L == 0:
+                    if torch.count_nonzero(got[b]):
+                        raise AssertionError(f'K1 T={T}: kv_len 0 row is '
+                                             f'not 0')
+                    continue
+                err = max(err, float((got[b, :, :L].float()
+                                      - want[b, :, :L].float()).abs().max()))
+            if not err <= tol:
+                raise AssertionError(f'K1 {dtype} T={T}: max abs err {err} '
+                                     f'> {tol}')
+            errs[f'T{T}'] = err
         # timed as the encoder calls it: every row at the full T
-        full = (q, k, v, pos, u, vb, torch.full_like(lens, T))
+        T = ATTN_T
+        full = (*attn_inputs(dev, gen, dtype, T),
+                torch.full((ATTN_B,), T, device=dev))
         ms = cuda_time_ms(lambda: fa.rel_pos_attention(*full), 20)
         plain_ms = cuda_time_ms(lambda: fa.rel_pos_attention_plain(*full), 20)
-        log(f'K1 rel_pos_attention {dtype}: max_abs_err={err} (tol {tol}); '
+        log(f'K1 rel_pos_attention {dtype}: max_abs_err {errs} (tol {tol}); '
             f'all rows at T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
-        out[dtype] = (err, ms, plain_ms)
-    return out[torch.bfloat16]          # the serving dtype
+        out[dtype] = dict(errs=errs, ms=ms, plain_ms=plain_ms,
+                          nbytes=nbytes(full, full[0]))
+    return out
+
+
+def sdpa_yardstick(dev, rate=0.1):
+    """The one PyTorch call that computes K1's function (its library
+    yardstick; the port never calls it): scaled_dot_product_attention
+    of [q+u | q+v] against [k | p] (depth 128) and v, scale 1/sqrt(dk),
+    every row at full length, bf16 at the timed shape.  Times the forward,
+    the forward with dropout_p = rate (its draw differs from the keep-mask:
+    time only) and torch.autograd.grad through the dropout call, on each
+    fused backend that takes these shapes; returns the fastest of each with
+    its backend's name."""
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+    gen = torch.Generator(device=dev).manual_seed(5)
+    q, k, v, pos, u, vb = attn_inputs(dev, gen, torch.bfloat16, ATTN_T)
+    B, dk = ATTN_B, ATTN_DK
+    qc = torch.cat([q + u.to(q.dtype)[None, :, None],
+                    q + vb.to(q.dtype)[None, :, None]], -1).contiguous()
+    kc = torch.cat([k, pos.expand(B, -1, -1, -1)], -1).contiguous()
+    vc = v.contiguous()
+    g = torch.rand(vc.shape, device=dev, generator=gen).to(vc.dtype)
+    scale = 1.0 / math.sqrt(dk)
+    best = {}
+    for be in (SDPBackend.CUDNN_ATTENTION, SDPBackend.FLASH_ATTENTION,
+               SDPBackend.EFFICIENT_ATTENTION):
+        with sdpa_kernel([be]), warnings.catch_warnings():
+            warnings.simplefilter('ignore')   # "kernel not used because"
+            try:
+                F.scaled_dot_product_attention(qc, kc, vc, scale=scale)
+                torch.cuda.synchronize()
+            except RuntimeError:
+                continue            # this backend does not take the shapes
+            t = {'fwd': cuda_time_ms(lambda: F.scaled_dot_product_attention(
+                qc, kc, vc, scale=scale), 20)}
+            try:
+                t['fwd_drop'] = cuda_time_ms(
+                    lambda: F.scaled_dot_product_attention(
+                        qc, kc, vc, dropout_p=rate, scale=scale), 20)
+                ins = [x.detach().requires_grad_(True) for x in (qc, kc, vc)]
+                o = F.scaled_dot_product_attention(*ins, dropout_p=rate,
+                                                   scale=scale)
+                t['bwd_drop'] = cuda_time_ms(lambda: torch.autograd.grad(
+                    o, ins, g, retain_graph=True), 20)
+                del o, ins
+            except RuntimeError:
+                pass
+        log(f'SDPA yardstick {be.name}: ' + ', '.join(
+            f'{n} {ms:.4f} ms' for n, ms in t.items()))
+        for n, ms in t.items():
+            if n not in best or ms < best[n][0]:
+                best[n] = (ms, be.name)
+    if 'fwd' not in best:
+        raise AssertionError('no fused SDPA backend takes the yardstick')
+    return best
 
 
 # ------------------------------ phase 4: K2 + K3 ------------------------------
@@ -214,6 +340,8 @@ def check_beam(dev, seed):
     log(f'K2 beam_scan_forward: kernel {t["fwd"]:.4f} ms, plain '
         f'{t["fwd_plain"]:.4f} ms; K3 beam_backtrace: kernel '
         f'{t["bt"]:.4f} ms, plain {t["bt_plain"]:.4f} ms (B=8, T=512, K=10)')
+    t['fwd_nbytes'] = nbytes(fwd_args, final, em)
+    t['bt_nbytes'] = nbytes(bt_args, pre, tim)
     return fwd_err, t
 
 
@@ -250,7 +378,7 @@ def build_asr(dev, seed, workdir: Path):
     """reverb_large-width ReverbASR in bf16 with seeded random weights and a
     char tokenizer over a generated 10000-entry symbol table."""
     import torch
-    from reverb_tpu.text.tokenizer import init_tokenizer
+    from reverb_tpu_torch.text.tokenizer import init_tokenizer
     from reverb_tpu_torch.cli.reverb import ReverbASR
     from reverb_tpu_torch.models import presets
     from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
@@ -490,78 +618,103 @@ def rel_err(got, want) -> float:
 
 def check_k1_mask_k4(dev):
     """K1 with the dropout keep-mask and K4 against the plain forward and
-    its autograd backward at B·H = 8·16, T = 512, dk = 64, ragged kv_lens
-    (with 0 and 1), rate 0.1, a mask from a seeded generator; the
-    cotangent is 0 on padded query rows.  Each of out, dq, dk, dv, dp, du,
-    dvb within tol of its largest value: f32 1e-3 (summation order; D is
-    rowsum(g∘out)), bf16 5e-2 (the plain backward rounds its intermediate
-    gradients to bf16 where autograd passes the casts, the kernel only at
-    the end).  Times the forward (with mask) and the backward alone, every
-    row at full length."""
+    its autograd backward at B·H = 8·16, dk = 64, in each of ATTN_CASES,
+    rate 0.1, a mask from a seeded generator; the cotangent is 0 on padded
+    query rows.  Each of out, dq, dk, dv, dp, du, dvb within tol of its
+    largest value: f32 1e-3 (summation order; D is rowsum(g∘out)), bf16
+    5e-2 (the plain backward rounds its intermediate gradients to bf16
+    where autograd passes the casts, the kernel only at the end).  Times
+    the forward (with mask) and the backward alone at T = 512, every row
+    at full length."""
     import torch
     from reverb_tpu_torch.ops import flash_attention as fa
-    B, H, T, dk, rate = 8, 16, 512, 64, 0.1
-    lens = torch.tensor([512, 300, 1, 0, 512, 17, 64, 65], device=dev)
+    rate = 0.1
     gen = torch.Generator(device=dev).manual_seed(1)
     names = ('out', 'dq', 'dk', 'dv', 'dp', 'du', 'dvb')
     res = {}
     for dtype, tol in ((torch.float32, 1e-3), (torch.bfloat16, 5e-2)):
-        def rnd(*shape):
-            return (torch.rand(*shape, device=dev, generator=gen) * 2 - 1
-                    ).to(dtype)
-        q, k, v = (rnd(B, T, H, dk).transpose(1, 2) for _ in range(3))
-        pos = rnd(1, H, T, dk)
-        u, vb = rnd(H, dk).float() * 0.1, rnd(H, dk).float() * 0.1
-        mask = (torch.rand(B, H, T, T, device=dev, generator=gen)
-                < 1 - rate).to(torch.int8)
-        row_ok = (torch.arange(T, device=dev)[None, :]
-                  < lens.clamp(min=1)[:, None])[:, None, :, None]
-        g = rnd(B, H, T, dk) * row_ok
-        outs = []
-        for fn in (fa.rel_pos_attention, fa.rel_pos_attention_plain):
-            ins = [t.detach().clone().requires_grad_(True)
-                   for t in (q, k, v, pos, u, vb)]
-            out = fn(*ins, lens, mask, rate)
-            out.backward(g)
-            outs.append([out.detach() * row_ok] + [t.grad for t in ins])
-        torch.cuda.synchronize()
-        errs = {n: float((a.float() - b.float()).abs().max())
-                for n, a, b in zip(names, *outs)}
-        rels = {n: rel_err(a, b) for n, a, b in zip(names, *outs)}
-        bad = {n: r for n, r in rels.items() if not r <= tol}
-        if bad:
-            raise AssertionError(f'K1 mask/K4 {dtype}: relative errors {bad} '
-                                 f'> {tol}')
-        if torch.count_nonzero(outs[0][0][3]):
-            raise AssertionError('K1 mask: kv_len 0 row is not 0')
-        # timing: every row at full length
-        full = torch.full_like(lens, T)
-        args = (q, k, v, pos, u, vb, full, mask, rate)
-        fwd_ms = cuda_time_ms(lambda: fa.rel_pos_attention(*args), 10)
-        fwd_plain = cuda_time_ms(lambda: fa.rel_pos_attention_plain(*args),
-                                 10)
-        p = pos[0]
-        uc, vbc = u.to(dtype).contiguous(), vb.to(dtype).contiguous()
-        lens32 = full.to(torch.int32)
-        o, lse = fa._k1(q, k, v, p, uc, vbc, lens32, mask, rate, True)
-        bwd_ms = cuda_time_ms(lambda: fa._k4(q, k, v, p, uc, vbc, lens32,
-                                              mask, rate, o, lse, g), 10)
-        ins = [t.detach().clone().requires_grad_(True)
-               for t in (q, k, v, pos, u, vb)]
-        out_p = fa.rel_pos_attention_plain(*ins, full, mask, rate)
-        bwd_plain = cuda_time_ms(lambda: torch.autograd.grad(
-            out_p, ins, g, retain_graph=True), 10)
-        del out_p
-        log(f'K1+mask / K4 {dtype}: max abs err '
-            + ', '.join(f'{n}={errs[n]:.3e}' for n in names)
-            + f'; relative ' + ', '.join(f'{n}={rels[n]:.2e}' for n in names)
-            + f' (tol {tol}); all rows at T={T}, rate {rate}: K1+mask '
-            f'{fwd_ms:.4f} ms (plain {fwd_plain:.4f}), K4 {bwd_ms:.4f} ms '
-            f'(plain backward {bwd_plain:.4f})')
-        res[dtype] = dict(errs=errs, fwd=(fwd_ms, fwd_plain),
-                          bwd=(bwd_ms, bwd_plain))
+        errs, rels = {}, {}
+        for T, lens in ATTN_CASES.items():
+            lens = torch.tensor(lens, device=dev)
+            q, k, v, pos, u, vb = attn_inputs(dev, gen, dtype, T)
+            mask = attn_mask(dev, gen, T, rate)
+            row_ok = (torch.arange(T, device=dev)[None, :]
+                      < lens.clamp(min=1)[:, None])[:, None, :, None]
+            g = (torch.rand(q.shape, device=dev, generator=gen) * 2 - 1).to(
+                dtype) * row_ok
+            outs = []
+            for fn in (fa.rel_pos_attention, fa.rel_pos_attention_plain):
+                ins = [t.detach().clone().requires_grad_(True)
+                       for t in (q, k, v, pos, u, vb)]
+                out = fn(*ins, lens, mask, rate)
+                out.backward(g)
+                outs.append([out.detach() * row_ok] + [t.grad for t in ins])
+            torch.cuda.synchronize()
+            errs[f'T{T}'] = {n: float((a.float() - b.float()).abs().max())
+                             for n, a, b in zip(names, *outs)}
+            rels[f'T{T}'] = {n: rel_err(a, b)
+                             for n, a, b in zip(names, *outs)}
+            bad = {n: r for n, r in rels[f'T{T}'].items() if not r <= tol}
+            if bad:
+                raise AssertionError(f'K1 mask/K4 {dtype} T={T}: relative '
+                                     f'errors {bad} > {tol}')
+            if torch.count_nonzero(outs[0][0][3]):
+                raise AssertionError(f'K1 mask T={T}: kv_len 0 row is not 0')
+        # timing: every row at full length, T = 512
+        T = ATTN_T
+        q, k, v, pos, u, vb = attn_inputs(dev, gen, dtype, T)
+        mask = attn_mask(dev, gen, T, rate)
+        g = (torch.rand(q.shape, device=dev, generator=gen) * 2 - 1).to(dtype)
+        full = torch.full((ATTN_B,), T, device=dev)
+        t = time_k1_mask_k4(q, k, v, pos, u, vb, full, mask, rate, g)
+        for case in errs:
+            log(f'K1+mask / K4 {dtype} {case}: max abs err '
+                + ', '.join(f'{n}={errs[case][n]:.3e}' for n in names)
+                + '; relative ' + ', '.join(f'{n}={rels[case][n]:.2e}'
+                                           for n in names) + f' (tol {tol})')
+        log(f'K1+mask / K4 {dtype}: all rows at T={T}, rate {rate}: K1+mask '
+            f'{t["fwd"]:.4f} ms (plain {t["fwd_plain"]:.4f}), K4 '
+            f'{t["bwd"]:.4f} ms (plain backward {t["bwd_plain"]:.4f})')
+        o = torch.empty_like(q)
+        res[dtype] = dict(
+            errs={n: max(e[n] for e in errs.values()) for n in names},
+            errs_by_case=errs, **t,
+            fwd_nbytes=nbytes(q, k, v, pos, u, vb, full, mask, o),
+            # inputs with out, g and lse; dq dk dv dp du dvb like the inputs
+            bwd_nbytes=2 * nbytes(q, k, v, pos, u, vb)
+            + nbytes(full, mask, o, g) + ATTN_B * ATTN_H * T * 4)
         torch.cuda.empty_cache()
     return res
+
+
+def attn_mask(dev, gen, T, rate):
+    """A (B, H, T, T) int8 keep-mask with keep probability 1 − rate."""
+    import torch
+    return (torch.rand(ATTN_B, ATTN_H, T, T, device=dev, generator=gen)
+            < 1 - rate).to(torch.int8)
+
+
+def time_k1_mask_k4(q, k, v, pos, u, vb, lens, mask, rate, g):
+    """Device ms of K1 with the keep-mask and of K4 alone (the training
+    path's pair) and of their plain versions, on the same inputs."""
+    import torch
+    from reverb_tpu_torch.ops import flash_attention as fa
+    args = (q, k, v, pos, u, vb, lens, mask, rate)
+    t = {'fwd': cuda_time_ms(lambda: fa.rel_pos_attention(*args), 10),
+         'fwd_plain': cuda_time_ms(
+             lambda: fa.rel_pos_attention_plain(*args), 10)}
+    p = pos[0]
+    uc, vbc = u.to(q.dtype).contiguous(), vb.to(q.dtype).contiguous()
+    lens32 = lens.to(torch.int32)
+    o, lse = fa._k1(q, k, v, p, uc, vbc, lens32, mask, rate, True)
+    t['bwd'] = cuda_time_ms(lambda: fa._k4(q, k, v, p, uc, vbc, lens32, mask,
+                                            rate, o, lse, g), 10)
+    ins = [x.detach().clone().requires_grad_(True)
+           for x in (q, k, v, pos, u, vb)]
+    out_p = fa.rel_pos_attention_plain(*ins, lens, mask, rate)
+    t['bwd_plain'] = cuda_time_ms(lambda: torch.autograd.grad(
+        out_p, ins, g, retain_graph=True), 10)
+    return t
 
 
 # ------------------------------ phase 7: K5 + K6 -------------------------
@@ -571,8 +724,10 @@ def check_ln(dev):
     count — in bf16 and f32, eps 1e-5 and 1e-12: y and dx within tol of
     their largest value, dw/db (f32 sums over 4097 rows) too; f32 1e-4,
     bf16 2e-2 (one bf16 ulp where the rounding points differ).  Times both
-    at the encoder's rows (8·512 + 1)."""
+    at the encoder's rows (8·512 + 1), beside F.layer_norm and its
+    backward."""
     import torch
+    import torch.nn.functional as F
     from reverb_tpu_torch.ops import layer_norm as ln
     gen = torch.Generator(device=dev).manual_seed(2)
     N, C = 4097, 1024
@@ -604,11 +759,23 @@ def check_ln(dev):
                                  20),
              'bwd_plain': cuda_time_ms(
                  lambda: ln.layer_norm_bwd_plain(x, w, gy, 1e-5), 20)}
+        # the library yardstick: F.layer_norm and its autograd backward
+        wl, bl = w.to(dtype), b.to(dtype)
+        t['fwd_library'] = cuda_time_ms(
+            lambda: F.layer_norm(x, (C,), wl, bl, 1e-5), 20)
+        ins = [a.detach().requires_grad_(True) for a in (x, wl, bl)]
+        y = F.layer_norm(ins[0], (C,), ins[1], ins[2], 1e-5)
+        t['bwd_library'] = cuda_time_ms(lambda: torch.autograd.grad(
+            y, ins, gy, retain_graph=True), 20)
+        del y, ins
+        t['fwd_nbytes'] = nbytes(x, w, b, x)           # y like x
+        t['bwd_nbytes'] = nbytes(x, w, gy, x, w, b)    # dx, dw, db
         log(f'K5/K6 layer_norm {dtype} ({N}, {C}): max abs err '
             + ', '.join(f'{n}={e:.3e}' for n, e in errs.items())
             + f' (tol {tol} of scale); K5 {t["fwd"]:.4f} ms (plain '
-            f'{t["fwd_plain"]:.4f}), K6 {t["bwd"]:.4f} ms (plain '
-            f'{t["bwd_plain"]:.4f})')
+            f'{t["fwd_plain"]:.4f}, F.layer_norm {t["fwd_library"]:.4f}), '
+            f'K6 {t["bwd"]:.4f} ms (plain {t["bwd_plain"]:.4f}, '
+            f'F.layer_norm backward {t["bwd_library"]:.4f})')
         res[dtype] = dict(errs=errs, t=t)
     return res
 
@@ -760,12 +927,166 @@ def run_train(dev, seed):
     return launches, ms, peak
 
 
+# kernel families of a training step's profile, first match wins
+FAMILIES = [
+    ('K1', r'reverb_rpa.*fwd_kernel|rel_pos_attn_kernel'),
+    ('K4', r'attn_bwd_rowdot|reverb_rpa.*(dkdv|dq)_kernel|attn_bwd_d'),
+    ('K5/K6', r'ln_(fwd|bwd|colsum)_kernel'),
+    ('convolution (cuDNN)', r'conv|implicit_gemm|cudnn|nchwToNhwc'),
+    ('GEMM (cuBLAS)', r'nvjet|gemm|cutlass|xmma'),
+    ('optimizer (foreach)', r'multi_tensor_apply'),
+    ('copies and casts', r'copy_kernel|cat_|CatArray'),
+    ('dropout draws', r'distribution_|compare_scalar'),
+    ('CTC', r'ctc'),
+    ('reductions', r'reduce_kernel'),
+    ('other elementwise', r'elementwise'),
+]
+
+
+def profile_train(dev, seed):
+    """One bf16 training step (as run_train's) under torch.profiler after
+    two warm-up steps and one timed unprofiled step: the device busy union
+    over the profiled span, device time by kernel family and the 25 kernels
+    with the most device time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    model, _, step = train_model(dev, seed, torch.bfloat16)
+    batch = train_batch(dev, TRAIN_B, seed + 2, model.cfg.vocab_size)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        step(model, batch, gen)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        step(model, batch, gen)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events()
+                   if e.device_type == DeviceType.CUDA)
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    busy += 0.0 if cur is None else cur[1] - cur[0]
+    span = (spans[-1][1] - spans[0][0]) if spans else 0.0
+    by_name = {}
+    for e in prof.events():
+        if e.device_type == DeviceType.CUDA:
+            n = by_name.setdefault(e.name, [0.0, 0])
+            n[0] += e.time_range.end - e.time_range.start
+            n[1] += 1
+    log(f'profile: unprofiled steps {", ".join(f"{w:.1f}" for w in walls)} '
+        f'ms; profiled step {wall:.1f} ms, device busy {busy / 1e3:.1f} ms '
+        f'of a {span / 1e3:.1f} ms device span, {len(spans)} device events')
+    fam = {}
+    for name, (us, n) in by_name.items():
+        key = next((f for f, pat in FAMILIES if re.search(pat, name)),
+                   'other')
+        fam[key] = fam.get(key, 0.0) + us
+    log('profile, device ms by family: ' + ', '.join(
+        f'{f} {us / 1e3:.2f}' for f, us in sorted(fam.items(),
+                                                  key=lambda kv: -kv[1])))
+    for name, (us, n) in sorted(by_name.items(),
+                                key=lambda kv: -kv[1][0])[:25]:
+        log(f'  {us / 1e3:9.3f} ms {n:6d}x  {name[:110]}')
+    del model, step
+    torch.cuda.empty_cache()
+
+
+def ptxas_table(text: str) -> dict:
+    """{kernel: [registers, spill store bytes, spill load bytes]} from the
+    build's `-Xptxas -v` messages; the bf16 kernels' names are shortened
+    (fwd_kernel<1> is the keep-mask instantiation)."""
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            name = m.group(1)
+            short = re.search(r'\d((?:fwd|dkdv|dq)_kernel)ILb([01])E', name)
+            if short:
+                name = f'{short.group(1)}<{short.group(2)}>'
+            cur = out.setdefault(name, [0, 0, 0])
+            continue
+        m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
+                      ln)
+        if m and cur is not None:
+            cur[1:] = [int(m.group(1)), int(m.group(2))]
+        m = re.search(r'Used (\d+) registers', ln)
+        if m and cur is not None:
+            cur[0] = int(m.group(1))
+    return out
+
+
+def ab_parent(dev, parent: Path):
+    """A/B of a parent checkout's K1/K4 against this tree's, in one
+    process: builds parent/reverb_tpu_torch/csrc/rel_pos_attention.cu alone
+    into _chipwork/ab/ and times bf16 K1, K1 with the keep-mask and K4 at
+    T = 512 (every row at full length) in turns old, new, new, old, each
+    beside the plain versions.  Prints one {"ab": [...]} line."""
+    import ctypes
+    import torch
+    from reverb_tpu_torch import _build
+    from reverb_tpu_torch.ops import flash_attention as fa
+    work = ROOT / '_chipwork' / 'ab'
+    work.mkdir(parents=True, exist_ok=True)
+    lib_path = work / 'libparent.so'
+    src = parent / 'reverb_tpu_torch' / 'csrc' / 'rel_pos_attention.cu'
+    res = subprocess.run([_build._nvcc(), *_build._FLAGS, '-shared', '-o',
+                          str(lib_path), str(src)], capture_output=True,
+                         text=True, timeout=600)
+    if res.returncode != 0:
+        raise RuntimeError(f'parent build failed:\n{res.stderr}')
+    old = ctypes.CDLL(str(lib_path))
+    for name in ('reverb_rel_pos_attention_fwd',
+                 'reverb_rel_pos_attention_bwd'):
+        getattr(old, name).argtypes = _build._SIGNATURES[name]
+        getattr(old, name).restype = ctypes.c_int
+    new = _build.load()
+    gen = torch.Generator(device=dev).manual_seed(9)
+    T, rate = ATTN_T, 0.1
+    q, k, v, pos, u, vb = attn_inputs(dev, gen, torch.bfloat16, T)
+    mask = attn_mask(dev, gen, T, rate)
+    g = (torch.rand(q.shape, device=dev, generator=gen) * 2 - 1).to(q.dtype)
+    full = torch.full((ATTN_B,), T, device=dev)
+    rows = []
+    for tag in ('old', 'new', 'new', 'old'):
+        lib = old if tag == 'old' else new
+        with swapped({(_build, 'load'): lambda lib=lib: lib}):
+            got = fa.rel_pos_attention(q, k, v, pos, u, vb, full)
+            t = {'k1': cuda_time_ms(
+                lambda: fa.rel_pos_attention(q, k, v, pos, u, vb, full), 20),
+                **time_k1_mask_k4(q, k, v, pos, u, vb, full, mask, rate, g)}
+        want = fa.rel_pos_attention_plain(q, k, v, pos, u, vb, full)
+        t['k1_err'] = float((got.float() - want.float()).abs().max())
+        rows.append({'build': tag, **t})
+        log(f'A/B {tag}: K1 {t["k1"]:.4f} ms (err {t["k1_err"]:.2e}), '
+            f'K1+mask {t["fwd"]:.4f} ms (plain {t["fwd_plain"]:.4f}), K4 '
+            f'{t["bwd"]:.4f} ms (plain {t["bwd_plain"]:.4f})')
+    print(json.dumps({'ab': rows, 'parent': str(parent)}))
+    return rows
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default='kernels,serve,train',
                     help='comma list of kernels, serve, train (default all; '
                          'the result lines need all three)')
-    phases = set(ap.parse_args().phases.split(','))
+    ap.add_argument('--profile', action='store_true',
+                    help='also profile one bf16 training step')
+    ap.add_argument('--ab-parent', type=Path, default=None,
+                    help='a checkout of the parent commit: also time its '
+                         'K1/K4 against this tree\'s (prints an "ab" line)')
+    args = ap.parse_args()
+    phases = set(args.phases.split(','))
     if not (ROOT / 'reverb_tpu_torch' / '_build.py').is_file():
         print('chip_smoke.py: reverb_tpu_torch/ is not beside this script; '
               'run it from a checkout of the repository', file=sys.stderr)
@@ -791,15 +1112,24 @@ def main():
     log(f'build: {time.perf_counter() - t0:.2f} s (nvcc '
         f'{_build.build_seconds if _build.build_seconds is not None else 0:.2f}'
         f' s)')
-    spills = [ln for ln in _build.build_log.splitlines()
-              if 'spill' in ln and ' 0 bytes spill stores' not in ln]
-    regs = [int(w) for w in re.findall(r'Used (\d+) registers',
-                                       _build.build_log)]
-    log(f'ptxas: {len(regs)} kernels, at most {max(regs, default=0)} '
-        f'registers a thread; spills: {spills or "none"}')
+    ptx = ptxas_table(_build.build_log)
+    log(f'ptxas: {len(ptx)} kernels, at most '
+        f'{max((r[0] for r in ptx.values()), default=0)} registers a thread; '
+        f'spills: {[n for n, r in ptx.items() if r[1] or r[2]] or "none"}')
+    tc = {n: r for n, r in ptx.items()
+          if re.match(r'(fwd|dkdv|dq)_kernel<', n)}
+    log('ptxas, bf16 tensor-core kernels (registers, spill stores/loads '
+        'bytes): ' + '; '.join(f'{n} {r[0]} ({r[1]}/{r[2]})'
+                               for n, r in sorted(tc.items())))
+    if len(tc) != 6:
+        raise AssertionError('the bf16 tensor-core kernels are missing from '
+                             'the build')
+    if args.ab_parent is not None:
+        ab_parent(dev, args.ab_parent)
     if 'kernels' in phases:
         # phases 3-4, 6-7: kernels against their plain versions
-        k1_err, k1_ms, k1_plain = check_k1(dev)
+        k1 = check_k1(dev)
+        sdpa = sdpa_yardstick(dev)
         fwd_err, bt = check_beam(dev, SEED)
         k4 = check_k1_mask_k4(dev)[torch.bfloat16]
         lnr = check_ln(dev)[torch.bfloat16]
@@ -811,54 +1141,17 @@ def main():
         # phase 8: the training path
         train_reference_check(dev, SEED)
         t_launch, step_ms, peak = run_train(dev, SEED)
+        if args.profile:
+            profile_train(dev, SEED)
+    if any(r[1] or r[2] for r in tc.values()):
+        raise AssertionError('a bf16 tensor-core kernel spills registers')
     if phases != {'kernels', 'serve', 'train'}:
         log(f'phases {sorted(phases)} passed; no result lines without all '
             f'three')
         return 1
 
-    both = {k: launches.get(k, 0) + t_launch.get(k, 0)
-            for k in ('K1', 'K5')}
-    kernels = [
-        {'name': 'rel_pos_attention_fwd', 'route': 'cuda',
-         'source': 'reverb_tpu_torch/csrc/rel_pos_attention.cu',
-         'replaces': 'reverb_tpu/ops/flash_attention.py:108',
-         'launches': both['K1'],
-         'launches_by_path': {'serve': launches['K1'],
-                              'train': t_launch['K1']},
-         'max_abs_err': max(k1_err, k4['errs']['out']), 'ms': k1_ms,
-         'plain_ms': k1_plain, 'ms_with_mask': k4['fwd'][0],
-         'plain_ms_with_mask': k4['fwd'][1]},
-        {'name': 'beam_scan_forward', 'route': 'cuda',
-         'source': 'reverb_tpu_torch/csrc/beam_scan.cu',
-         'replaces': 'reverb_tpu/ops/beam_scan.py:33',
-         'launches': launches['K2'], 'max_abs_err': fwd_err,
-         'ms': bt['fwd'], 'plain_ms': bt['fwd_plain']},
-        {'name': 'beam_backtrace', 'route': 'cuda',
-         'source': 'reverb_tpu_torch/csrc/beam_scan.cu',
-         'replaces': 'reverb_tpu/ops/beam_scan.py:137',
-         'launches': launches['K3'], 'max_abs_err': 0.0,
-         'ms': bt['bt'], 'plain_ms': bt['bt_plain']},
-        {'name': 'rel_pos_attention_bwd', 'route': 'cuda',
-         'source': 'reverb_tpu_torch/csrc/rel_pos_attention.cu',
-         'replaces': 'reverb_tpu/ops/flash_attention.py:248',
-         'launches': t_launch['K4'],
-         'max_abs_err': max(v for n, v in k4['errs'].items() if n != 'out'),
-         'ms': k4['bwd'][0], 'plain_ms': k4['bwd'][1]},
-        {'name': 'layer_norm_fwd', 'route': 'cuda',
-         'source': 'reverb_tpu_torch/csrc/layer_norm.cu',
-         'replaces': 'reverb_tpu/ops/layer_norm.py:85',
-         'launches': both['K5'],
-         'launches_by_path': {'serve': launches['K5'],
-                              'train': t_launch['K5']},
-         'max_abs_err': lnr['errs']['y'], 'ms': lnr['t']['fwd'],
-         'plain_ms': lnr['t']['fwd_plain']},
-        {'name': 'layer_norm_bwd', 'route': 'cuda',
-         'source': 'reverb_tpu_torch/csrc/layer_norm.cu',
-         'replaces': 'reverb_tpu/ops/layer_norm.py:96',
-         'launches': t_launch['K6'],
-         'max_abs_err': max(lnr['errs'][n] for n in ('dx', 'dw', 'db')),
-         'ms': lnr['t']['bwd'], 'plain_ms': lnr['t']['bwd_plain']},
-    ]
+    kernels = kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches,
+                             len(walls), t_launch)
     log(f'slice: second transcribe_modes call {walls[1]:.4f} s for '
         f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; train '
         f'{step_ms:.1f} ms/step at B={TRAIN_B}, peak {peak / 2**30:.2f} GiB; '
@@ -869,6 +1162,79 @@ def main():
         'platform': 'gpu', 'kind': torch.cuda.get_device_name(0),
         'count': torch.cuda.device_count()}}))
     return 0
+
+
+def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
+                   t_launch):
+    """The {"kernels": [...]} entries: launches on the two paths (in all,
+    per serving call and per training step), the error against the plain
+    version, kernel / plain / library times in bf16 at the timed shapes,
+    and the bound computed from those shapes."""
+    import torch
+    k1b = k1[torch.bfloat16]
+    N, C = 4097, 1024
+    per = {n: {'serve': launches.get(n, 0) / n_calls,
+               'train': t_launch.get(n, 0) / TRAIN_STEPS}
+           for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6')}
+    sdpa_call = ('F.scaled_dot_product_attention(cat(q+u, q+v), cat(k, p), '
+                 'v, scale=1/sqrt(dk)), every row at full length')
+
+    def rec(name, src, replaces, kid, err, ms, plain_ms, bnd, lib_ms,
+            lib_call, **extra):
+        return {'name': name, 'route': 'cuda',
+                'source': f'reverb_tpu_torch/csrc/{src}',
+                'replaces': f'reverb_tpu/ops/{replaces}',
+                'launches': launches.get(kid, 0) + t_launch.get(kid, 0),
+                'launches_per_call': per[kid], 'max_abs_err': err,
+                'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bnd[0],
+                'bound_by': bnd[1], 'library_ms': lib_ms,
+                'library_call': lib_call, **extra}
+    k1_bound = bound(attn_ops(ATTN_T, False), k1b['nbytes'], 'bf16')
+    k1m_bound = bound(attn_ops(ATTN_T, False), k4['fwd_nbytes'], 'bf16')
+    drop = sdpa.get('fwd_drop', (None, None))
+    bwd = sdpa.get('bwd_drop', (None, None))
+    return [
+        rec('rel_pos_attention_fwd', 'rel_pos_attention_bf16.cu',
+            'flash_attention.py:108', 'K1',
+            max(max(k1b['errs'].values()), k4['errs']['out']),
+            k1b['ms'], k1b['plain_ms'], k1_bound, sdpa['fwd'][0],
+            f'{sdpa_call} [{sdpa["fwd"][1]}]',
+            source_f32='reverb_tpu_torch/csrc/rel_pos_attention.cu',
+            max_abs_err_by_case=k1b['errs'],
+            ms_with_mask=k4['fwd'], plain_ms_with_mask=k4['fwd_plain'],
+            bound_ms_with_mask=k1m_bound[0],
+            bound_by_with_mask=k1m_bound[1], library_ms_with_mask=drop[0],
+            library_call_with_mask=f'the same with dropout_p=0.1 (time '
+                                   f'only) [{drop[1]}]'),
+        rec('beam_scan_forward', 'beam_scan.cu', 'beam_scan.py:33', 'K2',
+            fwd_err, bt['fwd'], bt['fwd_plain'],
+            bound(0, bt['fwd_nbytes'], 'f32'), None, 'none'),
+        rec('beam_backtrace', 'beam_scan.cu', 'beam_scan.py:137', 'K3', 0.0,
+            bt['bt'], bt['bt_plain'], bound(0, bt['bt_nbytes'], 'f32'),
+            None, 'none'),
+        rec('rel_pos_attention_bwd', 'rel_pos_attention_bf16.cu',
+            'flash_attention.py:248', 'K4',
+            max(v for n, v in k4['errs'].items() if n != 'out'),
+            k4['bwd'], k4['bwd_plain'],
+            bound(attn_ops(ATTN_T, True), k4['bwd_nbytes'], 'bf16'), bwd[0],
+            f'torch.autograd.grad through {sdpa_call}, dropout_p=0.1 '
+            f'[{bwd[1]}]',
+            source_f32='reverb_tpu_torch/csrc/rel_pos_attention.cu',
+            max_abs_err_by_case={c: max(v for n, v in e.items() if n != 'out')
+                                 for c, e in k4['errs_by_case'].items()}),
+        # LayerNorm operations: ~7 f32 operations an element forward, ~10
+        # backward; the bytes bound them either way
+        rec('layer_norm_fwd', 'layer_norm.cu', 'layer_norm.py:85', 'K5',
+            lnr['errs']['y'], lnr['t']['fwd'], lnr['t']['fwd_plain'],
+            bound(7 * N * C, lnr['t']['fwd_nbytes'], 'f32'),
+            lnr['t']['fwd_library'], 'F.layer_norm(x, (C,), w, b, eps)'),
+        rec('layer_norm_bwd', 'layer_norm.cu', 'layer_norm.py:96', 'K6',
+            max(lnr['errs'][n] for n in ('dx', 'dw', 'db')), lnr['t']['bwd'],
+            lnr['t']['bwd_plain'],
+            bound(10 * N * C, lnr['t']['bwd_nbytes'], 'f32'),
+            lnr['t']['bwd_library'],
+            'torch.autograd.grad through F.layer_norm(x, (C,), w, b, eps)'),
+    ]
 
 
 if __name__ == '__main__':

@@ -34,7 +34,9 @@ _lock = threading.Lock()
 _lib = None
 # wall seconds the last build took in this process (None: loaded as built)
 build_seconds = None
-# nvcc's messages of that build (ptxas registers, shared memory, spills)
+# nvcc's messages of the build of the loaded library (ptxas registers,
+# shared memory, spills), kept beside it so a process that loads it as
+# built reads them too
 build_log = ''
 
 _P = ctypes.c_void_p
@@ -98,7 +100,9 @@ def build() -> Path:
     digest = _digest(srcs)
     lib = _OUT / f'{_NAME}.so'
     stamp = _OUT / f'{_NAME}.hash'
+    log = _OUT / f'{_NAME}.log'
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
+        build_log = log.read_text() if log.exists() else ''
         return lib
     _OUT.mkdir(parents=True, exist_ok=True)
     tag = f'{os.getpid()}.tmp'
@@ -129,8 +133,10 @@ def build() -> Path:
     finally:
         for obj in objs:
             obj.unlink(missing_ok=True)
-    os.replace(tmp, lib)                 # atomic: concurrent loaders see
-    stamp.write_text(digest)             # either the old or the new file
+    # atomic: concurrent loaders see either the old or the new file
+    os.replace(tmp, lib)
+    log.write_text(build_log)
+    stamp.write_text(digest)
     build_seconds = time.perf_counter() - t0
     return lib
 

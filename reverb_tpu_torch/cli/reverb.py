@@ -21,18 +21,19 @@ from typing import Dict, Generator, List, Optional, Tuple
 import numpy as np
 import torch
 
-from reverb_tpu.decode.align import (adjust_model_time_offset, ctc_align,
-                                     hyps_to_ctm, hyps_to_txt)
-from reverb_tpu.decode.results import DecodeResult
-from reverb_tpu.text.tokenizer import init_tokenizer
 from reverb_tpu_torch.convert import load_flat_checkpoint, state_dict_from_jax
+from reverb_tpu_torch.decode.align import (adjust_model_time_offset,
+                                           ctc_align, hyps_to_ctm,
+                                           hyps_to_txt)
 from reverb_tpu_torch.decode.api import decode as decode_modes_fn
+from reverb_tpu_torch.decode.results import DecodeResult
 from reverb_tpu_torch.frontend.audio import load_for_asr
 from reverb_tpu_torch.frontend.cmvn import load_cmvn
 from reverb_tpu_torch.frontend.fbank import (FbankConfig, compute_fbank,
                                              num_frames)
 from reverb_tpu_torch.models.asr_model import (ASRModel, ModelConfig,
                                                build_model)
+from reverb_tpu_torch.text.tokenizer import init_tokenizer
 
 _FRAME_DOWNSAMPLING_FACTOR = {'linear': 1, 'conv2d': 4, 'conv2d6': 6,
                               'conv2d8': 8}

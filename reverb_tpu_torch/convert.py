@@ -22,8 +22,8 @@ from typing import Dict
 import numpy as np
 import torch
 
-from reverb_tpu.convert.torch_ckpt import load_torch_state_dict
-
+# torch buffer/bookkeeping keys a reverb .pt carries and the tree does not
+_SKIP_SUFFIXES = ('num_batches_tracked',)
 _CONV_MODULE = re.compile(
     r'^(encoder\.encoders\.\d+\.)'
     r'(pointwise_conv1|depthwise_conv|pointwise_conv2|norm)\.')
@@ -56,6 +56,38 @@ def flat_from_state_dict(state_dict) -> Dict[str, np.ndarray]:
     `state_dict_from_jax` (feeds reverb_tpu's nest_state_dict)."""
     return {tree_key(k): v.detach().to('cpu', torch.float32).numpy()
             for k, v in state_dict.items()}
+
+
+def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:
+    """A reverb `.pt` (a raw state dict, or one under 'model0' or
+    'state_dict') → flat {JAX key: np.ndarray} on the host (the port's copy
+    of reverb_tpu/convert/torch_ckpt.py:load_torch_state_dict)."""
+    ckpt = torch.load(path, map_location='cpu', weights_only=False)
+    if isinstance(ckpt, dict) and 'model0' in ckpt:
+        ckpt = ckpt['model0']
+    if isinstance(ckpt, dict) and 'state_dict' in ckpt:
+        ckpt = ckpt['state_dict']
+    return convert_torch_state_dict(ckpt)
+
+
+def convert_torch_state_dict(ckpt) -> Dict[str, np.ndarray]:
+    """In-memory torch state dict → flat {JAX key: np.ndarray}: drops a
+    'module.' prefix, renames ESPnet's cmvn keys (`normalize.mean/std` →
+    `global_cmvn.mean/istd`), flattens `.conv_module.` as the JAX tree does,
+    skips bookkeeping buffers; floating values become float32."""
+    out = {}
+    for k, v in ckpt.items():
+        if not hasattr(v, 'numpy'):
+            continue
+        k = k.removeprefix('module.')
+        k = k.replace('normalize.mean', 'global_cmvn.mean')
+        k = k.replace('normalize.std', 'global_cmvn.istd')
+        k = k.replace('.conv_module.', '.')
+        if k.endswith(_SKIP_SUFFIXES):
+            continue
+        out[k] = v.detach().to(torch.float32).numpy() \
+            if v.dtype.is_floating_point else v.detach().numpy()
+    return out
 
 
 def load_flat_checkpoint(path: str) -> Dict[str, np.ndarray]:

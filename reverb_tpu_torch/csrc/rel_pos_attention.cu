@@ -28,17 +28,18 @@
 //   du = Σ_i (dS k)_i,  dvb = Σ_i (dS p)_i.
 //
 // What bounds them on the H100: at the training shape (B·H = 128, T = 512,
-// dk = 64) K1 is ~13 GFLOP and K4 ~2.5x that, against tens of MB of q/k/v/
+// dk = 64) K1 is ~13 GFLOP and K4 ~34 GFLOP, against tens of MB of q/k/v/
 // p/g/mask traffic — far above the card's ridge point, so both are bound by
-// arithmetic.  This first version does the arithmetic with f32 FMAs from
-// shared memory (no tensor cores), a fraction of the bf16 tensor-core rate;
-// mma/wgmma tiles are the next step.  K4's two main kernels hold ~135 KB of
-// shared memory and ~240 registers a thread, so one 128-thread block runs
-// per SM: on the H100 K4 is slower than the plain backward (PERF.md).
+// arithmetic.  bf16, the type both main paths run, goes to the tensor-core
+// kernels of rel_pos_attention_bf16.cu.  This file keeps the f32 kernels:
+// f32 FMAs from shared memory (no tensor cores; TF32 would break the 1e-4 /
+// 1e-3 tolerances the f32 references hold the kernels to), one 128-thread
+// block per SM for K4's ~135 KB of shared memory, and K4a for both types.
 //
-// Design: the TPU kernels keep all Tk keys of a row in VMEM; K4 carries
-// dk/dv/dp across a sequential q-grid in resident output blocks.  Hopper
-// blocks run in no order and hold at most 227 KB of shared memory, so:
+// Design of the f32 kernels: the TPU kernels keep all Tk keys of a row in
+// VMEM; K4 carries dk/dv/dp across a sequential q-grid in resident output
+// blocks.  Hopper blocks run in no order and hold at most 227 KB of shared
+// memory, so:
 //   - K1: one block owns a 64-query tile of one (b, h) row and walks 64-key
 //     tiles with an online softmax; the unnormalised tile probabilities get
 //     keep/(1-rate) and the row sum divides at the end.  The dropout
@@ -59,7 +60,12 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "rel_pos_attention.cuh"
+
 namespace {
+
+using reverb_rpa::Geom;
+using reverb_rpa::Str3;
 
 constexpr int BQ = 64;    // queries per tile
 constexpr int BK = 64;    // keys per tile
@@ -98,25 +104,11 @@ template <typename T> __device__ __forceinline__ float round_to(float x) {
   return to_f<T>(from_f<T>(x));
 }
 
-struct Str3 {
-  long long b, h, t;
-};
-
-// Shapes, strides and scalars shared by the kernels.
-struct Geom {
-  int H, Tq, Tk;
-  Str3 qs, ks, vs, os;        // q, k, v, out strides
-  Str3 gs, dqs, dks;          // g (grad of out), dq, dk and dv strides
-  long long p_sh, p_st;       // rel-pos table (head, time) strides
-  float scale, keep_scale;    // 1/sqrt(dk), 1/(1-rate)
-};
-
 // The tile loaders below read a whole 64x64 tile per block, PER = 32
-// elements per thread.  For f32 each thread issues LOADS global loads
-// before any shared-memory store (one at a time left them latency-bound;
-// all 32 at once spilled registers); for bf16 the plain strided loop is
-// faster (measured on the H100 at T = 512: K1 bf16 0.81 ms with the plain
-// loop vs 1.19 ms batched, f32 0.66 ms batched vs 0.91 ms plain).
+// elements per thread; each thread starts LOADS global loads before any
+// shared-memory store (one at a time left them latency-bound; all 32 at
+// once spilled registers): K1 f32 0.66 ms batched vs 0.91 ms plain on the
+// H100 at T = 512.
 constexpr int PER = BQ * DK / NT;
 constexpr int LOADS = 4;
 
@@ -144,27 +136,19 @@ __device__ __forceinline__ void load_q_tile(const T* qb, const T* u,
 template <typename T>
 __device__ __forceinline__ void load_rows(const T* base, long long st, int t0,
                                           int T_, float* s) {
-  if constexpr (sizeof(T) == 2) {
-    for (int i = threadIdx.x; i < BQ * DK; i += NT) {
-      const int t = t0 + i / DK;
-      s[(i / DK) * LD + i % DK] = t < T_ ? to_f<T>(base[t * st + i % DK])
-                                         : 0.f;
-    }
-  } else {
 #pragma unroll 1
-    for (int j0 = 0; j0 < PER; j0 += LOADS) {
-      float x[LOADS];
+  for (int j0 = 0; j0 < PER; j0 += LOADS) {
+    float x[LOADS];
 #pragma unroll
-      for (int j = 0; j < LOADS; ++j) {
-        const int i = threadIdx.x + (j0 + j) * NT;
-        const int t = t0 + i / DK;
-        x[j] = t < T_ ? to_f<T>(base[t * st + i % DK]) : 0.f;
-      }
+    for (int j = 0; j < LOADS; ++j) {
+      const int i = threadIdx.x + (j0 + j) * NT;
+      const int t = t0 + i / DK;
+      x[j] = t < T_ ? to_f<T>(base[t * st + i % DK]) : 0.f;
+    }
 #pragma unroll
-      for (int j = 0; j < LOADS; ++j) {
-        const int i = threadIdx.x + (j0 + j) * NT;
-        s[(i / DK) * LD + i % DK] = x[j];
-      }
+    for (int j = 0; j < LOADS; ++j) {
+      const int i = threadIdx.x + (j0 + j) * NT;
+      s[(i / DK) * LD + i % DK] = x[j];
     }
   }
 }
@@ -175,41 +159,25 @@ __device__ __forceinline__ void load_kpv(const T* kb, const T* pb,
                                          const T* vbase, int k0,
                                          const Geom& g, float* sK, float* sP,
                                          float* sV) {
-  if constexpr (sizeof(T) == 2) {
-    for (int i = threadIdx.x; i < BK * DK; i += NT) {
-      const int r = i / DK, d = i % DK;
-      const int t = k0 + r;
-      float kx = 0.f, px = 0.f, vx = 0.f;
-      if (t < g.Tk) {
-        kx = to_f<T>(kb[t * g.ks.t + d]);
-        px = to_f<T>(pb[t * g.p_st + d]);
-        vx = to_f<T>(vbase[t * g.vs.t + d]);
-      }
-      sK[r * LD + d] = kx;
-      sP[r * LD + d] = px;
-      sV[r * LD + d] = vx;
-    }
-  } else {
 #pragma unroll 1
-    for (int j0 = 0; j0 < PER; j0 += LOADS) {
-      float xk[LOADS], xp[LOADS], xv[LOADS];
+  for (int j0 = 0; j0 < PER; j0 += LOADS) {
+    float xk[LOADS], xp[LOADS], xv[LOADS];
 #pragma unroll
-      for (int j = 0; j < LOADS; ++j) {
-        const int i = threadIdx.x + (j0 + j) * NT;
-        const int t = k0 + i / DK, d = i % DK;
-        const bool ok = t < g.Tk;
-        xk[j] = ok ? to_f<T>(kb[t * g.ks.t + d]) : 0.f;
-        xp[j] = ok ? to_f<T>(pb[t * g.p_st + d]) : 0.f;
-        xv[j] = ok ? to_f<T>(vbase[t * g.vs.t + d]) : 0.f;
-      }
+    for (int j = 0; j < LOADS; ++j) {
+      const int i = threadIdx.x + (j0 + j) * NT;
+      const int t = k0 + i / DK, d = i % DK;
+      const bool ok = t < g.Tk;
+      xk[j] = ok ? to_f<T>(kb[t * g.ks.t + d]) : 0.f;
+      xp[j] = ok ? to_f<T>(pb[t * g.p_st + d]) : 0.f;
+      xv[j] = ok ? to_f<T>(vbase[t * g.vs.t + d]) : 0.f;
+    }
 #pragma unroll
-      for (int j = 0; j < LOADS; ++j) {
-        const int i = threadIdx.x + (j0 + j) * NT;
-        const int o = (i / DK) * LD + i % DK;
-        sK[o] = xk[j];
-        sP[o] = xp[j];
-        sV[o] = xv[j];
-      }
+    for (int j = 0; j < LOADS; ++j) {
+      const int i = threadIdx.x + (j0 + j) * NT;
+      const int o = (i / DK) * LD + i % DK;
+      sK[o] = xk[j];
+      sP[o] = xp[j];
+      sV[o] = xv[j];
     }
   }
 }
@@ -723,6 +691,16 @@ int launch_fwd(const void* q, const void* k, const void* v, const void* p,
                                              mask, out, lse, B, g, stream);
 }
 
+// K4a for either type
+template <typename T>
+int launch_rowdot(const void* out, const void* gr, float* D, int BH,
+                  const Geom& g, cudaStream_t stream) {
+  const long long rows = (long long)BH * g.Tq;
+  attn_bwd_rowdot_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
+      (const T*)gr, (const T*)out, D, BH, g);
+  return (int)cudaGetLastError();
+}
+
 template <typename T>
 int launch_bwd(const void* q, const void* k, const void* v, const void* p,
                const void* u, const void* vb, const int* kv_lens,
@@ -738,10 +716,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* p,
     attr_set = true;
   }
   const int BH = B * g.H;
-  const long long rows = (long long)BH * g.Tq;
-  attn_bwd_rowdot_kernel<T><<<(unsigned)((rows + 7) / 8), 256, 0, stream>>>(
-      (const T*)gr, (const T*)out, D, BH, g);
-  cudaError_t e = cudaGetLastError();
+  cudaError_t e = (cudaError_t)launch_rowdot<T>(out, gr, D, BH, g, stream);
   if (e != cudaSuccess) return (int)e;
   dim3 gk((g.Tk + BK - 1) / BK, BH);
   attn_bwd_dkdv_kernel<T><<<gk, NT, DKDV_SMEM, stream>>>(
@@ -799,8 +774,8 @@ extern "C" int reverb_rel_pos_attention_fwd(
     return launch_fwd<float>(q, k, v, p, u, vb, (const int*)kv_lens, m, out,
                              (float*)lse, B, g, st);
   if (dtype == 1)
-    return launch_fwd<__nv_bfloat16>(q, k, v, p, u, vb, (const int*)kv_lens,
-                                     m, out, (float*)lse, B, g, st);
+    return reverb_rpa::bf16_fwd(q, k, v, p, u, vb, (const int*)kv_lens, m,
+                                out, (float*)lse, B, g, st);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -825,10 +800,14 @@ extern "C" int reverb_rel_pos_attention_bwd(
                              g_out, (const float*)lse, (float*)D, dq, dk, dv,
                              (float*)dp_rows, (float*)du_part,
                              (float*)dvb_part, B, g, st);
-  if (dtype == 1)
-    return launch_bwd<__nv_bfloat16>(
-        q, k, v, p, u, vb, (const int*)kv_lens, m, out, g_out,
-        (const float*)lse, (float*)D, dq, dk, dv, (float*)dp_rows,
-        (float*)du_part, (float*)dvb_part, B, g, st);
+  if (dtype == 1) {
+    const int e = launch_rowdot<__nv_bfloat16>(out, g_out, (float*)D,
+                                               B * H, g, st);
+    if (e != 0) return e;
+    return reverb_rpa::bf16_bwd(
+        q, k, v, p, u, vb, (const int*)kv_lens, m, g_out, (const float*)lse,
+        (const float*)D, dq, dk, dv, (float*)dp_rows, (float*)du_part,
+        (float*)dvb_part, B, g, st);
+  }
   return (int)cudaErrorInvalidValue;
 }

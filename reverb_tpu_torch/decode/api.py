@@ -16,9 +16,9 @@ from typing import Dict, List
 import numpy as np
 import torch
 
-from reverb_tpu.decode.results import DecodeResult
 from reverb_tpu_torch.decode import prefix_beam as pb
 from reverb_tpu_torch.decode import rescoring as rs
+from reverb_tpu_torch.decode.results import DecodeResult
 from reverb_tpu_torch.models.ctc import ctc_topk_logprobs
 
 MODES = ('ctc_prefix_beam_search', 'attention_rescoring')

@@ -23,7 +23,7 @@ from typing import List
 import numpy as np
 import torch
 
-from reverb_tpu.decode.results import DecodeResult
+from reverb_tpu_torch.decode.results import DecodeResult
 from reverb_tpu_torch.ops.topk import topk_lastdim
 
 NEG_INF = -1e30

@@ -12,9 +12,11 @@ Counterpart of reverb_tpu/ops/flash_attention.py (`_attn_kernel`,
     out         = attn · V, probabilities cast to V's dtype first
 
 A CPU tensor takes the plain version (and autograd through it); a CUDA
-tensor launches the hand-written kernels (csrc/rel_pos_attention.cu) or
-raises — there is no fallback.  When a gradient is needed on the card, the
-forward also keeps each row's logsumexp and the backward is K4.
+tensor launches the hand-written kernels or raises — there is no fallback:
+bf16 goes to the tensor-core kernels (csrc/rel_pos_attention_bf16.cu), f32
+to the f32 ones (csrc/rel_pos_attention.cu).  When a gradient is needed on
+the card, the forward also keeps each row's logsumexp and the backward is
+K4.
 """
 
 from __future__ import annotations
@@ -81,6 +83,16 @@ def _bthd(B, H, T, like):
                        dtype=like.dtype).permute(0, 2, 1, 3)
 
 
+def _aligned(t, strides: bool = True):
+    """t itself when the bf16 kernels' 16-byte copies can read it in place
+    (a 16-byte aligned start and, with `strides`, every stride but the last
+    a multiple of 8 elements), else a contiguous copy."""
+    if t.data_ptr() % 16 == 0 and (not strides or all(
+            s % 8 == 0 for s in t.stride()[:-1])):
+        return t
+    return t.clone(memory_format=torch.contiguous_format)
+
+
 def _check(q, k, v, p, u, vb, lens, mask):
     B, H, Tq, dk = q.shape
     Tk = k.shape[2]
@@ -121,6 +133,9 @@ def _k1(q, k, v, p, u, vb, lens, mask, rate, want_lse: bool):
     None)."""
     global LAUNCHES
     _check(q, k, v, p, u, vb, lens, mask)
+    if q.dtype == torch.bfloat16:
+        q, k, v, p, u, vb = map(_aligned, (q, k, v, p, u, vb))
+        mask = None if mask is None else _aligned(mask, strides=False)
     B, H, Tq, dk = q.shape
     Tk = k.shape[2]
     o = _bthd(B, H, Tq, q)
@@ -151,6 +166,9 @@ def _k4(q, k, v, p, u, vb, lens, mask, rate, out, lse, g):
         g = g.to(q.dtype)
     if g.stride(-1) != 1:
         g = g.contiguous()
+    if q.dtype == torch.bfloat16:
+        q, k, v, p, u, vb, out, g = map(_aligned, (q, k, v, p, u, vb, out, g))
+        mask = None if mask is None else _aligned(mask, strides=False)
     dev = q.device
     f32 = torch.float32
     n_qt = (Tq + _TILE - 1) // _TILE

@@ -87,6 +87,25 @@ def test_rel_pos_attention_empty_row_is_zero():
     assert torch.isfinite(out).all()
 
 
+def test_bf16_operands_are_made_16_byte_readable():
+    """The bf16 kernels copy 16 bytes a thread: an operand that starts off
+    a 16-byte boundary, or has a row stride that is no multiple of 8
+    elements, is copied; an aligned strided view is passed as it is."""
+    bf = torch.bfloat16
+    whole = torch.zeros(2, 5, 3, 64, dtype=bf)
+    view = whole.transpose(1, 2)               # (B, H, T, dk) of (B, T, H, dk)
+    assert flash_attention._aligned(view) is view
+    shifted = torch.arange(4 * 64 + 1, dtype=bf)[1:].view(4, 64)
+    padded = torch.arange(4 * 68, dtype=bf).view(4, 68)[:, :64]
+    for t in (shifted, padded):
+        got = flash_attention._aligned(t)
+        assert got is not t and torch.equal(got, t)
+        assert got.data_ptr() % 16 == 0 and got.stride(0) % 8 == 0
+    # the keep-mask: only its start matters (rows of any length)
+    mask = torch.ones(1, 1, 3, 333, dtype=torch.int8)
+    assert flash_attention._aligned(mask, strides=False) is mask
+
+
 def _rand_topk(rng, B, T, K2, V, peaky=False):
     logits = rng.randn(B, T, V).astype(np.float32)
     if peaky:
@@ -217,12 +236,19 @@ def cuda():
     return torch.device('cuda')
 
 
+# a full chunk (T = 512) and a file's last, ragged chunk (T = 333); the
+# kv_lens are ragged, with 0 and 1 among them
+ATTN_CASES = [(512, [512, 300, 1, 0, 512, 17, 64, 65]),
+              (333, [333, 200, 1, 0, 333, 17, 64, 65])]
+
+
 @pytest.mark.cuda
+@pytest.mark.parametrize('T,kv_lens', ATTN_CASES)
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
-def test_k1_kernel_matches_plain(cuda, dtype, tol):
+def test_k1_kernel_matches_plain(cuda, dtype, tol, T, kv_lens):
     g = torch.Generator(device=cuda).manual_seed(0)
-    B, H, T, dk = 8, 16, 512, 64
+    B, H, dk = 8, 16, 64
 
     def rnd(*shape):       # unit-scale: |out| ≤ 1, so bf16 rounding ≤ 1 ulp
         return (torch.rand(*shape, device=cuda, generator=g) * 2 - 1).to(
@@ -230,7 +256,7 @@ def test_k1_kernel_matches_plain(cuda, dtype, tol):
     q, k, v = (rnd(B, T, H, dk).transpose(1, 2) for _ in range(3))
     pos = rnd(1, H, T, dk)
     u, vb = rnd(H, dk).float() * 0.1, rnd(H, dk).float() * 0.1
-    lens = torch.tensor([512, 300, 1, 0, 512, 17, 64, 65], device=cuda)
+    lens = torch.tensor(kv_lens, device=cuda)
     out = flash_attention.rel_pos_attention(q, k, v, pos, u, vb, lens)
     ref = flash_attention.rel_pos_attention_plain(q, k, v, pos, u, vb, lens)
     torch.cuda.synchronize()

@@ -223,16 +223,20 @@ def cuda():
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize('T,kv_lens', [
+    (512, [512, 300, 1, 0, 512, 17, 64, 65]),
+    (333, [333, 200, 1, 0, 333, 17, 64, 65])])
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-3),
                                        (torch.bfloat16, 6e-2)])
-def test_k1_mask_and_k4_kernels_match_plain(cuda, dtype, tol):
+def test_k1_mask_and_k4_kernels_match_plain(cuda, dtype, tol, T, kv_lens):
     """K1 with the keep-mask and K4 against the plain forward and its
-    autograd backward, ragged kv_lens with 0 and 1, rate 0.1.  The bound is
+    autograd backward at T = 512 and a ragged T = 333, ragged kv_lens with
+    0 and 1, rate 0.1.  The bound is
     relative to each tensor's largest value: f32 1e-3 (summation order over
     512 keys; D taken as rowsum(g∘out)), bf16 6e-2 (q+u, probabilities and
     the outputs rounded to bf16)."""
     g = torch.Generator(device=cuda).manual_seed(0)
-    B, H, T, dk, rate = 8, 16, 512, 64, 0.1
+    B, H, dk, rate = 8, 16, 64, 0.1
 
     def rnd(*shape):
         return (torch.rand(*shape, device=cuda, generator=g) * 2 - 1).to(
@@ -240,7 +244,7 @@ def test_k1_mask_and_k4_kernels_match_plain(cuda, dtype, tol):
     q, k, v = (rnd(B, T, H, dk).transpose(1, 2) for _ in range(3))
     pos = rnd(1, H, T, dk)
     u, vb = rnd(H, dk).float() * 0.1, rnd(H, dk).float() * 0.1
-    lens = torch.tensor([512, 300, 1, 0, 512, 17, 64, 65], device=cuda)
+    lens = torch.tensor(kv_lens, device=cuda)
     mask = (torch.rand(B, H, T, T, device=cuda, generator=g)
             < 1 - rate).to(torch.int8)
     gout = rnd(B, H, T, dk)
@@ -258,6 +262,7 @@ def test_k1_mask_and_k4_kernels_match_plain(cuda, dtype, tol):
     for got, want in zip(*results):
         scale = float(want.float().abs().max()) or 1.0
         assert float((got.float() - want.float()).abs().max()) <= tol * scale
+    assert torch.count_nonzero(results[0][0][3]) == 0     # kv_len 0 row
 
 
 @pytest.mark.cuda
