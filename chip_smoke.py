@@ -7,14 +7,18 @@
 
     python3 chip_smoke.py --profile             # + one profiled train step
 
-    python3 chip_smoke.py --ab-parent DIR       # + K1/K4 of the checkout
-                                                #   DIR, timed in turns
+    python3 chip_smoke.py --ab-parent DIR       # + K1, K4, K5, K6 of the
+                                                #   checkout DIR, timed in
+                                                #   turns
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 reverb_tpu_torch/csrc, holds each kernel to its plain PyTorch version at
-the shapes of the paths below (attention also at a ragged T = 333), times
+the shapes of the paths below (attention also at a ragged T = 333,
+LayerNorm also at 1 and 640 rows), times
 each beside its bound and the one PyTorch call that computes the same
-function (its library yardstick, which the port never calls), then drives
+function (its library yardstick, which the port never calls) — per call
+(CUDA events around back-to-back calls, host work included) and on the
+device alone (the profiler's kernel durations) — then drives
 two paths on a reverb_large-
 width model (18-layer LSL conformer, d=1024, 16 heads, 6+3-layer
 bitransformer decoder, V=10000) with seeded random weights:
@@ -34,8 +38,9 @@ all of them pass.
 
 Output: progress lines, then the card's `nvidia-smi` name and power limit,
 then one JSON line {"kernels": [...]} (each kernel's launches on the two
-paths, its error against the plain version, its time, the plain
-version's, the library call's and the bound), and last
+paths, its error against the plain version, its time per call and on the
+device alone, the plain version's, the library call's per call and on
+the device alone, and the bound), and last
 {"ok": true, "device": {...}}.
 """
 
@@ -77,7 +82,9 @@ def smi_line() -> str:
 
 
 def cuda_time_ms(fn, reps: int) -> float:
-    """Mean device time of fn() over `reps` runs, after one warm-up."""
+    """ms per call of fn() between CUDA events around `reps` back-to-back
+    calls, after one warm-up: what a path pays per call, the host's work
+    included where it exceeds the device's."""
     import torch
     fn()
     torch.cuda.synchronize()
@@ -89,6 +96,61 @@ def cuda_time_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def device_ms_of(events, reps: int, pattern=None) -> float:
+    """Device ms per call from profiler events (name, start µs, end µs): the
+    summed durations of those whose name matches the regex `pattern` (all
+    when None), over `reps` calls."""
+    pat = re.compile(pattern) if pattern else None
+    us = sum(end - start for name, start, end in events
+             if pat is None or pat.search(name))
+    return us / reps / 1e3
+
+
+def device_time_ms(fn, reps: int, pattern=None) -> float:
+    """Device-alone ms per call of fn(): `reps` calls under torch.profiler
+    (CUDA activity) after one warm-up; the durations of the kernels and
+    memcpy/memset the calls launched, restricted to names matching
+    `pattern` when given (device_ms_of).  A session that recorded no
+    device event at all (the profiler on the H100 has returned such a
+    session) is run again, at most 3 times; then it raises."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    for attempt in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        events = [(e.name, e.time_range.start, e.time_range.end)
+                  for e in prof.events() if e.device_type == DeviceType.CUDA]
+        if events:
+            break
+        log(f'profiler: no device events in session {attempt + 1}; again')
+    ms = device_ms_of(events, reps, pattern)
+    if not ms > 0:
+        raise AssertionError(f'the profiler saw no device time (pattern '
+                             f'{pattern!r}, {len(events)} device events)')
+    return ms
+
+
+def both_times(fn, reps: int, pattern=None):
+    """(event ms per call, device-alone ms per call) of fn()."""
+    return cuda_time_ms(fn, reps), device_time_ms(fn, reps, pattern)
+
+
+# each kernel's device events, by name (the profiler's demangled names)
+KERNEL_PATTERNS = {
+    'K1': r'reverb_rpa.*fwd_kernel|rel_pos_attn_kernel',
+    'K2': r'beam_scan_kernel',
+    'K3': r'beam_backtrace_kernel',
+    'K4': r'attn_bwd_rowdot|reverb_rpa.*(dkdv|dq)_kernel|attn_bwd_d',
+    'K5': r'ln_fwd',
+    'K6': r'ln_(bwd|colsum)',
+}
 
 
 # Published peaks of one H100 SXM (NVIDIA's data sheet, dense): the bf16
@@ -188,12 +250,14 @@ def check_k1(dev):
         T = ATTN_T
         full = (*attn_inputs(dev, gen, dtype, T),
                 torch.full((ATTN_B,), T, device=dev))
-        ms = cuda_time_ms(lambda: fa.rel_pos_attention(*full), 20)
+        ms, dev_ms = both_times(lambda: fa.rel_pos_attention(*full), 20,
+                                KERNEL_PATTERNS['K1'])
         plain_ms = cuda_time_ms(lambda: fa.rel_pos_attention_plain(*full), 20)
         log(f'K1 rel_pos_attention {dtype}: max_abs_err {errs} (tol {tol}); '
-            f'all rows at T={T}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms')
-        out[dtype] = dict(errs=errs, ms=ms, plain_ms=plain_ms,
-                          nbytes=nbytes(full, full[0]))
+            f'all rows at T={T}: kernel {ms:.4f} ms per call, {dev_ms:.4f} '
+            f'ms on the device; plain {plain_ms:.4f} ms')
+        out[dtype] = dict(errs=errs, ms=ms, device_ms=dev_ms,
+                          plain_ms=plain_ms, nbytes=nbytes(full, full[0]))
     return out
 
 
@@ -204,8 +268,8 @@ def sdpa_yardstick(dev, rate=0.1):
     every row at full length, bf16 at the timed shape.  Times the forward,
     the forward with dropout_p = rate (its draw differs from the keep-mask:
     time only) and torch.autograd.grad through the dropout call, on each
-    fused backend that takes these shapes; returns the fastest of each with
-    its backend's name."""
+    fused backend that takes these shapes; returns the fastest of each
+    (by per-call time) as (ms, backend's name, device-alone ms)."""
     import torch
     import torch.nn.functional as F
     from torch.nn.attention import SDPBackend, sdpa_kernel
@@ -228,25 +292,26 @@ def sdpa_yardstick(dev, rate=0.1):
                 torch.cuda.synchronize()
             except RuntimeError:
                 continue            # this backend does not take the shapes
-            t = {'fwd': cuda_time_ms(lambda: F.scaled_dot_product_attention(
+            t = {'fwd': both_times(lambda: F.scaled_dot_product_attention(
                 qc, kc, vc, scale=scale), 20)}
             try:
-                t['fwd_drop'] = cuda_time_ms(
+                t['fwd_drop'] = both_times(
                     lambda: F.scaled_dot_product_attention(
                         qc, kc, vc, dropout_p=rate, scale=scale), 20)
                 ins = [x.detach().requires_grad_(True) for x in (qc, kc, vc)]
                 o = F.scaled_dot_product_attention(*ins, dropout_p=rate,
                                                    scale=scale)
-                t['bwd_drop'] = cuda_time_ms(lambda: torch.autograd.grad(
+                t['bwd_drop'] = both_times(lambda: torch.autograd.grad(
                     o, ins, g, retain_graph=True), 20)
                 del o, ins
             except RuntimeError:
                 pass
         log(f'SDPA yardstick {be.name}: ' + ', '.join(
-            f'{n} {ms:.4f} ms' for n, ms in t.items()))
-        for n, ms in t.items():
+            f'{n} {ms:.4f} ms per call ({dev:.4f} on the device)'
+            for n, (ms, dev) in t.items()))
+        for n, (ms, dev) in t.items():
             if n not in best or ms < best[n][0]:
-                best[n] = (ms, be.name)
+                best[n] = (ms, be.name, dev)
     if 'fwd' not in best:
         raise AssertionError('no fused SDPA backend takes the yardstick')
     return best
@@ -329,17 +394,18 @@ def check_beam(dev, seed):
     pre_p, tim_p = bs.beam_backtrace_plain(*bt_args)
     if not (torch.equal(pre, pre_p) and torch.equal(tim, tim_p)):
         raise AssertionError('K3 output differs from the plain backtrace')
-    t = {
-        'fwd': cuda_time_ms(lambda: bs.beam_scan_forward(*fwd_args), 5),
-        'fwd_plain': cuda_time_ms(
-            lambda: bs.beam_scan_forward_plain(*fwd_args), 1),
-        'bt': cuda_time_ms(lambda: bs.beam_backtrace(*bt_args), 5),
-        'bt_plain': cuda_time_ms(lambda: bs.beam_backtrace_plain(*bt_args),
-                                 1),
-    }
-    log(f'K2 beam_scan_forward: kernel {t["fwd"]:.4f} ms, plain '
-        f'{t["fwd_plain"]:.4f} ms; K3 beam_backtrace: kernel '
-        f'{t["bt"]:.4f} ms, plain {t["bt_plain"]:.4f} ms (B=8, T=512, K=10)')
+    t = {'fwd_plain': cuda_time_ms(
+             lambda: bs.beam_scan_forward_plain(*fwd_args), 1),
+         'bt_plain': cuda_time_ms(
+             lambda: bs.beam_backtrace_plain(*bt_args), 1)}
+    t['fwd'], t['fwd_dev'] = both_times(
+        lambda: bs.beam_scan_forward(*fwd_args), 5, KERNEL_PATTERNS['K2'])
+    t['bt'], t['bt_dev'] = both_times(
+        lambda: bs.beam_backtrace(*bt_args), 5, KERNEL_PATTERNS['K3'])
+    log(f'K2 beam_scan_forward: kernel {t["fwd"]:.4f} ms per call '
+        f'({t["fwd_dev"]:.4f} on the device), plain {t["fwd_plain"]:.4f} '
+        f'ms; K3 beam_backtrace: kernel {t["bt"]:.4f} ms ({t["bt_dev"]:.4f} '
+        f'on the device), plain {t["bt_plain"]:.4f} ms (B=8, T=512, K=10)')
     t['fwd_nbytes'] = nbytes(fwd_args, final, em)
     t['bt_nbytes'] = nbytes(bt_args, pre, tim)
     return fwd_err, t
@@ -673,8 +739,10 @@ def check_k1_mask_k4(dev):
                 + '; relative ' + ', '.join(f'{n}={rels[case][n]:.2e}'
                                            for n in names) + f' (tol {tol})')
         log(f'K1+mask / K4 {dtype}: all rows at T={T}, rate {rate}: K1+mask '
-            f'{t["fwd"]:.4f} ms (plain {t["fwd_plain"]:.4f}), K4 '
-            f'{t["bwd"]:.4f} ms (plain backward {t["bwd_plain"]:.4f})')
+            f'{t["fwd"]:.4f} ms per call, {t["fwd_dev"]:.4f} on the device '
+            f'(plain {t["fwd_plain"]:.4f}), K4 {t["bwd"]:.4f} ms per call, '
+            f'{t["bwd_dev"]:.4f} on the device (plain backward '
+            f'{t["bwd_plain"]:.4f})')
         o = torch.empty_like(q)
         res[dtype] = dict(
             errs={n: max(e[n] for e in errs.values()) for n in names},
@@ -695,20 +763,23 @@ def attn_mask(dev, gen, T, rate):
 
 
 def time_k1_mask_k4(q, k, v, pos, u, vb, lens, mask, rate, g):
-    """Device ms of K1 with the keep-mask and of K4 alone (the training
-    path's pair) and of their plain versions, on the same inputs."""
+    """ms per call and device-alone ms of K1 with the keep-mask and of K4
+    alone (the training path's pair), and per-call ms of their plain
+    versions, on the same inputs."""
     import torch
     from reverb_tpu_torch.ops import flash_attention as fa
     args = (q, k, v, pos, u, vb, lens, mask, rate)
-    t = {'fwd': cuda_time_ms(lambda: fa.rel_pos_attention(*args), 10),
-         'fwd_plain': cuda_time_ms(
-             lambda: fa.rel_pos_attention_plain(*args), 10)}
+    t = {'fwd_plain': cuda_time_ms(
+        lambda: fa.rel_pos_attention_plain(*args), 10)}
+    t['fwd'], t['fwd_dev'] = both_times(
+        lambda: fa.rel_pos_attention(*args), 10, KERNEL_PATTERNS['K1'])
     p = pos[0]
     uc, vbc = u.to(q.dtype).contiguous(), vb.to(q.dtype).contiguous()
     lens32 = lens.to(torch.int32)
     o, lse = fa._k1(q, k, v, p, uc, vbc, lens32, mask, rate, True)
-    t['bwd'] = cuda_time_ms(lambda: fa._k4(q, k, v, p, uc, vbc, lens32, mask,
-                                            rate, o, lse, g), 10)
+    t['bwd'], t['bwd_dev'] = both_times(
+        lambda: fa._k4(q, k, v, p, uc, vbc, lens32, mask, rate, o, lse, g),
+        10, KERNEL_PATTERNS['K4'])
     ins = [x.detach().clone().requires_grad_(True)
            for x in (q, k, v, pos, u, vb)]
     out_p = fa.rel_pos_attention_plain(*ins, lens, mask, rate)
@@ -719,63 +790,105 @@ def time_k1_mask_k4(q, k, v, pos, u, vb, lens, mask, rate, g):
 
 # ------------------------------ phase 7: K5 + K6 -------------------------
 
+# row counts of the checks: one row, fewer rows than the grid has warps, and
+# the encoder's 8·512 + 1 (also the timed shape); width as reverb_large
+LN_ROWS, LN_C = (1, 640, 4097), 1024
+
+
+def ln_inputs(dev, gen, N, dtype):
+    """x (N, C) of mean 0.5 and scale 2, w in [0.5, 1.5), b and the
+    cotangent normal; x and the cotangent in dtype, w and b f32."""
+    import torch
+    C = LN_C
+    x = (torch.randn(N, C, device=dev, generator=gen) * 2 + 0.5).to(dtype)
+    w = torch.rand(C, device=dev, generator=gen) + 0.5
+    b = torch.randn(C, device=dev, generator=gen)
+    gy = torch.randn(N, C, device=dev, generator=gen).to(dtype)
+    return x, w, b, gy
+
+
+def time_ln(x, w, b, gy, ln=None):
+    """ms per call (over 100 calls: the host's share varies) and
+    device-alone ms of K5 and of K6 (eps 1e-5), through the wrapper module
+    `ln` (the package's by default)."""
+    if ln is None:
+        from reverb_tpu_torch.ops import layer_norm as ln
+    t = {'fwd': cuda_time_ms(lambda: ln.layer_norm_fwd(x, w, b, 1e-5), 100),
+         'fwd_dev': device_time_ms(lambda: ln.layer_norm_fwd(x, w, b, 1e-5),
+                                   20, KERNEL_PATTERNS['K5']),
+         'bwd': cuda_time_ms(lambda: ln.layer_norm_bwd(x, w, gy, 1e-5), 100),
+         'bwd_dev': device_time_ms(lambda: ln.layer_norm_bwd(x, w, gy, 1e-5),
+                                   20, KERNEL_PATTERNS['K6'])}
+    return t
+
+
 def check_ln(dev):
-    """K5/K6 against the plain versions on (4097, 1024) — a ragged row
-    count — in bf16 and f32, eps 1e-5 and 1e-12: y and dx within tol of
-    their largest value, dw/db (f32 sums over 4097 rows) too; f32 1e-4,
-    bf16 2e-2 (one bf16 ulp where the rounding points differ).  Times both
-    at the encoder's rows (8·512 + 1), beside F.layer_norm and its
-    backward."""
+    """K5/K6 against the plain versions on (N, 1024) for N in LN_ROWS —
+    one row, a grid with more warps than rows, a ragged 4097 — in bf16 and
+    f32, eps 1e-5 and 1e-12: y and dx within tol of their largest value,
+    dw/db (f32 sums over the rows) too; f32 1e-4, bf16 2e-2 (one bf16 ulp
+    where the rounding points differ).  The wrapper's launch plan must take
+    the library's rows per block.  Times both at N = 4097, per call and on
+    the device alone, beside F.layer_norm and its backward."""
     import torch
     import torch.nn.functional as F
+    from reverb_tpu_torch import _build
     from reverb_tpu_torch.ops import layer_norm as ln
+    lib = _build.load()
+    for C in (128, 1024, 2048, 3072, 8192):
+        if lib.reverb_layer_norm_rows_per_block(C) != ln.rows_per_block(C):
+            raise AssertionError(f'K6 rows per block at C={C}: library '
+                                 f'{lib.reverb_layer_norm_rows_per_block(C)}'
+                                 f', wrapper {ln.rows_per_block(C)}')
     gen = torch.Generator(device=dev).manual_seed(2)
-    N, C = 4097, 1024
+    C = LN_C
     res = {}
     for dtype, tol in ((torch.float32, 1e-4), (torch.bfloat16, 2e-2)):
-        x = (torch.randn(N, C, device=dev, generator=gen) * 2 + 0.5).to(dtype)
-        w = torch.rand(C, device=dev, generator=gen) + 0.5
-        b = torch.randn(C, device=dev, generator=gen)
-        gy = torch.randn(N, C, device=dev, generator=gen).to(dtype)
         errs = {}
-        for eps in (1e-5, 1e-12):
-            got = (ln.layer_norm_fwd(x, w, b, eps),
-                   *ln.layer_norm_bwd(x, w, gy, eps))
-            want = (ln.layer_norm_plain(x, w, b, eps),
-                    *ln.layer_norm_bwd_plain(x, w, gy, eps))
-            torch.cuda.synchronize()
-            for n, a, c in zip(('y', 'dx', 'dw', 'db'), got, want):
-                r = rel_err(a, c)
-                if not r <= tol:
-                    raise AssertionError(f'K5/K6 {dtype} eps {eps}: {n} '
-                                         f'relative error {r} > {tol}')
-                errs[n] = max(errs.get(n, 0.0),
-                              float((a.float() - c.float()).abs().max()))
-        t = {'fwd': cuda_time_ms(lambda: ln.layer_norm_fwd(x, w, b, 1e-5),
-                                 20),
-             'fwd_plain': cuda_time_ms(
-                 lambda: ln.layer_norm_plain(x, w, b, 1e-5), 20),
-             'bwd': cuda_time_ms(lambda: ln.layer_norm_bwd(x, w, gy, 1e-5),
-                                 20),
-             'bwd_plain': cuda_time_ms(
-                 lambda: ln.layer_norm_bwd_plain(x, w, gy, 1e-5), 20)}
+        for N in LN_ROWS:
+            x, w, b, gy = ln_inputs(dev, gen, N, dtype)
+            for eps in (1e-5, 1e-12):
+                got = (ln.layer_norm_fwd(x, w, b, eps),
+                       *ln.layer_norm_bwd(x, w, gy, eps))
+                want = (ln.layer_norm_plain(x, w, b, eps),
+                        *ln.layer_norm_bwd_plain(x, w, gy, eps))
+                torch.cuda.synchronize()
+                for n, a, c in zip(('y', 'dx', 'dw', 'db'), got, want):
+                    r = rel_err(a, c)
+                    if not r <= tol:
+                        raise AssertionError(
+                            f'K5/K6 {dtype} N={N} eps {eps}: {n} relative '
+                            f'error {r} > {tol}')
+                    errs[n] = max(errs.get(n, 0.0),
+                                  float((a.float() - c.float()).abs().max()))
+        # timed at the last (the encoder's) row count
+        N = x.shape[0]
+        t = time_ln(x, w, b, gy)
+        t['fwd_plain'] = cuda_time_ms(
+            lambda: ln.layer_norm_plain(x, w, b, 1e-5), 20)
+        t['bwd_plain'] = cuda_time_ms(
+            lambda: ln.layer_norm_bwd_plain(x, w, gy, 1e-5), 20)
         # the library yardstick: F.layer_norm and its autograd backward
         wl, bl = w.to(dtype), b.to(dtype)
-        t['fwd_library'] = cuda_time_ms(
+        t['fwd_library'], t['fwd_library_dev'] = both_times(
             lambda: F.layer_norm(x, (C,), wl, bl, 1e-5), 20)
         ins = [a.detach().requires_grad_(True) for a in (x, wl, bl)]
         y = F.layer_norm(ins[0], (C,), ins[1], ins[2], 1e-5)
-        t['bwd_library'] = cuda_time_ms(lambda: torch.autograd.grad(
-            y, ins, gy, retain_graph=True), 20)
+        t['bwd_library'], t['bwd_library_dev'] = both_times(
+            lambda: torch.autograd.grad(y, ins, gy, retain_graph=True), 20)
         del y, ins
         t['fwd_nbytes'] = nbytes(x, w, b, x)           # y like x
         t['bwd_nbytes'] = nbytes(x, w, gy, x, w, b)    # dx, dw, db
-        log(f'K5/K6 layer_norm {dtype} ({N}, {C}): max abs err '
+        log(f'K5/K6 layer_norm {dtype} (N in {LN_ROWS}, C={C}): max abs err '
             + ', '.join(f'{n}={e:.3e}' for n, e in errs.items())
-            + f' (tol {tol} of scale); K5 {t["fwd"]:.4f} ms (plain '
-            f'{t["fwd_plain"]:.4f}, F.layer_norm {t["fwd_library"]:.4f}), '
-            f'K6 {t["bwd"]:.4f} ms (plain {t["bwd_plain"]:.4f}, '
-            f'F.layer_norm backward {t["bwd_library"]:.4f})')
+            + f' (tol {tol} of scale); at N={N}: K5 {t["fwd"]:.4f} ms per '
+            f'call, {t["fwd_dev"]:.4f} on the device (plain '
+            f'{t["fwd_plain"]:.4f}; F.layer_norm {t["fwd_library"]:.4f}, '
+            f'{t["fwd_library_dev"]:.4f} on the device), K6 {t["bwd"]:.4f} '
+            f'ms per call, {t["bwd_dev"]:.4f} on the device (plain '
+            f'{t["bwd_plain"]:.4f}; F.layer_norm backward '
+            f'{t["bwd_library"]:.4f}, {t["bwd_library_dev"]:.4f} on the '
+            f'device)')
         res[dtype] = dict(errs=errs, t=t)
     return res
 
@@ -929,9 +1042,9 @@ def run_train(dev, seed):
 
 # kernel families of a training step's profile, first match wins
 FAMILIES = [
-    ('K1', r'reverb_rpa.*fwd_kernel|rel_pos_attn_kernel'),
-    ('K4', r'attn_bwd_rowdot|reverb_rpa.*(dkdv|dq)_kernel|attn_bwd_d'),
-    ('K5/K6', r'ln_(fwd|bwd|colsum)_kernel'),
+    ('K1', KERNEL_PATTERNS['K1']),
+    ('K4', KERNEL_PATTERNS['K4']),
+    ('K5/K6', r'ln_(fwd|bwd|colsum)'),
     ('convolution (cuDNN)', r'conv|implicit_gemm|cudnn|nchwToNhwc'),
     ('GEMM (cuBLAS)', r'nvjet|gemm|cutlass|xmma'),
     ('optimizer (foreach)', r'multi_tensor_apply'),
@@ -1004,16 +1117,24 @@ def profile_train(dev, seed):
 
 def ptxas_table(text: str) -> dict:
     """{kernel: [registers, spill store bytes, spill load bytes]} from the
-    build's `-Xptxas -v` messages; the bf16 kernels' names are shortened
-    (fwd_kernel<1> is the keep-mask instantiation)."""
+    build's `-Xptxas -v` messages; the bf16 attention kernels' names are
+    shortened (fwd_kernel<1> is the keep-mask instantiation), and the
+    LayerNorm kernels' to name<type,template values>."""
     out, cur = {}, None
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
         if m:
             name = m.group(1)
             short = re.search(r'\d((?:fwd|dkdv|dq)_kernel)ILb([01])E', name)
+            lnk = re.search(r'(ln_[a-z_]+?_kernel)(?:I(f|13__nv_bfloat16)'
+                            r'((?:L[ib]\d+E)*)E)?', name)
             if short:
                 name = f'{short.group(1)}<{short.group(2)}>'
+            elif lnk:
+                args = [] if lnk.group(2) is None else [
+                    'f32' if lnk.group(2) == 'f' else 'bf16',
+                    *re.findall(r'L[ib](\d+)E', lnk.group(3))]
+                name = lnk.group(1) + (f'<{",".join(args)}>' if args else '')
             cur = out.setdefault(name, [0, 0, 0])
             continue
         m = re.search(r'(\d+) bytes spill stores, (\d+) bytes spill loads',
@@ -1027,50 +1148,74 @@ def ptxas_table(text: str) -> dict:
 
 
 def ab_parent(dev, parent: Path):
-    """A/B of a parent checkout's K1/K4 against this tree's, in one
-    process: builds parent/reverb_tpu_torch/csrc/rel_pos_attention.cu alone
-    into _chipwork/ab/ and times bf16 K1, K1 with the keep-mask and K4 at
-    T = 512 (every row at full length) in turns old, new, new, old, each
-    beside the plain versions.  Prints one {"ab": [...]} line."""
-    import ctypes
+    """A/B of a parent checkout's kernels against this tree's, in one
+    process: builds every source of parent/reverb_tpu_torch/csrc into
+    _chipwork/ab/ (the package's own build, a separate library handle) and,
+    through this tree's wrappers, times bf16 K1, K1 with the keep-mask and
+    K4 at T = 512 (every row at full length), and K5 and K6 at (4097, 1024),
+    in turns old, new, new, old: per call and on the device alone, each
+    beside its plain version, with the error against it.  K5/K6 go through
+    the parent's own wrapper (reverb_tpu_torch/ops/layer_norm.py) where the
+    checkout has it, so their per-call times compare the host work too.
+    Prints one {"ab": [...]} line."""
+    import importlib.util
     import torch
     from reverb_tpu_torch import _build
     from reverb_tpu_torch.ops import flash_attention as fa
-    work = ROOT / '_chipwork' / 'ab'
-    work.mkdir(parents=True, exist_ok=True)
-    lib_path = work / 'libparent.so'
-    src = parent / 'reverb_tpu_torch' / 'csrc' / 'rel_pos_attention.cu'
-    res = subprocess.run([_build._nvcc(), *_build._FLAGS, '-shared', '-o',
-                          str(lib_path), str(src)], capture_output=True,
-                         text=True, timeout=600)
-    if res.returncode != 0:
-        raise RuntimeError(f'parent build failed:\n{res.stderr}')
-    old = ctypes.CDLL(str(lib_path))
-    for name in ('reverb_rel_pos_attention_fwd',
-                 'reverb_rel_pos_attention_bwd'):
-        getattr(old, name).argtypes = _build._SIGNATURES[name]
-        getattr(old, name).restype = ctypes.c_int
+    from reverb_tpu_torch.ops import layer_norm as ln
+    t0 = time.perf_counter()
+    old = _build.load_from(parent / 'reverb_tpu_torch' / 'csrc',
+                           ROOT / '_chipwork' / 'ab')
+    log(f'A/B: parent library built in {time.perf_counter() - t0:.2f} s')
     new = _build.load()
+    old_ln, wrapper = ln, 'this tree\'s'
+    src = parent / 'reverb_tpu_torch' / 'ops' / 'layer_norm.py'
+    if src.is_file():
+        spec = importlib.util.spec_from_file_location('parent_layer_norm',
+                                                      src)
+        old_ln = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(old_ln)
+        wrapper = 'the parent\'s'
+    log(f'A/B: K5/K6 of the parent through {wrapper} wrapper')
     gen = torch.Generator(device=dev).manual_seed(9)
     T, rate = ATTN_T, 0.1
     q, k, v, pos, u, vb = attn_inputs(dev, gen, torch.bfloat16, T)
     mask = attn_mask(dev, gen, T, rate)
     g = (torch.rand(q.shape, device=dev, generator=gen) * 2 - 1).to(q.dtype)
     full = torch.full((ATTN_B,), T, device=dev)
+    x, w, b, gy = ln_inputs(dev, gen, LN_ROWS[-1], torch.bfloat16)
+    ln_want = (ln.layer_norm_plain(x, w, b, 1e-5),
+               *ln.layer_norm_bwd_plain(x, w, gy, 1e-5))
     rows = []
     for tag in ('old', 'new', 'new', 'old'):
-        lib = old if tag == 'old' else new
+        lib, mod = (old, old_ln) if tag == 'old' else (new, ln)
         with swapped({(_build, 'load'): lambda lib=lib: lib}):
             got = fa.rel_pos_attention(q, k, v, pos, u, vb, full)
-            t = {'k1': cuda_time_ms(
-                lambda: fa.rel_pos_attention(q, k, v, pos, u, vb, full), 20),
-                **time_k1_mask_k4(q, k, v, pos, u, vb, full, mask, rate, g)}
+            ln_got = (mod.layer_norm_fwd(x, w, b, 1e-5),
+                      *mod.layer_norm_bwd(x, w, gy, 1e-5))
+            t = {**time_k1_mask_k4(q, k, v, pos, u, vb, full, mask, rate, g),
+                 **{f'ln_{n}': ms
+                    for n, ms in time_ln(x, w, b, gy, mod).items()}}
+            t['k1'], t['k1_dev'] = both_times(
+                lambda: fa.rel_pos_attention(q, k, v, pos, u, vb, full), 20,
+                KERNEL_PATTERNS['K1'])
         want = fa.rel_pos_attention_plain(q, k, v, pos, u, vb, full)
         t['k1_err'] = float((got.float() - want.float()).abs().max())
+        t['ln_rel_err'] = max(rel_err(a, c) for a, c in zip(ln_got, ln_want))
+        t['ln_fwd_plain'] = cuda_time_ms(
+            lambda: ln.layer_norm_plain(x, w, b, 1e-5), 20)
+        t['ln_bwd_plain'] = cuda_time_ms(
+            lambda: ln.layer_norm_bwd_plain(x, w, gy, 1e-5), 20)
         rows.append({'build': tag, **t})
-        log(f'A/B {tag}: K1 {t["k1"]:.4f} ms (err {t["k1_err"]:.2e}), '
-            f'K1+mask {t["fwd"]:.4f} ms (plain {t["fwd_plain"]:.4f}), K4 '
-            f'{t["bwd"]:.4f} ms (plain {t["bwd_plain"]:.4f})')
+        log(f'A/B {tag} (ms per call / on the device): K1 {t["k1"]:.4f} / '
+            f'{t["k1_dev"]:.4f} (err {t["k1_err"]:.2e}), K1+mask '
+            f'{t["fwd"]:.4f} / {t["fwd_dev"]:.4f} (plain '
+            f'{t["fwd_plain"]:.4f}), K4 {t["bwd"]:.4f} / {t["bwd_dev"]:.4f} '
+            f'(plain {t["bwd_plain"]:.4f}), K5 {t["ln_fwd"]:.4f} / '
+            f'{t["ln_fwd_dev"]:.4f} (plain {t["ln_fwd_plain"]:.4f}), K6 '
+            f'{t["ln_bwd"]:.4f} / {t["ln_bwd_dev"]:.4f} (plain '
+            f'{t["ln_bwd_plain"]:.4f}); K5/K6 relative err '
+            f'{t["ln_rel_err"]:.2e}')
     print(json.dumps({'ab': rows, 'parent': str(parent)}))
     return rows
 
@@ -1083,8 +1228,10 @@ def main():
     ap.add_argument('--profile', action='store_true',
                     help='also profile one bf16 training step')
     ap.add_argument('--ab-parent', type=Path, default=None,
-                    help='a checkout of the parent commit: also time its '
-                         'K1/K4 against this tree\'s (prints an "ab" line)')
+                    help='a checkout of the parent commit (its '
+                         'reverb_tpu_torch/csrc is enough): also time its '
+                         'K1, K4, K5 and K6 against this tree\'s (prints an '
+                         '"ab" line)')
     args = ap.parse_args()
     phases = set(args.phases.split(','))
     if not (ROOT / 'reverb_tpu_torch' / '_build.py').is_file():
@@ -1124,6 +1271,14 @@ def main():
     if len(tc) != 6:
         raise AssertionError('the bf16 tensor-core kernels are missing from '
                              'the build')
+    lnk = {n: r for n, r in ptx.items() if n.startswith('ln_')}
+    log('ptxas, LayerNorm kernels (registers, spill stores/loads bytes): '
+        + '; '.join(f'{n} {r[0]} ({r[1]}/{r[2]})'
+                    for n, r in sorted(lnk.items())))
+    if not any(n.startswith('ln_fwd_warp') for n in lnk) or \
+            not any(n.startswith('ln_bwd_warp') for n in lnk):
+        raise AssertionError('the LayerNorm kernels are missing from the '
+                             'build')
     if args.ab_parent is not None:
         ab_parent(dev, args.ab_parent)
     if 'kernels' in phases:
@@ -1143,8 +1298,9 @@ def main():
         t_launch, step_ms, peak = run_train(dev, SEED)
         if args.profile:
             profile_train(dev, SEED)
-    if any(r[1] or r[2] for r in tc.values()):
-        raise AssertionError('a bf16 tensor-core kernel spills registers')
+    spilled = [n for n, r in {**tc, **lnk}.items() if r[1] or r[2]]
+    if spilled:
+        raise AssertionError(f'kernels spill registers: {spilled}')
     if phases != {'kernels', 'serve', 'train'}:
         log(f'phases {sorted(phases)} passed; no result lines without all '
             f'three')
@@ -1172,52 +1328,55 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
     and the bound computed from those shapes."""
     import torch
     k1b = k1[torch.bfloat16]
-    N, C = 4097, 1024
+    N, C = LN_ROWS[-1], LN_C
     per = {n: {'serve': launches.get(n, 0) / n_calls,
                'train': t_launch.get(n, 0) / TRAIN_STEPS}
            for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6')}
     sdpa_call = ('F.scaled_dot_product_attention(cat(q+u, q+v), cat(k, p), '
                  'v, scale=1/sqrt(dk)), every row at full length')
 
-    def rec(name, src, replaces, kid, err, ms, plain_ms, bnd, lib_ms,
-            lib_call, **extra):
+    def rec(name, src, replaces, kid, err, ms, dev_ms, plain_ms, bnd,
+            lib_ms, lib_dev_ms, lib_call, **extra):
         return {'name': name, 'route': 'cuda',
                 'source': f'reverb_tpu_torch/csrc/{src}',
                 'replaces': f'reverb_tpu/ops/{replaces}',
                 'launches': launches.get(kid, 0) + t_launch.get(kid, 0),
                 'launches_per_call': per[kid], 'max_abs_err': err,
-                'ms': ms, 'plain_ms': plain_ms, 'bound_ms': bnd[0],
-                'bound_by': bnd[1], 'library_ms': lib_ms,
-                'library_call': lib_call, **extra}
+                'ms': ms, 'device_ms': dev_ms, 'plain_ms': plain_ms,
+                'bound_ms': bnd[0], 'bound_by': bnd[1], 'library_ms': lib_ms,
+                'library_device_ms': lib_dev_ms, 'library_call': lib_call,
+                **extra}
     k1_bound = bound(attn_ops(ATTN_T, False), k1b['nbytes'], 'bf16')
     k1m_bound = bound(attn_ops(ATTN_T, False), k4['fwd_nbytes'], 'bf16')
-    drop = sdpa.get('fwd_drop', (None, None))
-    bwd = sdpa.get('bwd_drop', (None, None))
+    drop = sdpa.get('fwd_drop', (None, None, None))
+    bwd = sdpa.get('bwd_drop', (None, None, None))
     return [
         rec('rel_pos_attention_fwd', 'rel_pos_attention_bf16.cu',
             'flash_attention.py:108', 'K1',
             max(max(k1b['errs'].values()), k4['errs']['out']),
-            k1b['ms'], k1b['plain_ms'], k1_bound, sdpa['fwd'][0],
-            f'{sdpa_call} [{sdpa["fwd"][1]}]',
+            k1b['ms'], k1b['device_ms'], k1b['plain_ms'], k1_bound,
+            sdpa['fwd'][0], sdpa['fwd'][2], f'{sdpa_call} [{sdpa["fwd"][1]}]',
             source_f32='reverb_tpu_torch/csrc/rel_pos_attention.cu',
             max_abs_err_by_case=k1b['errs'],
-            ms_with_mask=k4['fwd'], plain_ms_with_mask=k4['fwd_plain'],
+            ms_with_mask=k4['fwd'], device_ms_with_mask=k4['fwd_dev'],
+            plain_ms_with_mask=k4['fwd_plain'],
             bound_ms_with_mask=k1m_bound[0],
             bound_by_with_mask=k1m_bound[1], library_ms_with_mask=drop[0],
+            library_device_ms_with_mask=drop[2],
             library_call_with_mask=f'the same with dropout_p=0.1 (time '
                                    f'only) [{drop[1]}]'),
         rec('beam_scan_forward', 'beam_scan.cu', 'beam_scan.py:33', 'K2',
-            fwd_err, bt['fwd'], bt['fwd_plain'],
-            bound(0, bt['fwd_nbytes'], 'f32'), None, 'none'),
+            fwd_err, bt['fwd'], bt['fwd_dev'], bt['fwd_plain'],
+            bound(0, bt['fwd_nbytes'], 'f32'), None, None, 'none'),
         rec('beam_backtrace', 'beam_scan.cu', 'beam_scan.py:137', 'K3', 0.0,
-            bt['bt'], bt['bt_plain'], bound(0, bt['bt_nbytes'], 'f32'),
-            None, 'none'),
+            bt['bt'], bt['bt_dev'], bt['bt_plain'],
+            bound(0, bt['bt_nbytes'], 'f32'), None, None, 'none'),
         rec('rel_pos_attention_bwd', 'rel_pos_attention_bf16.cu',
             'flash_attention.py:248', 'K4',
             max(v for n, v in k4['errs'].items() if n != 'out'),
-            k4['bwd'], k4['bwd_plain'],
+            k4['bwd'], k4['bwd_dev'], k4['bwd_plain'],
             bound(attn_ops(ATTN_T, True), k4['bwd_nbytes'], 'bf16'), bwd[0],
-            f'torch.autograd.grad through {sdpa_call}, dropout_p=0.1 '
+            bwd[2], f'torch.autograd.grad through {sdpa_call}, dropout_p=0.1 '
             f'[{bwd[1]}]',
             source_f32='reverb_tpu_torch/csrc/rel_pos_attention.cu',
             max_abs_err_by_case={c: max(v for n, v in e.items() if n != 'out')
@@ -1225,14 +1384,16 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
         # LayerNorm operations: ~7 f32 operations an element forward, ~10
         # backward; the bytes bound them either way
         rec('layer_norm_fwd', 'layer_norm.cu', 'layer_norm.py:85', 'K5',
-            lnr['errs']['y'], lnr['t']['fwd'], lnr['t']['fwd_plain'],
+            lnr['errs']['y'], lnr['t']['fwd'], lnr['t']['fwd_dev'],
+            lnr['t']['fwd_plain'],
             bound(7 * N * C, lnr['t']['fwd_nbytes'], 'f32'),
-            lnr['t']['fwd_library'], 'F.layer_norm(x, (C,), w, b, eps)'),
+            lnr['t']['fwd_library'], lnr['t']['fwd_library_dev'],
+            'F.layer_norm(x, (C,), w, b, eps)'),
         rec('layer_norm_bwd', 'layer_norm.cu', 'layer_norm.py:96', 'K6',
             max(lnr['errs'][n] for n in ('dx', 'dw', 'db')), lnr['t']['bwd'],
-            lnr['t']['bwd_plain'],
+            lnr['t']['bwd_dev'], lnr['t']['bwd_plain'],
             bound(10 * N * C, lnr['t']['bwd_nbytes'], 'f32'),
-            lnr['t']['bwd_library'],
+            lnr['t']['bwd_library'], lnr['t']['bwd_library_dev'],
             'torch.autograd.grad through F.layer_norm(x, (C,), w, b, eps)'),
     ]
 

@@ -32,9 +32,9 @@ _FLAGS = _ARCH + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-lineinfo',
 
 _lock = threading.Lock()
 _lib = None
-# wall seconds the last build took in this process (None: loaded as built)
+# wall seconds the last `build` call took (None: loaded as built)
 build_seconds = None
-# nvcc's messages of the build of the loaded library (ptxas registers,
+# nvcc's messages of the last library `build` returned (ptxas registers,
 # shared memory, spills), kept beside it so a process that loads it as
 # built reads them too
 build_log = ''
@@ -80,59 +80,72 @@ def _nvcc() -> str:
                        'cannot be built')
 
 
-def _sources():
-    return sorted(_CSRC.glob('*.cu'))
-
-
-def _digest(srcs) -> str:
+def _digest(csrc: Path) -> str:
     h = hashlib.sha256(' '.join(_FLAGS).encode())
-    for p in srcs + sorted(_CSRC.glob('*.cuh')):
+    for p in sorted(csrc.glob('*.cu')) + sorted(csrc.glob('*.cuh')):
         h.update(p.name.encode())
         h.update(p.read_bytes())
     return h.hexdigest()[:16]
 
 
-def build() -> Path:
-    """Compile the kernels unless a library for these sources exists.
-    Returns the library path."""
+def commands(csrc: Path, out: Path, nvcc: str = 'nvcc', tag: str = 'tmp'):
+    """The build's nvcc command lines, from the directory listing alone: one
+    compile of each `csrc/*.cu` (its `.cuh` headers beside it) into an
+    object under `out`, then one link of the objects into
+    `out/libreverb_kernels.<tag>.so`.  Returns ([argv of each compile],
+    argv of the link)."""
+    csrc, out = Path(csrc), Path(out)
+    srcs = sorted(csrc.glob('*.cu'))
+    objs = [out / f'{src.stem}.{tag}.o' for src in srcs]
+    compiles = [[nvcc, *_FLAGS, '-c', '-o', str(obj), str(src)]
+                for src, obj in zip(srcs, objs)]
+    link = [nvcc, *_ARCH, '-shared', '-o', str(out / f'{_NAME}.{tag}.so'),
+            *map(str, objs)]
+    return compiles, link
+
+
+def build(csrc: Path = _CSRC, out: Path = _OUT) -> Path:
+    """Compile the kernels of `csrc` into `out` unless a library for these
+    sources exists there.  Returns the library path."""
     global build_seconds, build_log
-    srcs = _sources()
-    digest = _digest(srcs)
-    lib = _OUT / f'{_NAME}.so'
-    stamp = _OUT / f'{_NAME}.hash'
-    log = _OUT / f'{_NAME}.log'
+    csrc, out = Path(csrc), Path(out)
+    digest = _digest(csrc)
+    lib = out / f'{_NAME}.so'
+    stamp = out / f'{_NAME}.hash'
+    log = out / f'{_NAME}.log'
     if lib.exists() and stamp.exists() and stamp.read_text() == digest:
         build_log = log.read_text() if log.exists() else ''
+        build_seconds = None
         return lib
-    _OUT.mkdir(parents=True, exist_ok=True)
+    out.mkdir(parents=True, exist_ok=True)
     tag = f'{os.getpid()}.tmp'
     t0 = time.perf_counter()
-    nvcc = _nvcc()
-    objs = [_OUT / f'{src.stem}.{tag}.o' for src in srcs]
-    procs = [subprocess.Popen([nvcc, *_FLAGS, '-c', '-o', str(obj), str(src)],
-                              stdout=subprocess.PIPE, stderr=subprocess.PIPE,
-                              text=True)
-             for src, obj in zip(srcs, objs)]
+    compiles, link = commands(csrc, out, _nvcc(), tag)
+    if not compiles:
+        raise RuntimeError(f'no CUDA sources in {csrc}')
+    procs = [subprocess.Popen(argv, stdout=subprocess.PIPE,
+                              stderr=subprocess.PIPE, text=True)
+             for argv in compiles]
     logs, failed = [], []
-    for src, proc in zip(srcs, procs):
-        out, err = proc.communicate()
-        logs.append(f'== {src.name}\n{out}{err}')
+    for argv, proc in zip(compiles, procs):
+        name = Path(argv[-1]).name
+        res_out, err = proc.communicate()
+        logs.append(f'== {name}\n{res_out}{err}')
         if proc.returncode != 0:
-            failed.append(f'{src.name} ({proc.returncode}):\n{err}')
+            failed.append(f'{name} ({proc.returncode}):\n{err}')
     build_log = ''.join(logs)
-    tmp = _OUT / f'{_NAME}.{tag}.so'
+    tmp = Path(link[link.index('-o') + 1])
     try:
         if failed:
             raise RuntimeError('nvcc failed: ' + '\n'.join(failed))
-        res = subprocess.run([nvcc, *_ARCH, '-shared', '-o', str(tmp),
-                              *map(str, objs)], capture_output=True,
-                             text=True, check=False)
+        res = subprocess.run(link, capture_output=True, text=True,
+                             check=False)
         if res.returncode != 0:
             raise RuntimeError(f'nvcc link failed ({res.returncode}):\n'
                                f'{res.stderr}')
     finally:
-        for obj in objs:
-            obj.unlink(missing_ok=True)
+        for argv in compiles:
+            Path(argv[-2]).unlink(missing_ok=True)
     # atomic: concurrent loaders see either the old or the new file
     os.replace(tmp, lib)
     log.write_text(build_log)
@@ -141,18 +154,29 @@ def build() -> Path:
     return lib
 
 
+def load_from(csrc: Path, out: Path):
+    """The kernel library built from `csrc` into `out`, loaded as a handle
+    of its own with the C signatures: the package's (`load`), or another
+    checkout's for an A/B, which leaves the package's as it is."""
+    lib = ctypes.CDLL(str(build(csrc, out)))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+    return lib
+
+
 def load():
-    """The loaded kernel library (built on first use)."""
+    """The package's kernel library (built on first use).  Once it is
+    loaded this is a read of a global: no lock on the launch path."""
     global _lib
-    with _lock:
-        if _lib is None:
-            lib = ctypes.CDLL(str(build()))
-            for name, argtypes in _SIGNATURES.items():
-                fn = getattr(lib, name)
-                fn.argtypes = argtypes
-                fn.restype = ctypes.c_int
-            _lib = lib
-    return _lib
+    lib = _lib
+    if lib is None:
+        with _lock:
+            if _lib is None:
+                _lib = load_from(_CSRC, _OUT)
+            lib = _lib
+    return lib
 
 
 def check(rc: int, name: str):

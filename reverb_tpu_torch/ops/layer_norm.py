@@ -19,6 +19,8 @@ kernels (csrc/layer_norm.cu) or raises — there is no fallback.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from reverb_tpu_torch import _build
@@ -29,7 +31,9 @@ LAUNCHES = 0
 BWD_LAUNCHES = 0
 _DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 _MAX_COLS = 8192
-_SMS = 132          # H100 SXM: the backward sizes its grid to ~one wave
+# the backward's blocks per SM: its launch bounds keep one 256-thread block
+# of the warp-per-row kernel resident on each (csrc/layer_norm.cu)
+_BWD_BLOCKS_PER_SM = 1
 
 
 def eligible(x) -> bool:
@@ -70,19 +74,56 @@ def layer_norm_bwd_plain(x, weight, g, eps: float):
     return dx, dw, db
 
 
+def rows_per_block(C: int) -> int:
+    """Rows a backward block takes per step: 8 warps, one row each, up to
+    C = 1024, then 8 / ceil(C / 1024) (csrc/layer_norm.cu `plan`)."""
+    return max(1, 8 // -(-C // 1024))
+
+
+def launch_plan(N: int, C: int, sms: int):
+    """(blocks, iters) of the backward for N rows of width C on a card of
+    `sms` SMs: about one wave of blocks, each taking `iters` steps of
+    rows_per_block(C) rows, so that blocks · iters · rows ≥ N and every
+    block has rows.  Its partial buffer is (blocks, C) per dgamma/dbeta."""
+    rb = rows_per_block(C)
+    blocks = min(-(-N // rb), sms * _BWD_BLOCKS_PER_SM)
+    iters = -(-N // (rb * blocks))
+    return -(-N // (rb * iters)), iters
+
+
+@functools.lru_cache(maxsize=None)
+def _sms(device_index: int) -> int:
+    return torch.cuda.get_device_properties(device_index).multi_processor_count
+
+
+@functools.lru_cache(maxsize=4096)
+def _plan(N: int, C: int, device_index: int):
+    return launch_plan(N, C, _sms(device_index))
+
+
+def _stream(x) -> int:
+    """The raw current stream of x's device (what
+    torch.cuda.current_stream(dev).cuda_stream returns, without building a
+    Stream object on every launch)."""
+    return torch._C._cuda_getCurrentRawStream(x.get_device())
+
+
 def _f32_aligned(t):
-    """A contiguous, 16-byte aligned f32 copy of a (C,) parameter."""
-    t = t.to(torch.float32).contiguous()
+    """t itself when it is f32, contiguous and 16-byte aligned (the model's
+    parameters are), else such a copy of the (C,) parameter."""
+    if t.dtype is not torch.float32 or not t.is_contiguous():
+        t = t.to(torch.float32).contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _rows(x):
+    """x itself when contiguous and 16-byte aligned, else such a copy; the
+    kernels read it as (numel / C, C) rows."""
     if x.dtype not in _DTYPES:
         raise TypeError(f'layer_norm: unsupported dtype {x.dtype}')
-    x2 = x.reshape(-1, x.shape[-1]).contiguous()
-    if x2.data_ptr() % 16:
-        x2 = x2.clone()
-    return x2
+    if not x.is_contiguous():
+        x = x.contiguous()
+    return x if x.data_ptr() % 16 == 0 else x.clone()
 
 
 def layer_norm_fwd(x, weight, bias, eps: float):
@@ -94,16 +135,15 @@ def layer_norm_fwd(x, weight, bias, eps: float):
         raise RuntimeError(f'layer_norm: no kernel for {x.device} '
                            f'{x.dtype} {tuple(x.shape)}')
     x2 = _rows(x)
-    N, C = x2.shape
+    C = x2.shape[-1]
     y = torch.empty_like(x2)
-    lib = _build.load()
-    rc = lib.reverb_layer_norm_fwd(
-        _DTYPES[x.dtype], x2.data_ptr(), _f32_aligned(weight).data_ptr(),
-        _f32_aligned(bias).data_ptr(), y.data_ptr(), N, C, eps,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    rc = _build.load().reverb_layer_norm_fwd(
+        _DTYPES[x2.dtype], x2.data_ptr(), _f32_aligned(weight).data_ptr(),
+        _f32_aligned(bias).data_ptr(), y.data_ptr(), x2.numel() // C, C, eps,
+        _stream(x2))
     _build.check(rc, 'layer_norm')
     LAUNCHES += 1
-    return y.reshape(x.shape)
+    return y
 
 
 def layer_norm_bwd(x, weight, g, eps: float):
@@ -116,24 +156,23 @@ def layer_norm_bwd(x, weight, g, eps: float):
         raise RuntimeError(f'layer_norm backward: no kernel for {x.device} '
                            f'{x.dtype} {tuple(x.shape)}')
     x2 = _rows(x)
-    g2 = _rows(g.to(x.dtype))
-    N, C = x2.shape
-    lib = _build.load()
-    rb = lib.reverb_layer_norm_rows_per_block(C)
-    iters = max(1, -(-N // (rb * _SMS)))
-    blocks = -(-N // (rb * iters))
-    f32 = torch.float32
+    g2 = _rows(g if g.dtype == x.dtype else g.to(x.dtype))
+    C = x2.shape[-1]
+    N = x2.numel() // C
+    blocks, iters = _plan(N, C, x2.get_device())
     dx = torch.empty_like(x2)
-    part = torch.empty((2, blocks, C), device=x.device, dtype=f32)
-    dwb = torch.empty((2, C), device=x.device, dtype=f32)
-    rc = lib.reverb_layer_norm_bwd(
-        _DTYPES[x.dtype], x2.data_ptr(), _f32_aligned(weight).data_ptr(),
-        g2.data_ptr(), dx.data_ptr(), part[0].data_ptr(), part[1].data_ptr(),
-        dwb[0].data_ptr(), dwb[1].data_ptr(), N, C, blocks, iters, eps,
-        torch.cuda.current_stream(x.device).cuda_stream)
+    # one scratch: dw, db, then the (blocks, C) partials of each
+    buf = torch.empty((2 * blocks + 2) * C, device=x2.device,
+                      dtype=torch.float32)
+    p, row = buf.data_ptr(), 4 * C
+    rc = _build.load().reverb_layer_norm_bwd(
+        _DTYPES[x2.dtype], x2.data_ptr(), _f32_aligned(weight).data_ptr(),
+        g2.data_ptr(), dx.data_ptr(), p + 2 * row, p + (2 + blocks) * row,
+        p, p + row, N, C, blocks, iters, eps, _stream(x2))
     _build.check(rc, 'layer_norm backward')
     BWD_LAUNCHES += 1
-    return dx.reshape(x.shape), dwb[0], dwb[1]
+    dw, db, _ = buf.split((C, C, 2 * blocks * C))
+    return dx, dw, db
 
 
 class _LayerNorm(torch.autograd.Function):
@@ -150,7 +189,9 @@ class _LayerNorm(torch.autograd.Function):
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
         dx, dw, db = layer_norm_bwd(x, weight, g, ctx.eps)
-        return dx, dw.to(weight.dtype), db.to(weight.dtype), None
+        if weight.dtype != torch.float32:
+            dw, db = dw.to(weight.dtype), db.to(weight.dtype)
+        return dx, dw, db, None
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):

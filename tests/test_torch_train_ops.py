@@ -143,7 +143,9 @@ def _ln_case(shape, dtype, seed):
 
 @pytest.mark.parametrize('shape,eps', [((3, 37, 128), 1e-5),
                                        ((2, 7, 256), 1e-12),
-                                       ((257, 1024), 1e-5)])
+                                       ((257, 1024), 1e-5),
+                                       ((1, 1024), 1e-12),
+                                       ((640, 1024), 1e-5)])
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-5),
                                        (torch.bfloat16, 2e-2)])
 def test_layer_norm_fwd_bwd_matches_pallas_interpret(shape, eps, dtype, tol):
@@ -269,16 +271,18 @@ def test_k1_mask_and_k4_kernels_match_plain(cuda, dtype, tol, T, kv_lens):
 @pytest.mark.parametrize('dtype,tol', [(torch.float32, 1e-4),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize('eps', [1e-5, 1e-12])
-def test_k5_k6_kernels_match_plain(cuda, dtype, tol, eps):
-    """K5/K6 against the plain versions on (4097, 1024), a ragged row
-    count: y and dx within tol of their scale, dw/db (f32 sums over 4097
-    rows) within tol relative to their scale."""
+@pytest.mark.parametrize('N', [1, 640, 4097])
+def test_k5_k6_kernels_match_plain(cuda, dtype, tol, eps, N):
+    """K5/K6 against the plain versions on (N, 1024): one row, fewer rows
+    than the grid has warps, and a ragged 4097: y and dx within tol of their
+    scale, dw/db (f32 sums over the rows) within tol relative to their
+    scale."""
     gen = torch.Generator(device=cuda).manual_seed(1)
-    x = (torch.randn(4097, 1024, device=cuda, generator=gen) * 2 + 0.5).to(
+    x = (torch.randn(N, 1024, device=cuda, generator=gen) * 2 + 0.5).to(
         dtype)
     w = torch.rand(1024, device=cuda, generator=gen) + 0.5
     b = torch.randn(1024, device=cuda, generator=gen)
-    gy = torch.randn(4097, 1024, device=cuda, generator=gen).to(dtype)
+    gy = torch.randn(N, 1024, device=cuda, generator=gen).to(dtype)
     y = ln.layer_norm_fwd(x, w, b, eps)
     dx, dw, db = ln.layer_norm_bwd(x, w, gy, eps)
     y_p = ln.layer_norm_plain(x, w, b, eps)
