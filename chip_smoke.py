@@ -7,14 +7,14 @@
 
     python3 chip_smoke.py --profile             # + one profiled train step
 
-    python3 chip_smoke.py --ab-parent DIR       # + K1, K4, K5, K6 of the
-                                                #   checkout DIR, timed in
-                                                #   turns
+    python3 chip_smoke.py --ab-parent DIR       # + K1-K6 of the checkout
+                                                #   DIR, timed in turns
 
 Run from the root of a checkout.  It builds the port's CUDA kernels from
 reverb_tpu_torch/csrc, holds each kernel to its plain PyTorch version at
 the shapes of the paths below (attention also at a ragged T = 333,
-LayerNorm also at 1 and 640 rows), times
+LayerNorm also at 1 and 640 rows, the beam also at the shapes of
+BEAM_CASES), times
 each beside its bound and the one PyTorch call that computes the same
 function (its library yardstick, which the port never calls) — per call
 (CUDA events around back-to-back calls, host work included) and on the
@@ -25,7 +25,9 @@ bitransformer decoder, V=10000) with seeded random weights:
 
 - serving: `ReverbASR.transcribe_modes(['ctc_prefix_beam_search',
   'attention_rescoring'], format='ctm')` in bf16 on a synthetic 164 s wav
-  (8 chunks of 2051 frames) — kernels K1, K2, K3, K5;
+  (8 chunks of 2051 frames) — kernels K1, K2, K3, K5; then once more with
+  a decode whose max_hyp_len every chunk overflows, which must complete
+  through the uncapped tail (K2 and K3 twice per encoder call);
 - training: `make_train_step` (hybrid CTC/attention loss, dropout 0.1,
   Adam with warmuplr, clip 50) — first one f32 step at B = 2 through the
   kernels and through the plain versions with the same dropout draws, then
@@ -108,18 +110,42 @@ def device_ms_of(events, reps: int, pattern=None) -> float:
     return us / reps / 1e3
 
 
+def device_ms_by_name(events, reps: int, pattern) -> float:
+    """Device ms per call from profiler events (name, start µs, end µs) of
+    the kernels matching `pattern`, robust to traces that lost some of
+    the events: for each distinct kernel name, its mean duration times its
+    launches per call (events over `reps`, rounded, at least 1).  With no
+    event lost this is device_ms_of."""
+    pat = re.compile(pattern)
+    by_name = {}
+    for name, start, end in events:
+        if pat.search(name):
+            tot = by_name.setdefault(name, [0.0, 0])
+            tot[0] += end - start
+            tot[1] += 1
+    return sum(us / n * max(1, round(n / reps))
+               for us, n in by_name.values()) / 1e3
+
+
 def device_time_ms(fn, reps: int, pattern=None) -> float:
     """Device-alone ms per call of fn(): `reps` calls under torch.profiler
     (CUDA activity) after one warm-up; the durations of the kernels and
     memcpy/memset the calls launched, restricted to names matching
-    `pattern` when given (device_ms_of).  A session that recorded no
-    device event at all (the profiler on the H100 has returned such a
-    session) is run again, at most 3 times; then it raises."""
+    `pattern` when given.  The profiler on the H100 has returned traces
+    with no device event at all, and traces that hold only some of the
+    calls' events (3 of 5 launches of one kernel, in a process that had
+    profiled much before): a sum over `reps` would then read 0.6 of the
+    true time.  So a trace whose matching events are no multiple of
+    `reps` is run again, at most 3 in all; of those the one with the most
+    events is kept, and a named kernel's time is its mean event duration
+    (device_ms_by_name).  It raises when no trace saw device time."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
+    pat = re.compile(pattern) if pattern else None
     fn()
     torch.cuda.synchronize()
+    best, best_n = [], -1
     for attempt in range(3):
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(reps):
@@ -127,13 +153,24 @@ def device_time_ms(fn, reps: int, pattern=None) -> float:
             torch.cuda.synchronize()
         events = [(e.name, e.time_range.start, e.time_range.end)
                   for e in prof.events() if e.device_type == DeviceType.CUDA]
-        if events:
+        n = sum(1 for name, _, _ in events if pat is None or pat.search(name))
+        if n > best_n:
+            best, best_n = events, n
+        # an unnamed yardstick may launch some kernel once, not per call
+        if n and (pat is None or n % reps == 0):
             break
-        log(f'profiler: no device events in session {attempt + 1}; again')
-    ms = device_ms_of(events, reps, pattern)
+        log(f'profiler: {n} events of {pattern!r} for {reps} calls in '
+            f'trace {attempt + 1}; again')
+    if pat is None:
+        ms = device_ms_of(best, reps)
+    else:
+        ms = device_ms_by_name(best, reps, pattern)
+        if best_n % reps:
+            log(f'profiler: kept the trace with {best_n} events; time '
+                f'from their mean duration')
     if not ms > 0:
         raise AssertionError(f'the profiler saw no device time (pattern '
-                             f'{pattern!r}, {len(events)} device events)')
+                             f'{pattern!r}, {len(best)} device events)')
     return ms
 
 
@@ -335,13 +372,112 @@ def peaky_topk(dev, seed, B=8, T=512, K=10, V=VOCAB):
             .contiguous(), logp[..., 0].contiguous())
 
 
+# further shapes of the K2/K3 check: (name, B, T, K, K2, lens, max_tokens,
+# blank-skip threshold).  The scan's ring takes 32 frames a stage and the
+# walk's 64; lens None is every row at full length; max_tokens 0 is L = T
+# (the uncapped search).  Small in B·T: the plain loop is ~5 ms a frame.
+BEAM_CASES = [
+    ('T=1', 2, 1, 10, 10, None, 256, 0.0),
+    ('T=45, no multiple of a chunk', 3, 45, 10, 10, [45, 44, 1], 256, 0.0),
+    ('T=150 > two chunks, a row of 0 frames, L=T', 4, 150, 10, 10,
+     [150, 0, 129, 64], 0, 0.0),
+    ('T=150, L=256', 4, 150, 10, 10, [150, 0, 129, 64], 256, 0.0),
+    ('T=150 blank-skip 0.9, L=cap', 4, 150, 10, 10, [150, 0, 129, 64], 0,
+     0.9),
+    ('K=16, K2=7 (128 candidates)', 3, 70, 16, 7, [70, 33, 65], 256, 0.0),
+    ('K=K2=4', 3, 70, 4, 4, [70, 33, 65], 64, 0.0),
+    ('B=1', 1, 40, 10, 10, None, 256, 0.0),
+    ('B=40', 40, 33, 10, 10, None, 32, 0.0),
+    ('forced ties (every log-prob equal)', 2, 40, 6, 6, [40, 23], 40, 0.0),
+]
+
+
+def tied_topk(dev, B, T, K2):
+    """Top-k inputs whose log-probs are all -1.5, tokens 1..K2 (row 1 lists
+    the blank in every other frame): every extension of a frame ties, so
+    the selection is decided by the flat index alone."""
+    import torch
+    lp = torch.full((B, T, K2), -1.5, device=dev)
+    ix = torch.arange(1, K2 + 1, dtype=torch.int32, device=dev).repeat(
+        B, T, 1)
+    ix[1, ::2] = torch.arange(K2, dtype=torch.int32, device=dev)
+    return lp, ix.contiguous(), torch.full((B, T), -3.0, device=dev)
+
+
+def assert_beam_records(got, want, what):
+    """(final, emits) of the scan: every record exactly equal, the final
+    scores within 1e-4 (expf/log1pf of the card against PyTorch's).  Returns
+    the largest score difference."""
+    import torch
+    (final, em), (final_p, em_p) = got, want
+    for n in em_p:
+        if not torch.equal(em[n], em_p[n]):
+            raise AssertionError(f'K2 {what}: record {n} differs from the '
+                                 f'plain scan')
+    if not torch.equal(final['plen'], final_p['plen']):
+        raise AssertionError(f'K2 {what}: plen differs')
+    if not em_p['wval'].numel():
+        return 0.0
+    err = max(float((final[n] - final_p[n]).abs().max())
+              for n in ('s', 'ns', 'v_s', 'v_ns'))
+    if not err <= 1e-4:
+        raise AssertionError(f'K2 {what}: final scores differ by {err}')
+    return err
+
+
+def checked_beam_kernels(errs, what, routes):
+    """Module attributes to swap into ops.beam_scan: the two wrappers, each
+    holding its kernel to the plain version on the very arguments the search
+    passes (every record, prefix and time exactly).  The scan's score error
+    is appended to `errs`, and to `routes` whether the walk built its
+    outputs in shared memory."""
+    import torch
+    from reverb_tpu_torch.ops import beam_scan as bs
+    fwd, bt = bs.beam_scan_forward, bs.beam_backtrace
+
+    def forward(*args):
+        got = fwd(*args)
+        errs.append(assert_beam_records(
+            got, bs.beam_scan_forward_plain(*args), what))
+        return got
+
+    def backtrace(*args):
+        T, _, K = args[0]['pfx_parent'].shape
+        routes.append(bs.backtrace_launch_plan(T, K, args[3])[2])
+        got = bt(*args)
+        want = bs.beam_backtrace_plain(*args)
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(f'K3 {what}: output differs from the plain '
+                                 f'backtrace')
+        return got
+    return {(bs, 'beam_scan_forward'): forward,
+            (bs, 'beam_backtrace'): backtrace}
+
+
 def check_beam(dev, seed):
     """K2+K3 against the plain beam at B=8, T=512, K=K2=10, dense and with
     blank-skip 0.95: prefixes, plens and times exactly equal, scores within
-    1e-4.  Times each kernel against its plain version (dense shapes)."""
+    1e-4; then each of BEAM_CASES with every record, prefix and time held
+    exactly at the kernels' own arguments.  Times each kernel against its
+    plain version (dense shapes) and checks the wrappers' launch plans
+    against the library's."""
     import torch
+    from reverb_tpu_torch import _build
     from reverb_tpu_torch.decode import prefix_beam as pb
     from reverb_tpu_torch.ops import beam_scan as bs
+    lib = _build.load()
+    for T, K, K2, L in ((512, 10, 10, 256), (2048, 10, 10, 2048),
+                        (4096, 16, 7, 4096), (1, 4, 4, 1), (150, 10, 10, 150)):
+        chunk, smem = bs.scan_launch_plan(T, K, K2)
+        if lib.reverb_beam_scan_smem_bytes(chunk) != smem:
+            raise AssertionError(f'K2 plan at T={T}: wrapper {smem} bytes, '
+                                 f'library '
+                                 f'{lib.reverb_beam_scan_smem_bytes(chunk)}')
+        chunk, smem, on_chip = bs.backtrace_launch_plan(T, K, L)
+        want = lib.reverb_beam_backtrace_smem_bytes(chunk, K, L, int(on_chip))
+        if want != smem or smem > bs.SMEM_MAX:
+            raise AssertionError(f'K3 plan at T={T}, K={K}, L={L}: wrapper '
+                                 f'{smem} bytes, library {want}')
     B, T, K = 8, 512, 10
     lp, ix, blank = peaky_topk(dev, seed)
     lens = torch.tensor([512, 480, 400, 512, 1, 256, 100, 512], device=dev)
@@ -372,6 +508,33 @@ def check_beam(dev, seed):
         log(f'K2+K3 beam (blank_skip={th}): prefixes/plens/times equal, '
             f'score err {errs[-1]}; best-hyp tokens {n_tok}')
 
+    # the further shapes, each kernel held at the search's own arguments
+    for i, (what, cB, cT, cK, cK2, clens, max_tokens, th) in enumerate(
+            BEAM_CASES):
+        if what.startswith('forced ties'):
+            clp, cix, cblank = tied_topk(dev, cB, cT, cK2)
+        else:
+            clp, cix, cblank = peaky_topk(dev, seed + 1 + i, cB, cT, cK2)
+        clens = torch.tensor(clens or [cT] * cB, device=dev)
+        cap = cT // 2 if th > 0 else 0
+        case_errs, routes = [], []
+        with swapped(checked_beam_kernels(case_errs, what, routes)):
+            out = pb.ctc_prefix_beam_search_device_topk(
+                clp, cix, cblank, clens, cK, 0, max_tokens, th, cap)
+        torch.cuda.synchronize()
+        if len(case_errs) != 1:
+            raise AssertionError(f'beam case {what}: the scan ran '
+                                 f'{len(case_errs)} times')
+        errs += case_errs
+        log(f'K2+K3 case {what}: B={cB} K={cK} K2={cK2} L={out[0].shape[2]} '
+            f'— records, prefixes, plens, times equal, score err '
+            f'{case_errs[0]:.2e}; outputs '
+            f'{"on chip" if routes[0] else "in device memory"}; best-hyp '
+            f'tokens '
+            f'{int(out[1][:, 0].sum())}')
+    # the walk's other route: outputs too large for shared memory
+    route_err = check_backtrace_routes(dev, seed)
+
     # timing at the dense serving shapes
     ts = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(
         B, T).contiguous()
@@ -380,12 +543,8 @@ def check_beam(dev, seed):
     hs = torch.zeros((B, T), dtype=torch.bool, device=dev)
     fwd_args = (lp, ix, ts, valid, acc, hs, K, 0)
     final, em = bs.beam_scan_forward(*fwd_args)
-    final_p, em_p = bs.beam_scan_forward_plain(*fwd_args)
-    fwd_err = max(float((final[n] - final_p[n]).abs().max())
-                  for n in ('s', 'ns', 'v_s', 'v_ns'))
-    if not (fwd_err <= 1e-4 and all(torch.equal(em[n], em_p[n])
-                                    for n in em)):
-        raise AssertionError('K2 records differ from the plain scan')
+    fwd_err = max(errs + [route_err, assert_beam_records(
+        (final, em), bs.beam_scan_forward_plain(*fwd_args), 'T=512')])
     order = torch.argsort(-pb._log_add(final['s'], final['ns']), dim=-1,
                           stable=True).to(torch.int32)
     sel = torch.gather(~(final['v_s'] > final['v_ns']), 1, order.long())
@@ -402,13 +561,60 @@ def check_beam(dev, seed):
         lambda: bs.beam_scan_forward(*fwd_args), 5, KERNEL_PATTERNS['K2'])
     t['bt'], t['bt_dev'] = both_times(
         lambda: bs.beam_backtrace(*bt_args), 5, KERNEL_PATTERNS['K3'])
+    t['fwd_us_frame'] = t['fwd_dev'] * 1e3 / T
+    t['bt_us_frame'] = t['bt_dev'] * 1e3 / T
     log(f'K2 beam_scan_forward: kernel {t["fwd"]:.4f} ms per call '
-        f'({t["fwd_dev"]:.4f} on the device), plain {t["fwd_plain"]:.4f} '
-        f'ms; K3 beam_backtrace: kernel {t["bt"]:.4f} ms ({t["bt_dev"]:.4f} '
-        f'on the device), plain {t["bt_plain"]:.4f} ms (B=8, T=512, K=10)')
+        f'({t["fwd_dev"]:.4f} on the device, {t["fwd_us_frame"]:.3f} us a '
+        f'frame), plain {t["fwd_plain"]:.4f} ms; K3 beam_backtrace: kernel '
+        f'{t["bt"]:.4f} ms ({t["bt_dev"]:.4f} on the device, '
+        f'{t["bt_us_frame"]:.3f} us a frame), plain {t["bt_plain"]:.4f} ms '
+        f'(B=8, T=512, K=10)')
     t['fwd_nbytes'] = nbytes(fwd_args, final, em)
     t['bt_nbytes'] = nbytes(bt_args, pre, tim)
     return fwd_err, t
+
+
+def check_backtrace_routes(dev, seed):
+    """K3 where (K, L) does not fit in shared memory beside the record ring
+    (K = 16, L = 1400: the outputs are built in device memory), and the
+    same records at L = 256 (built on chip): both exactly equal to the plain
+    walk.  The records come from K2, held to the plain scan too.  Returns
+    the scan's largest final-score difference."""
+    import torch
+    from reverb_tpu_torch.decode import prefix_beam as pb
+    from reverb_tpu_torch.ops import beam_scan as bs
+    B, T, K, K2 = 2, 150, 16, 7
+    lp, ix, _ = peaky_topk(dev, seed + 50, B, T, K2)
+    ts = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(
+        B, T).contiguous()
+    valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+    acc = torch.zeros((B, T), dtype=torch.float32, device=dev)
+    hs = torch.zeros((B, T), dtype=torch.bool, device=dev)
+    args = (lp, ix, ts, valid, acc, hs, K, 0)
+    final, em = bs.beam_scan_forward(*args)
+    err = assert_beam_records((final, em), bs.beam_scan_forward_plain(*args),
+                              f'T={T}, K={K}')
+    order = torch.argsort(-pb._log_add(final['s'], final['ns']), dim=-1,
+                          stable=True).to(torch.int32)
+    sel = torch.gather(~(final['v_s'] > final['v_ns']), 1, order.long())
+    routes = []
+    for L in (1400, 256):
+        on_chip = bs.backtrace_launch_plan(T, K, L)[2]
+        routes.append(on_chip)
+        got = bs.beam_backtrace(em, order, sel, L)
+        want = bs.beam_backtrace_plain(em, order, sel, L)
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])):
+            raise AssertionError(
+                f'K3 at T={T}, K={K}, L={L} (outputs '
+                f'{"on chip" if on_chip else "in device memory"}) differs '
+                f'from the plain backtrace')
+    if routes != [False, True]:
+        raise AssertionError(f'K3 routes at L=1400, 256: {routes}')
+    log(f'K3 routes: B={B} T={T} K={K}: L=1400 built in device memory, L=256 '
+        f'on chip; both equal to the plain walk (longest hyp '
+        f'{int(final["plen"].max())} tokens)')
+    return err
 
 
 # ------------------------------ phase 5: the slice ------------------------------
@@ -535,8 +741,128 @@ def reference_check(asr, feats, dev):
     log(f'reference: f32 one chunk, kernels vs plain: encoder max abs err '
         f'{err}, CTC top-1 agreement {top1:.4f}; decode tail identical '
         f'({int(beam_k[1][0, 0])} tokens in the best hyp)')
+
+    # the tail that decode takes when a hypothesis outgrows max_hyp_len:
+    # the beam with L = T, rescoring fed by its device buffers
+    if int(beam_k[1].max()) <= FALLBACK_MAX_HYP_LEN:
+        raise AssertionError('no hypothesis longer than the fallback\'s cap')
+
+    def uncapped():
+        return api._decode_uncapped(f32, MODES, enc_k[2], enc_k[3], enc_k[4],
+                                    enc_k[0], enc_k[1], 10, 0.1, 0.0, 0.0,
+                                    cat)
+    res_k, res_p = run(True, uncapped), run(False, uncapped)
+    n_long = compare_results(res_k, res_p, 1e-4)
+    log(f'reference: uncapped decode tail (L = T), kernels vs plain: tokens, '
+        f'times and nbest identical, scores within 1e-4 ({n_long} tokens in '
+        f'the rescored best hyp)')
     del f32
     torch.cuda.empty_cache()
+
+
+def compare_results(got, want, tol):
+    """{mode: [DecodeResult]} of two decodes: tokens, times, nbest and
+    nbest_times exactly equal; score, confidence, token confidences and
+    nbest_scores within tol.  Returns the first rescored result's token
+    count."""
+    def close(a, b):
+        return (a is None and b is None) or (
+            a is not None and b is not None
+            and np.allclose(a, b, rtol=0, atol=tol))
+    if set(got) != set(want):
+        raise AssertionError(f'modes {set(got)} != {set(want)}')
+    for mode in want:
+        if len(got[mode]) != len(want[mode]):
+            raise AssertionError(f'{mode}: result counts differ')
+        for g, w in zip(got[mode], want[mode]):
+            if (g.tokens, g.times, g.nbest, g.nbest_times) != (
+                    w.tokens, w.times, w.nbest, w.nbest_times):
+                raise AssertionError(f'{mode}: tokens, times or nbest differ')
+            if not (close(g.score, w.score)
+                    and close(g.confidence, w.confidence)
+                    and close(g.tokens_confidence, w.tokens_confidence)
+                    and close(g.nbest_scores, w.nbest_scores)):
+                raise AssertionError(f'{mode}: scores differ by more than '
+                                     f'{tol}')
+    return len(want['attention_rescoring'][0].tokens)
+
+
+# the cap of the long-hypothesis phase: far below a chunk's ~100 tokens
+FALLBACK_MAX_HYP_LEN = 8
+
+
+def run_fallback(asr, wav, ln_calls):
+    """The serving entry point with a decode whose max_hyp_len every chunk
+    overflows: transcribe_modes must complete through the uncapped tail,
+    which runs K2 and K3 a second time on the encoder output it holds.
+    Returns (launches, encoder calls, wall seconds)."""
+    import functools
+    import torch
+    from reverb_tpu_torch.cli import reverb as rv
+    from reverb_tpu_torch.decode import api
+    from reverb_tpu_torch.ops import beam_scan as bs
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    calls, tails = [], []
+    decode_fn, tail_fn = rv.decode_modes_fn, api._decode_uncapped
+
+    def decode(*args, **kwargs):
+        out = decode_fn(*args, max_hyp_len=FALLBACK_MAX_HYP_LEN, **kwargs)
+        calls.append(out)
+        return out
+
+    @functools.wraps(tail_fn)
+    def tail(*args, **kwargs):
+        tails.append(1)
+        return tail_fn(*args, **kwargs)
+    fa.LAUNCHES = bs.FWD_LAUNCHES = bs.BT_LAUNCHES = ln.LAUNCHES = 0
+    ln_calls[0] = 0
+    with swapped({(rv, 'decode_modes_fn'): decode,
+                  (api, '_decode_uncapped'): tail}):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = asr.transcribe_modes(str(wav), MODES, format='ctm')
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    launches = {'K1': fa.LAUNCHES, 'K2': bs.FWD_LAUNCHES,
+                'K3': bs.BT_LAUNCHES, 'K5': ln.LAUNCHES}
+    n_enc = len(calls)
+    layers = asr.model.cfg.encoder.num_blocks
+    want = {'K1': layers * n_enc, 'K2': 2 * n_enc, 'K3': 2 * n_enc,
+            'K5': ln_calls[0]}
+    log(f'long-hypothesis path (max_hyp_len={FALLBACK_MAX_HYP_LEN}): '
+        f'launches {launches}, expected {want} ({n_enc} encoder calls, '
+        f'{len(tails)} uncapped tails); transcribe_modes wall {wall:.3f} s')
+    if launches != want or len(tails) != n_enc or n_enc < 1:
+        raise AssertionError('the long-hypothesis path did not run every '
+                             'kernel the expected number of times')
+    longest = 0
+    for res in calls:
+        for mode in MODES:
+            for r in res[mode]:
+                longest = max(longest, *(len(h) for h in
+                                         (r.nbest or [r.tokens])))
+                scores = [r.score] + list(r.nbest_scores or [])
+                if not all(math.isfinite(x) for x in scores):
+                    raise AssertionError(f'{mode}: non-finite score')
+                if len(r.tokens) != len(r.times):
+                    raise AssertionError(f'{mode}: tokens and times differ '
+                                         f'in length')
+            if mode == 'attention_rescoring' and not all(
+                    not r.tokens or (r.nbest and r.nbest[0] == r.tokens)
+                    for r in res[mode]):
+                raise AssertionError('rescored nbest does not lead with the '
+                                     'best hypothesis')
+    if longest <= FALLBACK_MAX_HYP_LEN:
+        raise AssertionError('no hypothesis longer than the cap came out')
+    for mode, ctm in zip(MODES, out):
+        if not [row for row in ctm.splitlines() if row.strip()]:
+            raise AssertionError(f'{mode}: empty CTM on the long-hypothesis '
+                                 f'path')
+    log(f'  longest hypothesis {longest} tokens; '
+        + '; '.join(f'{m}: {len(c.splitlines())} CTM rows'
+                    for m, c in zip(MODES, out)))
+    return launches, n_enc, wall
 
 
 def run_slice(dev, seed, workdir: Path):
@@ -580,18 +906,22 @@ def run_slice(dev, seed, workdir: Path):
             walls.append(time.perf_counter() - t0)
     finally:
         rv.decode_modes_fn = decode_fn
-        for h in hooks:
-            h.remove()
     launches = {'K1': fa.LAUNCHES, 'K2': bs.FWD_LAUNCHES,
                 'K3': bs.BT_LAUNCHES, 'K5': ln.LAUNCHES}
     n_enc = len(captured)              # one encoder pass per decode batch
     layers = asr.model.cfg.encoder.num_blocks
     want = {'K1': layers * n_enc, 'K2': n_enc, 'K3': n_enc,
             'K5': ln_calls[0]}
+    ln_main = ln_calls[0]
+    try:
+        fallback = run_fallback(asr, wav, ln_calls)
+    finally:
+        for h in hooks:
+            h.remove()
     log(f'serving path launches {launches}, expected {want} '
         f'({n_enc} encoder calls x {layers} layers; K5 = LayerNorm calls '
         f'on the path)')
-    if ln_calls[0] < LN_ENC * n_enc:
+    if ln_main < LN_ENC * n_enc:
         raise AssertionError('fewer LayerNorm calls than the encoder has')
     if launches != want:
         raise AssertionError('the serving path did not run every kernel the '
@@ -623,7 +953,7 @@ def run_slice(dev, seed, workdir: Path):
     log(f'slice: {audio_s:.2f} s of audio; transcribe_modes wall '
         f'{walls[0]:.3f} s (defaults, first call), {walls[1]:.3f} s '
         f'(blank_skip 0.95); xRT of the second call {audio_s / walls[1]:.1f}')
-    return launches, walls, audio_s
+    return launches, walls, audio_s, fallback
 
 
 
@@ -1118,8 +1448,9 @@ def profile_train(dev, seed):
 def ptxas_table(text: str) -> dict:
     """{kernel: [registers, spill store bytes, spill load bytes]} from the
     build's `-Xptxas -v` messages; the bf16 attention kernels' names are
-    shortened (fwd_kernel<1> is the keep-mask instantiation), and the
-    LayerNorm kernels' to name<type,template values>."""
+    shortened (fwd_kernel<1> is the keep-mask instantiation), the
+    LayerNorm kernels' to name<type,template values>, and the beam kernels'
+    to name or name<template value>."""
     out, cur = {}, None
     for ln in text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -1128,8 +1459,13 @@ def ptxas_table(text: str) -> dict:
             short = re.search(r'\d((?:fwd|dkdv|dq)_kernel)ILb([01])E', name)
             lnk = re.search(r'(ln_[a-z_]+?_kernel)(?:I(f|13__nv_bfloat16)'
                             r'((?:L[ib]\d+E)*)E)?', name)
+            beam = re.search(r'\d(beam_(?:scan|backtrace)_kernel)'
+                             r'(?:ILb([01])E)?', name)
             if short:
                 name = f'{short.group(1)}<{short.group(2)}>'
+            elif beam:
+                name = beam.group(1) + (f'<{beam.group(2)}>'
+                                        if beam.group(2) else '')
             elif lnk:
                 args = [] if lnk.group(2) is None else [
                     'f32' if lnk.group(2) == 'f' else 'bf16',
@@ -1147,36 +1483,140 @@ def ptxas_table(text: str) -> dict:
     return out
 
 
+def ptxas_smem(text: str) -> dict:
+    """{mangled kernel name: static shared-memory bytes} from the build's
+    `-Xptxas -v` messages (0 where ptxas names none)."""
+    out, cur = {}, None
+    for ln in text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            cur = m.group(1)
+            out.setdefault(cur, 0)
+            continue
+        m = re.search(r'(\d+) bytes smem', ln)
+        if m and cur is not None:
+            out[cur] = int(m.group(1))
+    return out
+
+
+def load_parent_module(parent: Path, rel: str, name: str):
+    """The module at parent/rel loaded under `name`, or None when the
+    checkout does not hold it."""
+    import importlib.util
+    src = parent / rel
+    if not src.is_file():
+        return None
+    spec = importlib.util.spec_from_file_location(name, src)
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+# the scan lengths of the beam A/B: a dense serving call, and the two a
+# call with blank-skip 0.95 launches (the keep cap and its half)
+AB_BEAM_T = (512, 256, 128)
+
+
+def ab_beam_inputs(dev, seed):
+    """{T: (scan arguments, plain records, plain finals)} for the beam A/B
+    at B = 8, K = K2 = 10: T = 512 dense with ragged lengths; T = 256 and
+    128 the first frames of the same utterances compressed with blank-skip
+    0.95 (cap 256), as a serving call passes them."""
+    import torch
+    from reverb_tpu_torch.decode import prefix_beam as pb
+    from reverb_tpu_torch.ops import beam_scan as bs
+    B, T, K = 8, 512, 10
+    lp, ix, blank = peaky_topk(dev, seed)
+    lens = torch.tensor([512, 480, 400, 512, 1, 256, 100, 512], device=dev)
+    ts = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(
+        B, T).contiguous()
+    valid = torch.arange(T, device=dev)[None] < lens[:, None]
+    acc = torch.zeros((B, T), dtype=torch.float32, device=dev)
+    hs = torch.zeros((B, T), dtype=torch.bool, device=dev)
+    args = {T: (lp, ix, ts, valid, acc, hs, K, 0)}
+    cts, n_keep, cacc, chs, _ = pb._compress_blanks(blank, lens, 0.95, 256)
+    gidx = cts.to(torch.int64)[..., None].expand(-1, -1, K)
+    g_lp, g_ix = torch.gather(lp, 1, gidx), torch.gather(ix, 1, gidx)
+    for Tb in AB_BEAM_T[1:]:
+        cvalid = (torch.arange(Tb, device=dev)[None]
+                  < torch.clamp(n_keep, max=Tb)[:, None])
+        args[Tb] = (g_lp[:, :Tb].contiguous(), g_ix[:, :Tb].contiguous(),
+                    cts[:, :Tb].contiguous(), cvalid,
+                    cacc[:, :Tb].contiguous(), chs[:, :Tb].contiguous(), K, 0)
+    out = {}
+    for Tb, a in args.items():
+        final, em = bs.beam_scan_forward_plain(*a)
+        order = torch.argsort(-pb._log_add(final['s'], final['ns']), dim=-1,
+                              stable=True).to(torch.int32)
+        sel = torch.gather(~(final['v_s'] > final['v_ns']), 1, order.long())
+        out[Tb] = (a, (final, em), (order, sel),
+                   bs.beam_backtrace_plain(em, order, sel, 256))
+    return out
+
+
+def ab_beam(mod, inputs):
+    """K2 and K3 through the wrapper module `mod` at each T of `inputs`:
+    every record, prefix and time held exactly to the plain versions (K3 on
+    the plain scan's order, so both sides walk from the same beams), then
+    ms per call and on the device alone.  Returns {'k2_T': ..,
+    'k2_dev_T': .., 'k3_T': .., 'k3_dev_T': ..}."""
+    import torch
+    t = {}
+    for T, (a, want, (order, sel), bt_want) in inputs.items():
+        got = mod.beam_scan_forward(*a)
+        assert_beam_records(got, want, f'A/B T={T}')
+        em = got[1]
+        pre, tim = mod.beam_backtrace(em, order, sel, 256)
+        torch.cuda.synchronize()
+        if not (torch.equal(pre, bt_want[0]) and torch.equal(tim, bt_want[1])):
+            raise AssertionError(f'A/B K3 at T={T} differs from the plain '
+                                 f'backtrace')
+        t[f'k2_{T}'], t[f'k2_dev_{T}'] = both_times(
+            lambda: mod.beam_scan_forward(*a), 10, KERNEL_PATTERNS['K2'])
+        t[f'k3_{T}'], t[f'k3_dev_{T}'] = both_times(
+            lambda: mod.beam_backtrace(em, order, sel, 256), 10,
+            KERNEL_PATTERNS['K3'])
+    return t
+
+
 def ab_parent(dev, parent: Path):
     """A/B of a parent checkout's kernels against this tree's, in one
     process: builds every source of parent/reverb_tpu_torch/csrc into
-    _chipwork/ab/ (the package's own build, a separate library handle) and,
-    through this tree's wrappers, times bf16 K1, K1 with the keep-mask and
-    K4 at T = 512 (every row at full length), and K5 and K6 at (4097, 1024),
-    in turns old, new, new, old: per call and on the device alone, each
-    beside its plain version, with the error against it.  K5/K6 go through
-    the parent's own wrapper (reverb_tpu_torch/ops/layer_norm.py) where the
-    checkout has it, so their per-call times compare the host work too.
+    _chipwork/ab/ (the package's own build, a separate library handle, with
+    the C signatures of the parent's _build.py where the checkout has it)
+    and times, in turns old, new, new, old, per call and on the device
+    alone: bf16 K1, K1 with the keep-mask and K4 at T = 512 (every row at
+    full length) through this tree's wrappers; K5 and K6 at (4097, 1024)
+    and K2 and K3 at B = 8, K = 10, T in AB_BEAM_T, each through the
+    parent's own wrapper (reverb_tpu_torch/ops/layer_norm.py, beam_scan.py)
+    where the checkout has it, so their per-call times compare the host work
+    too.  Every side's output is held to the plain version in its turn.
     Prints one {"ab": [...]} line."""
-    import importlib.util
     import torch
     from reverb_tpu_torch import _build
+    from reverb_tpu_torch.ops import beam_scan as bs
     from reverb_tpu_torch.ops import flash_attention as fa
     from reverb_tpu_torch.ops import layer_norm as ln
     t0 = time.perf_counter()
-    old = _build.load_from(parent / 'reverb_tpu_torch' / 'csrc',
-                           ROOT / '_chipwork' / 'ab')
+    # the parent's C entry points may differ from this tree's: its library
+    # takes the signatures of its own _build.py, and its K2/K3 and K5/K6 go
+    # through its own wrappers
+    pkg = parent / 'reverb_tpu_torch'
+    old_build = load_parent_module(parent, 'reverb_tpu_torch/_build.py',
+                                   'parent_build')
+    old = _build.load_from(pkg / 'csrc', ROOT / '_chipwork' / 'ab',
+                           old_build._SIGNATURES if old_build else None)
     log(f'A/B: parent library built in {time.perf_counter() - t0:.2f} s')
     new = _build.load()
-    old_ln, wrapper = ln, 'this tree\'s'
-    src = parent / 'reverb_tpu_torch' / 'ops' / 'layer_norm.py'
-    if src.is_file():
-        spec = importlib.util.spec_from_file_location('parent_layer_norm',
-                                                      src)
-        old_ln = importlib.util.module_from_spec(spec)
-        spec.loader.exec_module(old_ln)
-        wrapper = 'the parent\'s'
-    log(f'A/B: K5/K6 of the parent through {wrapper} wrapper')
+    old_ln = load_parent_module(parent, 'reverb_tpu_torch/ops/layer_norm.py',
+                                'parent_layer_norm')
+    old_bs = load_parent_module(parent, 'reverb_tpu_torch/ops/beam_scan.py',
+                                'parent_beam_scan')
+    log('A/B: the parent\'s K5/K6 through '
+        + ('its own' if old_ln else 'this tree\'s') + ' wrapper, its K2/K3 '
+        'through ' + ('its own' if old_bs else 'this tree\'s'))
+    old_ln, old_bs = old_ln or ln, old_bs or bs
+    beam_in = ab_beam_inputs(dev, SEED)
     gen = torch.Generator(device=dev).manual_seed(9)
     T, rate = ATTN_T, 0.1
     q, k, v, pos, u, vb = attn_inputs(dev, gen, torch.bfloat16, T)
@@ -1188,8 +1628,10 @@ def ab_parent(dev, parent: Path):
                *ln.layer_norm_bwd_plain(x, w, gy, 1e-5))
     rows = []
     for tag in ('old', 'new', 'new', 'old'):
-        lib, mod = (old, old_ln) if tag == 'old' else (new, ln)
+        lib, mod, bmod = (old, old_ln, old_bs) if tag == 'old' else (
+            new, ln, bs)
         with swapped({(_build, 'load'): lambda lib=lib: lib}):
+            beam_t = ab_beam(bmod, beam_in)
             got = fa.rel_pos_attention(q, k, v, pos, u, vb, full)
             ln_got = (mod.layer_norm_fwd(x, w, b, 1e-5),
                       *mod.layer_norm_bwd(x, w, gy, 1e-5))
@@ -1206,6 +1648,7 @@ def ab_parent(dev, parent: Path):
             lambda: ln.layer_norm_plain(x, w, b, 1e-5), 20)
         t['ln_bwd_plain'] = cuda_time_ms(
             lambda: ln.layer_norm_bwd_plain(x, w, gy, 1e-5), 20)
+        t.update(beam_t)
         rows.append({'build': tag, **t})
         log(f'A/B {tag} (ms per call / on the device): K1 {t["k1"]:.4f} / '
             f'{t["k1_dev"]:.4f} (err {t["k1_err"]:.2e}), K1+mask '
@@ -1216,6 +1659,11 @@ def ab_parent(dev, parent: Path):
             f'{t["ln_bwd"]:.4f} / {t["ln_bwd_dev"]:.4f} (plain '
             f'{t["ln_bwd_plain"]:.4f}); K5/K6 relative err '
             f'{t["ln_rel_err"]:.2e}')
+        log(f'A/B {tag} beam, B=8 K=10, records/prefixes/times equal to the '
+            f'plain versions (ms per call / on the device): '
+            + '; '.join(f'T={T}: K2 {t[f"k2_{T}"]:.4f} / '
+                        f'{t[f"k2_dev_{T}"]:.4f}, K3 {t[f"k3_{T}"]:.4f} / '
+                        f'{t[f"k3_dev_{T}"]:.4f}' for T in AB_BEAM_T))
     print(json.dumps({'ab': rows, 'parent': str(parent)}))
     return rows
 
@@ -1224,13 +1672,14 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default='kernels,serve,train',
                     help='comma list of kernels, serve, train (default all; '
-                         'the result lines need all three)')
+                         'the result lines need all three), or beam: the '
+                         'K2/K3 checks alone')
     ap.add_argument('--profile', action='store_true',
                     help='also profile one bf16 training step')
     ap.add_argument('--ab-parent', type=Path, default=None,
                     help='a checkout of the parent commit (its '
-                         'reverb_tpu_torch/csrc is enough): also time its '
-                         'K1, K4, K5 and K6 against this tree\'s (prints an '
+                         'reverb_tpu_torch/csrc, _build.py and ops/): also '
+                         'time its K1-K6 against this tree\'s (prints an '
                          '"ab" line)')
     args = ap.parse_args()
     phases = set(args.phases.split(','))
@@ -1279,8 +1728,21 @@ def main():
             not any(n.startswith('ln_bwd_warp') for n in lnk):
         raise AssertionError('the LayerNorm kernels are missing from the '
                              'build')
+    beamk = {n: r for n, r in ptx.items() if n.startswith('beam_')}
+    smem = {n: b for n, b in ptxas_smem(_build.build_log).items()
+            if 'beam_' in n}
+    log('ptxas, beam kernels (registers, spill stores/loads bytes): '
+        + '; '.join(f'{n} {r[0]} ({r[1]}/{r[2]})'
+                    for n, r in sorted(beamk.items()))
+        + '; static shared memory bytes '
+        + ', '.join(str(b) for _, b in sorted(smem.items())))
+    if set(beamk) != {'beam_scan_kernel', 'beam_backtrace_kernel<0>',
+                      'beam_backtrace_kernel<1>'}:
+        raise AssertionError(f'the beam kernels of the build: {set(beamk)}')
     if args.ab_parent is not None:
         ab_parent(dev, args.ab_parent)
+    if 'beam' in phases and 'kernels' not in phases:
+        check_beam(dev, SEED)       # a quick first check of K2/K3 alone
     if 'kernels' in phases:
         # phases 3-4, 6-7: kernels against their plain versions
         k1 = check_k1(dev)
@@ -1291,14 +1753,15 @@ def main():
     if 'serve' in phases:
         # phase 5: the serving path
         with tempfile.TemporaryDirectory(prefix='reverb_smoke_') as tmp:
-            launches, walls, audio_s = run_slice(dev, SEED, Path(tmp))
+            launches, walls, audio_s, fallback = run_slice(dev, SEED,
+                                                           Path(tmp))
     if 'train' in phases:
         # phase 8: the training path
         train_reference_check(dev, SEED)
         t_launch, step_ms, peak = run_train(dev, SEED)
         if args.profile:
             profile_train(dev, SEED)
-    spilled = [n for n, r in {**tc, **lnk}.items() if r[1] or r[2]]
+    spilled = [n for n, r in {**tc, **lnk, **beamk}.items() if r[1] or r[2]]
     if spilled:
         raise AssertionError(f'kernels spill registers: {spilled}')
     if phases != {'kernels', 'serve', 'train'}:
@@ -1307,7 +1770,7 @@ def main():
         return 1
 
     kernels = kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches,
-                             len(walls), t_launch)
+                             len(walls), t_launch, fallback)
     log(f'slice: second transcribe_modes call {walls[1]:.4f} s for '
         f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; train '
         f'{step_ms:.1f} ms/step at B={TRAIN_B}, peak {peak / 2**30:.2f} GiB; '
@@ -1321,17 +1784,20 @@ def main():
 
 
 def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
-                   t_launch):
+                   t_launch, fallback):
     """The {"kernels": [...]} entries: launches on the two paths (in all,
-    per serving call and per training step), the error against the plain
-    version, kernel / plain / library times in bf16 at the timed shapes,
-    and the bound computed from those shapes."""
+    per serving call and per training step; K2/K3 also per call of the
+    long-hypothesis path), the error against the plain version, kernel /
+    plain / library times in bf16 at the timed shapes, and the bound
+    computed from those shapes."""
     import torch
     k1b = k1[torch.bfloat16]
     N, C = LN_ROWS[-1], LN_C
     per = {n: {'serve': launches.get(n, 0) / n_calls,
                'train': t_launch.get(n, 0) / TRAIN_STEPS}
            for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6')}
+    for n in ('K2', 'K3'):      # the uncapped tail launches them again
+        per[n]['serve_long_hyp'] = fallback[0][n] / fallback[1]
     sdpa_call = ('F.scaled_dot_product_attention(cat(q+u, q+v), cat(k, p), '
                  'v, scale=1/sqrt(dk)), every row at full length')
 
@@ -1367,10 +1833,12 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
                                    f'only) [{drop[1]}]'),
         rec('beam_scan_forward', 'beam_scan.cu', 'beam_scan.py:33', 'K2',
             fwd_err, bt['fwd'], bt['fwd_dev'], bt['fwd_plain'],
-            bound(0, bt['fwd_nbytes'], 'f32'), None, None, 'none'),
+            bound(0, bt['fwd_nbytes'], 'f32'), None, None, 'none',
+            us_per_frame=bt['fwd_us_frame']),
         rec('beam_backtrace', 'beam_scan.cu', 'beam_scan.py:137', 'K3', 0.0,
             bt['bt'], bt['bt_dev'], bt['bt_plain'],
-            bound(0, bt['bt_nbytes'], 'f32'), None, None, 'none'),
+            bound(0, bt['bt_nbytes'], 'f32'), None, None, 'none',
+            us_per_frame=bt['bt_us_frame']),
         rec('rel_pos_attention_bwd', 'rel_pos_attention_bf16.cu',
             'flash_attention.py:248', 'K4',
             max(v for n, v in k4['errs'].items() if n != 'out'),

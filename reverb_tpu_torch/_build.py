@@ -9,7 +9,8 @@ unchanged one is loaded as it is.  Nothing here runs at import time — the
 first kernel launch builds — and a failed build or load raises.
 
 No `--use_fast_math`: the beam kernel's parity with its plain PyTorch version
-needs IEEE `expf`/`log1pf`.
+needs IEEE `expf`/`log1pf`, and its rank count compares against the next f32
+below a value, which may be a denormal (no flush-to-zero).
 """
 
 from __future__ import annotations
@@ -58,11 +59,16 @@ _SIGNATURES = {
     'reverb_layer_norm_fwd': [_I] + [_P] * 4 + [_I] * 2 + [_F, _P],
     # dtype, x w g dx part_w part_b dw db, N C blocks iters, eps, stream
     'reverb_layer_norm_bwd': [_I] + [_P] * 8 + [_I] * 4 + [_F, _P],
-    # logp idx ts valid bacc hskip, 8 emit arrays, wval, final s ns vs vns
-    # plen, B T K K2 blank_id, stream
-    'reverb_beam_scan_forward': [_P] * 20 + [_I] * 5 + [_P],
-    # 8 emit arrays, wval, order, sel_ns, prefixes, times, B T K L, stream
-    'reverb_beam_backtrace': [_P] * 13 + [_I] * 4 + [_P],
+    # chunk → dynamic shared-memory bytes of the beam scan
+    'reverb_beam_scan_smem_bytes': [_I],
+    # chunk, K, L, out_on_chip → the same of the backtrace
+    'reverb_beam_backtrace_smem_bytes': [_I] * 4,
+    # logp idx ts valid bacc hskip, records (8 emit arrays then wval),
+    # finals (s ns vs vns plen), B T K K2 blank_id chunk, stream
+    'reverb_beam_scan_forward': [_P] * 8 + [_I] * 6 + [_P],
+    # 8 emit arrays, wval, order, sel_ns, prefixes, times, B T K L, chunk
+    # smem_bytes out_on_chip, stream
+    'reverb_beam_backtrace': [_P] * 13 + [_I] * 7 + [_P],
 }
 
 
@@ -154,12 +160,13 @@ def build(csrc: Path = _CSRC, out: Path = _OUT) -> Path:
     return lib
 
 
-def load_from(csrc: Path, out: Path):
+def load_from(csrc: Path, out: Path, signatures=None):
     """The kernel library built from `csrc` into `out`, loaded as a handle
     of its own with the C signatures: the package's (`load`), or another
-    checkout's for an A/B, which leaves the package's as it is."""
+    checkout's for an A/B, which leaves the package's as it is.  Another
+    checkout whose entry points differ passes its own `signatures`."""
     lib = ctypes.CDLL(str(build(csrc, out)))
-    for name, argtypes in _SIGNATURES.items():
+    for name, argtypes in (signatures or _SIGNATURES).items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
         fn.restype = ctypes.c_int

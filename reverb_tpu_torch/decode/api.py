@@ -5,7 +5,11 @@ Counterpart of reverb_tpu/decode/api.py restricted to
 {ctc_prefix_beam_search, attention_rescoring}: `encode_and_ctc_topk`,
 `_beam_rescore_tail` (length-bucketed rescoring, 32/64/128) and the host
 packing of `_decode_fused`.  Everything stays on the device until the one
-fetch before packing.
+fetch before packing.  When that fetch shows a hypothesis longer than
+`max_hyp_len`, `decode` takes the reference's generic tail instead
+(`_decode_uncapped`): the beam once more with no cap on the length, then
+`rescoring.attention_rescoring` on its device buffers; the encoder does not
+run again.
 """
 
 from __future__ import annotations
@@ -75,6 +79,29 @@ def _beam_rescore_tail(model, tk_logp, tk_idx, blank_lp, encoder_out,
                   take(times))
 
 
+def _decode_uncapped(model, methods, tk_logp, tk_idx, blank_lp, encoder_out,
+                     encoder_lens, beam_size: int, ctc_weight: float,
+                     reverse_weight: float, blank_skip_threshold: float,
+                     cat_embs) -> Dict[str, List[DecodeResult]]:
+    """The decode tail with no cap on the hypothesis length, on the encoder
+    output and CTC top-k the caller already holds: the beam again (kernels
+    K2/K3 a second time) with L = T, or the keep cap under blank-skip, then
+    rescoring at the 16-bucket of the longest hypothesis, with the rescored
+    nbest filled in."""
+    with torch.inference_mode():
+        prefix_results, beam_raw = pb.ctc_prefix_beam_search_topk_raw(
+            tk_logp, tk_idx, blank_lp, encoder_lens, beam_size,
+            model.cfg.blank_id, blank_skip_threshold)
+        results: Dict[str, List[DecodeResult]] = {}
+        if 'ctc_prefix_beam_search' in methods:
+            results['ctc_prefix_beam_search'] = prefix_results
+        if 'attention_rescoring' in methods:
+            results['attention_rescoring'] = rs.attention_rescoring(
+                model, prefix_results, encoder_out, encoder_lens, beam_raw,
+                ctc_weight, reverse_weight, cat_embs)
+    return results
+
+
 def decode(model, methods: List[str], feats, feats_lens,
            beam_size: int = 10, ctc_weight: float = 0.0,
            reverse_weight: float = 0.0, blank_penalty: float = 0.0,
@@ -101,9 +128,11 @@ def decode(model, methods: List[str], feats, feats_lens,
             max_hyp_len, cat, rescore='attention_rescoring' in methods)
     prefixes, plens, ctc_scores, times = (x.cpu().numpy() for x in beam)
     if plens.max(initial=0) > max_hyp_len:
-        raise NotImplementedError(
-            f'a hypothesis is longer than max_hyp_len={max_hyp_len}; the '
-            f'generic decode path for long hypotheses is not ported')
+        # a hypothesis outgrew the (B, K, max_hyp_len) buffers
+        return _decode_uncapped(
+            model, methods, tk_logp, tk_idx, blank_lp, encoder_out,
+            encoder_lens, beam_size, ctc_weight, reverse_weight,
+            blank_skip_threshold, cat)
     results: Dict[str, List[DecodeResult]] = {}
     if 'ctc_prefix_beam_search' in methods:
         results['ctc_prefix_beam_search'] = pb._pack_results(

@@ -375,6 +375,20 @@ def ctc_prefix_beam_search_device_topk(topk_logp, topk_idx, blank_logp,
                            blank_id, L)
 
 
+def ctc_prefix_beam_search_topk_raw(topk_logp, topk_idx, blank_logp,
+                                    ctc_lens, beam_size: int,
+                                    blank_id: int = 0,
+                                    blank_skip_threshold: float = 0.0):
+    """The search with no cap on the hypothesis length (L = T, or the keep
+    cap under blank-skip): the packed DecodeResults and the raw device tuple
+    (prefixes, plens, scores, times), which the rescorer takes as it is."""
+    keep_cap = (topk_logp.shape[1] // 2) if blank_skip_threshold > 0 else 0
+    out = ctc_prefix_beam_search_device_topk(
+        topk_logp, topk_idx, blank_logp, ctc_lens, beam_size, blank_id, 0,
+        blank_skip_threshold, keep_cap)
+    return _pack_results(*out), out
+
+
 def _pack_results(prefixes, plens, scores, times) -> List[DecodeResult]:
     """Host packing of the beam buffers into DecodeResults with nbest."""
     prefixes, plens, scores, times = (

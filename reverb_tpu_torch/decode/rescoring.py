@@ -1,7 +1,9 @@
 """Attention rescoring of CTC prefix-beam nbest lists, whole batch at once.
 
 Counterpart of reverb_tpu/decode/rescoring.py (`_rescore_flat`,
-`_rescore_device_all`).  The (B, N) nbest grid is flattened to B·N decoder
+`_rescore_device_all`, and `attention_rescoring` fed by the beam's device
+buffers, which `decode.api.decode` takes for hypotheses longer than its
+`max_hyp_len`).  The (B, N) nbest grid is flattened to B·N decoder
 rows, grouped by utterance so each group shares its utterance's
 cross-attention K/V.  The decoder's log-softmax is deferred: only the
 hypothesis tokens' logits and one f32 logsumexp per position are taken, so
@@ -10,9 +12,20 @@ no (rows, L, V) f32 log-prob tensor is built.
 
 from __future__ import annotations
 
+import math
+from typing import List
+
+import numpy as np
 import torch
 
+from reverb_tpu_torch.decode.results import DecodeResult
 from reverb_tpu_torch.utils.common import reverse_sequence
+
+
+def _bucket(n: int, step: int = 16) -> int:
+    """n rounded up to the next multiple of `step` (at least `step`): the
+    padded hypothesis length of the uncapped rescoring pass."""
+    return max(step, -(-n // step) * step)
 
 
 def _rescore_flat(model, hyps_pad, hyps_lens, encoder_outs,
@@ -85,3 +98,70 @@ def _rescore_device_all(model, hyps_pad, hyps_lens, encoder_outs,
         encoder_outs, reverse_weight, cat_embs, enc_lens, group=N)
     return (att.reshape(B, N), r_att.reshape(B, N),
             tok_logp.reshape(B, N, Lmax))
+
+
+def attention_rescoring(model, ctc_prefix_results: List[DecodeResult],
+                        encoder_outs, encoder_lens, device_nbest,
+                        ctc_weight: float = 0.0, reverse_weight: float = 0.0,
+                        cat_embs=None) -> List[DecodeResult]:
+    """Rescore every utterance's nbest in one batched decoder pass, fed by
+    the beam's device tuple `device_nbest` (prefixes (B,K,L), plens, scores,
+    times) whose packed form is `ctc_prefix_results`.  The beam keeps its
+    rows sorted by score with the sentinel rows last, so row k of the tuple
+    is entry k of the packed nbest.  Returns DecodeResults that also carry
+    the nbest re-ranked by the combined score."""
+    from reverb_tpu_torch.decode.prefix_beam import NEG_INF
+    n_max = max((len(p.nbest) for p in ctc_prefix_results), default=0)
+    l_max = max((len(h) for p in ctc_prefix_results for h in p.nbest),
+                default=0)
+    if l_max == 0 or n_max == 0:
+        return [DecodeResult(tokens=[], times=[], tokens_confidence=[])
+                for _ in ctc_prefix_results]
+    prefixes, plens, scores, _ = device_nbest
+    Lb = min(_bucket(l_max), prefixes.shape[2])
+    valid = scores > NEG_INF / 2
+    lens = torch.where(valid, torch.clamp(plens, max=Lb),
+                       torch.zeros_like(plens)).to(torch.int32)
+    att, r_att, tok_logp = _rescore_device_all(
+        model, prefixes[:, :, :Lb].to(torch.int32).contiguous(), lens,
+        encoder_outs, reverse_weight, cat_embs,
+        encoder_lens.to(torch.int32))
+    score = att * (1.0 - reverse_weight) + r_att * reverse_weight \
+        if reverse_weight > 0.0 else att
+    conf = torch.exp(score / (lens + 1).to(torch.float32))
+    total = torch.where(valid, score + scores.to(torch.float32) * ctc_weight,
+                        torch.full_like(score, -math.inf))
+    best = torch.argmax(total, dim=1)
+    tc_best = torch.gather(
+        tok_logp, 1, best[:, None, None].expand(-1, 1, Lb))[:, 0]
+    conf_best = torch.gather(conf, 1, best[:, None])[:, 0]
+    total, best, conf_best, tc_best = (
+        x.cpu().numpy() for x in (total, best, conf_best, tc_best))
+    return _pack_rescored(ctc_prefix_results, total.astype(np.float64), best,
+                          conf_best.astype(np.float64), tc_best)
+
+
+def _pack_rescored(ctc_prefix_results, total, best, conf_best, tc_best
+                   ) -> List[DecodeResult]:
+    """Host packing of the rescoring reduction.  Row i of `total` is nbest
+    entry i of the utterance."""
+    results = []
+    for b, pre in enumerate(ctc_prefix_results):
+        nvalid = len(pre.nbest)
+        if nvalid == 0 or max((len(h) for h in pre.nbest), default=0) == 0:
+            results.append(DecodeResult(tokens=[], times=[],
+                                        tokens_confidence=[]))
+            continue
+        k = int(best[b])
+        n = len(pre.nbest[k])
+        tc = [math.exp(float(x)) for x in tc_best[b, :n]]
+        # the hypotheses the beam produced, re-ranked by combined score
+        order = [i for i in np.argsort(-total[b]) if i < nvalid]
+        results.append(DecodeResult(
+            tokens=pre.nbest[k], score=float(total[b, k]),
+            confidence=float(conf_best[b]),
+            times=pre.nbest_times[k], tokens_confidence=tc,
+            nbest=[pre.nbest[i] for i in order],
+            nbest_scores=[float(total[b, i]) for i in order],
+            nbest_times=[pre.nbest_times[i] for i in order]))
+    return results

@@ -2,18 +2,26 @@
 (backpointer walk), with their plain PyTorch versions.
 
 Counterpart of reverb_tpu/ops/beam_scan.py.  `beam_scan_forward` runs every
-frame of `decode/prefix_beam._step` in one launch per batch (one CUDA block
-per utterance); `beam_backtrace` rebuilds the (B, K, L) token and time
-matrices from the per-frame records, with the scatter-max fused in.  Both
+frame of `decode/prefix_beam._step` in one launch per batch: one CUDA block
+of five warps per utterance, the frame inputs staged through a two-chunk
+ring in shared memory (`scan_launch_plan`), three block barriers a frame,
+the top-K an exact rank count.
+`beam_backtrace` rebuilds the (B, K, L) token and time matrices from the
+per-frame records, with the scatter-max fused in: one block per utterance
+walks the records chunk by chunk in shared memory, last chunk first, and
+builds the outputs there too when they fit (`backtrace_launch_plan`).  Both
 take the plain version for CPU tensors and launch the kernel for CUDA
 tensors (csrc/beam_scan.cu) — there is no fallback.  Unbiased search only.
 
 Record layout (time-leading): eight (T, B, K) int32 arrays named by
 `prefix_beam.EMIT_KEYS` plus `wval` (T, B) int32, the frame index written by
-a time update.
+a time update.  The kernel's records are views of one allocation and its
+five finals of another.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -26,6 +34,51 @@ FWD_LAUNCHES = 0
 BT_LAUNCHES = 0
 _MAX_K = 16
 _MAX_CAND = 128
+# the most shared memory a block may ask for on sm_90 (227 KB)
+SMEM_MAX = 232448
+_SCAN_CHUNK = 32      # frames per stage of the scan's input ring
+_BT_CHUNK = 64        # frames per stage of the walk's record ring
+_FINAL_KEYS = ('s', 'ns', 'v_s', 'v_ns', 'plen')
+
+
+@functools.lru_cache(maxsize=4096)
+def scan_launch_plan(T: int, K: int, K2: int):
+    """(chunk, smem_bytes) of the scan for T frames: the frames go through
+    shared memory in ceil(T / chunk) chunks of `chunk` frames (the last may
+    be short), two stages deep; a stage holds logp and idx as (chunk, 16)
+    rows (a frame's K2 values, then pads), ts and blank_acc (chunk) and the
+    valid and has_skip bytes, rounded up to 16 bytes.  A chunk is at most a
+    warp's 32 lanes long (lane l holds frame l's blank log-prob).  The ring
+    has no limit on T."""
+    if not (1 <= K <= _MAX_K and 1 <= K2 <= _MAX_K
+            and K * (K2 + 1) <= _MAX_CAND):
+        raise ValueError(f'beam_scan_forward: K={K}, K2={K2} outside the '
+                         f'kernel limits')
+    chunk = max(1, min(_SCAN_CHUNK, T))
+    stage = -(-chunk * (8 * _MAX_K + 10) // 16) * 16
+    return chunk, 2 * stage
+
+
+@functools.lru_cache(maxsize=4096)
+def backtrace_launch_plan(T: int, K: int, L: int):
+    """(chunk, smem_bytes, out_on_chip) of the walk: the records go through
+    a two-stage ring of `chunk` frames, a stage holding the eight record
+    arrays as (chunk, 16) rows and wval (chunk).  The (2, K, L) outputs are
+    built in shared memory when they fit beside the ring within SMEM_MAX
+    (K = 10: L up to 2080; K = 16: L up to 1300), else in place in device
+    memory (the uncapped search of a long utterance)."""
+    if not 1 <= K <= _MAX_K:
+        raise ValueError(f'beam_backtrace: K={K} outside the kernel limits')
+    chunk = max(1, min(_BT_CHUNK, T))
+    ring = 2 * (8 * chunk * _MAX_K + chunk) * 4
+    out = 2 * K * L * 4
+    on_chip = ring + out <= SMEM_MAX
+    return chunk, ring + (out if on_chip else 0), on_chip
+
+
+def chunk_spans(T: int, chunk: int):
+    """The [start, end) frame spans a kernel's ring covers, in order."""
+    return [(t0, min(T, t0 + chunk)) for t0 in range(0, T, chunk)]
 
 
 def beam_scan_forward_plain(topk_logp, topk_idx, ts, valid, blank_acc,
@@ -55,15 +108,6 @@ def beam_backtrace_plain(emits: dict, order, final_sel_ns, L: int):
     return _backtrace(emits, order, final_sel_ns, L)
 
 
-def _check_cuda(name, *tensors):
-    dev = tensors[0].device
-    for t in tensors:
-        if t.device != dev:
-            raise ValueError(f'{name}: tensors on different devices')
-        if not t.is_contiguous():
-            raise ValueError(f'{name}: inputs must be contiguous')
-
-
 def beam_scan_forward(topk_logp, topk_idx, ts, valid, blank_acc, has_skip,
                       K: int, blank_id: int):
     """topk_logp (B,T,K2) f32, topk_idx (B,T,K2) i32, ts (B,T) i32, valid
@@ -77,35 +121,34 @@ def beam_scan_forward(topk_logp, topk_idx, ts, valid, blank_acc, has_skip,
         raise RuntimeError(f'beam_scan_forward: no kernel for '
                            f'{topk_logp.device}')
     B, T, K2 = topk_logp.shape
-    if not (1 <= K <= _MAX_K and 1 <= K2 <= _MAX_K
-            and K * (K2 + 1) <= _MAX_CAND):
-        raise ValueError(f'beam_scan_forward: K={K}, K2={K2} outside the '
-                         f'kernel limits')
+    chunk, _ = scan_launch_plan(T, K, K2)
     want = ((topk_logp, torch.float32, (B, T, K2)),
             (topk_idx, torch.int32, (B, T, K2)), (ts, torch.int32, (B, T)),
             (valid, torch.bool, (B, T)), (blank_acc, torch.float32, (B, T)),
             (has_skip, torch.bool, (B, T)))
+    dev = topk_logp.device
     for x, dt, shape in want:
         if x.dtype != dt or tuple(x.shape) != shape:
             raise ValueError(f'beam_scan_forward: expected {dt} {shape}, '
                              f'got {x.dtype} {tuple(x.shape)}')
-    _check_cuda('beam_scan_forward', *(w[0] for w in want))
-    dev = topk_logp.device
-    i32 = dict(dtype=torch.int32, device=dev)
-    emits = {n: torch.empty((T, B, K), **i32) for n in EMIT_KEYS}
-    emits['wval'] = torch.empty((T, B), **i32)
-    final = {n: torch.empty((B, K), dtype=torch.float32, device=dev)
-             for n in ('s', 'ns', 'v_s', 'v_ns')}
-    final['plen'] = torch.empty((B, K), **i32)
-    lib = _build.load()
-    rc = lib.reverb_beam_scan_forward(
+        if x.device != dev or not x.is_contiguous():
+            raise ValueError('beam_scan_forward: inputs must be contiguous '
+                             'tensors of one device')
+    # one allocation for the nine records, one for the five finals
+    n = T * B * K
+    rec = torch.empty(8 * n + T * B, dtype=torch.int32, device=dev)
+    fin = torch.empty((5, B, K), dtype=torch.float32, device=dev)
+    rc = _build.load().reverb_beam_scan_forward(
         topk_logp.data_ptr(), topk_idx.data_ptr(), ts.data_ptr(),
         valid.data_ptr(), blank_acc.data_ptr(), has_skip.data_ptr(),
-        *(emits[n].data_ptr() for n in EMIT_KEYS + ('wval',)),
-        *(final[n].data_ptr() for n in ('s', 'ns', 'v_s', 'v_ns', 'plen')),
-        B, T, K, K2, blank_id, torch.cuda.current_stream(dev).cuda_stream)
+        rec.data_ptr(), fin.data_ptr(), B, T, K, K2, blank_id, chunk,
+        torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, 'beam_scan_forward')
     FWD_LAUNCHES += 1
+    emits = dict(zip(EMIT_KEYS, rec[:8 * n].view(8, T, B, K).unbind(0)))
+    emits['wval'] = rec[8 * n:].view(T, B)
+    final = dict(zip(_FINAL_KEYS, fin.unbind(0)))
+    final['plen'] = final['plen'].view(torch.int32)
     return final, emits
 
 
@@ -127,17 +170,18 @@ def beam_backtrace(emits: dict, order, final_sel_ns, L: int):
     sel = final_sel_ns.to(torch.bool).contiguous()
     if order.shape != (B, K) or sel.shape != (B, K):
         raise ValueError('beam_backtrace: order/final_sel_ns must be (B, K)')
-    _check_cuda('beam_backtrace', order, sel, emits['wval'],
-                *(emits[n] for n in EMIT_KEYS))
     dev = order.device
-    prefixes = torch.empty((B, K, L), dtype=torch.int32, device=dev)
-    times = torch.empty((B, K, L), dtype=torch.int32, device=dev)
-    lib = _build.load()
-    rc = lib.reverb_beam_backtrace(
+    for t in (order, sel, emits['wval'], *(emits[n] for n in EMIT_KEYS)):
+        if t.device != dev or not t.is_contiguous():
+            raise ValueError('beam_backtrace: inputs must be contiguous '
+                             'tensors of one device')
+    chunk, smem, on_chip = backtrace_launch_plan(T, K, L)
+    out = torch.empty((2, B, K, L), dtype=torch.int32, device=dev)
+    rc = _build.load().reverb_beam_backtrace(
         *(emits[n].data_ptr() for n in EMIT_KEYS + ('wval',)),
-        order.data_ptr(), sel.data_ptr(), prefixes.data_ptr(),
-        times.data_ptr(), B, T, K, L,
+        order.data_ptr(), sel.data_ptr(), out[0].data_ptr(),
+        out[1].data_ptr(), B, T, K, L, chunk, smem, int(on_chip),
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, 'beam_backtrace')
     BT_LAUNCHES += 1
-    return prefixes, times
+    return out[0], out[1]

@@ -161,18 +161,19 @@ def layer_norm_bwd(x, weight, g, eps: float):
     N = x2.numel() // C
     blocks, iters = _plan(N, C, x2.get_device())
     dx = torch.empty_like(x2)
-    # one scratch: dw, db, then the (blocks, C) partials of each
-    buf = torch.empty((2 * blocks + 2) * C, device=x2.device,
-                      dtype=torch.float32)
-    p, row = buf.data_ptr(), 4 * C
+    # the (blocks, C) partials of dw and of db are scratch that dies with
+    # this call; dw and db are the two rows of a result of their own, so a
+    # kept gradient holds 2·C floats and not the scratch
+    part = torch.empty((2 * blocks, C), device=x2.device, dtype=torch.float32)
+    dwb = torch.empty((2, C), device=x2.device, dtype=torch.float32)
+    p, q, row = part.data_ptr(), dwb.data_ptr(), 4 * C
     rc = _build.load().reverb_layer_norm_bwd(
         _DTYPES[x2.dtype], x2.data_ptr(), _f32_aligned(weight).data_ptr(),
-        g2.data_ptr(), dx.data_ptr(), p + 2 * row, p + (2 + blocks) * row,
-        p, p + row, N, C, blocks, iters, eps, _stream(x2))
+        g2.data_ptr(), dx.data_ptr(), p, p + blocks * row, q, q + row, N, C,
+        blocks, iters, eps, _stream(x2))
     _build.check(rc, 'layer_norm backward')
     BWD_LAUNCHES += 1
-    dw, db, _ = buf.split((C, C, 2 * blocks * C))
-    return dx, dw, db
+    return dx, dwb[0], dwb[1]
 
 
 class _LayerNorm(torch.autograd.Function):

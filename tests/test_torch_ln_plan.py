@@ -101,6 +101,38 @@ def test_device_ms_sums_matching_events(pattern, reps, want):
     assert cs.device_ms_of(_EVENTS, reps, pattern) == pytest.approx(want)
 
 
+@pytest.mark.parametrize('drop', [(), (4,), (0,)])
+def test_device_ms_by_name_survives_lost_events(drop):
+    """A named kernel's time is the mean duration of its events times its
+    launches per call, so a trace that lost events of some calls reads
+    the same per-call time (here 2 calls: ln_fwd 4.5 µs each; with both
+    backward kernels 10 + 2 µs a call)."""
+    cs = _chip_smoke()
+    events = [e for i, e in enumerate(_EVENTS) if i not in drop]
+    assert cs.device_ms_by_name(events, 2, r'ln_fwd') == pytest.approx(0.0045)
+    assert cs.device_ms_by_name(_EVENTS, 1, r'ln_(bwd|colsum)') == \
+        pytest.approx(0.012)
+    assert cs.device_ms_by_name(_EVENTS, 2, r'ln_fwd') == pytest.approx(
+        cs.device_ms_of(_EVENTS, 2, r'ln_fwd'))
+
+
+def test_ptxas_table_names_beam_kernels():
+    log = '\n'.join([
+        "ptxas info : Compiling entry function '_ZN45_GLOBAL__N__d1dde0fa_12_"
+        "beam_scan_cu_b45db26f16beam_scan_kernelENS_6ScanInEPiPfiiiiii' for "
+        "'sm_90a'",
+        'ptxas info : Used 98 registers, used 1 barriers, 11024 bytes smem',
+        '0 bytes stack frame, 0 bytes spill stores, 0 bytes spill loads',
+        "ptxas info : Compiling entry function '_ZN45_GLOBAL__N__d1dde0fa_12_"
+        "beam_scan_cu_b45db26f21beam_backtrace_kernelILb1EEEvNS_7RecordsEPKi"
+        "PKhPiS6_iiiii' for 'sm_90a'",
+        'ptxas info : Used 64 registers'])
+    cs = _chip_smoke()
+    assert cs.ptxas_table(log) == {'beam_scan_kernel': [98, 0, 0],
+                                   'beam_backtrace_kernel<1>': [64, 0, 0]}
+    assert sorted(cs.ptxas_smem(log).values()) == [0, 11024]
+
+
 def test_ptxas_table_names_layer_norm_kernels():
     log = '\n'.join([
         "ptxas info : Compiling entry function '_ZN12_GLOBAL__N_118ln_fwd_"

@@ -184,6 +184,54 @@ def test_beam_entry_point_matches_jax(threshold):
     _assert_beam_equal(got, want)
 
 
+# (B, T, K, K2, num_t, L): the shapes the card's exact checks of the
+# redesigned kernels lean on — the 128-candidate limit, a small square beam,
+# one frame, a row of no frames, and L = T (the uncapped search)
+BEAM_SHAPES = [(2, 24, 16, 7, (24, 13), 24),
+               (2, 24, 4, 4, (24, 9), 16),
+               (2, 1, 5, 5, (1, 1), 8),
+               (3, 20, 5, 5, (20, 0, 7), 20),
+               (2, 70, 6, 6, (70, 66), 70)]
+
+
+@pytest.mark.parametrize('B,T,K,K2,num_t,L', BEAM_SHAPES)
+def test_plain_scan_and_walk_match_pallas_interpret(B, T, K, K2, num_t, L):
+    """The plain K2 and K3 against the Pallas kernels in interpret mode:
+    every record, prefix and time exactly; the final scores to 1e-5 (f32
+    on both sides, log1p/exp may differ by an ulp)."""
+    from reverb_tpu.ops import beam_scan as jbs
+    rng = np.random.RandomState(7)
+    lp, ix, _ = _rand_topk(rng, B, T, K2, 30)
+    ts = np.tile(np.arange(T, dtype=np.int32), (B, 1))
+    valid = np.arange(T)[None, :] < np.asarray(num_t)[:, None]
+    acc = np.zeros((B, T), np.float32)
+    hs = np.zeros((B, T), bool)
+    jfinal, jem = jbs.beam_scan_forward(
+        jnp.asarray(lp), jnp.asarray(ix), jnp.asarray(ts),
+        jnp.asarray(valid), jnp.asarray(acc), jnp.asarray(hs), K, 0, True)
+    final, em = beam_scan.beam_scan_forward(_t(lp), _t(ix), _t(ts), _t(valid),
+                                            _t(acc), _t(hs), K, 0)
+    for n in tpb.EMIT_KEYS:
+        np.testing.assert_array_equal(em[n].numpy(), np.asarray(jem[n]),
+                                      err_msg=n)
+    np.testing.assert_array_equal(em['wval'].numpy(),
+                                  np.asarray(jem['wval'])[:, 0, :])
+    np.testing.assert_array_equal(final['plen'].numpy(),
+                                  np.asarray(jfinal['plen']))
+    for n in ('s', 'ns', 'v_s', 'v_ns'):
+        np.testing.assert_allclose(final[n].numpy(), np.asarray(jfinal[n]),
+                                   rtol=0, atol=1e-5, err_msg=n)
+    total = tpb._log_add(final['s'], final['ns'])
+    order = torch.argsort(-total, dim=-1, stable=True).to(torch.int32)
+    sel = torch.gather(~(final['v_s'] > final['v_ns']), 1, order.long())
+    jpre, jtim = jbs.beam_backtrace(jem, jnp.asarray(order.numpy()),
+                                    jnp.asarray(sel.numpy()), L, True)
+    pre, tim = beam_scan.beam_backtrace(em, order, sel, L)
+    np.testing.assert_array_equal(pre.numpy(), np.asarray(jpre))
+    np.testing.assert_array_equal(tim.numpy(), np.asarray(jtim))
+    assert pre.shape == (B, K, L)
+
+
 def test_beam_second_prune_tie_order():
     """Forced ties (every extension of a frame equal): the second prune
     keeps the lowest flat indices, as lax.top_k does."""
@@ -269,30 +317,100 @@ def test_k1_kernel_matches_plain(cuda, dtype, tol, T, kv_lens):
         assert float(err) <= tol
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize('threshold', [0.0, 0.95])
-def test_k2_k3_kernels_match_plain(cuda, threshold, monkeypatch):
-    gen = torch.Generator().manual_seed(1)
-    B, T, K, V = 8, 512, 10, 50
+def _cuda_topk(gen, B, T, K2, V=50):
     logits = torch.randn(B, T, V, generator=gen)
     logits[..., 0] += torch.rand(B, T, generator=gen) * 3 + 1.5
     logp = torch.log_softmax(logits, -1)
     vals, idx = torch.sort(logp, dim=-1, descending=True, stable=True)
-    lp = vals[..., :K].contiguous().to(cuda)
-    ix = idx[..., :K].int().contiguous().to(cuda)
-    blank = logp[..., 0].contiguous().to(cuda)
-    lens = torch.tensor([512, 400, 300, 512, 1, 256, 100, 512], device=cuda)
+    return (vals[..., :K2].contiguous(), idx[..., :K2].int().contiguous(),
+            logp[..., 0].contiguous())
+
+
+# (B, T, K, K2, lens, max_tokens, threshold): the serving shapes, dense and
+# blank-skip, then one frame, a T that is no multiple of the rings' chunks,
+# a T beyond two chunks with a row of no frames and L = T, the
+# 128-candidate limit, a small beam, B = 1 and B above 32
+K2K3_CASES = [
+    (8, 512, 10, 10, [512, 400, 300, 512, 1, 256, 100, 512], 256, 0.0),
+    (8, 512, 10, 10, [512, 400, 300, 512, 1, 256, 100, 512], 256, 0.95),
+    (2, 1, 10, 10, [1, 1], 256, 0.0),
+    (3, 45, 10, 10, [45, 44, 1], 256, 0.0),
+    (4, 150, 10, 10, [150, 0, 129, 64], 0, 0.0),
+    (4, 150, 10, 10, [150, 0, 129, 64], 0, 0.9),
+    (3, 70, 16, 7, [70, 33, 65], 256, 0.0),
+    (3, 70, 4, 4, [70, 33, 65], 64, 0.0),
+    (1, 40, 10, 10, [40], 256, 0.0),
+    (40, 33, 10, 10, [33] * 40, 32, 0.0)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('B,T,K,K2,lens,max_tokens,threshold', K2K3_CASES)
+def test_k2_k3_kernels_match_plain(cuda, B, T, K, K2, lens, max_tokens,
+                                   threshold, monkeypatch):
+    """Prefixes, plens and times exactly equal to the plain versions';
+    scores within 1e-4 (expf/log1pf of the card against PyTorch's)."""
+    gen = torch.Generator().manual_seed(1)
+    lp, ix, blank = (x.to(cuda) for x in _cuda_topk(gen, B, T, K2))
+    lens = torch.tensor(lens, device=cuda)
     cap = T // 2 if threshold > 0 else 0
     got = tpb.ctc_prefix_beam_search_device_topk(lp, ix, blank, lens, K, 0,
-                                                 256, threshold, cap)
+                                                 max_tokens, threshold, cap)
     monkeypatch.setattr(beam_scan, 'beam_scan_forward',
                         beam_scan.beam_scan_forward_plain)
     monkeypatch.setattr(beam_scan, 'beam_backtrace',
                         beam_scan.beam_backtrace_plain)
     want = tpb.ctc_prefix_beam_search_device_topk(lp, ix, blank, lens, K, 0,
-                                                  256, threshold, cap)
+                                                  max_tokens, threshold, cap)
     for g, w in zip(got, want):
         if w.dtype.is_floating_point:
             assert float((g - w).abs().max()) <= 1e-4
         else:
             assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+def test_k2_forced_ties_match_plain(cuda, monkeypatch):
+    """Every log-prob equal: the selection is decided by the flat index
+    alone (ties to the lowest), exactly as the plain version decides it."""
+    B, T, K2, K = 2, 40, 6, 6
+    lp = torch.full((B, T, K2), -1.5, device=cuda)
+    ix = torch.arange(1, K2 + 1, dtype=torch.int32, device=cuda).repeat(
+        B, T, 1)
+    ix[1, ::2] = torch.arange(K2, dtype=torch.int32, device=cuda)
+    ix = ix.contiguous()
+    num_t = torch.tensor([T, 23], device=cuda)
+    got = tpb._search_batched(lp, ix, num_t, K, 0, T)
+    monkeypatch.setattr(beam_scan, 'beam_scan_forward',
+                        beam_scan.beam_scan_forward_plain)
+    monkeypatch.setattr(beam_scan, 'beam_backtrace',
+                        beam_scan.beam_backtrace_plain)
+    want = tpb._search_batched(lp, ix, num_t, K, 0, T)
+    for g, w in zip(got, want):
+        if w.dtype.is_floating_point:
+            assert float((g - w).abs().max()) <= 1e-4
+        else:
+            assert torch.equal(g, w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize('L,on_chip', [(1400, False), (256, True)])
+def test_k3_both_output_routes_match_plain(cuda, L, on_chip):
+    """K = 16 with L = 1400 does not fit in shared memory beside the record
+    ring, so the outputs are built in device memory; L = 256 is built on
+    chip.  Both equal the plain walk exactly, on K2's records."""
+    B, T, K, K2 = 2, 150, 16, 7
+    assert beam_scan.backtrace_launch_plan(T, K, L)[2] is on_chip
+    gen = torch.Generator().manual_seed(2)
+    lp, ix, _ = (x.to(cuda) for x in _cuda_topk(gen, B, T, K2))
+    ts = torch.arange(T, dtype=torch.int32, device=cuda)[None].expand(
+        B, T).contiguous()
+    ones = torch.ones((B, T), dtype=torch.bool, device=cuda)
+    acc = torch.zeros((B, T), device=cuda)
+    final, em = beam_scan.beam_scan_forward(lp, ix, ts, ones, acc, ~ones, K,
+                                            0)
+    order = torch.argsort(-tpb._log_add(final['s'], final['ns']), dim=-1,
+                          stable=True).to(torch.int32)
+    sel = torch.gather(~(final['v_s'] > final['v_ns']), 1, order.long())
+    got = beam_scan.beam_backtrace(em, order, sel, L)
+    want = beam_scan.beam_backtrace_plain(em, order, sel, L)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
