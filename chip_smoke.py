@@ -5,6 +5,8 @@
 
     python3 chip_smoke.py --phases kernels      # only the kernel checks
 
+    python3 chip_smoke.py --phases modes        # only the six CLI modes
+
     python3 chip_smoke.py --profile             # + one profiled train step
 
     python3 chip_smoke.py --ab-parent DIR       # + K1-K6 of the checkout
@@ -19,7 +21,7 @@ each beside its bound and the one PyTorch call that computes the same
 function (its library yardstick, which the port never calls) — per call
 (CUDA events around back-to-back calls, host work included) and on the
 device alone (the profiler's kernel durations) — then drives
-two paths on a reverb_large-
+three paths on a reverb_large-
 width model (18-layer LSL conformer, d=1024, 16 heads, 6+3-layer
 bitransformer decoder, V=10000) with seeded random weights:
 
@@ -32,15 +34,23 @@ bitransformer decoder, V=10000) with seeded random weights:
   Adam with warmuplr, clip 50) — first one f32 step at B = 2 through the
   kernels and through the plain versions with the same dropout draws, then
   4 bf16 steps at B = 8 utterances of 1600-2051 frames — kernels K1 (with
-  the dropout keep-mask), K4, K5, K6.
+  the dropout keep-mask), K4, K5, K6;
+- the six CLI modes (attention, ctc_greedy_search, ctc_prefix_beam_search,
+  attention_rescoring, joint_decoding, onmt_attention_decoding): first on
+  one f32 chunk's encoder output with the kernels and with the plain
+  versions (equal; joint_decoding also at ctc_weight 0.5, where it emits
+  tokens), then one bf16 `transcribe_modes` call with all six on
+  the 164 s wav after a warm-up call — kernels K1, K5 (encoder and every
+  decoder step), K2 and K3 (once per encoder call, over the dense CTC
+  table) — and each mode alone, timed.
 
 Each path runs with the launch counters set to 0 just before it and read
 just after.  Every phase raises on failure; the exit code is 0 only when
 all of them pass.
 
 Output: progress lines, then the card's `nvidia-smi` name and power limit,
-then one JSON line {"kernels": [...]} (each kernel's launches on the two
-paths, its error against the plain version, its time per call and on the
+then one JSON line {"kernels": [...]} (each kernel's launches on the
+three paths, its error against the plain version, its time per call and on the
 device alone, the plain version's, the library call's per call and on
 the device alone, and the bound), and last
 {"ok": true, "device": {...}}.
@@ -70,6 +80,7 @@ VOCAB = 10000
 SEED = 0                     # weights, audio and beam inputs
 LAYERS_ENC, LN_ENC, LN_DEC = 18, 91, 29   # reverb_large: per-step counts
 TRAIN_B, TRAIN_STEPS = 8, 4
+ALL_PHASES = ('kernels', 'serve', 'train', 'modes')
 
 
 def log(msg):
@@ -760,15 +771,21 @@ def reference_check(asr, feats, dev):
     torch.cuda.empty_cache()
 
 
-def compare_results(got, want, tol):
+def compare_results(got, want, tol, ulps: int = 0):
     """{mode: [DecodeResult]} of two decodes: tokens, times, nbest and
     nbest_times exactly equal; score, confidence, token confidences and
-    nbest_scores within tol.  Returns the first rescored result's token
-    count."""
+    nbest_scores within tol, or within `ulps` f32 spacings of the plain
+    value where that is coarser (a sum of 446 decoder log-probs reaches
+    -2533, where one f32 step is 2.4e-4).  Returns the first rescored
+    result's token count."""
     def close(a, b):
-        return (a is None and b is None) or (
-            a is not None and b is not None
-            and np.allclose(a, b, rtol=0, atol=tol))
+        if a is None or b is None:
+            return a is None and b is None
+        a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+        step = ulps * np.spacing(np.abs(b).astype(np.float32))
+        with np.errstate(invalid='ignore'):       # inf − inf
+            return bool(np.all((a == b)
+                               | (np.abs(a - b) <= np.maximum(tol, step))))
     if set(got) != set(want):
         raise AssertionError(f'modes {set(got)} != {set(want)}')
     for mode in want:
@@ -865,23 +882,30 @@ def run_fallback(asr, wav, ln_calls):
     return launches, n_enc, wall
 
 
-def run_slice(dev, seed, workdir: Path):
+def serving_setup(dev, seed, workdir: Path):
+    """The bf16 reverb_large-width ReverbASR with its CTC head sharpened,
+    and the synthetic 8-chunk wav with its features: (asr, wav, feats,
+    audio seconds)."""
     import torch
-    from reverb_tpu_torch.cli import reverb as rv
-    from reverb_tpu_torch.ops import beam_scan as bs
-    from reverb_tpu_torch.ops import flash_attention as fa
-    from reverb_tpu_torch.ops import layer_norm as ln
     asr = build_asr(dev, seed, workdir)
     n_samples = 400 + 160 * (N_CHUNKS * CHUNK - 1)
     wav = workdir / 'long.wav'
     write_wav(wav, n_samples, seed)
-    audio_s = n_samples / 16000
     feats = asr.compute_feats(str(wav))
     if tuple(feats.shape) != (N_CHUNKS * CHUNK, 80) or \
             not torch.isfinite(feats).all():
         raise AssertionError(f'fbank: shape {tuple(feats.shape)}')
     q = sharpen_ctc_head(asr, feats)
     log(f'ctc head: weight x8, blank bias +{q:.3f} (75th percentile)')
+    return asr, wav, feats, n_samples / 16000
+
+
+def run_slice(dev, asr, wav, feats, audio_s):
+    import torch
+    from reverb_tpu_torch.cli import reverb as rv
+    from reverb_tpu_torch.ops import beam_scan as bs
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
     reference_check(asr, feats, dev)
 
     # record the DecodeResults the entry point produces
@@ -955,6 +979,151 @@ def run_slice(dev, seed, workdir: Path):
         f'(blank_skip 0.95); xRT of the second call {audio_s / walls[1]:.1f}')
     return launches, walls, audio_s, fallback
 
+
+
+# ------------------------------ phase 9: every decode mode ------------------------------
+
+CLI_MODES = ['attention', 'ctc_greedy_search', 'ctc_prefix_beam_search',
+             'attention_rescoring', 'joint_decoding',
+             'onmt_attention_decoding']
+
+
+def modes_reference_check(asr, feats, dev):
+    """One chunk in f32 (TF32 off): the six CLI modes decode the SAME
+    encoder output with the kernels and with their plain versions (K2/K3
+    in the prefix beam, K5 in every decoder LayerNorm), and joint_decoding
+    once more at ctc_weight 0.5: tokens, times and nbest identical, scores
+    within 1e-4 or one f32 step of the value; greedy, the prefix beam and
+    joint at 0.5 must emit tokens."""
+    import torch
+    from reverb_tpu_torch.decode import api
+    from reverb_tpu_torch.models.asr_model import build_model
+    from reverb_tpu_torch.ops import beam_scan as bs
+    f32 = build_model(asr.model.cfg.with_compute_dtype(torch.float32), dev,
+                      state_dict=asr.model.state_dict())
+    x = feats[None, :CHUNK]
+    lens = torch.tensor([CHUNK], device=dev)
+    cat = torch.tensor([1.0, 0.0], device=dev)
+    with torch.inference_mode():
+        encoded = f32.forward_encoder(x, lens, cat)
+    plain = {(bs, 'beam_scan_forward'): bs.beam_scan_forward_plain,
+             (bs, 'beam_backtrace'): bs.beam_backtrace_plain,
+             **plain_versions()}
+
+    def run(kernels: bool, modes, ctc_weight: float):
+        table = {(f32, 'forward_encoder'): lambda *a, **k: encoded,
+                 **({} if kernels else plain)}
+        with swapped(table):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = api.decode(f32, modes, x, lens, beam_size=10,
+                             ctc_weight=ctc_weight, cat_embs=cat)
+            torch.cuda.synchronize()
+            return out, time.perf_counter() - t0
+    (got, t_k), (want, t_p) = (run(True, CLI_MODES, 0.1),
+                               run(False, CLI_MODES, 0.1))
+    # at the CLI's ctc_weight 0.1 the random decoder holds joint_decoding
+    # to the empty prefix; at 0.5 it extends prefixes, so its extension
+    # path and its decoder steps (K5) are held to the plain versions too
+    joint = 'joint_decoding at ctc_weight 0.5'
+    got[joint] = run(True, ['joint_decoding'], 0.5)[0]['joint_decoding']
+    want[joint] = run(False, ['joint_decoding'], 0.5)[0]['joint_decoding']
+    n_tok = {m: len(want[m][0].tokens) for m in want}
+    diff = {m: max(abs(g.score - w.score) for g, w in zip(got[m], want[m]))
+            for m in want}
+    log(f'modes reference: tokens of the best hyp {n_tok}; score |kernels '
+        f'- plain| {diff}')
+    compare_results(got, want, 1e-4, ulps=1)
+    for m in ('ctc_greedy_search', 'ctc_prefix_beam_search', joint):
+        if not n_tok[m]:
+            raise AssertionError(f'f32 modes: {m} emitted no tokens '
+                                 f'({n_tok})')
+    log(f'modes reference: f32 one chunk, six modes on one encoder output, '
+        f'kernels vs plain: tokens, times and nbest identical, scores within '
+        f'1e-4 or one f32 step; {t_k:.3f} s with the kernels, {t_p:.3f} s '
+        f'plain')
+    del f32
+    torch.cuda.empty_cache()
+
+
+def transcribe_s(asr, wav, modes) -> tuple:
+    """(seconds, outputs) of one transcribe_modes call, synchronised."""
+    import torch
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = asr.transcribe_modes(str(wav), modes, format='ctm')
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0, out
+
+
+def run_modes(dev, asr, wav, feats, audio_s):
+    """The six CLI modes at reverb_large width: the f32 reference check,
+    then the bf16 `transcribe_modes` call with all six on the 8-chunk
+    wav (after a warm-up call) with its launch counts asserted, then each
+    mode alone.  Returns (launches, encoder calls, seconds of the six-mode
+    call, {mode: seconds alone})."""
+    from reverb_tpu_torch.cli import reverb as rv
+    from reverb_tpu_torch.ops import beam_scan as bs
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    modes_reference_check(asr, feats, dev)
+    warm, _ = transcribe_s(asr, wav, CLI_MODES)
+    captured = []
+    decode_fn = rv.decode_modes_fn
+
+    def recording_decode(*args, **kwargs):
+        out = decode_fn(*args, **kwargs)
+        captured.append(out)
+        return out
+    ln_calls, hooks = ln_call_counter(asr.model)
+    fa.LAUNCHES = bs.FWD_LAUNCHES = bs.BT_LAUNCHES = ln.LAUNCHES = 0
+    try:
+        with swapped({(rv, 'decode_modes_fn'): recording_decode}):
+            wall, outs = transcribe_s(asr, wav, CLI_MODES)
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = {'K1': fa.LAUNCHES, 'K2': bs.FWD_LAUNCHES,
+                'K3': bs.BT_LAUNCHES, 'K5': ln.LAUNCHES}
+    n_enc = len(captured)
+    layers = asr.model.cfg.encoder.num_blocks
+    # joint_decoding in the set: the prefix beam runs once per encoder call
+    # over the dense table, and rescoring reuses its nbest
+    want = {'K1': layers * n_enc, 'K2': n_enc, 'K3': n_enc,
+            'K5': ln_calls[0]}
+    log(f'six-mode path launches {launches}, expected {want} ({n_enc} '
+        f'encoder calls; K5 = LayerNorm calls on the path, encoder and '
+        f'decoder steps)')
+    if launches != want or n_enc < 1 or ln_calls[0] <= LN_ENC * n_enc:
+        raise AssertionError('the six-mode path did not run every kernel '
+                             'the expected number of times')
+    for out in captured:
+        for mode in CLI_MODES:
+            for r in out[mode]:
+                scores = [r.score] + list(r.nbest_scores or [])
+                if not all(math.isfinite(x) for x in scores):
+                    raise AssertionError(f'{mode}: non-finite score')
+                if r.times is not None and len(r.times) != len(r.tokens):
+                    raise AssertionError(f'{mode}: tokens and times differ '
+                                         f'in length')
+    for mode, ctm in zip(CLI_MODES, outs):
+        for row in (r for r in ctm.splitlines() if r.strip()):
+            f = row.split()
+            if len(f) != 6 or f[0] != wav.name or not all(
+                    math.isfinite(float(v)) for v in (f[2], f[3], f[5])):
+                raise AssertionError(f'{mode}: bad CTM row {row!r}')
+    rows = {m: len([r for r in c.splitlines() if r.strip()])
+            for m, c in zip(CLI_MODES, outs)}
+    if not rows['ctc_prefix_beam_search'] or not rows['attention_rescoring']:
+        raise AssertionError(f'empty CTM on the six-mode path: {rows}')
+    alone = {m: transcribe_s(asr, wav, [m])[0] for m in CLI_MODES}
+    log(f'modes: {audio_s:.2f} s of audio in {N_CHUNKS} chunks, bf16; '
+        f'six-mode transcribe_modes {wall:.3f} s (warm-up call {warm:.3f} '
+        f's); CTM rows {rows}')
+    log('modes: each mode alone (s per call): '
+        + ', '.join(f'{m} {t:.3f}' for m, t in alone.items())
+        + f'; on {smi_line()}')
+    return launches, n_enc, wall, alone
 
 
 # ------------------------------ shared helpers ------------------------------
@@ -1670,10 +1839,10 @@ def ab_parent(dev, parent: Path):
 
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
-    ap.add_argument('--phases', default='kernels,serve,train',
-                    help='comma list of kernels, serve, train (default all; '
-                         'the result lines need all three), or beam: the '
-                         'K2/K3 checks alone')
+    ap.add_argument('--phases', default=','.join(ALL_PHASES),
+                    help='comma list of kernels, serve, train, modes '
+                         '(default all; the result lines need all four), or '
+                         'beam: the K2/K3 checks alone')
     ap.add_argument('--profile', action='store_true',
                     help='also profile one bf16 training step')
     ap.add_argument('--ab-parent', type=Path, default=None,
@@ -1750,11 +1919,16 @@ def main():
         fwd_err, bt = check_beam(dev, SEED)
         k4 = check_k1_mask_k4(dev)[torch.bfloat16]
         lnr = check_ln(dev)[torch.bfloat16]
-    if 'serve' in phases:
-        # phase 5: the serving path
+    if phases & {'serve', 'modes'}:
         with tempfile.TemporaryDirectory(prefix='reverb_smoke_') as tmp:
-            launches, walls, audio_s, fallback = run_slice(dev, SEED,
-                                                           Path(tmp))
+            served = serving_setup(dev, SEED, Path(tmp))
+            if 'serve' in phases:
+                # phase 5: the serving path
+                launches, walls, audio_s, fallback = run_slice(dev, *served)
+            if 'modes' in phases:
+                # phase 9: the six CLI modes
+                modes = run_modes(dev, *served)
+            del served
     if 'train' in phases:
         # phase 8: the training path
         train_reference_check(dev, SEED)
@@ -1764,17 +1938,17 @@ def main():
     spilled = [n for n, r in {**tc, **lnk, **beamk}.items() if r[1] or r[2]]
     if spilled:
         raise AssertionError(f'kernels spill registers: {spilled}')
-    if phases != {'kernels', 'serve', 'train'}:
+    if phases != set(ALL_PHASES):
         log(f'phases {sorted(phases)} passed; no result lines without all '
-            f'three')
+            f'of {ALL_PHASES}')
         return 1
 
     kernels = kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches,
-                             len(walls), t_launch, fallback)
+                             len(walls), t_launch, fallback, modes)
     log(f'slice: second transcribe_modes call {walls[1]:.4f} s for '
-        f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; train '
-        f'{step_ms:.1f} ms/step at B={TRAIN_B}, peak {peak / 2**30:.2f} GiB; '
-        f'on {smi}')
+        f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; six-mode '
+        f'call {modes[2]:.3f} s; train {step_ms:.1f} ms/step at '
+        f'B={TRAIN_B}, peak {peak / 2**30:.2f} GiB; on {smi}')
     print(smi_line())
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
@@ -1784,17 +1958,19 @@ def main():
 
 
 def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
-                   t_launch, fallback):
-    """The {"kernels": [...]} entries: launches on the two paths (in all,
-    per serving call and per training step; K2/K3 also per call of the
-    long-hypothesis path), the error against the plain version, kernel /
-    plain / library times in bf16 at the timed shapes, and the bound
-    computed from those shapes."""
+                   t_launch, fallback, modes):
+    """The {"kernels": [...]} entries: launches on the three paths (in all,
+    per serving call, per training step and per six-mode call; K2/K3 also
+    per call of the long-hypothesis path), the error against the plain
+    version, kernel / plain / library times in bf16 at the timed shapes,
+    and the bound computed from those shapes."""
     import torch
     k1b = k1[torch.bfloat16]
     N, C = LN_ROWS[-1], LN_C
+    m_launch = modes[0]
     per = {n: {'serve': launches.get(n, 0) / n_calls,
-               'train': t_launch.get(n, 0) / TRAIN_STEPS}
+               'train': t_launch.get(n, 0) / TRAIN_STEPS,
+               'six_modes': m_launch.get(n, 0)}
            for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6')}
     for n in ('K2', 'K3'):      # the uncapped tail launches them again
         per[n]['serve_long_hyp'] = fallback[0][n] / fallback[1]
@@ -1806,7 +1982,8 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
         return {'name': name, 'route': 'cuda',
                 'source': f'reverb_tpu_torch/csrc/{src}',
                 'replaces': f'reverb_tpu/ops/{replaces}',
-                'launches': launches.get(kid, 0) + t_launch.get(kid, 0),
+                'launches': (launches.get(kid, 0) + t_launch.get(kid, 0)
+                             + m_launch.get(kid, 0)),
                 'launches_per_call': per[kid], 'max_abs_err': err,
                 'ms': ms, 'device_ms': dev_ms, 'plain_ms': plain_ms,
                 'bound_ms': bnd[0], 'bound_by': bnd[1], 'library_ms': lib_ms,

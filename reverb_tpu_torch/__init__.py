@@ -2,9 +2,10 @@
 
 The package mirrors reverb_tpu's module paths (frontend/, models/, ops/,
 decode/, cli/, train/).  It imports torch and never jax: the serving path
-(fbank → LSL conformer → CTC prefix beam → attention rescoring) and the
-training step (train/trainer.py) run as PyTorch ops plus hand-written CUDA
-kernels (csrc/, built on first use by _build.py).  Public API as in reverb_tpu: ``load_model(...)`` returns a
+(fbank → LSL conformer → CTC prefix beam → attention rescoring), every
+other decode mode of reverb_tpu (decode/api.py) and the training step
+(train/trainer.py) run as PyTorch ops plus hand-written CUDA kernels
+(csrc/, built on first use by _build.py).  Public API as in reverb_tpu: ``load_model(...)`` returns a
 ``ReverbASR`` with ``.transcribe(...)`` / ``.transcribe_modes(...)``.
 """
 

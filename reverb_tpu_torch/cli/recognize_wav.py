@@ -2,9 +2,11 @@
 one CTM per mode (`result_dir/<mode>/<audio>.ctm`).
 
 Counterpart of reverb_tpu/cli/recognize_wav.py with the same flags and
-defaults, plus `--device` (default cuda; no silent CPU fallback).  The
-ported modes are ctc_prefix_beam_search and attention_rescoring; flags of
-unported features are accepted and rejected when set.
+defaults, plus `--device` (default cuda; no silent CPU fallback).  Every
+mode runs; the streaming flags (`--decoding_chunk_size`,
+`--num_decoding_left_chunks`, `--simulate_streaming`) are accepted and
+rejected when set, `--quantize` takes only 'none', and there is no
+`--data_parallel`.
 """
 
 from __future__ import annotations
@@ -69,11 +71,6 @@ def main(argv=None):
     logging.basicConfig(
         level=args.log_level,
         format='%(asctime)s %(filename)s %(levelname)s: %(message)s')
-    if args.decoding_chunk_size != -1 or args.simulate_streaming:
-        raise NotImplementedError('streaming decode is not ported')
-    if args.length_penalty != 0.0:
-        raise NotImplementedError('length_penalty belongs to the attention '
-                                  'mode, which is not ported')
     from reverb_tpu_torch.cli.reverb import ReverbASR, load_model
 
     model_set = args.model is not None
@@ -103,8 +100,12 @@ def main(argv=None):
         args.audio_file, modes=args.modes, format='ctm',
         verbatimicity=args.verbatimicity, chunk_size=args.chunk_size,
         batch_size=args.batch_size, beam_size=args.beam_size,
-        ctc_weight=args.ctc_weight, reverse_weight=args.reverse_weight,
-        blank_penalty=args.blank_penalty,
+        decoding_chunk_size=args.decoding_chunk_size,
+        num_decoding_left_chunks=args.num_decoding_left_chunks,
+        ctc_weight=args.ctc_weight,
+        simulate_streaming=args.simulate_streaming,
+        reverse_weight=args.reverse_weight, blank_penalty=args.blank_penalty,
+        length_penalty=args.length_penalty,
         timings_adjustment=args.timings_adjustment)
     for mode, out in zip(args.modes, outputs):
         with files[mode].open('w') as fp:

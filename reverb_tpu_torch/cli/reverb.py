@@ -6,8 +6,8 @@ Counterpart of reverb_tpu/cli/reverb.py (`ReverbASR`, `load_model`,
 (chunk_size=2051, beam_size=10, ctc_weight=0.1, verbatimicity=1.0,
 timings_adjustment=230 ms) and the same txt/CTM bytes, plus an explicit
 `device`.  The device defaults to 'cuda' and is never swapped silently:
-asking for CUDA on a machine without it raises.  The supported modes are
-ctc_prefix_beam_search and attention_rescoring.
+asking for CUDA on a machine without it raises.  Every decode mode of the
+reference runs (decode/api.py); streaming does not.
 """
 
 from __future__ import annotations
@@ -173,11 +173,21 @@ class ReverbASR:
                          chunk_size: int = 2051,
                          batch_size: Optional[int] = None,
                          beam_size: int = 10,
+                         decoding_chunk_size: int = -1,
+                         num_decoding_left_chunks: int = -1,
                          ctc_weight: float = 0.1,
+                         simulate_streaming: bool = False,
                          reverse_weight: float = 0.0,
                          blank_penalty: float = 0.0,
+                         length_penalty: float = 0.0,
                          timings_adjustment: float = 230,
                          blank_skip_threshold: float = 0.0) -> List[str]:
+        """One output string per mode.  The streaming arguments
+        (`decoding_chunk_size`, `num_decoding_left_chunks`,
+        `simulate_streaming`) are the reference's; streaming is not ported,
+        so each raises unless at its default."""
+        if simulate_streaming:
+            raise NotImplementedError('simulate_streaming is not ported')
         feats = self.compute_feats(audio_file)
         if not batch_size:
             # all of a file's chunks in one batch, capped to bound memory
@@ -192,6 +202,9 @@ class ReverbASR:
                 self.model, modes, feats_batch, torch.from_numpy(feats_lens),
                 beam_size=beam_size, ctc_weight=ctc_weight,
                 reverse_weight=reverse_weight, blank_penalty=blank_penalty,
+                length_penalty=length_penalty,
+                decoding_chunk_size=decoding_chunk_size,
+                num_decoding_left_chunks=num_decoding_left_chunks,
                 cat_embs=torch.from_numpy(cat_embs),
                 blank_skip_threshold=blank_skip_threshold))
         return [self.get_output(format, Path(audio_file).name,

@@ -1,7 +1,8 @@
 """Batched CTC prefix beam search over per-frame top-k candidates.
 
-Counterpart of reverb_tpu/decode/prefix_beam.py (unbiased search, top-k
-entry point).  Same state, same backpointer records, same tie rules:
+Counterpart of reverb_tpu/decode/prefix_beam.py (unbiased search, its
+top-k and dense entry points).  Same state, same backpointer records, same
+tie rules:
 
  * prefixes are identified by a pair of uint32 rolling hashes; a keep prefix
    that equals an extension of another beam is merged into that extension;
@@ -373,6 +374,21 @@ def ctc_prefix_beam_search_device_topk(topk_logp, topk_idx, blank_logp,
             has_skip[:, :Tb].contiguous(), tail_acc)
     return _search_batched(topk_logp, topk_idx, ctc_lens, beam_size,
                            blank_id, L)
+
+
+def ctc_prefix_beam_search_raw(ctc_probs, ctc_lens, beam_size: int,
+                               blank_id: int = 0,
+                               blank_skip_threshold: float = 0.0):
+    """`ctc_prefix_beam_search_topk_raw` over a dense (B, T, V) log-prob
+    table: each frame's top beam_size tokens (ties to the lowest index) and
+    p(blank) feed `ctc_prefix_beam_search_device_topk` with L = T."""
+    ctc_probs = ctc_probs.to(torch.float32)
+    keep_cap = (ctc_probs.shape[1] // 2) if blank_skip_threshold > 0 else 0
+    topk_logp, topk_idx = topk_lastdim(ctc_probs, beam_size)
+    out = ctc_prefix_beam_search_device_topk(
+        topk_logp, topk_idx, ctc_probs[:, :, blank_id], ctc_lens, beam_size,
+        blank_id, 0, blank_skip_threshold, keep_cap)
+    return _pack_results(*out), out
 
 
 def ctc_prefix_beam_search_topk_raw(topk_logp, topk_idx, blank_logp,

@@ -1,9 +1,9 @@
 """Attention rescoring of CTC prefix-beam nbest lists, whole batch at once.
 
 Counterpart of reverb_tpu/decode/rescoring.py (`_rescore_flat`,
-`_rescore_device_all`, and `attention_rescoring` fed by the beam's device
-buffers, which `decode.api.decode` takes for hypotheses longer than its
-`max_hyp_len`).  The (B, N) nbest grid is flattened to B·N decoder
+`_rescore_device_all`, `score_hyps_with_decoder`, and
+`attention_rescoring` fed by the beam's device buffers, which
+`decode.api.decode` takes on its generic path).  The (B, N) nbest grid is flattened to B·N decoder
 rows, grouped by utterance so each group shares its utterance's
 cross-attention K/V.  The decoder's log-softmax is deferred: only the
 hypothesis tokens' logits and one f32 logsumexp per position are taken, so
@@ -98,6 +98,35 @@ def _rescore_device_all(model, hyps_pad, hyps_lens, encoder_outs,
         encoder_outs, reverse_weight, cat_embs, enc_lens, group=N)
     return (att.reshape(B, N), r_att.reshape(B, N),
             tok_logp.reshape(B, N, Lmax))
+
+
+def score_hyps_with_decoder(model, token_paths, encoder_out, encoder_lens,
+                            cat_embs=None):
+    """Teacher-forced decoder scores of arbitrary token paths of one
+    utterance (encoder_out (1, T, D), encoder_lens (1,)): (att (N,),
+    r_att (N,)) numpy, the right decoder's when it has layers.  Empty paths
+    score 0 (HLG rescoring)."""
+    N = len(token_paths)
+    if N == 0:
+        return np.zeros((0,)), np.zeros((0,))
+    Lmax = max(len(h) for h in token_paths)
+    if Lmax == 0:
+        return np.zeros((N,)), np.zeros((N,))
+    Lb = _bucket(Lmax)
+    hyps = np.zeros((N, Lb), dtype=np.int64)
+    lens = np.zeros((N,), dtype=np.int64)
+    for i, h in enumerate(token_paths):
+        hyps[i, :len(h)] = h
+        lens[i] = len(h)
+    dev = encoder_out.device
+    rw = 1.0 if model.cfg.decoder.r_num_blocks > 0 else 0.0
+    with torch.inference_mode():
+        att, r_att, _ = _rescore_flat(
+            model, torch.from_numpy(hyps).to(dev),
+            torch.from_numpy(lens).to(dev), encoder_out[0:1], rw, cat_embs,
+            torch.as_tensor(encoder_lens, device=dev)[:1].to(torch.int32),
+            group=N)
+    return att.cpu().numpy(), r_att.cpu().numpy()
 
 
 def attention_rescoring(model, ctc_prefix_results: List[DecodeResult],

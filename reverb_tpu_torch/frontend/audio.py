@@ -1,14 +1,20 @@
-"""Host-side audio IO: WAV decode + resampling (numpy, no device work).
+"""Host-side audio IO: WAV decode, other containers through ffmpeg, and
+resampling (numpy, no device work).
 
-Counterpart of reverb_tpu/frontend/audio.py (`_parse_wav`, `resample`,
-`load_for_asr`).  The JAX package's `frontend/__init__` imports jax, so the
-WAV path is carried over here rather than imported.  Waveforms come back as
-int16-scale float32, ready for `frontend.fbank.compute_fbank`.
+Counterpart of reverb_tpu/frontend/audio.py (`_parse_wav`,
+`_ffmpeg_decode`, `resample`, `load_for_asr`).  The JAX package's
+`frontend/__init__` imports jax, so these are carried over here rather than
+imported.  A `.wav` file is parsed here; any other file is decoded by an
+external `ffmpeg` binary to mono f32 at the target rate.  Waveforms come
+back as int16-scale float32, ready for `frontend.fbank.compute_fbank`.
 """
 
 from __future__ import annotations
 
+import os
+import shutil
 import struct
+import subprocess
 
 import numpy as np
 
@@ -62,6 +68,23 @@ def _parse_wav(data: bytes):
     return x.reshape(-1, max(channels, 1)), sample_rate
 
 
+def _ffmpeg_decode(path: str, rate: int):
+    """Decode any container ffmpeg reads → (x (T, 1) float32 at `rate`,
+    rate).  The reference's command line with `-ar rate` added: it omits
+    the rate and then takes the samples to be 16 kHz whatever the file's
+    rate."""
+    ffmpeg = shutil.which('ffmpeg')
+    if ffmpeg is None:
+        raise AudioDecodeError(
+            f"cannot decode {path!r}: not a WAV and no ffmpeg binary available")
+    cmd = [ffmpeg, '-v', 'error', '-i', path, '-f', 'f32le', '-acodec',
+           'pcm_f32le', '-ar', str(rate), '-ac', '1', 'pipe:1']
+    out = subprocess.run(cmd, capture_output=True, check=False)
+    if out.returncode != 0:
+        raise AudioDecodeError(out.stderr.decode(errors='replace'))
+    return np.frombuffer(out.stdout, dtype='<f4').reshape(-1, 1), rate
+
+
 def resample(x: np.ndarray, orig_rate: int, new_rate: int) -> np.ndarray:
     """Polyphase resampling (scipy), as reverb_tpu.frontend.audio.resample."""
     if orig_rate == new_rate:
@@ -73,9 +96,14 @@ def resample(x: np.ndarray, orig_rate: int, new_rate: int) -> np.ndarray:
 
 
 def load_for_asr(path: str, resample_rate: int = 16000) -> np.ndarray:
-    """Read a WAV file → channel 0, resampled, int16-scale float32 (T,)."""
-    with open(path, 'rb') as f:
-        x, sr = _parse_wav(f.read())
+    """Read an audio file → channel 0, resampled, int16-scale float32 (T,).
+    ffmpeg resamples what it decodes itself, so the rate it returns is the
+    rate of the samples."""
+    if os.path.splitext(path)[1].lower() == '.wav':
+        with open(path, 'rb') as f:
+            x, sr = _parse_wav(f.read())
+    else:
+        x, sr = _ffmpeg_decode(path, resample_rate)
     x = x[:, 0]
     if sr != resample_rate:
         x = resample(x, sr, resample_rate)

@@ -2,7 +2,8 @@
 training loss.
 
 Counterpart of reverb_tpu/models/asr_model.py (`ModelConfig.from_config`,
-`forward_encoder`, init, `compute_loss`, `loss_from_encoder`).  The model is
+`forward_encoder`, `filter_blank_embedding`, init, `compute_loss`,
+`loss_from_encoder`).  The model is
 an `nn.Module` whose state-dict keys are WeNet's (`encoder.*`,
 `decoder.left_decoder.*`, `ctc.ctc_lo.*`), so a reverb checkpoint loads into
 it by name (convert.py).  It is built on the
@@ -47,6 +48,10 @@ class ModelConfig:
     focal_alpha: float = 0.5
     focal_gamma: float = 2.0
     compute_dtype: torch.dtype = torch.float32
+    # the lexicon constraint of joint decoding: lexicon lines 'word sw1 sw2
+    # ...' and token lines 'token id' (decode/joint.py:load_lexicon)
+    lexicon_path: Optional[str] = None
+    token_path: Optional[str] = None
 
     @staticmethod
     def from_config(configs: Dict) -> 'ModelConfig':
@@ -114,7 +119,9 @@ class ModelConfig:
             lsl_dec=dec_num_langs > 0,
             apply_non_blank_embedding=model_conf.get(
                 'apply_non_blank_embedding', False),
-            compute_dtype=compute_dtype)
+            compute_dtype=compute_dtype,
+            lexicon_path=model_conf.get('lexicon_path'),
+            token_path=model_conf.get('token_path'))
 
     def with_compute_dtype(self, dtype: torch.dtype) -> 'ModelConfig':
         """Set the activation dtype of the encoder input and the decoder."""
@@ -140,6 +147,26 @@ class ASRModel(nn.Module):
         feats = feats.to(self.cfg.compute_dtype)
         return self.encoder(feats, feats_lens,
                             cat_embs if self.cfg.lsl_enc else None, generator)
+
+
+def filter_blank_embedding(cfg: ModelConfig, ctc_probs, encoder_out,
+                           encoder_mask):
+    """Keep only the encoder frames whose CTC argmax is non-blank, moved to
+    the front in order (a stable compaction), the rest zeroed: returns
+    (encoder_out (B, T, D), mask (B, 1, T)) with the kept counts as the
+    new lengths."""
+    T = encoder_out.shape[1]
+    keep = (torch.argmax(ctc_probs, dim=-1) != cfg.blank_id) \
+        & encoder_mask[:, 0, :].to(torch.bool)
+    order = torch.argsort((~keep).to(torch.int32), dim=1, stable=True)
+    new_out = torch.gather(encoder_out, 1, order[:, :, None].expand(
+        -1, -1, encoder_out.shape[2]))
+    new_mask = (torch.arange(T, device=keep.device)[None, :]
+                < keep.sum(1)[:, None])
+    new_out = torch.where(new_mask[:, :, None], new_out,
+                          torch.zeros((), dtype=new_out.dtype,
+                                      device=new_out.device))
+    return new_out, new_mask[:, None, :]
 
 
 def compute_loss(model: ASRModel, batch: Dict, generator=None) -> Dict:

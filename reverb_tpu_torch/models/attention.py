@@ -37,18 +37,23 @@ def _merge_heads(x):
     return x.transpose(1, 2).reshape(B, T, H * dk)
 
 
-def _masked_softmax_av(scores, mask, value, rate: float = 0.0,
-                       generator=None):
+def _masked_softmax(scores, mask, dtype):
     """f32 softmax of scores with bool `mask` (True = keep, broadcastable),
-    probabilities zeroed where masked, cast to value.dtype and dropped out,
-    then · V."""
+    probabilities zeroed where masked, cast to `dtype`."""
     s = scores.to(torch.float32)
     if mask is not None:
         s = s.masked_fill(~mask, _MASK_VALUE)
         attn = torch.softmax(s, dim=-1).masked_fill(~mask, 0.0)
     else:
         attn = torch.softmax(s, dim=-1)
-    attn = dropout(attn.to(value.dtype), rate, generator)
+    return attn.to(dtype)
+
+
+def _masked_softmax_av(scores, mask, value, rate: float = 0.0,
+                       generator=None):
+    """`_masked_softmax` in value.dtype, dropped out, then · V."""
+    attn = dropout(_masked_softmax(scores, mask, value.dtype), rate,
+                   generator)
     return torch.matmul(attn, value)
 
 
@@ -82,13 +87,16 @@ class MultiHeadedAttention(nn.Module):
                 _split_heads(self.linear_v(memory), self.h))
 
     def forward_shared_kv_grouped(self, query, kv, mask, group: int,
-                                  rate: float = 0.0, generator=None):
+                                  rate: float = 0.0, generator=None,
+                                  return_weights: bool = False):
         """Each consecutive block of `group` query rows attends to one
         utterance's (k, v): query (B·group, L, D), kv from `cross_kv`, mask
         (B, 1, T).  The group's rows are one query stream of length
         group·L, so every product is a plain batched matmul over B·H.  With
         group 1 this is plain cross-attention over a full memory (the
-        teacher-forced decoder), with attention dropout at `rate`."""
+        teacher-forced decoder), with attention dropout at `rate`.  With
+        `return_weights` also the probabilities (B, H, group·L, T) in V's
+        dtype, before dropout."""
         BG, L, D = query.shape
         B = BG // group
         q = _split_heads(self.linear_q(query).reshape(B, group * L, D),
@@ -96,8 +104,10 @@ class MultiHeadedAttention(nn.Module):
         k, v = kv
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
         m = None if mask is None else mask[:, None, :, :scores.shape[-1]]
-        ctx = _masked_softmax_av(scores, m, v, rate, generator)
-        return self.linear_out(_merge_heads(ctx)).reshape(BG, L, -1)
+        attn = _masked_softmax(scores, m, v.dtype)
+        ctx = torch.matmul(dropout(attn, rate, generator), v)
+        out = self.linear_out(_merge_heads(ctx)).reshape(BG, L, -1)
+        return (out, attn) if return_weights else out
 
 
 class RelPositionMultiHeadedAttention(MultiHeadedAttention):

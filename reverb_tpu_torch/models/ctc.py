@@ -1,11 +1,13 @@
-"""CTC head: projection, per-frame top-k with deferred normalization, and
-the training losses.
+"""CTC head: projection, per-frame top-k with deferred normalization, the
+dense log-prob table, and the training losses.
 
-Counterpart of reverb_tpu/models/ctc.py (`ctc_topk_logprobs`, `ctc_loss`,
-`label_smoothing_loss`).  The top-k runs on the logits in their compute
-dtype (order-preserving), and only the k winners and p(blank) are
-normalized by one f32 logsumexp, so the (B,T,V) f32 log-prob table is never
-built.  Ties go to the lowest vocabulary index (ops/topk.py).
+Counterpart of reverb_tpu/models/ctc.py (`ctc_topk_logprobs`,
+`ctc_logprobs`, `ctc_loss`, `label_smoothing_loss`).  The top-k runs on the
+logits in their compute dtype (order-preserving), and only the k winners
+and p(blank) are normalized by one f32 logsumexp, so the (B,T,V) f32
+log-prob table is built only for the decode modes that walk the whole
+distribution (`ctc_logprobs`).  Ties go to the lowest vocabulary index
+(ops/topk.py).
 
 The CTC loss is torch's on an f32 log-softmax (the JAX package computes it
 with optax in XLA, not in a Pallas kernel); the attention loss is the
@@ -46,6 +48,16 @@ def ctc_topk_logprobs(ctc: CTC, encoder_out, k: int,
     topk_logp = tv.to(torch.float32) - lse[..., None]
     blank_logp = logits[:, :, blank_id].to(torch.float32) - lse
     return topk_logp, ti.to(torch.int32), blank_logp
+
+
+def ctc_logprobs(ctc: CTC, encoder_out, blank_penalty: float = 0.0,
+                 blank_id: int = 0):
+    """(B, T, V) f32 log-softmax of the logits, the blank logit lowered by
+    `blank_penalty` first (in f32, as the reference does)."""
+    logits = ctc.ctc_lo(encoder_out).to(torch.float32)
+    if blank_penalty > 0.0:
+        logits[:, :, blank_id] -= blank_penalty
+    return torch.log_softmax(logits, -1)
 
 
 def ctc_loss(ctc: CTC, encoder_out, encoder_lens, ys_pad, ys_lens,

@@ -28,6 +28,14 @@ def pe_table(d_model: int, max_len: int = 5000) -> np.ndarray:
     return pe
 
 
+@functools.lru_cache(maxsize=8)
+def pe_table_on(d_model: int, device: torch.device) -> torch.Tensor:
+    """`pe_table` on `device`, copied there once: the decoder's incremental
+    step reads one row per hypothesis at every step."""
+    with torch.inference_mode(False):
+        return torch.from_numpy(pe_table(d_model)).to(device)
+
+
 def _pe(d_model: int, T: int, x):
     return torch.from_numpy(pe_table(d_model)[:T]).to(device=x.device,
                                                        dtype=x.dtype)[None]
