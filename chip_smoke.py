@@ -7,6 +7,8 @@
 
     python3 chip_smoke.py --phases modes        # only the six CLI modes
 
+    python3 chip_smoke.py --phases stream       # only streaming
+
     python3 chip_smoke.py --profile             # + one profiled train step
 
     python3 chip_smoke.py --ab-parent DIR       # + K1-K6 of the checkout
@@ -21,7 +23,7 @@ each beside its bound and the one PyTorch call that computes the same
 function (its library yardstick, which the port never calls) — per call
 (CUDA events around back-to-back calls, host work included) and on the
 device alone (the profiler's kernel durations) — then drives
-three paths on a reverb_large-
+four paths on a reverb_large-
 width model (18-layer LSL conformer, d=1024, 16 heads, 6+3-layer
 bitransformer decoder, V=10000) with seeded random weights:
 
@@ -42,7 +44,21 @@ bitransformer decoder, V=10000) with seeded random weights:
   tokens), then one bf16 `transcribe_modes` call with all six on
   the 164 s wav after a warm-up call — kernels K1, K5 (encoder and every
   decoder step), K2 and K3 (once per encoder call, over the dense CTC
-  table) — and each mode alone, timed.
+  table) — and each mode alone, timed;
+- streaming (chunk 16, 16 left chunks): K2 resumed from a carried beam
+  state against its plain version (records and all eight finals exactly,
+  B in {1, 8}, T_hop in {1, 16, 33}, peaky and tied inputs); one 8 s
+  `StreamingASR` stream in f32 with the kernels and with the plain
+  versions (the same encoder outputs decoded: greedy, the carried prefix
+  beam and attention_rescoring identical; every 4th hop the carried beam
+  equal to the from-scratch beam over the hop log-probs); then in bf16 a
+  60 s `StreamingASR` stream fed 0.64 s at a time (ms per hop, xRT) and a
+  `MultiStreamASR` pool of 8 slots x 20.5 s, two joining 2 s late and one
+  reset midway (ms per step, aggregate xRT) — per hop and per step K2
+  once, K5 at every LayerNorm of the chunk encoder, K1 and K3 never — and
+  `recognize_wav` with the chunk flags (CTM byte-equal to the call without
+  them; a use_dynamic_chunk copy of the config decodes with the chunk mask
+  and no K1).
 
 Each path runs with the launch counters set to 0 just before it and read
 just after.  Every phase raises on failure; the exit code is 0 only when
@@ -50,7 +66,7 @@ all of them pass.
 
 Output: progress lines, then the card's `nvidia-smi` name and power limit,
 then one JSON line {"kernels": [...]} (each kernel's launches on the
-three paths, its error against the plain version, its time per call and on the
+four paths, its error against the plain version, its time per call and on the
 device alone, the plain version's, the library call's per call and on
 the device alone, and the bound), and last
 {"ok": true, "device": {...}}.
@@ -80,7 +96,7 @@ VOCAB = 10000
 SEED = 0                     # weights, audio and beam inputs
 LAYERS_ENC, LN_ENC, LN_DEC = 18, 91, 29   # reverb_large: per-step counts
 TRAIN_B, TRAIN_STEPS = 8, 4
-ALL_PHASES = ('kernels', 'serve', 'train', 'modes')
+ALL_PHASES = ('kernels', 'serve', 'train', 'modes', 'stream')
 
 
 def log(msg):
@@ -425,8 +441,11 @@ def assert_beam_records(got, want, what):
         if not torch.equal(em[n], em_p[n]):
             raise AssertionError(f'K2 {what}: record {n} differs from the '
                                  f'plain scan')
-    if not torch.equal(final['plen'], final_p['plen']):
-        raise AssertionError(f'K2 {what}: plen differs')
+    # the integer state exactly (a parent checkout's wrapper of an A/B may
+    # return plen alone)
+    for n in ('plen', 'last', 'h1', 'h2'):
+        if n in final and not torch.equal(final[n], final_p[n]):
+            raise AssertionError(f'K2 {what}: final {n} differs')
     if not em_p['wval'].numel():
         return 0.0
     err = max(float((final[n] - final_p[n]).abs().max())
@@ -640,7 +659,7 @@ def write_units(path: Path):
     path.write_text('\n'.join(lines) + '\n', encoding='utf8')
 
 
-def write_wav(path: Path, n_samples: int, seed: int, sr: int = 16000):
+def speech_like(n_samples: int, seed: int, sr: int = 16000) -> np.ndarray:
     """Synthetic speech-like audio: noise and harmonic bursts under a slowly
     varying envelope, int16."""
     rng = np.random.RandomState(seed)
@@ -650,11 +669,16 @@ def write_wav(path: Path, n_samples: int, seed: int, sr: int = 16000):
                    3200)[:n_samples]
     x = (np.sin(2 * np.pi * f0 * t) + 0.5 * np.sin(4 * np.pi * f0 * t)
          + 0.3 * rng.randn(n_samples)) * env * 6000
+    return np.clip(x, -32768, 32767).astype(np.int16)
+
+
+def write_wav(path: Path, n_samples: int, seed: int, sr: int = 16000):
+    """`speech_like` audio as a 16-bit mono WAV."""
     with wave.open(str(path), 'wb') as w:
         w.setnchannels(1)
         w.setsampwidth(2)
         w.setframerate(sr)
-        w.writeframes(np.clip(x, -32768, 32767).astype(np.int16).tobytes())
+        w.writeframes(speech_like(n_samples, seed, sr).tobytes())
 
 
 def build_asr(dev, seed, workdir: Path):
@@ -801,6 +825,8 @@ def compare_results(got, want, tol, ulps: int = 0):
                     and close(g.nbest_scores, w.nbest_scores)):
                 raise AssertionError(f'{mode}: scores differ by more than '
                                      f'{tol}')
+    if 'attention_rescoring' not in want:
+        return 0
     return len(want['attention_rescoring'][0].tokens)
 
 
@@ -1124,6 +1150,437 @@ def run_modes(dev, asr, wav, feats, audio_s):
         + ', '.join(f'{m} {t:.3f}' for m, t in alone.items())
         + f'; on {smi_line()}')
     return launches, n_enc, wall, alone
+
+
+# ------------------------------ phase 10: streaming ------------------------------
+
+STREAM_CHUNK, STREAM_LEFT = 16, 16   # decoding_chunk_size, num_left_chunks
+STREAM_PIECE = 10240                 # samples fed at a time: 0.64 s, one hop
+STREAM_REF_S, STREAM_S = 8.0, 60.0   # the f32 reference and the timed stream
+POOL_SLOTS, POOL_S, POOL_LATE_S = 8, 20.5, 2.0
+RESUME_PREFIX = 40                   # frames scanned before the resumed hop
+RESUME_CASES = [(B, T) for B in (1, 8) for T in (1, 16, 33)]
+STREAM_MODES = ('ctc_greedy_search', 'ctc_prefix_beam_search',
+                'attention_rescoring')
+
+
+def stream_audio(seconds: float, seed: int) -> np.ndarray:
+    """`speech_like` audio as float32 samples in [-1, 1)."""
+    return speech_like(int(seconds * 16000), seed).astype(np.float32) / 32768
+
+
+def launch_counts() -> dict:
+    from reverb_tpu_torch.ops import beam_scan as bs
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    return {'K1': fa.LAUNCHES, 'K2': bs.FWD_LAUNCHES, 'K3': bs.BT_LAUNCHES,
+            'K5': ln.LAUNCHES}
+
+
+def zero_launch_counts():
+    from reverb_tpu_torch.ops import beam_scan as bs
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    fa.LAUNCHES = bs.FWD_LAUNCHES = bs.BT_LAUNCHES = ln.LAUNCHES = 0
+
+
+def check_beam_resume(dev, seed):
+    """K2 resumed from a carried state (the streaming hop) against its plain
+    version: at each (B, T_hop) of RESUME_CASES, on peaky and on tied top-k
+    inputs (`tied_topk`), a prefix of RESUME_PREFIX frames is scanned (the
+    kernel held to the plain scan), then the hop resumes from that state:
+    every record and all eight finals exactly equal, and the two halves
+    equal to the unsplit plain scan.  Times the resume at B = 1 and 8,
+    T_hop = 16, per call and on the device alone, beside the plain version.
+    Returns ([case names], {B: times})."""
+    import torch
+    from reverb_tpu_torch.decode.prefix_beam import STATE_KEYS
+    from reverb_tpu_torch.ops import beam_scan as bs
+    K = 10
+
+    def args(lp, ix, t0):
+        B, T, _ = lp.shape
+        ts = (t0 + torch.arange(T, dtype=torch.int32, device=dev))[None]
+        return (lp.contiguous(), ix.contiguous(), ts.expand(B, T).contiguous(),
+                torch.ones((B, T), dtype=torch.bool, device=dev),
+                torch.zeros((B, T), device=dev),
+                torch.zeros((B, T), dtype=torch.bool, device=dev), K, 0)
+
+    def exact(got, want, what):
+        (f, e), (fp, ep) = got, want
+        for n in ep:
+            if not torch.equal(e[n], ep[n]):
+                raise AssertionError(f'K2 resume {what}: record {n} differs '
+                                     f'from the plain scan')
+        for n in STATE_KEYS:
+            if not torch.equal(f[n], fp[n]):
+                raise AssertionError(f'K2 resume {what}: final {n} differs '
+                                     f'from the plain scan')
+    cases, times = [], {}
+    for i, (B, T) in enumerate(RESUME_CASES):
+        for tied in (False, True):
+            n = RESUME_PREFIX + T
+            if tied:
+                lp, ix, _ = tied_topk(dev, max(B, 2), n, K)
+                lp, ix = lp[:B], ix[:B]
+            else:
+                lp, ix, _ = peaky_topk(dev, seed + 100 + i, B, n, K)
+            what = f'B={B} T_hop={T}{" tied" if tied else ""}'
+            pre = args(lp[:, :RESUME_PREFIX], ix[:, :RESUME_PREFIX], 0)
+            st_k, st_p = bs.beam_scan_forward(*pre), \
+                bs.beam_scan_forward_plain(*pre)
+            exact(st_k, st_p, what + ' (prefix)')
+            hop = args(lp[:, RESUME_PREFIX:], ix[:, RESUME_PREFIX:],
+                       RESUME_PREFIX)
+            got = bs.beam_scan_forward(*hop, state=st_k[0])
+            want = bs.beam_scan_forward_plain(*hop, state=st_p[0])
+            torch.cuda.synchronize()
+            exact(got, want, what)
+            f_all, e_all = bs.beam_scan_forward_plain(*args(lp, ix, 0))
+            exact(got, (f_all, {m: v[RESUME_PREFIX:]
+                                for m, v in e_all.items()}),
+                  what + ' against the unsplit scan')
+            cases.append(what)
+            if T == 16 and not tied:
+                st = st_k[0]
+                ms, dev_ms = both_times(
+                    lambda: bs.beam_scan_forward(*hop, state=st), 20,
+                    KERNEL_PATTERNS['K2'])
+                plain_ms = cuda_time_ms(
+                    lambda: bs.beam_scan_forward_plain(*hop, state=st), 1)
+                bnd = bound(0, nbytes(hop[:6], st, got), 'f32')
+                times[B] = {'ms': ms, 'device_ms': dev_ms,
+                            'plain_ms': plain_ms, 'bound_ms': bnd[0],
+                            'bound_by': bnd[1]}
+    log(f'K2 resume: {len(cases)} cases (B in {{1, 8}}, T_hop in '
+        f'{{1, 16, 33}}, peaky and tied, from a {RESUME_PREFIX}-frame '
+        f'prefix): records and all eight finals equal to the plain scan and '
+        f'to the unsplit scan; T_hop=16: '
+        + '; '.join(f'B={b} {t["ms"]:.4f} ms per call, {t["device_ms"]:.4f} '
+                    f'on the device, plain {t["plain_ms"]:.2f}'
+                    for b, t in times.items()))
+    return cases, times
+
+
+def stream_reference_check(asr, dev, seed):
+    """One 8 s stream through StreamingASR in f32 (TF32 off), fed 0.64 s
+    at a time, with the kernels and with the plain versions (K2/K3, K5;
+    K1 is not on the path).  The plain run computes every hop's encoder
+    output itself and is held to the kernel run's within 1e-3, then decodes
+    the kernel run's outputs (its caches included), so both runs decode the
+    same log-probs: greedy, the carried prefix beam and attention_rescoring
+    must match (tokens, times and nbest identical, scores within 1e-4 or
+    one f32 step).  At every 4th hop the kernel run's carried beam must
+    equal ctc_prefix_beam_search_raw (K2 and K3 from scratch) over the
+    concatenated hop log-probs."""
+    import torch
+    from reverb_tpu_torch.cli.model import StreamingASR
+    from reverb_tpu_torch.cli.reverb import ReverbASR
+    from reverb_tpu_torch.decode import prefix_beam as pb
+    from reverb_tpu_torch.models.asr_model import build_model
+    from reverb_tpu_torch.ops import beam_scan as bs
+    f32 = build_model(asr.model.cfg.with_compute_dtype(torch.float32), dev,
+                      state_dict=asr.model.state_dict())
+    asr32 = ReverbASR.from_model(asr.configs, f32, asr.tokenizer)
+    audio = stream_audio(STREAM_REF_S, seed + 11)
+    plain = {(bs, 'beam_scan_forward'): bs.beam_scan_forward_plain,
+             (bs, 'beam_backtrace'): bs.beam_backtrace_plain,
+             **plain_versions()}
+    enc = f32.encoder
+    chunk_fn = enc.forward_chunk
+    recorded, replayed, enc_err, checked = [], [0], [0.0], []
+
+    def replay(xs, *a, **k):
+        ys, att, cnn = recorded[replayed[0]]
+        replayed[0] += 1
+        got = chunk_fn(xs, *a, **k)[0]
+        enc_err[0] = max(enc_err[0], float((got - ys).abs().max()))
+        return ys, att, cnn
+
+    def record(xs, *a, **k):
+        out = chunk_fn(xs, *a, **k)
+        recorded.append(out)
+        return out
+
+    def run(kernels: bool):
+        table = {(enc, 'forward_chunk'): record if kernels else replay,
+                 **({} if kernels else plain)}
+        with swapped(table):
+            s = StreamingASR(asr32, STREAM_CHUNK, STREAM_LEFT)
+            hop_lp = []
+            accept = s._inc_beam.accept
+
+            def keep(lp):
+                hop_lp.append(lp)
+                accept(lp)
+            s._inc_beam.accept = keep
+            for i in range(0, len(audio), STREAM_PIECE):
+                s.accept_waveform(audio[i:i + STREAM_PIECE])
+                n = len(hop_lp)
+                if kernels and n and n % 4 == 0 and n not in checked:
+                    checked.append(n)
+                    lp = torch.cat(hop_lp)[None]
+                    want = pb.ctc_prefix_beam_search_raw(
+                        lp, torch.tensor([lp.shape[1]], device=dev), 10,
+                        f32.cfg.blank_id)[0]
+                    compare_results({'ctc_prefix_beam_search': [
+                        s._inc_beam.finalize()]},
+                        {'ctc_prefix_beam_search': want}, 1e-4)
+            torch.cuda.synchronize()
+            return {m: [s.decode(m)] for m in STREAM_MODES}, len(hop_lp)
+    (got, hops), (want, hops_p) = run(True), run(False)
+    if hops != hops_p or not checked or not enc_err[0] <= 1e-3:
+        raise AssertionError(f'f32 stream: {hops} / {hops_p} hops, checks at '
+                             f'{checked}, encoder err {enc_err[0]}')
+    compare_results(got, want, 1e-4, ulps=1)
+    n_tok = {m: len(got[m][0].tokens) for m in got}
+    if not n_tok['ctc_prefix_beam_search']:
+        raise AssertionError(f'f32 stream decoded no tokens: {n_tok}')
+    log(f'stream reference: f32 {STREAM_REF_S} s stream, {hops} hops '
+        f'(chunk {STREAM_CHUNK}, {STREAM_LEFT} left chunks), kernels vs '
+        f'plain: encoder max abs err {enc_err[0]:.2e} per hop; greedy, prefix '
+        f'and rescoring identical (tokens {n_tok}); the carried beam equal to '
+        f'the from-scratch beam at hops {checked}')
+    del f32, asr32, recorded
+    torch.cuda.empty_cache()
+
+
+def check_ctm_rows(ctm: str, name: str, what: str):
+    rows = [r for r in ctm.splitlines() if r.strip()]
+    for row in rows:
+        f = row.split()
+        if len(f) != 6 or f[0] != name or not all(
+                math.isfinite(float(v)) for v in (f[2], f[3], f[5])):
+            raise AssertionError(f'{what}: bad CTM row {row!r}')
+    return len(rows)
+
+
+def check_stream_result(res, what: str):
+    scores = [res.score] + list(res.nbest_scores or [])
+    if not all(x is None or math.isfinite(x) for x in scores):
+        raise AssertionError(f'{what}: non-finite score')
+    if res.times is not None and len(res.times) != len(res.tokens):
+        raise AssertionError(f'{what}: tokens and times differ in length')
+
+
+def run_stream_single(asr, seed):
+    """StreamingASR in bf16 over a 60 s stream fed 0.64 s at a time:
+    ms per hop (p50, p95) and the stream's xRT, with the launches of the
+    feeding asserted: per hop K2 once, K3 and K1 never, K5 at every
+    LayerNorm call of the chunk encoder."""
+    import torch
+    from reverb_tpu_torch.cli.model import StreamingASR
+    audio = stream_audio(STREAM_S, seed + 12)
+    s = StreamingASR(asr, STREAM_CHUNK, STREAM_LEFT)
+    s.accept_waveform(audio[:2 * STREAM_PIECE])  # warm-up: one hop
+    s.decode('attention_rescoring')
+    s.reset()
+    ln_calls, hooks = ln_call_counter(asr.model)
+    zero_launch_counts()
+    per_hop, hops, wall = [], 0, 0.0
+    try:
+        for i in range(0, len(audio), STREAM_PIECE):
+            before = len(s._enc_chunks)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            s.accept_waveform(audio[i:i + STREAM_PIECE])
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            wall += dt
+            n = len(s._enc_chunks) - before
+            hops += n
+            if n:
+                per_hop += [dt * 1e3 / n] * n
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = launch_counts()
+    want = {'K1': 0, 'K2': hops, 'K3': 0, 'K5': ln_calls[0]}
+    if launches != want or ln_calls[0] != LN_ENC * hops:
+        raise AssertionError(f'stream launches {launches}, expected {want} '
+                             f'({hops} hops, {LN_ENC} LayerNorms a hop)')
+    t0 = time.perf_counter()
+    out = {m: s.decode(m) for m in STREAM_MODES}
+    torch.cuda.synchronize()
+    t_dec = time.perf_counter() - t0
+    for m, r in out.items():
+        check_stream_result(r, f'stream {m}')
+    if not out['ctc_prefix_beam_search'].tokens:
+        raise AssertionError('the bf16 stream decoded no tokens')
+    held = len(s._pcm), int(s._feat.shape[0])
+    if held[0] > STREAM_PIECE + 400 or held[1] > s.window:
+        raise AssertionError(f'the stream holds {held} samples, frames')
+    pieces = iter(range(0, len(audio), STREAM_PIECE))
+
+    def one_hop():
+        i = next(pieces)
+        s.accept_waveform(audio[i:i + STREAM_PIECE])
+    prof = profile_calls(one_hop, 4)
+    log(profile_line('stream hop', prof))
+    p50, p95 = np.percentile(per_hop, [50, 95])
+    xrt = STREAM_S / wall
+    log(f'stream: bf16 {STREAM_S} s fed in {STREAM_PIECE / 16000} s pieces, '
+        f'{hops} hops: {p50:.2f} ms per hop (p50), {p95:.2f} (p95), xRT '
+        f'{xrt:.1f}; launches {launches}; the three decodes {t_dec:.3f} s '
+        f'(tokens {len(out["ctc_prefix_beam_search"].tokens)}); holds '
+        f'{held[0]} samples, {held[1]} frames')
+    return {'launches': launches, 'hops': hops, 'p50': float(p50),
+            'p95': float(p95), 'xrt': xrt, 'profile': prof}
+
+
+def run_stream_pool(asr, seed):
+    """MultiStreamASR in bf16, POOL_SLOTS slots of POOL_S s each fed 0.64 s
+    a round, two slots joining POOL_LATE_S late, slot 0 reset midway and
+    given a new stream: ms per step() and the aggregate xRT, with the
+    launches asserted: per advancing step K2 once, K3 and K1 never, K5 at
+    every LayerNorm call of the chunk encoder."""
+    import torch
+    from reverb_tpu_torch.cli.stream_pool import MultiStreamASR
+    audio = [stream_audio(POOL_S, seed + 20 + b) for b in range(POOL_SLOTS)]
+    fresh = stream_audio(POOL_S, seed + 40)
+    late = {POOL_SLOTS - 2, POOL_SLOTS - 1}
+    join = math.ceil(POOL_LATE_S * 16000 / STREAM_PIECE)
+    n_pieces = math.ceil(len(audio[0]) / STREAM_PIECE)
+    reset_at = n_pieces // 2
+    pool = MultiStreamASR(asr, POOL_SLOTS, STREAM_CHUNK, STREAM_LEFT)
+    pool.accept_waveform(0, audio[0][:2 * STREAM_PIECE])  # warm-up: a hop
+    pool.step()
+    pool.reset()
+    ln_calls, hooks = ln_call_counter(asr.model)
+    zero_launch_counts()
+    steps, fed = [], 0
+    try:
+        torch.cuda.synchronize()
+        t_all = time.perf_counter()
+        for r in range(n_pieces + join):
+            if r == reset_at:
+                pool.reset_slot(0)
+                audio[0] = fresh
+            for b in range(POOL_SLOTS):
+                i = r - (join if b in late else 0) - (
+                    reset_at if b == 0 and r >= reset_at else 0)
+                piece = audio[b][i * STREAM_PIECE:(i + 1) * STREAM_PIECE] \
+                    if i >= 0 else audio[b][:0]
+                pool.accept_waveform(b, piece)
+                fed += len(piece)
+            while True:
+                t0 = time.perf_counter()
+                ready = pool.step()
+                torch.cuda.synchronize()
+                if not ready.any():
+                    break
+                steps.append((time.perf_counter() - t0) * 1e3)
+        wall = time.perf_counter() - t_all
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = launch_counts()
+    want = {'K1': 0, 'K2': len(steps), 'K3': 0, 'K5': ln_calls[0]}
+    if launches != want or ln_calls[0] != LN_ENC * len(steps):
+        raise AssertionError(f'pool launches {launches}, expected {want} '
+                             f'({len(steps)} steps)')
+    n_tok = []
+    for b in range(POOL_SLOTS):
+        for m in ('ctc_greedy_search', 'ctc_prefix_beam_search'):
+            check_stream_result(pool.decode(b, m), f'pool slot {b} {m}')
+        n_tok.append(len(pool.decode(b).tokens))
+        smp, frames = pool.buffered(b)
+        if smp > STREAM_PIECE + 400 or frames > pool.window:
+            raise AssertionError(f'pool slot {b} holds {smp} samples, '
+                                 f'{frames} frames')
+    if not all(n_tok):
+        raise AssertionError(f'pool slots decoded no tokens: {n_tok}')
+    audio_s = fed / 16000
+
+    def one_step():
+        for b in range(POOL_SLOTS):
+            pool.accept_waveform(b, fresh[:STREAM_PIECE])
+        pool.step()
+    prof = profile_calls(one_step, 2)
+    log(profile_line('stream pool step', prof))
+    p50, p95 = np.percentile(steps, [50, 95])
+    log(f'stream pool: bf16, {POOL_SLOTS} slots x {POOL_S} s (slots '
+        f'{sorted(late)} {POOL_LATE_S} s late, slot 0 reset at round '
+        f'{reset_at}), {audio_s:.2f} s of audio in {len(steps)} steps: '
+        f'{np.mean(steps):.2f} ms per step (p50 {p50:.2f}, p95 {p95:.2f}), '
+        f'aggregate xRT {audio_s / wall:.1f}; launches {launches}; tokens '
+        f'per slot {n_tok}')
+    return {'launches': launches, 'steps': len(steps),
+            'ms': float(np.mean(steps)), 'p50': float(p50),
+            'p95': float(p95), 'xrt': audio_s / wall, 'profile': prof}
+
+
+def run_stream_cli(asr, wav, workdir: Path, seed):
+    """The CLI's chunk flags: recognize_wav with --decoding_chunk_size 16
+    --num_decoding_left_chunks 4 --simulate_streaming on the reverb_large
+    model (use_dynamic_chunk false) writes CTM byte-equal to the call
+    without them; then a copy of the config with use_dynamic_chunk: true,
+    decoded with --decoding_chunk_size 16 on one 2051-frame chunk,
+    completes with the chunk mask (K1 never launched)."""
+    import copy
+    from reverb_tpu_torch.cli import recognize_wav
+    from reverb_tpu_torch.cli import reverb as rv
+    from reverb_tpu_torch.models.asr_model import ModelConfig
+    out = workdir / 'stream_cli'
+    base = ['--model', str(workdir), '--modes', *MODES, '--device', 'cuda']
+    flags = ['--decoding_chunk_size', '16', '--num_decoding_left_chunks', '4',
+             '--simulate_streaming']
+    with swapped({(rv, 'load_model'): lambda *a, **k: asr}):
+        recognize_wav.main(base + ['--audio_file', str(wav), '--result_dir',
+                                   str(out / 'plain')])
+        recognize_wav.main(base + ['--audio_file', str(wav), '--result_dir',
+                                   str(out / 'chunk')] + flags)
+    rows = {}
+    for mode in MODES:
+        a = (out / 'plain' / mode / f'{wav.stem}.ctm').read_bytes()
+        b = (out / 'chunk' / mode / f'{wav.stem}.ctm').read_bytes()
+        if a != b or not a:
+            raise AssertionError(f'{mode}: CTM with the chunk flags differs '
+                                 f'from the CTM without them')
+        rows[mode] = check_ctm_rows(a.decode('utf8'), wav.name, mode)
+    configs = copy.deepcopy(asr.configs)
+    configs['encoder_conf']['use_dynamic_chunk'] = True
+    dyn = ModelConfig.from_config(configs).encoder
+    if not dyn.use_dynamic_chunk:
+        raise AssertionError('use_dynamic_chunk did not reach the encoder')
+    one = workdir / 'one_chunk.wav'
+    write_wav(one, 400 + 160 * (CHUNK - 1), seed + 13)
+    zero_launch_counts()
+    with swapped({(rv, 'load_model'): lambda *a, **k: asr,
+                  (asr.model.encoder, 'cfg'): dyn}):
+        recognize_wav.main(base + ['--audio_file', str(one), '--result_dir',
+                                   str(out / 'dynamic'),
+                                   '--decoding_chunk_size', '16'])
+    launches = launch_counts()
+    n_dyn = {m: check_ctm_rows(
+        (out / 'dynamic' / m / 'one_chunk.ctm').read_text(encoding='utf8'),
+        one.name, m) for m in MODES}
+    if launches['K1'] != 0 or launches['K2'] not in (1, 2) or \
+            launches['K3'] != launches['K2'] or launches['K5'] < LN_ENC:
+        raise AssertionError(f'use_dynamic_chunk decode launches {launches}')
+    log(f'stream CLI: recognize_wav with {" ".join(flags)}: CTM byte-equal '
+        f'to the call without them ({rows} rows); use_dynamic_chunk: true '
+        f'with --decoding_chunk_size 16 on one {CHUNK}-frame chunk: '
+        f'launches {launches}, CTM rows {n_dyn}')
+
+
+def run_stream(dev, asr, wav, feats, audio_s, seed=SEED):
+    """The streaming phase: K2's resume entry against its plain version,
+    the f32 StreamingASR reference, the timed bf16 StreamingASR and
+    MultiStreamASR, and the CLI's chunk flags."""
+    t0 = time.perf_counter()
+    cases, resume_t = check_beam_resume(dev, seed)
+    stream_reference_check(asr, dev, seed)
+    single = run_stream_single(asr, seed)
+    pool = run_stream_pool(asr, seed)
+    with tempfile.TemporaryDirectory(prefix='reverb_stream_') as tmp:
+        run_stream_cli(asr, wav, Path(tmp), seed)
+    log(f'stream: {single["p50"]:.2f} ms per hop (p50), xRT '
+        f'{single["xrt"]:.1f}; pool {pool["ms"]:.2f} ms per step, aggregate '
+        f'xRT {pool["xrt"]:.1f}; the phase took '
+        f'{time.perf_counter() - t0:.1f} s; on {smi_line()}')
+    return {'resume_cases': cases, 'resume': resume_t, 'single': single,
+            'pool': pool}
 
 
 # ------------------------------ shared helpers ------------------------------
@@ -1555,6 +2012,50 @@ FAMILIES = [
 ]
 
 
+def busy_union(spans) -> float:
+    """Length of the union of sorted (start, end) intervals."""
+    busy, cur = 0.0, None
+    for a, b in spans:
+        if cur is None or a > cur[1]:
+            busy += 0.0 if cur is None else cur[1] - cur[0]
+            cur = [a, b]
+        else:
+            cur[1] = max(cur[1], b)
+    return busy + (0.0 if cur is None else cur[1] - cur[0])
+
+
+def profile_calls(fn, n: int) -> dict:
+    """n calls of fn() under torch.profiler (CPU and CUDA): per call, the
+    wall ms, the device busy ms (the union of device events), the device
+    events, and the host operators with the most self CPU time."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / n
+    spans = sorted((e.time_range.start, e.time_range.end)
+                   for e in prof.events() if e.device_type == DeviceType.CUDA)
+    ops = sorted(prof.key_averages(), key=lambda a: -a.self_cpu_time_total)
+    return {'wall_ms': wall, 'busy_ms': busy_union(spans) / 1e3 / n,
+            'device_events': len(spans) / n,
+            'host_ops': {a.key: (a.self_cpu_time_total / 1e3 / n, a.count / n)
+                         for a in ops[:8]}}
+
+
+def profile_line(what: str, prof: dict) -> str:
+    return (f'{what} profiled: {prof["wall_ms"]:.2f} ms wall, device busy '
+            f'{prof["busy_ms"]:.2f} ms, {prof["device_events"]:.0f} device '
+            f'events; host self ms (calls): '
+            + ', '.join(f'{k} {ms:.2f} ({c:.0f})'
+                        for k, (ms, c) in prof['host_ops'].items()))
+
+
 def profile_train(dev, seed):
     """One bf16 training step (as run_train's) under torch.profiler after
     two warm-up steps and one timed unprofiled step: the device busy union
@@ -1581,14 +2082,7 @@ def profile_train(dev, seed):
     spans = sorted((e.time_range.start, e.time_range.end)
                    for e in prof.events()
                    if e.device_type == DeviceType.CUDA)
-    busy, cur = 0.0, None
-    for a, b in spans:
-        if cur is None or a > cur[1]:
-            busy += 0.0 if cur is None else cur[1] - cur[0]
-            cur = [a, b]
-        else:
-            cur[1] = max(cur[1], b)
-    busy += 0.0 if cur is None else cur[1] - cur[0]
+    busy = busy_union(spans)
     span = (spans[-1][1] - spans[0][0]) if spans else 0.0
     by_name = {}
     for e in prof.events():
@@ -1840,9 +2334,9 @@ def ab_parent(dev, parent: Path):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default=','.join(ALL_PHASES),
-                    help='comma list of kernels, serve, train, modes '
-                         '(default all; the result lines need all four), or '
-                         'beam: the K2/K3 checks alone')
+                    help='comma list of kernels, serve, train, modes, '
+                         'stream (default all; the result lines need all '
+                         'five), or beam: the K2/K3 checks alone')
     ap.add_argument('--profile', action='store_true',
                     help='also profile one bf16 training step')
     ap.add_argument('--ab-parent', type=Path, default=None,
@@ -1919,7 +2413,7 @@ def main():
         fwd_err, bt = check_beam(dev, SEED)
         k4 = check_k1_mask_k4(dev)[torch.bfloat16]
         lnr = check_ln(dev)[torch.bfloat16]
-    if phases & {'serve', 'modes'}:
+    if phases & {'serve', 'modes', 'stream'}:
         with tempfile.TemporaryDirectory(prefix='reverb_smoke_') as tmp:
             served = serving_setup(dev, SEED, Path(tmp))
             if 'serve' in phases:
@@ -1928,6 +2422,9 @@ def main():
             if 'modes' in phases:
                 # phase 9: the six CLI modes
                 modes = run_modes(dev, *served)
+            if 'stream' in phases:
+                # phase 10: streaming
+                stream = run_stream(dev, *served)
             del served
     if 'train' in phases:
         # phase 8: the training path
@@ -1944,11 +2441,13 @@ def main():
         return 1
 
     kernels = kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches,
-                             len(walls), t_launch, fallback, modes)
+                             len(walls), t_launch, fallback, modes, stream)
     log(f'slice: second transcribe_modes call {walls[1]:.4f} s for '
         f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; six-mode '
         f'call {modes[2]:.3f} s; train {step_ms:.1f} ms/step at '
-        f'B={TRAIN_B}, peak {peak / 2**30:.2f} GiB; on {smi}')
+        f'B={TRAIN_B}, peak {peak / 2**30:.2f} GiB; stream '
+        f'{stream["single"]["p50"]:.2f} ms per hop (p50), pool '
+        f'{stream["pool"]["ms"]:.2f} ms per step; on {smi}')
     print(smi_line())
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
@@ -1958,20 +2457,29 @@ def main():
 
 
 def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
-                   t_launch, fallback, modes):
-    """The {"kernels": [...]} entries: launches on the three paths (in all,
-    per serving call, per training step and per six-mode call; K2/K3 also
-    per call of the long-hypothesis path), the error against the plain
-    version, kernel / plain / library times in bf16 at the timed shapes,
-    and the bound computed from those shapes."""
+                   t_launch, fallback, modes, stream):
+    """The {"kernels": [...]} entries: launches on the paths (in all, per
+    serving call, per training step, per six-mode call, per streaming hop
+    and per pool step; K2/K3 also per call of the long-hypothesis path),
+    the error against the plain version, kernel / plain / library times in
+    bf16 at the timed shapes (K2 also resumed from a state at B = 1 and 8,
+    T_hop = 16), and the bound computed from those shapes."""
     import torch
     k1b = k1[torch.bfloat16]
     N, C = LN_ROWS[-1], LN_C
     m_launch = modes[0]
+    s_launch, p_launch = (stream['single']['launches'],
+                          stream['pool']['launches'])
     per = {n: {'serve': launches.get(n, 0) / n_calls,
                'train': t_launch.get(n, 0) / TRAIN_STEPS,
-               'six_modes': m_launch.get(n, 0)}
+               'six_modes': m_launch.get(n, 0),
+               'stream_hop': s_launch.get(n, 0) / stream['single']['hops'],
+               'stream_pool_step': (p_launch.get(n, 0)
+                                    / stream['pool']['steps'])}
            for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6')}
+    resume = {}
+    for b, t in stream['resume'].items():
+        resume.update({f'resume_{k}_b{b}_t16': v for k, v in t.items()})
     for n in ('K2', 'K3'):      # the uncapped tail launches them again
         per[n]['serve_long_hyp'] = fallback[0][n] / fallback[1]
     sdpa_call = ('F.scaled_dot_product_attention(cat(q+u, q+v), cat(k, p), '
@@ -1983,7 +2491,8 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
                 'source': f'reverb_tpu_torch/csrc/{src}',
                 'replaces': f'reverb_tpu/ops/{replaces}',
                 'launches': (launches.get(kid, 0) + t_launch.get(kid, 0)
-                             + m_launch.get(kid, 0)),
+                             + m_launch.get(kid, 0) + s_launch.get(kid, 0)
+                             + p_launch.get(kid, 0)),
                 'launches_per_call': per[kid], 'max_abs_err': err,
                 'ms': ms, 'device_ms': dev_ms, 'plain_ms': plain_ms,
                 'bound_ms': bnd[0], 'bound_by': bnd[1], 'library_ms': lib_ms,
@@ -2011,7 +2520,8 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
         rec('beam_scan_forward', 'beam_scan.cu', 'beam_scan.py:33', 'K2',
             fwd_err, bt['fwd'], bt['fwd_dev'], bt['fwd_plain'],
             bound(0, bt['fwd_nbytes'], 'f32'), None, None, 'none',
-            us_per_frame=bt['fwd_us_frame']),
+            us_per_frame=bt['fwd_us_frame'],
+            resume_cases=stream['resume_cases'], **resume),
         rec('beam_backtrace', 'beam_scan.cu', 'beam_scan.py:137', 'K3', 0.0,
             bt['bt'], bt['bt_dev'], bt['bt_plain'],
             bound(0, bt['bt_nbytes'], 'f32'), None, None, 'none',

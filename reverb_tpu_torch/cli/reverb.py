@@ -7,7 +7,9 @@ Counterpart of reverb_tpu/cli/reverb.py (`ReverbASR`, `load_model`,
 timings_adjustment=230 ms) and the same txt/CTM bytes, plus an explicit
 `device`.  The device defaults to 'cuda' and is never swapped silently:
 asking for CUDA on a machine without it raises.  Every decode mode of the
-reference runs (decode/api.py); streaming does not.
+reference runs (decode/api.py), with the chunk arguments handed to the
+encoder as there; incremental streaming is cli/model.py:StreamingASR and
+cli/stream_pool.py:MultiStreamASR.
 """
 
 from __future__ import annotations
@@ -182,12 +184,11 @@ class ReverbASR:
                          length_penalty: float = 0.0,
                          timings_adjustment: float = 230,
                          blank_skip_threshold: float = 0.0) -> List[str]:
-        """One output string per mode.  The streaming arguments
-        (`decoding_chunk_size`, `num_decoding_left_chunks`,
-        `simulate_streaming`) are the reference's; streaming is not ported,
-        so each raises unless at its default."""
-        if simulate_streaming:
-            raise NotImplementedError('simulate_streaming is not ported')
+        """One output string per mode.  The streaming arguments are the
+        JAX package's: `decoding_chunk_size` reaches the encoder (a chunk
+        mask on a use_dynamic_chunk model), `num_decoding_left_chunks` is
+        passed to `decode`, which does not use it, and `simulate_streaming`
+        is accepted with no effect, as reverb_tpu/cli/reverb.py accepts it."""
         feats = self.compute_feats(audio_file)
         if not batch_size:
             # all of a file's chunks in one batch, capped to bound memory

@@ -137,8 +137,9 @@ __device__ __forceinline__ float below(float x) {
 }
 
 __global__ void __launch_bounds__(SCAN_NT, 1) beam_scan_kernel(
-    ScanIn in, int* __restrict__ records, float* __restrict__ finals, int B,
-    int T, int K, int K2, int blank, int chunk) {
+    ScanIn in, const int* __restrict__ state_in, int* __restrict__ records,
+    int* __restrict__ finals, int B, int T, int K, int K2, int blank,
+    int chunk) {
   extern __shared__ int4 scan_dyn[];
   __shared__ BeamState st_all[SCAN_NW];
   __shared__ Fold fo_all[SCAN_NW];
@@ -173,11 +174,13 @@ __global__ void __launch_bounds__(SCAN_NT, 1) beam_scan_kernel(
   int* const wval = records + 8 * rec_n;
 
   // beam `lane`'s scores (lanes < K of every warp): s, ns, v_s, v_ns and
-  // sc = log_add(s, ns), carried from the frame that made them
+  // sc = log_add(s, ns), carried from the frame that made them.  The scan
+  // starts from the empty prefix, or from `state_in`: the eight (B, K)
+  // arrays plen, last, h1, h2, s, ns, v_s, v_ns of an earlier scan's final
+  // state (a streaming hop resumes where the last one ended)
   const bool active = lane == 0;
   float r_s = active ? 0.f : NEG_INF, r_ns = NEG_INF;
   float r_vs = active ? 0.f : NEG_INF, r_vns = NEG_INF;
-  float r_sc = log_add(r_s, r_ns);
   int r_last = -1;
   if (lane < MAXK) {
     st.plen[lane] = 0;
@@ -185,6 +188,19 @@ __global__ void __launch_bounds__(SCAN_NT, 1) beam_scan_kernel(
     st.h[lane] = active ? make_uint2(SEED1, SEED2)
                         : make_uint2((uint32_t)lane + 7u, (uint32_t)lane + 13u);
   }
+  if (state_in != nullptr && lane < K) {
+    const size_t BK = (size_t)B * K, o = (size_t)b * K + lane;
+    st.plen[lane] = state_in[o];
+    r_last = state_in[BK + o];
+    st.last[lane] = r_last;
+    st.h[lane] = make_uint2((uint32_t)state_in[2 * BK + o],
+                            (uint32_t)state_in[3 * BK + o]);
+    r_s = __int_as_float(state_in[4 * BK + o]);
+    r_ns = __int_as_float(state_in[5 * BK + o]);
+    r_vs = __int_as_float(state_in[6 * BK + o]);
+    r_vns = __int_as_float(state_in[7 * BK + o]);
+  }
+  float r_sc = log_add(r_s, r_ns);
   if (tid < MAXC) vals[tid] = -INFINITY;   // a pad loses to every candidate
   if (tid < 2) matched[tid] = 0;
 
@@ -537,14 +553,17 @@ __global__ void __launch_bounds__(SCAN_NT, 1) beam_scan_kernel(
     if (more) store_flag(c + 1, pend);
   }
 
+  // the final state, in the layout of state_in
   if (warp == 0 && lane < K) {
-    const int o = b * K + lane;
-    const int BK = B * K;
-    finals[o] = r_s;
-    finals[BK + o] = r_ns;
-    finals[2 * BK + o] = r_vs;
-    finals[3 * BK + o] = r_vns;
-    reinterpret_cast<int*>(finals)[4 * BK + o] = st.plen[lane];
+    const size_t BK = (size_t)B * K, o = (size_t)b * K + lane;
+    finals[o] = st.plen[lane];
+    finals[BK + o] = st.last[lane];
+    finals[2 * BK + o] = (int)st.h[lane].x;
+    finals[3 * BK + o] = (int)st.h[lane].y;
+    finals[4 * BK + o] = __float_as_int(r_s);
+    finals[5 * BK + o] = __float_as_int(r_ns);
+    finals[6 * BK + o] = __float_as_int(r_vs);
+    finals[7 * BK + o] = __float_as_int(r_vns);
   }
 }
 
@@ -696,13 +715,15 @@ extern "C" int reverb_beam_backtrace_smem_bytes(int chunk, int K, int L,
 
 // Layouts: logp/idx (B,T,K2) f32/i32; ts/bacc (B,T) i32/f32; valid/hskip
 // (B,T) bool; records: the eight emit arrays (T,B,K) i32 one after another,
-// then wval (T,B) i32; finals: s, ns, v_s, v_ns (B,K) f32 then plen (B,K)
-// i32.  chunk: frames per stage of the input ring (1..32).  Returns
-// cudaError_t.
+// then wval (T,B) i32; state_in (NULL: the empty prefix) and finals: the
+// eight (B,K) arrays plen, last, h1, h2 (i32; the hashes' uint32 bits), s,
+// ns, v_s, v_ns (f32) one after another.  chunk: frames per stage of the
+// input ring (1..32).  Returns cudaError_t.
 extern "C" int reverb_beam_scan_forward(
     const void* logp, const void* idx, const void* ts, const void* valid,
-    const void* bacc, const void* hskip, void* records, void* finals, int B,
-    int T, int K, int K2, int blank_id, int chunk, void* stream) {
+    const void* bacc, const void* hskip, const void* state_in, void* records,
+    void* finals, int B, int T, int K, int K2, int blank_id, int chunk,
+    void* stream) {
   if (K < 1 || K > MAXK || K2 < 1 || K2 > MAXK || K * (K2 + 1) > MAXC ||
       chunk < 1 || chunk > 32 || T < 0)
     return (int)cudaErrorInvalidValue;
@@ -712,7 +733,8 @@ extern "C" int reverb_beam_scan_forward(
                   (const int*)ts,        (const uint8_t*)valid,
                   (const float*)bacc,    (const uint8_t*)hskip};
   beam_scan_kernel<<<B, SCAN_NT, smem, (cudaStream_t)stream>>>(
-      in, (int*)records, (float*)finals, B, T, K, K2, blank_id, chunk);
+      in, (const int*)state_in, (int*)records, (int*)finals, B, T, K, K2,
+      blank_id, chunk);
   return (int)cudaGetLastError();
 }
 

@@ -42,20 +42,21 @@ MODES = ('ctc_prefix_beam_search', 'attention_rescoring')   # fused route
 
 
 def encode_and_ctc(model, feats, feats_lens, cat_embs,
-                   blank_penalty: float = 0.0):
+                   blank_penalty: float = 0.0, decoding_chunk_size: int = -1):
     """Encoder + the dense (B, T, V) f32 CTC log-prob table."""
-    encoder_out, encoder_mask = model.forward_encoder(feats, feats_lens,
-                                                      cat_embs)
+    encoder_out, encoder_mask = model.forward_encoder(
+        feats, feats_lens, cat_embs, decoding_chunk_size=decoding_chunk_size)
     encoder_lens = encoder_mask[:, 0, :].sum(-1).to(torch.int32)
     return encoder_out, encoder_lens, ctc_logprobs(
         model.ctc, encoder_out, blank_penalty, model.cfg.blank_id)
 
 
 def encode_and_ctc_topk(model, feats, feats_lens, cat_embs, k: int,
-                        blank_penalty: float = 0.0):
+                        blank_penalty: float = 0.0,
+                        decoding_chunk_size: int = -1):
     """Encoder + per-frame CTC top-k (deferred normalization)."""
-    encoder_out, encoder_mask = model.forward_encoder(feats, feats_lens,
-                                                      cat_embs)
+    encoder_out, encoder_mask = model.forward_encoder(
+        feats, feats_lens, cat_embs, decoding_chunk_size=decoding_chunk_size)
     encoder_lens = encoder_mask[:, 0, :].sum(-1).to(torch.int32)
     topk_logp, topk_idx, blank_logp = ctc_topk_logprobs(
         model.ctc, encoder_out, k, blank_penalty, model.cfg.blank_id)
@@ -138,14 +139,13 @@ def decode(model, methods: List[str], feats, feats_lens,
     """Decode a batch of feature chunks (B, T, F) with methods ⊆
     ALL_MODES.  `length_penalty` is the attention mode's and the joint
     search's length bonus; the hlg modes need `hlg_graph` (decode/hlg.Fst).
-    Chunked (streaming) decoding is not ported: `decoding_chunk_size` and
-    `num_decoding_left_chunks` raise unless -1."""
+    `decoding_chunk_size` goes to the encoder (a chunk mask on a
+    use_dynamic_chunk model); `num_decoding_left_chunks` is accepted and,
+    as in reverb_tpu/decode/api.py (whose encode programs never pass it
+    on), not used."""
     for m in methods:
         if m not in ALL_MODES:
             raise ValueError(f'unknown decode mode {m!r} ({ALL_MODES})')
-    if decoding_chunk_size != -1 or num_decoding_left_chunks != -1:
-        raise NotImplementedError('streaming (chunked) decoding is not '
-                                  'ported')
     dev = next(model.parameters()).device
     feats = torch.as_tensor(feats).to(dev)
     feats_lens = torch.as_tensor(feats_lens).to(dev)
@@ -153,24 +153,26 @@ def decode(model, methods: List[str], feats, feats_lens,
     if set(methods) <= set(MODES) and not model.cfg.apply_non_blank_embedding:
         return _decode_fused(model, methods, feats, feats_lens, beam_size,
                              ctc_weight, reverse_weight, blank_penalty, cat,
-                             blank_skip_threshold, max_hyp_len)
+                             blank_skip_threshold, max_hyp_len,
+                             decoding_chunk_size)
     with torch.inference_mode():
         return _decode_generic(
             model, methods, feats, feats_lens, beam_size, ctc_weight,
             reverse_weight, blank_penalty, length_penalty, cat,
             blank_skip_threshold, hlg_graph, hlg_lm_scale,
-            hlg_decoder_scale, hlg_r_decoder_scale)
+            hlg_decoder_scale, hlg_r_decoder_scale, decoding_chunk_size)
 
 
 def _decode_fused(model, methods, feats, feats_lens, beam_size: int,
                   ctc_weight: float, reverse_weight: float,
                   blank_penalty: float, cat, blank_skip_threshold: float,
-                  max_hyp_len: int) -> Dict[str, List[DecodeResult]]:
+                  max_hyp_len: int, decoding_chunk_size: int = -1
+                  ) -> Dict[str, List[DecodeResult]]:
     """The serving mode set: one device pass, one fetch, host packing."""
     with torch.inference_mode():
         encoder_out, encoder_lens, tk_logp, tk_idx, blank_lp = \
             encode_and_ctc_topk(model, feats, feats_lens, cat, beam_size,
-                                blank_penalty)
+                                blank_penalty, decoding_chunk_size)
         beam, resc = _beam_rescore_tail(
             model, tk_logp, tk_idx, blank_lp, encoder_out, encoder_lens,
             beam_size, ctc_weight, reverse_weight, blank_skip_threshold,
@@ -210,7 +212,7 @@ def _decode_generic(model, methods, feats, feats_lens, beam_size: int,
                     blank_penalty: float, length_penalty: float, cat,
                     blank_skip_threshold: float, hlg_graph,
                     hlg_lm_scale: float, hlg_decoder_scale: float,
-                    hlg_r_decoder_scale: float
+                    hlg_r_decoder_scale: float, decoding_chunk_size: int = -1
                     ) -> Dict[str, List[DecodeResult]]:
     """Every other mode set: one encoder pass, then each mode in the
     reference's order."""
@@ -226,12 +228,13 @@ def _decode_generic(model, methods, feats, feats_lens, beam_size: int,
     ctc_probs = None
     if need_full:
         encoder_out, encoder_lens, ctc_probs = encode_and_ctc(
-            model, feats, feats_lens, cat, blank_penalty)
+            model, feats, feats_lens, cat, blank_penalty,
+            decoding_chunk_size)
     else:
         encoder_out, encoder_lens, tk_logp, tk_idx, blank_lp = \
             encode_and_ctc_topk(model, feats, feats_lens, cat,
                                 beam_size if need_prefix else 1,
-                                blank_penalty)
+                                blank_penalty, decoding_chunk_size)
     results: Dict[str, List[DecodeResult]] = {}
     if 'attention' in methods:
         results['attention'] = attention_beam_search(

@@ -141,12 +141,15 @@ class ASRModel(nn.Module):
         self.ctc = CTC(cfg.vocab_size, cfg.encoder.output_size)
 
     def forward_encoder(self, feats, feats_lens, cat_embs=None,
-                        generator=None):
+                        generator=None, decoding_chunk_size: int = -1,
+                        num_decoding_left_chunks: int = -1):
         """(B,T,F) features → (encoder_out (B,T',D), masks (B,1,T'));
-        dropout when a generator is given."""
+        dropout when a generator is given; the chunk arguments as
+        reverb_tpu/models/asr_model.py:forward_encoder passes them on."""
         feats = feats.to(self.cfg.compute_dtype)
         return self.encoder(feats, feats_lens,
-                            cat_embs if self.cfg.lsl_enc else None, generator)
+                            cat_embs if self.cfg.lsl_enc else None, generator,
+                            decoding_chunk_size, num_decoding_left_chunks)
 
 
 def filter_blank_embedding(cfg: ModelConfig, ctc_probs, encoder_out,
@@ -181,9 +184,13 @@ def compute_loss(model: ASRModel, batch: Dict, generator=None) -> Dict:
         raise NotImplementedError('apply_non_blank_embedding is not ported')
     if 'cv_list' in batch:
         raise NotImplementedError('the context adaptor is not ported')
+    if model.cfg.encoder.use_dynamic_chunk:
+        raise NotImplementedError(
+            'use_dynamic_chunk training (the random chunk mask the JAX '
+            'package draws per batch) is not ported: ROADMAP item 9')
     encoder_out, encoder_mask = model.forward_encoder(
         batch['feats'], batch['feats_lengths'], batch.get('cat_embs'),
-        generator)
+        generator, decoding_chunk_size=0)
     return loss_from_encoder(model, encoder_out, encoder_mask, batch,
                              generator)
 

@@ -5,7 +5,9 @@ Counterpart of reverb_tpu/models/attention.py (`mha`, `rel_pos_mha`,
 `cross_kv_batched`, `mha_shared_kv_grouped`).  Scores are normalized in
 float32 whatever the activation dtype, and the probabilities are cast to
 V's dtype before the second product.  The encoder's rel-pos attention runs
-through kernels K1/K4 (ops/flash_attention.py) with a key-padding mask.
+through kernels K1/K4 (ops/flash_attention.py) with a key-padding mask; a
+chunk mask or a streaming KV cache takes `forward_masked` (matmuls and a
+masked softmax, as the JAX package takes XLA there).
 
 Attention dropout (rate, generator) follows the JAX package: the vanilla
 paths drop the probabilities after their cast to V's dtype
@@ -147,3 +149,31 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         ctx = fa.rel_pos_attention(q, k, v, pos, self.pos_bias_u,
                                    self.pos_bias_v, kv_lens, mask, rate)
         return self.linear_out(_merge_heads(ctx))
+
+    def forward_masked(self, x, mask, pos_emb, cache=None, rate: float = 0.0,
+                       generator=None):
+        """The route for what K1 does not take (reverb_tpu/models/
+        attention.py:rel_pos_mha outside the flash kernel): a chunk mask or a
+        streaming cache.  x (B, T, D); mask bool (B, 1|T, S), True = keep;
+        pos_emb (1|B, S, D) rows of the S keys; cache (B, H, Tc, 2·dk) keys
+        and values put before this chunk's (S = Tc + T).  The scores are
+        plain matmuls, normalised by an f32 masked softmax.  Returns (out,
+        new cache (B, H, S, 2·dk))."""
+        q = _split_heads(self.linear_q(x), self.h)
+        k = _split_heads(self.linear_k(x), self.h)
+        v = _split_heads(self.linear_v(x), self.h)
+        if cache is not None:
+            kc, vc = cache.to(k.dtype).chunk(2, dim=-1)
+            k = torch.cat([kc, k], 2)
+            v = torch.cat([vc, v], 2)
+        new_cache = torch.cat([k, v], -1)
+        pos = _split_heads(self.linear_pos(pos_emb), self.h)
+        u = self.pos_bias_u.to(q.dtype)[None, :, None, :]
+        vb = self.pos_bias_v.to(q.dtype)[None, :, None, :]
+        matrix_ac = torch.matmul(q + u, k.transpose(-1, -2))
+        matrix_bd = torch.matmul(q + vb, pos.transpose(-1, -2))
+        scores = (matrix_ac + matrix_bd[..., :matrix_ac.shape[-1]]) \
+            / math.sqrt(q.shape[-1])
+        m = None if mask is None else mask[:, None, :, :scores.shape[-1]]
+        ctx = _masked_softmax_av(scores, m, v, rate, generator)
+        return self.linear_out(_merge_heads(ctx)), new_cache

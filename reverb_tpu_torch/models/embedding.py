@@ -3,6 +3,9 @@
 Counterpart of reverb_tpu/models/embedding.py; the table is built on the
 host in float32 exactly as there.  Positional dropout (rate, generator)
 applies to the scaled input and to the returned table, as there.
+`stream_position_rows` gives a streaming chunk its rows at absolute stream
+positions, one set per stream (reverb_tpu/models/encoder.py:
+encoder_forward_chunk).
 """
 
 from __future__ import annotations
@@ -54,3 +57,15 @@ def rel_position_encoding(x, rate: float = 0.0, generator=None):
     d = x.shape[-1]
     return (dropout(x * math.sqrt(d), rate, generator),
             dropout(_pe(d, x.shape[1], x), rate, generator))
+
+
+def stream_position_rows(d_model: int, offset, cache_t: int, S: int, dtype):
+    """Rel-pos rows of a streaming chunk: for each stream, the table rows at
+    the absolute positions offset − cache_t + [0, S) (clipped to the table),
+    the positions of its cache slots and chunk frames.  offset: (1,) or
+    (B,) int64 tensor → (1|B, S, D) on offset's device."""
+    table = pe_table_on(d_model, offset.device)
+    idx = torch.clamp(offset[:, None] - cache_t
+                      + torch.arange(S, device=offset.device)[None, :],
+                      0, table.shape[0] - 1)
+    return table[idx].to(dtype)

@@ -16,7 +16,14 @@ tensors (csrc/beam_scan.cu) — there is no fallback.  Unbiased search only.
 Record layout (time-leading): eight (T, B, K) int32 arrays named by
 `prefix_beam.EMIT_KEYS` plus `wval` (T, B) int32, the frame index written by
 a time update.  The kernel's records are views of one allocation and its
-five finals of another.
+final state of another.
+
+The scan starts from the empty prefix, or resumes from a given `state`: the
+eight (B, K) arrays of `prefix_beam.STATE_KEYS`, as an earlier scan returned
+them (a streaming hop carries the beam over from the hop before,
+decode/streaming_beam.py).  The final state always holds all eight.  The
+hashes h1/h2 are uint32 in the kernel and int64 masked to 2³² in PyTorch;
+the wrapper converts both ways exactly.
 """
 
 from __future__ import annotations
@@ -26,8 +33,9 @@ import functools
 import torch
 
 from reverb_tpu_torch import _build
-from reverb_tpu_torch.decode.prefix_beam import (EMIT_KEYS, _backtrace,
-                                                 _init_state, _step)
+from reverb_tpu_torch.decode.prefix_beam import (EMIT_KEYS, STATE_KEYS,
+                                                 _backtrace, _init_state,
+                                                 _step)
 
 # kernel launches in this process (read by chip_smoke.py)
 FWD_LAUNCHES = 0
@@ -38,7 +46,7 @@ _MAX_CAND = 128
 SMEM_MAX = 232448
 _SCAN_CHUNK = 32      # frames per stage of the scan's input ring
 _BT_CHUNK = 64        # frames per stage of the walk's record ring
-_FINAL_KEYS = ('s', 'ns', 'v_s', 'v_ns', 'plen')
+_MASK32 = 0xFFFFFFFF
 
 
 @functools.lru_cache(maxsize=4096)
@@ -82,11 +90,13 @@ def chunk_spans(T: int, chunk: int):
 
 
 def beam_scan_forward_plain(topk_logp, topk_idx, ts, valid, blank_acc,
-                            has_skip, K: int, blank_id: int):
-    """The frame loop of `prefix_beam._step`.  Returns (final {s, ns, v_s,
-    v_ns, plen} (B, K), emits as in the module docstring)."""
+                            has_skip, K: int, blank_id: int, state=None):
+    """The frame loop of `prefix_beam._step`, from the empty prefix or from
+    `state` ({STATE_KEYS: (B, K)}).  Returns (final state {STATE_KEYS: (B,
+    K)}, emits as in the module docstring)."""
     B, T, _ = topk_logp.shape
-    state = _init_state(B, K, topk_logp.device)
+    state = (_init_state(B, K, topk_logp.device) if state is None
+             else {n: state[n] for n in STATE_KEYS})
     records = []
     for t in range(T):
         state, em = _step(state, topk_logp[:, t], topk_idx[:, t], ts[:, t],
@@ -99,8 +109,39 @@ def beam_scan_forward_plain(topk_logp, topk_idx, ts, valid, blank_acc,
              for n in EMIT_KEYS}
     emits['wval'] = (torch.stack([r['wval'] for r in records]) if T else
                      torch.zeros((0, B), dtype=torch.int32, device=dev))
-    final = {n: state[n] for n in ('s', 'ns', 'v_s', 'v_ns', 'plen')}
-    return final, emits
+    return state, emits
+
+
+def pack_state(state: dict, B: int, K: int, device):
+    """{STATE_KEYS: (B, K)} → the kernel's (8, B, K) int32 words: plen and
+    last as they are, the hashes' low 32 bits, the scores' f32 bits."""
+    def words(n):
+        x = state[n].to(device)
+        if n in ('h1', 'h2'):
+            x = x.to(torch.int64) & _MASK32
+            x = torch.where(x >= 2 ** 31, x - 2 ** 32, x)
+        elif n in ('s', 'ns', 'v_s', 'v_ns'):
+            return x.to(torch.float32).contiguous().view(torch.int32)
+        return x.to(torch.int32)
+    out = torch.stack([words(n) for n in STATE_KEYS])
+    if out.shape != (8, B, K):
+        raise ValueError(f'beam_scan_forward: state of shape '
+                         f'{tuple(out.shape[1:])}, expected {(B, K)}')
+    return out.contiguous()
+
+
+def unpack_state(words) -> dict:
+    """`pack_state`'s inverse: (8, B, K) int32 → {STATE_KEYS: (B, K)} with
+    the hashes in int64 in [0, 2³²)."""
+    out = {}
+    for n, w in zip(STATE_KEYS, words.unbind(0)):
+        if n in ('h1', 'h2'):
+            out[n] = w.to(torch.int64) & _MASK32
+        elif n in ('s', 'ns', 'v_s', 'v_ns'):
+            out[n] = w.view(torch.float32)
+        else:
+            out[n] = w
+    return out
 
 
 def beam_backtrace_plain(emits: dict, order, final_sel_ns, L: int):
@@ -109,14 +150,16 @@ def beam_backtrace_plain(emits: dict, order, final_sel_ns, L: int):
 
 
 def beam_scan_forward(topk_logp, topk_idx, ts, valid, blank_acc, has_skip,
-                      K: int, blank_id: int):
+                      K: int, blank_id: int, state=None):
     """topk_logp (B,T,K2) f32, topk_idx (B,T,K2) i32, ts (B,T) i32, valid
-    and has_skip (B,T) bool, blank_acc (B,T) f32.  Returns (final, emits)
-    as `beam_scan_forward_plain`."""
+    and has_skip (B,T) bool, blank_acc (B,T) f32; `state` None (the empty
+    prefix) or {STATE_KEYS: (B, K)}.  Returns (final, emits) as
+    `beam_scan_forward_plain`."""
     global FWD_LAUNCHES
     if topk_logp.device.type == 'cpu':
         return beam_scan_forward_plain(topk_logp, topk_idx, ts, valid,
-                                       blank_acc, has_skip, K, blank_id)
+                                       blank_acc, has_skip, K, blank_id,
+                                       state)
     if topk_logp.device.type != 'cuda':
         raise RuntimeError(f'beam_scan_forward: no kernel for '
                            f'{topk_logp.device}')
@@ -134,22 +177,22 @@ def beam_scan_forward(topk_logp, topk_idx, ts, valid, blank_acc, has_skip,
         if x.device != dev or not x.is_contiguous():
             raise ValueError('beam_scan_forward: inputs must be contiguous '
                              'tensors of one device')
-    # one allocation for the nine records, one for the five finals
+    st = None if state is None else pack_state(state, B, K, dev)
+    # one allocation for the nine records, one for the final state
     n = T * B * K
     rec = torch.empty(8 * n + T * B, dtype=torch.int32, device=dev)
-    fin = torch.empty((5, B, K), dtype=torch.float32, device=dev)
+    fin = torch.empty((8, B, K), dtype=torch.int32, device=dev)
     rc = _build.load().reverb_beam_scan_forward(
         topk_logp.data_ptr(), topk_idx.data_ptr(), ts.data_ptr(),
         valid.data_ptr(), blank_acc.data_ptr(), has_skip.data_ptr(),
-        rec.data_ptr(), fin.data_ptr(), B, T, K, K2, blank_id, chunk,
+        None if st is None else st.data_ptr(), rec.data_ptr(),
+        fin.data_ptr(), B, T, K, K2, blank_id, chunk,
         torch.cuda.current_stream(dev).cuda_stream)
     _build.check(rc, 'beam_scan_forward')
     FWD_LAUNCHES += 1
     emits = dict(zip(EMIT_KEYS, rec[:8 * n].view(8, T, B, K).unbind(0)))
     emits['wval'] = rec[8 * n:].view(T, B)
-    final = dict(zip(_FINAL_KEYS, fin.unbind(0)))
-    final['plen'] = final['plen'].view(torch.int32)
-    return final, emits
+    return unpack_state(fin), emits
 
 
 def beam_backtrace(emits: dict, order, final_sel_ns, L: int):

@@ -1,4 +1,6 @@
-"""Sequence utilities (counterpart of reverb_tpu/utils/common.py)."""
+"""Sequence and mask utilities (counterpart of reverb_tpu/utils/common.py:
+`subsequent_chunk_mask`, `add_optional_chunk_mask` without the training
+draw, `add_sos_eos`, `th_accuracy` and the sequence reversal)."""
 
 from __future__ import annotations
 
@@ -48,3 +50,47 @@ def th_accuracy(pred, gold, ignore_label: int = IGNORE_ID):
     num = ((pred.argmax(-1) == gold) & mask).sum()
     den = torch.clamp(mask.sum(), min=1)
     return num.to(torch.float32) / den.to(torch.float32)
+
+
+def subsequent_chunk_mask(size: int, chunk_size: int,
+                          num_left_chunks: int = -1, device=None):
+    """(size, size) bool chunk-causal mask: position i sees its own chunk
+    and up to `num_left_chunks` chunks before it (all of them if < 0)."""
+    row = torch.arange(size, device=device)
+    chunk_idx = row // chunk_size
+    ending = torch.clamp((chunk_idx + 1) * chunk_size, max=size)
+    if num_left_chunks < 0:
+        start = torch.zeros_like(row)
+    else:
+        start = torch.clamp((chunk_idx - num_left_chunks) * chunk_size,
+                            min=0)
+    col = torch.arange(size, device=device)[None, :]
+    return (col >= start[:, None]) & (col < ending[:, None])
+
+
+def add_optional_chunk_mask(masks, use_dynamic_chunk: bool,
+                            use_dynamic_left_chunk: bool,
+                            decoding_chunk_size: int, static_chunk_size: int,
+                            num_decoding_left_chunks: int):
+    """The pad mask (B, 1, T) combined with the chunk mask the flags ask
+    for: (B, T, T) in the chunked cases, the pad mask itself otherwise.
+    With `use_dynamic_chunk` and decoding_chunk_size 0 (training) the JAX
+    package draws a random chunk size; that draw is not ported (ROADMAP
+    item 9) and raises."""
+    size = masks.shape[-1]
+    if use_dynamic_chunk:
+        if decoding_chunk_size < 0:
+            return masks & torch.ones((1, size, size), dtype=torch.bool,
+                                      device=masks.device)
+        if decoding_chunk_size > 0:
+            return masks & subsequent_chunk_mask(
+                size, decoding_chunk_size, num_decoding_left_chunks,
+                masks.device)[None]
+        raise NotImplementedError(
+            'use_dynamic_chunk training (a random chunk size per batch) is '
+            'not ported: ROADMAP item 9')
+    if static_chunk_size > 0:
+        return masks & subsequent_chunk_mask(
+            size, static_chunk_size, num_decoding_left_chunks,
+            masks.device)[None]
+    return masks

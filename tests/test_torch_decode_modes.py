@@ -524,13 +524,19 @@ def test_non_blank_embedding_rescoring_matches_jax(mode_models, feats,
 
 
 def test_decode_rejects_streaming_and_unknown_modes(mode_models, feats):
+    """The chunk arguments are accepted (as in the JAX package they change
+    nothing on a model without use_dynamic_chunk; the streaming cases are
+    tests/test_torch_stream_api.py's); unknown modes and hlg without a
+    graph are rejected."""
     from reverb_tpu_torch.decode import api as tapi
     _, port = mode_models
     x, lens = feats
+    want = tapi.decode(port.model, ['attention'], _t(x), _t(lens),
+                       cat_embs=_t(CAT))['attention']
     for kw in ({'decoding_chunk_size': 16}, {'num_decoding_left_chunks': 2}):
-        with pytest.raises(NotImplementedError):
-            tapi.decode(port.model, ['attention'], _t(x), _t(lens),
-                        cat_embs=_t(CAT), **kw)
+        got = tapi.decode(port.model, ['attention'], _t(x), _t(lens),
+                          cat_embs=_t(CAT), **kw)['attention']
+        assert [r.tokens for r in got] == [r.tokens for r in want]
     with pytest.raises(ValueError):
         tapi.decode(port.model, ['no_such_mode'], _t(x), _t(lens))
     with pytest.raises(ValueError, match='hlg_graph'):
@@ -574,11 +580,17 @@ def test_recognize_wav_cli_modes_and_length_penalty(modes_dir, tmp_path):
                                    ['--num_decoding_left_chunks', '2'],
                                    ['--simulate_streaming']])
 def test_recognize_wav_streaming_flags_raise(modes_dir, tmp_path, flags):
+    """Each streaming flag is accepted and, on a model without
+    use_dynamic_chunk, writes the CTM of the call without it, as the JAX
+    CLI does (tests/test_torch_stream_api.py compares the flags with the
+    JAX CLI)."""
     from reverb_tpu_torch.cli import recognize_wav as torch_cli
-    with pytest.raises(NotImplementedError):
-        torch_cli.main(['--audio_file', str(modes_dir / 'a.wav'), '--model',
-                        str(modes_dir), '--modes', 'attention', '--device',
-                        'cpu', '--result_dir', str(tmp_path), *flags])
+    args = ['--audio_file', str(modes_dir / 'a.wav'), '--model',
+            str(modes_dir), '--modes', 'attention', '--device', 'cpu']
+    torch_cli.main(args + ['--result_dir', str(tmp_path / 'plain')])
+    torch_cli.main(args + ['--result_dir', str(tmp_path / 'flag'), *flags])
+    a = (tmp_path / 'plain' / 'attention' / 'a.ctm').read_bytes()
+    assert (tmp_path / 'flag' / 'attention' / 'a.ctm').read_bytes() == a
 
 
 # ------------------------------ full dims (slow) ------------------------------

@@ -123,7 +123,7 @@ def test_no_long_hypothesis_error_remains():
     import inspect
     from reverb_tpu_torch.decode import api as tapi
     src = inspect.getsource(tapi.decode)
-    assert 'NotImplementedError' in src            # unported modes only
+    assert 'NotImplementedError' not in src   # every mode and argument
     assert 'longer than max_hyp_len' not in inspect.getsource(tapi)
 
 
