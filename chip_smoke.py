@@ -9,6 +9,8 @@
 
     python3 chip_smoke.py --phases stream       # only streaming
 
+    python3 chip_smoke.py --phases diar         # only diarization
+
     python3 chip_smoke.py --profile             # + one profiled train step
 
     python3 chip_smoke.py --ab-parent DIR       # + K1-K6 of the checkout
@@ -18,14 +20,13 @@ Run from the root of a checkout.  It builds the port's CUDA kernels from
 reverb_tpu_torch/csrc, holds each kernel to its plain PyTorch version at
 the shapes of the paths below (attention also at a ragged T = 333,
 LayerNorm also at 1 and 640 rows, the beam also at the shapes of
-BEAM_CASES), times
-each beside its bound and the one PyTorch call that computes the same
-function (its library yardstick, which the port never calls) — per call
-(CUDA events around back-to-back calls, host work included) and on the
-device alone (the profiler's kernel durations) — then drives
-four paths on a reverb_large-
-width model (18-layer LSL conformer, d=1024, 16 heads, 6+3-layer
-bitransformer decoder, V=10000) with seeded random weights:
+BEAM_CASES), times each beside its bound and the one PyTorch call that
+computes the same function (its library yardstick, which the port never
+calls) — per call (CUDA events around back-to-back calls, host work
+included) and on the device alone (the profiler's kernel durations) —
+then drives four paths on a reverb_large-width model (18-layer LSL
+conformer, d=1024, 16 heads, 6+3-layer bitransformer decoder, V=10000)
+with seeded random weights:
 
 - serving: `ReverbASR.transcribe_modes(['ctc_prefix_beam_search',
   'attention_rescoring'], format='ctm')` in bf16 on a synthetic 164 s wav
@@ -58,7 +59,22 @@ bitransformer decoder, V=10000) with seeded random weights:
   once, K5 at every LayerNorm of the chunk encoder, K1 and K3 never — and
   `recognize_wav` with the chunk flags (CTM byte-equal to the call without
   them; a use_dynamic_chunk copy of the config decodes with the chunk mask
-  and no K1).
+  and no K1);
+
+then the diarization path (f32), on a synthetic 30 min corpus of 5
+confusable speakers with 20% overlap, by two routes at full width with
+seeded random weights — native (`SegmentationConfig()`: SincNet 80 × 251,
+2 × BiLSTM-128; `EmbeddingConfig()`: TDNN 512 → 192) and pyannote
+(PyanNet: 4 × BiLSTM-128, 7 powerset classes; ResNet34: blocks 3/4/6/3,
+32 base channels, 256-d; state_dicts in the released layout):
+
+- diarization: per route a warm-up `Diarizer` call, then a timed call
+  (xRT, `last_phases`; launches: K5 4 per embedding tile on the native
+  route, no kernel on the pyannote route); the native call once more
+  under the plain versions (embeddings within 1e-5, RTTM byte-identical);
+  each embedding net on the card against the CPU (within 1e-5: no TF32);
+  K5 timed at the call's shape; `bin/infer_diarization` on a 2 min WAV
+  with `--model-dir` and with a lightning `.ckpt` (RTTM rows well-formed).
 
 Each path runs with the launch counters set to 0 just before it and read
 just after.  Every phase raises on failure; the exit code is 0 only when
@@ -66,7 +82,7 @@ all of them pass.
 
 Output: progress lines, then the card's `nvidia-smi` name and power limit,
 then one JSON line {"kernels": [...]} (each kernel's launches on the
-four paths, its error against the plain version, its time per call and on the
+five paths, its error against the plain version, its time per call and on the
 device alone, the plain version's, the library call's per call and on
 the device alone, and the bound), and last
 {"ok": true, "device": {...}}.
@@ -96,7 +112,7 @@ VOCAB = 10000
 SEED = 0                     # weights, audio and beam inputs
 LAYERS_ENC, LN_ENC, LN_DEC = 18, 91, 29   # reverb_large: per-step counts
 TRAIN_B, TRAIN_STEPS = 8, 4
-ALL_PHASES = ('kernels', 'serve', 'train', 'modes', 'stream')
+ALL_PHASES = ('kernels', 'serve', 'train', 'modes', 'stream', 'diar')
 
 
 def log(msg):
@@ -1583,6 +1599,429 @@ def run_stream(dev, asr, wav, feats, audio_s, seed=SEED):
             'pool': pool}
 
 
+# ------------------------------ phase 11: diarization ------------------------------
+
+DIAR_MIN, DIAR_SPK, DIAR_OVERLAP = 30.0, 5, 0.2   # the corpus
+DIAR_CLI_S = 120.0                 # the CLI's WAV: the corpus's first 2 min
+
+
+def diar_corpus(minutes: float, n_spk: int, seed: int, overlap_frac: float):
+    """Synthetic multi-speaker audio (float32 in [-1, 1), 16 kHz) as
+    tools/bench_diar.py makes it: n_spk confusable speakers sharing a 220
+    Hz fundamental (partials 5% and 4% apart a speaker), 2-6 s turns with
+    0.4-1.2 s gaps, amplitude-modulated at a syllable rate over a noise
+    floor; with probability overlap_frac a turn starts 1-2 s inside the
+    previous one with another speaker (the bench's own test of that,
+    `prev_end - t > SR` after the gap, never holds).  Returns (audio,
+    turns)."""
+    sr = 16000
+    rng = np.random.RandomState(seed)
+    total = int(minutes * 60 * sr)
+    audio = np.zeros(total, np.float32)
+    freqs = [(220.0, 495.0 * 1.05 ** i, 990.0 * 1.04 ** i)
+             for i in range(n_spk)]
+    turns, t, prev_spk, prev_end = [], 0, -1, 0
+    while t < total - sr:
+        if turns and rng.rand() < overlap_frac:
+            t = prev_end - int(rng.uniform(1.0, 2.0) * sr)
+            spk = int(rng.choice([s for s in range(n_spk) if s != prev_spk]))
+        else:
+            spk = int(rng.randint(n_spk))
+        dur = min(int(rng.uniform(2.0, 6.0) * sr), total - t)
+        tt = np.arange(dur) / sr
+        sig = sum(np.sin(2 * np.pi * f * tt) for f in freqs[spk])
+        am = 0.6 + 0.4 * np.sin(2 * np.pi * 3.1 * tt + rng.uniform(0, 6.28))
+        audio[t:t + dur] += (sig * am * 0.1
+                            + rng.randn(dur) * 0.002).astype(np.float32)
+        turns.append((t / sr, (t + dur) / sr, spk))
+        prev_spk, prev_end = spk, t + dur
+        t = prev_end + int(rng.uniform(0.4, 1.2) * sr)
+    return audio, turns
+
+
+def released_random_state(model, seed: int) -> dict:
+    """Seeded random values, on the host, for every entry of a PyanNet's or
+    ResNet34's state_dict in its released key layout: weights uniform in
+    ±sqrt(3 / fan in) (the LSTM's in ±1/sqrt(hidden)), biases and norm
+    shifts N(0, 0.1²), norm scales N(1, 0.1²), BatchNorm running means
+    N(0, 0.1²) and variances U(0.5, 1.5), ParamSincFB's bands mel-spaced
+    as asteroid initializes them, its n_/window_ buffers as they are."""
+    import torch
+    from reverb_tpu_torch.diar.pyannet import sinc_fb_buffers
+    g = torch.Generator().manual_seed(seed)
+    out = {}
+    for k, v in model.state_dict().items():
+        shape = tuple(v.shape)
+        if k.endswith('num_batches_tracked'):
+            out[k] = torch.zeros((), dtype=torch.long)
+        elif k.endswith('filterbank.low_hz_') or \
+                k.endswith('filterbank.band_hz_'):
+            mel = np.linspace(2595 * np.log10(1 + 30 / 700),
+                              2595 * np.log10(1 + (8000 - 100) / 700),
+                              shape[0] + 1)
+            hz = 700 * (10 ** (mel / 2595) - 1)
+            val = hz[:-1] if k.endswith('low_hz_') else np.diff(hz)
+            out[k] = torch.from_numpy(val.astype(np.float32)).view(shape)
+        elif k.endswith('filterbank.n_'):
+            out[k] = sinc_fb_buffers()[0]
+        elif k.endswith('filterbank.window_'):
+            out[k] = sinc_fb_buffers()[1]
+        elif k.endswith('running_var'):
+            out[k] = torch.rand(shape, generator=g) + 0.5
+        elif k.startswith('lstm.'):
+            bound = 1 / math.sqrt(shape[0] // 4)
+            out[k] = (torch.rand(shape, generator=g) * 2 - 1) * bound
+        elif len(shape) > 1:
+            bound = math.sqrt(3 / math.prod(shape[1:]))
+            out[k] = (torch.rand(shape, generator=g) * 2 - 1) * bound
+        elif k.endswith('weight'):
+            out[k] = 1 + 0.1 * torch.randn(shape, generator=g)
+        else:                      # biases, shifts, running means
+            out[k] = 0.1 * torch.randn(shape, generator=g)
+    return out
+
+
+def diar_routes(dev, seed):
+    """The two routes' nets at full width with seeded random weights:
+    native (SegmentationConfig(): sinc 80 × 251, 2 × BiLSTM-128;
+    EmbeddingConfig(): TDNN 512 → 192) and pyannote (PyanNet: 4 ×
+    BiLSTM-128, 7 powerset classes; ResNet34: blocks 3/4/6/3, 32 base
+    channels, 256-d), the latter loaded from state_dicts in the released
+    layout."""
+    import torch
+    from reverb_tpu_torch.diar import models as dm
+    from reverb_tpu_torch.diar import pyannet as dp
+    with torch.device('meta'):
+        pyan, resnet = dp.PyanNet(), dp.ResNet34()
+    return {
+        'native': (dm.build_segmentation(
+            dm.SegmentationConfig(), dev,
+            generator=torch.Generator(device=dev).manual_seed(seed + 50)),
+                   dm.build_embedding(
+            dm.EmbeddingConfig(), dev,
+            generator=torch.Generator(device=dev).manual_seed(seed + 51))),
+        'pyannote': (dp.build_pyannet(released_random_state(pyan, seed + 52),
+                                      dev),
+                     dp.build_resnet34(
+                         released_random_state(resnet, seed + 53), dev))}
+
+
+def diar_speech_share(seg, audio, dev) -> tuple:
+    """(share of frames with a speaker active, argmax classes seen) of the
+    segmentation net on the corpus's first 16 windows."""
+    import torch
+    from reverb_tpu_torch.diar.models import powerset_to_multilabel
+    rows = torch.from_numpy(np.stack([audio[i * 80000:i * 80000 + 160000]
+                                      for i in range(16)])).to(dev)
+    with torch.inference_mode():
+        logp = seg(rows)
+    act = powerset_to_multilabel(torch.exp(logp), seg.max_speakers,
+                                 seg.max_simultaneous)
+    return (float(act.amax(-1).mean()),
+            sorted(set(torch.argmax(logp, -1).flatten().tolist())))
+
+
+def diar_bias_off_silence(seg, audio, dev, route: str):
+    """Where the random weights label every probed frame silent, lower the
+    classifier's silence bias below every frame's best speaker class (as
+    the serve phase sharpens the random CTC head) and say so."""
+    import torch
+    share, classes = diar_speech_share(seg, audio, dev)
+    if share > 0:
+        log(f'diar {route}: random weights label {share:.3f} of the probed '
+            f'frames speech (argmax classes {classes}); classifier as drawn')
+        return
+    rows = torch.from_numpy(np.stack([audio[i * 80000:i * 80000 + 160000]
+                                      for i in range(16)])).to(dev)
+    with torch.inference_mode():
+        logp = seg(rows)
+    gap = float((logp[..., 0] - logp[..., 1:].amax(-1)).amax())
+    with torch.no_grad():
+        seg.classifier.bias[0] -= gap + 1.0
+    share, classes = diar_speech_share(seg, audio, dev)
+    log(f'diar {route}: random weights labelled every probed frame silent; '
+        f'silence bias lowered by {gap + 1.0:.3f}: now {share:.3f} speech '
+        f'(argmax classes {classes})')
+    if share == 0:
+        raise AssertionError(f'diar {route}: still no speech')
+
+
+def diar_launch_counts() -> dict:
+    from reverb_tpu_torch.ops import beam_scan as bs
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    return {'K1': fa.LAUNCHES, 'K2': bs.FWD_LAUNCHES, 'K3': bs.BT_LAUNCHES,
+            'K4': fa.BWD_LAUNCHES, 'K5': ln.LAUNCHES, 'K6': ln.BWD_LAUNCHES}
+
+
+def diar_zero_launch_counts():
+    from reverb_tpu_torch.ops import beam_scan as bs
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    fa.LAUNCHES = fa.BWD_LAUNCHES = bs.FWD_LAUNCHES = bs.BT_LAUNCHES = 0
+    ln.LAUNCHES = ln.BWD_LAUNCHES = 0
+
+
+def rttm_text(segments) -> str:
+    import io
+    from reverb_tpu_torch.diar.pipeline import write_rttm
+    f = io.StringIO()
+    write_rttm(f, segments, 'corpus')
+    return f.getvalue()
+
+
+def check_rttm_rows(text: str, uri: str, what: str) -> int:
+    """Every row `SPEAKER uri 1 start dur <NA> <NA> SPEAKER_nn <NA> <NA>`
+    with finite start ≥ 0 and dur > 0; returns the row count."""
+    rows = [r for r in text.splitlines() if r.strip()]
+    for r in rows:
+        f = r.split()
+        if len(f) != 10 or f[:3] != ['SPEAKER', uri, '1'] or \
+                f[5:7] != ['<NA>', '<NA>'] or f[8:] != ['<NA>', '<NA>'] or \
+                not re.fullmatch(r'SPEAKER_\d\d', f[7]) or \
+                not (math.isfinite(float(f[3])) and float(f[3]) >= 0
+                     and math.isfinite(float(f[4])) and float(f[4]) > 0):
+            raise AssertionError(f'{what}: bad RTTM row {r!r}')
+    return len(rows)
+
+
+def diar_call(diar, audio):
+    """One timed Diarizer call with the launch counters set to 0 just
+    before and read just after: (segments, wall s, launches, embedding
+    calls, the first TDNN LayerNorm's input shape or None)."""
+    import torch
+    calls, shapes = [0], []
+    hooks = [diar.embedding.register_forward_hook(
+        lambda mod, args, out: calls.__setitem__(0, calls[0] + 1))]
+    norms = [m for m in diar.embedding.modules()
+             if type(m).__name__ == 'LayerNorm']
+    if norms:
+        hooks.append(norms[0].register_forward_hook(
+            lambda mod, args, out: shapes.append(tuple(args[0].shape))))
+    torch.cuda.synchronize()
+    diar_zero_launch_counts()
+    t0 = time.perf_counter()
+    try:
+        segs = diar(audio, 16000)
+        torch.cuda.synchronize()
+    finally:
+        for h in hooks:
+            h.remove()
+    wall = time.perf_counter() - t0
+    launches = diar_launch_counts()
+    return segs, wall, launches, calls[0], (shapes[0] if shapes else None)
+
+
+def check_f32_convolutions(nets, dev):
+    """Each route's embedding net on the card against the same net on the
+    CPU (f32) on 8 crops of 200 frames: within 1e-5 (the ResNet34 with its
+    f32 pin taken away and cuDNN's TF32 on missed by 8.7e-5 on the H100;
+    printed beside them, not held)."""
+    import copy
+    import contextlib
+    import torch
+    from reverb_tpu_torch.diar import pyannet as dp
+    gen = torch.Generator().manual_seed(7)
+    feats = torch.randn(8, 200, 80, generator=gen) * 3
+    lens = torch.tensor([200, 150, 100, 64, 200, 31, 180, 120])
+    errs, cpu = {}, {}
+    for route, emb in nets.items():
+        with torch.inference_mode():
+            card = emb(feats.to(dev), lens.to(dev)).cpu()
+            cpu[route] = copy.deepcopy(emb).to('cpu')(feats, lens)
+        errs[route] = float((card - cpu[route]).abs().max())
+        if not errs[route] <= 1e-5:
+            raise AssertionError(f'diar {route}: embedding on the card vs the '
+                                 f'CPU {errs[route]} > 1e-5')
+    saved = torch.backends.cudnn.allow_tf32
+    with swapped({(dp, 'f32_math'): contextlib.nullcontext}):
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            with torch.inference_mode():
+                tf32 = nets['pyannote'](feats.to(dev), lens.to(dev)).cpu()
+        finally:
+            torch.backends.cudnn.allow_tf32 = saved
+    errs['pyannote_tf32_unpinned'] = float(
+        (tf32 - cpu['pyannote']).abs().max())
+    log(f'diar f32: embeddings on the card vs the CPU, max abs '
+        + ', '.join(f'{k} {v:.3e}' for k, v in errs.items())
+        + ' (the last with cuDNN TF32 on and the pin removed)')
+    return errs
+
+
+def time_k5_at(shape, dev):
+    """K5 per call and on the device alone at the diarization shape (rows,
+    512) f32, beside the plain version, F.layer_norm and the byte bound."""
+    import torch
+    import torch.nn.functional as F
+    from reverb_tpu_torch.ops import layer_norm as ln
+    gen = torch.Generator(device=dev).manual_seed(5)
+    N, C = shape
+    x = torch.randn(N, C, device=dev, generator=gen) * 2 + 0.5
+    w = torch.rand(C, device=dev, generator=gen) + 0.5
+    b = torch.randn(C, device=dev, generator=gen)
+    err = float((ln.layer_norm_fwd(x, w, b, 1e-5)
+                 - ln.layer_norm_plain(x, w, b, 1e-5)).abs().max())
+    if not err <= 1e-4:
+        raise AssertionError(f'K5 at {shape}: max abs err {err}')
+    t = {'shape': [N, C], 'max_abs_err': err,
+         'ms': cuda_time_ms(lambda: ln.layer_norm_fwd(x, w, b, 1e-5), 20),
+         'device_ms': device_time_ms(lambda: ln.layer_norm_fwd(x, w, b, 1e-5),
+                                     10, KERNEL_PATTERNS['K5']),
+         'plain_ms': cuda_time_ms(lambda: ln.layer_norm_plain(x, w, b, 1e-5),
+                                  10)}
+    t['library_ms'], t['library_device_ms'] = both_times(
+        lambda: F.layer_norm(x, (C,), w, b, 1e-5), 10)
+    t['bound_ms'], t['bound_by'] = bound(7 * N * C, nbytes(x, w, b, x), 'f32')
+    log(f'K5 at the diarization shape ({N}, {C}) f32: {t["ms"]:.4f} ms per '
+        f'call, {t["device_ms"]:.4f} on the device (plain '
+        f'{t["plain_ms"]:.4f}; F.layer_norm {t["library_ms"]:.4f}, '
+        f'{t["library_device_ms"]:.4f} on the device; bound '
+        f'{t["bound_ms"]:.4f} by {t["bound_by"]}); max abs err {err:.3e}')
+    return t
+
+
+def run_diar_cli(nets, audio, workdir: Path):
+    """`bin/infer_diarization.main` on a WAV of the corpus's first
+    DIAR_CLI_S seconds: with --model-dir (the native route's nets written
+    as the JAX package's segmentation.npz / embedding.npz) — the RTTM must
+    equal the in-memory Diarizer's on the same samples — and with a
+    pyannote-format lightning .ckpt and a wespeaker .pt; every row
+    well-formed."""
+    import torch
+    from reverb_tpu_torch.bin.infer_diarization import main as diarize
+    from reverb_tpu_torch.diar.convert import npz_arrays
+    from reverb_tpu_torch.diar.pipeline import Diarizer
+    n = int(DIAR_CLI_S * 16000)
+    pcm = np.clip(np.round(audio[:n] * 32768), -32768, 32767).astype('<i2')
+    wav = workdir / 'talk.wav'
+    with wave.open(str(wav), 'wb') as w:
+        w.setnchannels(1)
+        w.setsampwidth(2)
+        w.setframerate(16000)
+        w.writeframes(pcm.tobytes())
+    seg, emb = nets['native']
+    mdir = workdir / 'model'
+    mdir.mkdir()
+    np.savez(mdir / 'segmentation.npz', **npz_arrays(seg.state_dict()))
+    np.savez(mdir / 'embedding.npz', **npz_arrays(emb.state_dict()))
+    pseg, pemb = nets['pyannote']
+    ckpt, pt = workdir / 'seg.ckpt', workdir / 'emb.pt'
+    torch.save({'state_dict': {f'model.{k}': v.cpu() for k, v in
+                               pseg.state_dict().items()}}, ckpt)
+    torch.save({k: v.cpu() for k, v in pemb.state_dict().items()}, pt)
+    rows = {}
+    for name, flags in (('model_dir', ['--model-dir', str(mdir)]),
+                        ('pyannote', ['--segmentation-ckpt', str(ckpt),
+                                      '--embedding-ckpt', str(pt)])):
+        out = workdir / name
+        t0 = time.perf_counter()
+        diarize([str(wav), '--out-dir', str(out)] + flags)
+        text = (out / 'talk.rttm').read_text()
+        rows[name] = (check_rttm_rows(text, 'talk', f'CLI {name}'),
+                      time.perf_counter() - t0)
+        if name == 'model_dir':
+            direct = Diarizer(seg, emb, device=seg.classifier.weight.device)
+            want = rttm_text(direct(pcm.astype(np.float32) / 32768)
+                             ).replace('SPEAKER corpus ', 'SPEAKER talk ')
+            if text != want:
+                raise AssertionError('CLI --model-dir: RTTM differs from the '
+                                     'Diarizer on the same weights')
+    log('diar CLI on a ' + f'{DIAR_CLI_S:.0f} s WAV: ' + '; '.join(
+        f'{k}: {r} RTTM rows in {s:.2f} s' for k, (r, s) in rows.items()))
+    return rows
+
+
+def run_diar(dev, seed=SEED):
+    """The diarization phase (f32): both routes at full width on the
+    DIAR_MIN-minute corpus — a warm-up call, then a timed call (xRT,
+    last_phases, launches: K5 4 per embedding tile on the native route,
+    nothing on the pyannote route); the native route once more under the
+    plain versions (embeddings within 1e-5, RTTM identical); the
+    embedding nets against the CPU (no TF32); K5 timed at the diarization
+    shape; the CLI."""
+    import torch
+    from reverb_tpu_torch.diar.pipeline import Diarizer
+    t_phase = time.perf_counter()
+    audio, turns = diar_corpus(DIAR_MIN, DIAR_SPK, seed + 60, DIAR_OVERLAP)
+    audio_s = len(audio) / 16000
+    overlapped = sum(b[0] < a[1] for a, b in zip(turns, turns[1:]))
+    nets = diar_routes(dev, seed)
+    res = {'audio_s': audio_s}
+    for route, (seg, emb) in nets.items():
+        diar_bias_off_silence(seg, audio, dev, route)
+        diar = Diarizer(seg, emb, device=dev)
+        t0 = time.perf_counter()
+        diar(audio, 16000)                       # warm-up
+        warm = time.perf_counter() - t0
+        segs, wall, launches, emb_calls, k5_shape = diar_call(diar, audio)
+        n_seg = len(diar.last_embeddings)
+        tile = Diarizer._tile_rows(n_seg, Diarizer.EMB_TILE)
+        tiles = -(-n_seg // tile)
+        if tiles < 1 or emb_calls != tiles:
+            raise AssertionError(f'diar {route}: {n_seg} segments, '
+                                 f'{emb_calls} embedding calls, {tiles} '
+                                 f'tiles')
+        want = {k: 0 for k in launches}
+        if route == 'native':
+            want['K5'] = 4 * tiles
+        if launches != want:
+            raise AssertionError(f'diar {route}: launches {launches}, '
+                                 f'expected {want}')
+        text = rttm_text(segs)
+        rows = check_rttm_rows(text, 'corpus', f'diar {route}')
+        embs = diar.last_embeddings
+        if not (np.isfinite(embs).all() and np.allclose(
+                np.linalg.norm(embs, axis=1), 1, atol=1e-4)):
+            raise AssertionError(f'diar {route}: embeddings not unit norm')
+        n_spk = len({s.speaker for s in segs})
+        res[route] = {'wall_s': wall, 'warmup_s': warm,
+                      'xrt': audio_s / wall, 'phases': diar.last_phases,
+                      'launches': launches, 'tiles': tiles,
+                      'segments': n_seg, 'rttm_rows': rows,
+                      'clusters': n_spk, 'k5_shape': k5_shape}
+        log(f'diar {route}: {audio_s:.1f} s corpus ({len(turns)} turns, '
+            f'{overlapped} starting inside the one before, {DIAR_SPK} '
+            f'speakers): warm-up '
+            f'{warm:.3f} s, timed call {wall:.3f} s, xRT '
+            f'{audio_s / wall:.1f}; phases {diar.last_phases}; '
+            f'{n_seg} local segments in {tiles} embedding tiles '
+            f'(K5 input {k5_shape}), {n_spk} clusters, {rows} RTTM rows; '
+            f'launches {launches}')
+        if route == 'native':
+            with swapped(plain_versions()):
+                diar_zero_launch_counts()
+                plain = diar(audio, 16000)
+                if diar_launch_counts()['K5']:
+                    raise AssertionError('K5 launched under the plain '
+                                         'versions')
+            err = float(np.abs(diar.last_embeddings - embs).max())
+            if not err <= 1e-5 or rttm_text(plain) != text:
+                raise AssertionError(f'diar native: kernels vs plain: '
+                                     f'embeddings {err}, RTTM equal '
+                                     f'{rttm_text(plain) == text}')
+            res['native']['plain_err'] = err
+            log(f'diar native: K5 vs the plain LayerNorm on the same call: '
+                f'embeddings max abs {err:.3e} (tol 1e-5), RTTM '
+                f'byte-identical')
+            prof = profile_calls(lambda: diar(audio, 16000), 1)
+            res['native']['profile'] = prof
+            log(profile_line('diar native call', prof))
+    res['f32'] = check_f32_convolutions(
+        {r: e for r, (_, e) in nets.items()}, dev)
+    res['k5'] = time_k5_at((res['native']['k5_shape'][0]
+                            * res['native']['k5_shape'][1],
+                            res['native']['k5_shape'][2]), dev)
+    with tempfile.TemporaryDirectory(prefix='reverb_diar_') as tmp:
+        res['cli'] = run_diar_cli(nets, audio, Path(tmp))
+    del nets
+    torch.cuda.empty_cache()
+    log(f'diar: native xRT {res["native"]["xrt"]:.1f}, pyannote xRT '
+        f'{res["pyannote"]["xrt"]:.1f}; the phase took '
+        f'{time.perf_counter() - t_phase:.1f} s; on {smi_line()}')
+    return res
+
+
 # ------------------------------ shared helpers ------------------------------
 
 class swapped:
@@ -2335,8 +2774,8 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default=','.join(ALL_PHASES),
                     help='comma list of kernels, serve, train, modes, '
-                         'stream (default all; the result lines need all '
-                         'five), or beam: the K2/K3 checks alone')
+                         'stream, diar (default all; the result lines need '
+                         'all six), or beam: the K2/K3 checks alone')
     ap.add_argument('--profile', action='store_true',
                     help='also profile one bf16 training step')
     ap.add_argument('--ab-parent', type=Path, default=None,
@@ -2432,6 +2871,9 @@ def main():
         t_launch, step_ms, peak = run_train(dev, SEED)
         if args.profile:
             profile_train(dev, SEED)
+    if 'diar' in phases:
+        # phase 11: diarization, both routes
+        diar = run_diar(dev, SEED)
     spilled = [n for n, r in {**tc, **lnk, **beamk}.items() if r[1] or r[2]]
     if spilled:
         raise AssertionError(f'kernels spill registers: {spilled}')
@@ -2441,13 +2883,17 @@ def main():
         return 1
 
     kernels = kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches,
-                             len(walls), t_launch, fallback, modes, stream)
+                             len(walls), t_launch, fallback, modes, stream,
+                             diar)
     log(f'slice: second transcribe_modes call {walls[1]:.4f} s for '
         f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; six-mode '
         f'call {modes[2]:.3f} s; train {step_ms:.1f} ms/step at '
         f'B={TRAIN_B}, peak {peak / 2**30:.2f} GiB; stream '
         f'{stream["single"]["p50"]:.2f} ms per hop (p50), pool '
-        f'{stream["pool"]["ms"]:.2f} ms per step; on {smi}')
+        f'{stream["pool"]["ms"]:.2f} ms per step; diarization xRT '
+        f'{diar["native"]["xrt"]:.1f} (native), '
+        f'{diar["pyannote"]["xrt"]:.1f} (pyannote) on '
+        f'{diar["audio_s"]:.0f} s; on {smi}')
     print(smi_line())
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
@@ -2457,10 +2903,11 @@ def main():
 
 
 def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
-                   t_launch, fallback, modes, stream):
+                   t_launch, fallback, modes, stream, diar):
     """The {"kernels": [...]} entries: launches on the paths (in all, per
-    serving call, per training step, per six-mode call, per streaming hop
-    and per pool step; K2/K3 also per call of the long-hypothesis path),
+    serving call, per training step, per six-mode call, per streaming hop,
+    per pool step and per diarization call of either route; K2/K3 also
+    per call of the long-hypothesis path),
     the error against the plain version, kernel / plain / library times in
     bf16 at the timed shapes (K2 also resumed from a state at B = 1 and 8,
     T_hop = 16), and the bound computed from those shapes."""
@@ -2470,12 +2917,15 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
     m_launch = modes[0]
     s_launch, p_launch = (stream['single']['launches'],
                           stream['pool']['launches'])
+    d_launch = diar['native']['launches']
     per = {n: {'serve': launches.get(n, 0) / n_calls,
                'train': t_launch.get(n, 0) / TRAIN_STEPS,
                'six_modes': m_launch.get(n, 0),
                'stream_hop': s_launch.get(n, 0) / stream['single']['hops'],
                'stream_pool_step': (p_launch.get(n, 0)
-                                    / stream['pool']['steps'])}
+                                    / stream['pool']['steps']),
+               'diarization': d_launch[n],
+               'diarization_pyannote': diar['pyannote']['launches'][n]}
            for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6')}
     resume = {}
     for b, t in stream['resume'].items():
@@ -2492,12 +2942,13 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
                 'replaces': f'reverb_tpu/ops/{replaces}',
                 'launches': (launches.get(kid, 0) + t_launch.get(kid, 0)
                              + m_launch.get(kid, 0) + s_launch.get(kid, 0)
-                             + p_launch.get(kid, 0)),
+                             + p_launch.get(kid, 0) + d_launch[kid]),
                 'launches_per_call': per[kid], 'max_abs_err': err,
                 'ms': ms, 'device_ms': dev_ms, 'plain_ms': plain_ms,
                 'bound_ms': bnd[0], 'bound_by': bnd[1], 'library_ms': lib_ms,
                 'library_device_ms': lib_dev_ms, 'library_call': lib_call,
                 **extra}
+    k5d = diar['k5']
     k1_bound = bound(attn_ops(ATTN_T, False), k1b['nbytes'], 'bf16')
     k1m_bound = bound(attn_ops(ATTN_T, False), k4['fwd_nbytes'], 'bf16')
     drop = sdpa.get('fwd_drop', (None, None, None))
@@ -2543,7 +2994,16 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
             lnr['t']['fwd_plain'],
             bound(7 * N * C, lnr['t']['fwd_nbytes'], 'f32'),
             lnr['t']['fwd_library'], lnr['t']['fwd_library_dev'],
-            'F.layer_norm(x, (C,), w, b, eps)'),
+            'F.layer_norm(x, (C,), w, b, eps)',
+            diarization_shape=k5d['shape'],
+            diarization_dtype='float32',
+            max_abs_err_diarization=k5d['max_abs_err'],
+            ms_diarization=k5d['ms'], device_ms_diarization=k5d['device_ms'],
+            plain_ms_diarization=k5d['plain_ms'],
+            bound_ms_diarization=k5d['bound_ms'],
+            bound_by_diarization=k5d['bound_by'],
+            library_ms_diarization=k5d['library_ms'],
+            library_device_ms_diarization=k5d['library_device_ms']),
         rec('layer_norm_bwd', 'layer_norm.cu', 'layer_norm.py:96', 'K6',
             max(lnr['errs'][n] for n in ('dx', 'dw', 'db')), lnr['t']['bwd'],
             lnr['t']['bwd_dev'], lnr['t']['bwd_plain'],

@@ -36,19 +36,10 @@ from reverb_tpu_torch.frontend.fbank import (FbankConfig, compute_fbank,
 from reverb_tpu_torch.models.asr_model import (ASRModel, ModelConfig,
                                                build_model)
 from reverb_tpu_torch.text.tokenizer import init_tokenizer
+from reverb_tpu_torch.utils.common import resolve_device
 
 _FRAME_DOWNSAMPLING_FACTOR = {'linear': 1, 'conv2d': 4, 'conv2d6': 6,
                               'conv2d8': 8}
-
-
-def resolve_device(device) -> torch.device:
-    """The requested device; CUDA without a card raises (no CPU fallback)."""
-    dev = torch.device(device)
-    if dev.type == 'cuda' and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"device {device!r} requested but torch.cuda.is_available() is "
-            f"False; pass device='cpu' to run on the CPU")
-    return dev
 
 
 def get_blank_id(configs, symbol_table):

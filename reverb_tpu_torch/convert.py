@@ -97,3 +97,14 @@ def load_flat_checkpoint(path: str) -> Dict[str, np.ndarray]:
             return {k: data[k] for k in data.files
                     if not k.startswith('__meta__')}
     return load_torch_state_dict(path)
+
+
+def load_npz(path: str):
+    """A JAX `.npz` checkpoint (reverb_tpu's save_npz) → (flat {dotted
+    key: array}, {metadata key: array}), as reverb_tpu's load_npz but
+    left flat: the port's state_dict bridges take flat keys."""
+    with np.load(path, allow_pickle=False) as data:
+        flat = {k: data[k] for k in data.files if not k.startswith('__meta__')}
+        meta = {k.removeprefix('__meta__'): data[k] for k in data.files
+                if k.startswith('__meta__')}
+    return flat, meta

@@ -2,11 +2,12 @@
 resampling (numpy, no device work).
 
 Counterpart of reverb_tpu/frontend/audio.py (`_parse_wav`,
-`_ffmpeg_decode`, `resample`, `load_for_asr`).  The JAX package's
-`frontend/__init__` imports jax, so these are carried over here rather than
-imported.  A `.wav` file is parsed here; any other file is decoded by an
+`_ffmpeg_decode`, `load_audio`, `to_mono`, `resample`, `load_for_asr`).
+The JAX package's `frontend/__init__` imports jax, so these are carried
+over here rather than imported.  A `.wav` file is parsed here; any other file is decoded by an
 external `ffmpeg` binary to mono f32 at the target rate.  Waveforms come
-back as int16-scale float32, ready for `frontend.fbank.compute_fbank`.
+back from `load_for_asr` as int16-scale float32, ready for
+`frontend.fbank.compute_fbank`, and from `load_audio` in [-1, 1).
 """
 
 from __future__ import annotations
@@ -83,6 +84,30 @@ def _ffmpeg_decode(path: str, rate: int):
     if out.returncode != 0:
         raise AudioDecodeError(out.stderr.decode(errors='replace'))
     return np.frombuffer(out.stdout, dtype='<f4').reshape(-1, 1), rate
+
+
+def load_audio(path: str, start: float | None = None,
+               end: float | None = None, rate: int = 16000):
+    """Read an audio file → (x (T, C) float32 in [-1, 1), sample_rate),
+    optionally cut to [start, end) seconds (reverb_tpu/frontend/audio.py:
+    load_audio).  A non-WAV file is decoded by ffmpeg at `rate` (the JAX
+    package omits the rate there, see `_ffmpeg_decode`)."""
+    if os.path.splitext(path)[1].lower() == '.wav':
+        with open(path, 'rb') as f:
+            x, sr = _parse_wav(f.read())
+    else:
+        x, sr = _ffmpeg_decode(path, rate)
+    if start is not None or end is not None:
+        s = int((start or 0) * sr)
+        e = int(end * sr) if end is not None else x.shape[0]
+        x = x[s:e]
+    return x, sr
+
+
+def to_mono(x: np.ndarray) -> np.ndarray:
+    """Channel 0 of (T, C) → (T,); a 1-D x as it is (kaldi's fbank reads
+    waveform[0], as reverb_tpu/frontend/audio.py:to_mono)."""
+    return x[:, 0] if x.ndim == 2 else x
 
 
 def resample(x: np.ndarray, orig_rate: int, new_rate: int) -> np.ndarray:

@@ -6,7 +6,8 @@ preemphasis → povey window → rFFT(512) → power → mel → log, with
 torchaudio.compliance.kaldi.fbank's definition (snip_edges, no dither,
 Nyquist bin dropped).  The window and mel matrix are built on the host in
 numpy exactly as the JAX package builds them; the rest runs as torch ops
-on the waveform's device.
+on the waveform's device, for one waveform (`compute_fbank`) or a batch
+of rows (`compute_fbank_batch`, the diarization crops).
 """
 
 from __future__ import annotations
@@ -91,18 +92,29 @@ def compute_fbank(wave: torch.Tensor, cfg: FbankConfig = FbankConfig(),
                   n_frames: int | None = None) -> torch.Tensor:
     """Log-mel fbank of a 1-D int16-scale waveform → (n_frames, M) f32 on
     the waveform's device."""
-    wave = wave.to(torch.float32)
     if n_frames is None:
         n_frames = num_frames(wave.shape[0], cfg)
-    dev = wave.device
+    return compute_fbank_batch(wave[None], cfg, n_frames)[0]
+
+
+def compute_fbank_batch(waves: torch.Tensor, cfg: FbankConfig,
+                        n_frames: int) -> torch.Tensor:
+    """Log-mel fbank of each row of (B, S) int16-scale waveforms → (B,
+    n_frames, M) f32 on their device: the batch the JAX package takes with
+    `vmap(compute_fbank)` (reverb_tpu/diar/pipeline.py:_fbank_from_wave).
+    Rows shorter than the frames need are zero-padded."""
+    waves = waves.to(torch.float32)
+    dev = waves.device
+    B = waves.shape[0]
     size, shift = cfg.window_size, cfg.window_shift
     if n_frames == 0:
-        return torch.zeros((0, cfg.num_mel_bins), dtype=torch.float32,
+        return torch.zeros((B, 0, cfg.num_mel_bins), dtype=torch.float32,
                            device=dev)
     need = (n_frames - 1) * shift + size
-    if wave.shape[0] < need:
-        wave = torch.nn.functional.pad(wave, (0, need - wave.shape[0]))
-    frames = wave.unfold(0, size, shift)[:n_frames]           # (T, W) view
+    if waves.shape[1] < need:
+        waves = torch.nn.functional.pad(waves, (0, need - waves.shape[1]))
+    # (B·T, W): one row per frame, each transformed alone
+    frames = waves.unfold(1, size, shift)[:, :n_frames].reshape(-1, size)
     if cfg.remove_dc_offset:
         frames = frames - frames.mean(dim=1, keepdim=True)
     if cfg.preemphasis != 0.0:
@@ -123,5 +135,5 @@ def compute_fbank(wave: torch.Tensor, cfg: FbankConfig = FbankConfig(),
         power = torch.sqrt(power)
     banks = torch.from_numpy(mel_banks(cfg)).to(dev)
     mel = power @ banks.T
-    return torch.log(torch.clamp(mel, min=cfg.epsilon))
-
+    return torch.log(torch.clamp(mel, min=cfg.epsilon)).reshape(
+        B, n_frames, cfg.num_mel_bins)

@@ -1,12 +1,23 @@
 """Sequence and mask utilities (counterpart of reverb_tpu/utils/common.py:
 `subsequent_chunk_mask`, `add_optional_chunk_mask` without the training
-draw, `add_sos_eos`, `th_accuracy` and the sequence reversal)."""
+draw, `add_sos_eos`, `th_accuracy` and the sequence reversal), and the
+entry points' device rule `resolve_device`."""
 
 from __future__ import annotations
 
 import torch
 
 IGNORE_ID = -1
+
+
+def resolve_device(device) -> torch.device:
+    """The requested device; CUDA without a card raises (no CPU fallback)."""
+    dev = torch.device(device)
+    if dev.type == 'cuda' and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {device!r} requested but torch.cuda.is_available() is "
+            f"False; pass device='cpu' to run on the CPU")
+    return dev
 
 
 def reverse_sequence(ys_pad, ys_lens, pad_value: int = IGNORE_ID):

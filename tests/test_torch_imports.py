@@ -2,7 +2,7 @@
 
 The port keeps its own copies of the host modules it needs
 (decode/results.py, decode/align.py, text/, the `.pt` reader in
-convert.py); each copy is held here to the JAX package's original on the
+convert.py, diar/'s host steps, eval/); each copy is held here to the JAX package's original on the
 same inputs.  The tests may import reverb_tpu; the port may not.
 """
 
@@ -57,7 +57,15 @@ def test_port_imports_no_jax_and_no_reverb_tpu():
     for name in ('reverb_tpu_torch.cli.reverb', 'reverb_tpu_torch.convert',
                  'reverb_tpu_torch.decode.api',
                  'reverb_tpu_torch.decode.align',
-                 'reverb_tpu_torch.text.rev_bpe'):
+                 'reverb_tpu_torch.text.rev_bpe',
+                 'reverb_tpu_torch.diar.models',
+                 'reverb_tpu_torch.diar.pyannet',
+                 'reverb_tpu_torch.diar.convert',
+                 'reverb_tpu_torch.diar.pipeline',
+                 'reverb_tpu_torch.diar.assign',
+                 'reverb_tpu_torch.eval.wer', 'reverb_tpu_torch.eval.der',
+                 'reverb_tpu_torch.eval.wder',
+                 'reverb_tpu_torch.bin.infer_diarization'):
         assert name in out['modules']
     assert out['bad'] == []
 

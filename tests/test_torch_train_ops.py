@@ -23,6 +23,20 @@ from reverb_tpu_torch.ops import flash_attention as fa
 from reverb_tpu_torch.ops import layer_norm as ln
 
 
+@pytest.fixture(autouse=True)
+def _single_device_pallas():
+    """The JAX references here run on one device.  The Pallas mesh is
+    process-global (reverb_tpu/ops/pallas_mesh.py) and some JAX tests leave
+    one registered (tests/test_train_bin.py through bin/train.py); in the
+    same worker it would send fused_layer_norm through shard_map, which
+    raises on its outputs' missing vma."""
+    from reverb_tpu.ops import pallas_mesh
+    saved = pallas_mesh.get_pallas_mesh()
+    pallas_mesh.set_pallas_mesh(None)
+    yield
+    pallas_mesh._REGISTERED = saved
+
+
 def _t(x, grad=False):
     return torch.from_numpy(np.array(x)).requires_grad_(grad)
 
