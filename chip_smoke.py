@@ -11,6 +11,8 @@
 
     python3 chip_smoke.py --phases diar         # only diarization
 
+    python3 chip_smoke.py --phases recipe       # only the dataset path
+
     python3 chip_smoke.py --profile             # + one profiled train step
 
     python3 chip_smoke.py --ab-parent DIR       # + K1-K6 of the checkout
@@ -74,7 +76,32 @@ seeded random weights — native (`SegmentationConfig()`: SincNet 80 × 251,
   under the plain versions (embeddings within 1e-5, RTTM byte-identical);
   each embedding net on the card against the CPU (within 1e-5: no TF32);
   K5 timed at the call's shape; `bin/infer_diarization` on a 2 min WAV
-  with `--model-dir` and with a lightning `.ckpt` (RTTM rows well-formed).
+  with `--model-dir` and with a lightning `.ckpt` (RTTM rows well-formed);
+
+then the dataset path at reverb_large width in bf16, on a synthetic
+corpus (64 + 8 `speech_like` WAVs of 8-20.5 s, texts of 20-80 units of the
+10000-entry table, CMVN stats from their fbank):
+
+- recipe: `bin.train.main` in-process (dither 0.1, spec_aug, shuffle and
+  sort, static batch 8, 4 workers, Adam with warmuplr, clip 50) for 6
+  steps with a snapshot and CV every 3 steps, then CV and `epoch_0.npz`
+  (CMVN stats inside, finite cv_loss) — K1 = K4 = 18 and K5 = K6 = 120 a
+  step, K1 18 and K5 120 a CV batch; ms per step, the wait on the
+  dataset iterator, audio-s/s, peak memory; one step of a
+  use_dynamic_chunk copy of the config (K1 = K4 = 0: the chunk mask takes
+  the masked route; K5 = K6 = 120); then `bin.average_model` over the
+  step-3 snapshot and epoch_0, `bin.get_loss` on the CV list (8 finite
+  lines; K1 18 and K5 120 an utterance) and `bin.recognize` with the
+  serving mode pair (K1 18, K2 = K3 = 1 a batch, plus one of each through
+  the uncapped tail; 8 rows a mode); then, in f32 on the epoch_0
+  weights, the kernels against their plain versions on the recipe's own
+  batches: every K1/K4/K5/K6 call of a loss + backward on the first
+  training batch held to its plain version on that call's inputs, the
+  loss within 1e-5 and the gradient no further from an f64 run's than
+  twice the plain f32 gradient is; the encoder on the CV batch (each
+  call, and 1e-3 at the output) and recognize's decode on one encoder
+  output (tokens and times identical, scores within 1e-4, as in
+  `modes`).
 
 Each path runs with the launch counters set to 0 just before it and read
 just after.  Every phase raises on failure; the exit code is 0 only when
@@ -82,7 +109,7 @@ all of them pass.
 
 Output: progress lines, then the card's `nvidia-smi` name and power limit,
 then one JSON line {"kernels": [...]} (each kernel's launches on the
-five paths, its error against the plain version, its time per call and on the
+paths, its error against the plain version, its time per call and on the
 device alone, the plain version's, the library call's per call and on
 the device alone, and the bound), and last
 {"ok": true, "device": {...}}.
@@ -112,7 +139,8 @@ VOCAB = 10000
 SEED = 0                     # weights, audio and beam inputs
 LAYERS_ENC, LN_ENC, LN_DEC = 18, 91, 29   # reverb_large: per-step counts
 TRAIN_B, TRAIN_STEPS = 8, 4
-ALL_PHASES = ('kernels', 'serve', 'train', 'modes', 'stream', 'diar')
+ALL_PHASES = ('kernels', 'serve', 'train', 'modes', 'stream', 'diar',
+              'recipe')
 
 
 def log(msg):
@@ -2022,6 +2050,604 @@ def run_diar(dev, seed=SEED):
     return res
 
 
+# ------------------------------ phase 12: the dataset path ------------------------------
+
+RECIPE_TRAIN, RECIPE_CV = 64, 8          # WAVs of 8-20.5 s
+RECIPE_STEPS, RECIPE_B, RECIPE_SAVE = 6, 8, 3
+RECIPE_MODES = ['ctc_prefix_beam_search', 'attention_rescoring']
+
+
+def recipe_corpus(workdir: Path, seed: int) -> dict:
+    """The corpus of the recipe: RECIPE_TRAIN + RECIPE_CV `speech_like`
+    WAVs of 8-20.5 s, raw JSON-line lists with texts of 20-80 random units
+    of the 10000-entry table (style verbatim), and a global_cmvn JSON
+    computed from the training WAVs' fbank."""
+    from reverb_tpu_torch.frontend.fbank import FbankConfig, fbank_numpy
+    rng = np.random.RandomState(seed)
+    write_units(workdir / 'units.txt')
+    units = [line.split()[0] for line in
+             (workdir / 'units.txt').read_text(encoding='utf8').splitlines()
+             [2:-1]]
+    lists = {'train': [], 'cv': []}
+    sums, sqs, frames = np.zeros(80), np.zeros(80), 0
+    audio_s = {'train': 0.0, 'cv': 0.0}
+    for i in range(RECIPE_TRAIN + RECIPE_CV):
+        part = 'train' if i < RECIPE_TRAIN else 'cv'
+        n = int(rng.uniform(8.0, 20.5) * 16000)
+        wav = workdir / f'utt{i:03d}.wav'
+        write_wav(wav, n, seed + 100 + i)
+        audio_s[part] += n / 16000
+        text = ' '.join(rng.choice(units, rng.randint(20, 81)))
+        lists[part].append(json.dumps({'key': f'job{i:03d}_utt{i:03d}',
+                                       'wav': str(wav), 'txt': text,
+                                       'style': 'verbatim'}))
+        if part == 'train':
+            feat = fbank_numpy(speech_like(n, seed + 100 + i).astype(
+                np.float32), FbankConfig()).astype(np.float64)
+            sums += feat.sum(0)
+            sqs += (feat ** 2).sum(0)
+            frames += feat.shape[0]
+    for part, lines in lists.items():
+        (workdir / f'{part}.list').write_text('\n'.join(lines) + '\n')
+    (workdir / 'global_cmvn').write_text(json.dumps({
+        'mean_stat': sums.tolist(), 'var_stat': sqs.tolist(),
+        'frame_num': frames}))
+    return audio_s
+
+
+def recipe_config(workdir: Path, dynamic_chunk: bool = False) -> dict:
+    """presets.reverb_large() in bf16 with the char tokenizer over the
+    generated table, global CMVN, and the dataset_conf of the recipe."""
+    from reverb_tpu_torch.models import presets
+    configs = presets.reverb_large()
+    configs.update({
+        'dtype': 'bf16', 'tokenizer': 'char',
+        'tokenizer_conf': {'symbol_table_path': str(workdir / 'units.txt'),
+                           'split_with_space': True},
+        'cmvn': 'global_cmvn',
+        'cmvn_conf': {'cmvn_file': str(workdir / 'global_cmvn'),
+                      'is_json_cmvn': True},
+        'snapshot_saving_conf': {'save_interval': RECIPE_SAVE}})
+    configs['dataset_conf'].update({
+        'fbank_conf': {'num_mel_bins': 80, 'frame_length': 25,
+                       'frame_shift': 10, 'dither': 0.1},
+        'spec_aug': True, 'shuffle': True, 'sort': True,
+        'batch_conf': {'batch_type': 'static', 'batch_size': RECIPE_B},
+        'num_workers': 4})
+    if dynamic_chunk:
+        configs['encoder_conf'] = dict(configs['encoder_conf'],
+                                       use_dynamic_chunk=True,
+                                       use_dynamic_left_chunk=True)
+    return configs
+
+
+def recipe_train(dev, workdir: Path, seed: int) -> dict:
+    """`bin.train.main` in-process: 1 epoch of RECIPE_STEPS steps at B = 8,
+    a snapshot with CV at step RECIPE_SAVE, CV and epoch_0 at the end.
+    The executor's dataset iterator and step are wrapped to time the wait
+    and the step; build_model to count the LayerNorm calls."""
+    import gc
+    import torch
+    from reverb_tpu_torch.bin import train as train_bin
+    from reverb_tpu_torch.frontend.cmvn import load_cmvn
+    from reverb_tpu_torch.models import asr_model
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    from reverb_tpu_torch.train import executor as exmod
+    from reverb_tpu_torch.train import trainer
+    cfg_path = workdir / 'recipe.yaml'
+    cfg_path.write_text(json.dumps(recipe_config(workdir)))
+    model_dir = workdir / 'exp'
+    rec = {'wait': [], 'step': [], 'audio': [], 'eval': 0, 'ln': [0]}
+
+    def timed_train(orig):
+        def train(self, model, optimizer, dataset, *a, **k):
+            step_fn = self.train_step
+
+            def timed_step(m, batch, g):
+                t0 = time.perf_counter()
+                out = step_fn(m, batch, g)       # ends in a host read
+                rec['step'].append(time.perf_counter() - t0)
+                rec['audio'].append(float(batch['feats_lengths'].sum())
+                                    / 100.0)
+                return out
+
+            def timed_iter():
+                it = iter(dataset)
+                while True:
+                    t0 = time.perf_counter()
+                    try:
+                        batch = next(it)
+                    except StopIteration:
+                        return
+                    rec['wait'].append(time.perf_counter() - t0)
+                    yield batch
+            self.train_step = timed_step
+            try:
+                return orig(self, model, optimizer, timed_iter(), *a, **k)
+            finally:
+                self.train_step = step_fn
+        return train
+
+    def counted_eval(orig):
+        def make(cfg):
+            fn = orig(cfg)
+
+            def eval_step(m, batch):
+                rec['eval'] += 1
+                return fn(m, batch)
+            return eval_step
+        return make
+
+    def counted_build(orig):
+        def build(*a, **k):
+            model = orig(*a, **k)
+            calls, _ = ln_call_counter(model)
+            rec['ln'] = calls
+            return model
+        return build
+    zero_launch_counts()
+    fa.BWD_LAUNCHES = ln.BWD_LAUNCHES = 0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with swapped({(exmod.Executor, 'train'):
+                  timed_train(exmod.Executor.train),
+                  (trainer, 'make_eval_step'):
+                  counted_eval(trainer.make_eval_step),
+                  (asr_model, 'build_model'):
+                  counted_build(asr_model.build_model)}):
+        ex = train_bin.main([
+            '--config', str(cfg_path), '--data_type', 'raw',
+            '--train_data', str(workdir / 'train.list'),
+            '--cv_data', str(workdir / 'cv.list'),
+            '--model_dir', str(model_dir), '--max_epoch', '1',
+            '--steps_per_epoch', str(RECIPE_STEPS), '--log_interval', '1',
+            '--seed', str(seed), '--device', 'cuda'])
+    wall = time.perf_counter() - t0
+    launches = {'K1': fa.LAUNCHES, 'K4': fa.BWD_LAUNCHES, 'K5': ln.LAUNCHES,
+                'K6': ln.BWD_LAUNCHES}
+    peak = torch.cuda.max_memory_allocated()
+    steps, n_eval = ex.step, rec['eval']
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    per = LN_ENC + LN_DEC
+    want = {'K1': LAYERS_ENC * (steps + n_eval), 'K4': LAYERS_ENC * steps,
+            'K5': per * (steps + n_eval), 'K6': per * steps}
+    log(f'recipe train: {steps} steps, {n_eval} CV batches (a CV with '
+        f'each snapshot, every {RECIPE_SAVE} steps, and at the epoch end); '
+        f'launches {launches}, expected {want} (LayerNorm calls seen '
+        f'{rec["ln"][0]})')
+    if steps != RECIPE_STEPS or n_eval != RECIPE_STEPS // RECIPE_SAVE + 1 \
+            or launches != want or \
+            rec['ln'][0] != want['K5']:
+        raise AssertionError('recipe train: the path did not run every '
+                             'kernel the expected number of times')
+    with np.load(model_dir / 'epoch_0.npz') as z:
+        cmvn = (z['encoder.global_cmvn.mean'], z['encoder.global_cmvn.istd'])
+        finite = all(np.isfinite(z[k]).all() for k in z.files)
+    info = json.loads((model_dir / 'epoch_0.yaml').read_text())
+    want_cmvn = load_cmvn(str(workdir / 'global_cmvn'))
+    if not (finite and math.isfinite(info['cv_loss'])
+            and info['step'] == RECIPE_STEPS
+            and all(np.array_equal(a, b) for a, b in zip(cmvn, want_cmvn))
+            and (model_dir / f'step_{RECIPE_SAVE}.npz').exists()):
+        raise AssertionError(f'recipe train: epoch_0 {info}, finite '
+                             f'{finite}')
+    metrics = [json.loads(x) for x in
+               (model_dir / 'metrics.jsonl').read_text().splitlines()]
+    if [m['step'] for m in metrics] != list(range(1, RECIPE_STEPS + 1)) or \
+            not all(math.isfinite(m['train/loss']) for m in metrics):
+        raise AssertionError(f'recipe train: metrics {metrics}')
+    n = len(rec['step'])
+    step_ms = sum(rec['step'][1:]) / (n - 1) * 1e3
+    wait_ms = sum(rec['wait'][1:n]) / (n - 1) * 1e3
+    audio = sum(rec['audio'][1:]) / (n - 1)
+    res = {'steps': steps, 'cv_batches': n_eval, 'launches': launches,
+           'step_ms': step_ms, 'wait_ms': wait_ms,
+           'first_step_ms': rec['step'][0] * 1e3,
+           'first_wait_ms': rec['wait'][0] * 1e3,
+           'audio_s_per_step': audio,
+           'audio_s_per_s': audio / (step_ms + wait_ms) * 1e3,
+           'peak_gib': peak / 2 ** 30, 'wall_s': wall,
+           'cv_loss': info['cv_loss'],
+           'losses': [m['train/loss'] for m in metrics]}
+    log(f'recipe train: bin.train.main {wall:.1f} s in all; steps 2-{n}: '
+        f'{step_ms:.1f} ms a step, {wait_ms:.2f} ms a step waiting on the '
+        f'dataset iterator ({audio:.2f} s of audio a step: '
+        f'{res["audio_s_per_s"]:.1f} audio-s/s); first step '
+        f'{res["first_step_ms"]:.1f} ms after a {res["first_wait_ms"]:.1f} '
+        f'ms wait; peak memory {res["peak_gib"]:.2f} GiB; losses '
+        f'{[round(x, 3) for x in res["losses"]]}, cv_loss '
+        f'{info["cv_loss"]:.4f}')
+    return res
+
+
+def recipe_first_batch(workdir: Path, configs: dict, tok, seed: int):
+    """The first batch the recipe's training Dataset gives: B = 8 of the
+    shortest utterances (the sort buffer holds the list), the Dataset's
+    padding, dither and spec_aug on."""
+    from reverb_tpu_torch.data.dataset import Dataset
+    return next(iter(Dataset('raw', str(workdir / 'train.list'), tok,
+                             configs['dataset_conf'], seed=seed)))
+
+
+def recipe_dynamic_chunk(dev, workdir: Path, seed: int) -> dict:
+    """One make_train_step step of a use_dynamic_chunk copy of the config
+    on the recipe's first batch: a finite loss, K1 = K4 = 0 (the chunk
+    mask takes the masked route), K5 and K6 at every LayerNorm."""
+    import torch
+    from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    from reverb_tpu_torch.text.tokenizer import init_tokenizer
+    from reverb_tpu_torch.train.executor import _device_batch
+    from reverb_tpu_torch.train.trainer import (TrainConfig, build_optimizer,
+                                                make_train_step)
+    configs = recipe_config(workdir, dynamic_chunk=True)
+    tok = init_tokenizer(configs)
+    configs['output_dim'] = len(tok.symbol_table)
+    batch = recipe_first_batch(workdir, configs, tok, seed)
+    cfg = ModelConfig.from_config(configs)
+    model = build_model(cfg, dev, generator=torch.Generator(
+        device=dev).manual_seed(seed), train=True)
+    opt, _ = build_optimizer(TrainConfig.from_config(configs), model)
+    step = make_train_step(cfg, opt, grad_clip=50.0)
+    db = _device_batch(batch, dev)
+    ln_calls, hooks = ln_call_counter(model)
+    zero_launch_counts()
+    fa.BWD_LAUNCHES = ln.BWD_LAUNCHES = 0
+    try:
+        t0 = time.perf_counter()
+        m = step(model, db, torch.Generator(device=dev).manual_seed(seed))
+        wall = time.perf_counter() - t0
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = {'K1': fa.LAUNCHES, 'K4': fa.BWD_LAUNCHES, 'K5': ln.LAUNCHES,
+                'K6': ln.BWD_LAUNCHES}
+    want = {'K1': 0, 'K4': 0, 'K5': LN_ENC + LN_DEC, 'K6': LN_ENC + LN_DEC}
+    log(f'recipe dynamic chunk: one step at B={len(batch["keys"])} (T '
+        f'{batch["feats"].shape[1]}): {m}; {wall * 1e3:.1f} ms; launches '
+        f'{launches}, expected {want} (LayerNorm calls seen {ln_calls[0]})')
+    if launches != want or ln_calls[0] != want['K5'] or \
+            not math.isfinite(m['loss']) or m['skipped'] != 0.0:
+        raise AssertionError('recipe dynamic chunk step')
+    del model, opt, step, db
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'loss': m['loss'], 'ms': wall * 1e3}
+
+
+def recipe_scripts(dev, workdir: Path) -> dict:
+    """average_model over the step-RECIPE_SAVE snapshot and epoch_0;
+    get_loss on the CV list (8 finite lines); recognize with the serving
+    mode pair on the CV list in bf16 (per batch K1 = 18, K2 = K3 = 1, plus
+    one of each per batch whose hypotheses outgrow max_hyp_len; K5 at every
+    LayerNorm call)."""
+    import gc
+    import torch
+    from reverb_tpu_torch.bin import average_model, get_loss, recognize
+    from reverb_tpu_torch.decode import api
+    from reverb_tpu_torch.ops import beam_scan as bs
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    exp = workdir / 'exp'
+    res = {}
+    t0 = time.perf_counter()
+    average_model.main(['--dst_model', str(workdir / 'avg.npz'), '--models',
+                        str(exp / f'step_{RECIPE_SAVE}.npz'),
+                        str(exp / 'epoch_0.npz')])
+    res['average_model_s'] = time.perf_counter() - t0
+    with np.load(workdir / 'avg.npz') as a, \
+            np.load(exp / 'epoch_0.npz') as b:
+        if sorted(a.files) != sorted(b.files) or not all(
+                np.isfinite(a[k]).all() and a[k].dtype == np.float32
+                for k in a.files):
+            raise AssertionError('recipe average_model')
+    log(f'recipe average_model: step_{RECIPE_SAVE} + epoch_0 → avg.npz in '
+        f'{res["average_model_s"]:.1f} s')
+
+    seen = {'ln': [0]}
+
+    def hooked(orig):
+        def load(*a, **k):
+            model = orig(*a, **k)
+            seen['ln'] = ln_call_counter(model)[0]
+            return model
+        return load
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with swapped({(recognize, 'load_model_for_eval'):
+                  hooked(recognize.load_model_for_eval)}):
+        get_loss.main(['--config', str(exp / 'train.yaml'), '--checkpoint',
+                       str(exp / 'epoch_0.npz'), '--test_data',
+                       str(workdir / 'cv.list'), '--output',
+                       str(workdir / 'loss.txt'), '--device', 'cuda'])
+    res['get_loss_s'] = time.perf_counter() - t0
+    rows = [r.split() for r in
+            (workdir / 'loss.txt').read_text().splitlines()]
+    launches = launch_counts()
+    want = {'K1': LAYERS_ENC * RECIPE_CV, 'K2': 0, 'K3': 0,
+            'K5': (LN_ENC + LN_DEC) * RECIPE_CV}
+    log(f'recipe get_loss: {len(rows)} lines in {res["get_loss_s"]:.1f} s, '
+        f'first {rows[0] if rows else None}; launches {launches}, expected '
+        f'{want}')
+    if len(rows) != RECIPE_CV or not all(
+            len(r) == 4 and all(math.isfinite(float(x)) for x in r[1:])
+            for r in rows) or launches != want or seen['ln'][0] != want['K5']:
+        raise AssertionError('recipe get_loss')
+    res['get_loss_launches'] = launches
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    calls = {'decode': 0, 'uncapped': 0}
+
+    def counted(name):
+        def wrap(orig):
+            def fn(*a, **k):
+                calls[name] += 1
+                return orig(*a, **k)
+            return fn
+        return wrap
+    zero_launch_counts()
+    t0 = time.perf_counter()
+    with swapped({(recognize, 'load_model_for_eval'):
+                  hooked(recognize.load_model_for_eval),
+                  (api, 'decode'): counted('decode')(api.decode),
+                  (api, '_decode_uncapped'):
+                  counted('uncapped')(api._decode_uncapped)}):
+        recognize.main(['--config', str(exp / 'train.yaml'), '--checkpoint',
+                        str(exp / 'epoch_0.npz'), '--test_data',
+                        str(workdir / 'cv.list'), '--result_dir',
+                        str(workdir / 'rec'), '--modes', *RECIPE_MODES,
+                        '--device', 'cuda'])
+    res['recognize_s'] = time.perf_counter() - t0
+    launches = launch_counts()
+    nb, nu = calls['decode'], calls['uncapped']
+    want = {'K1': LAYERS_ENC * nb, 'K2': nb + nu, 'K3': nb + nu,
+            'K5': seen['ln'][0]}
+    texts = {m: (workdir / 'rec' / m / 'text').read_text(
+        encoding='utf8').splitlines() for m in RECIPE_MODES}
+    log(f'recipe recognize: {nb} batches ({nu} through the uncapped tail) '
+        f'in {res["recognize_s"]:.1f} s; launches {launches}, expected '
+        f'{want}; rows {[len(t) for t in texts.values()]}; first '
+        f'{texts[RECIPE_MODES[-1]][0][:80]!r}')
+    if nb != 1 or launches != want or seen['ln'][0] < LN_ENC * nb or \
+            any(len(t) != RECIPE_CV for t in texts.values()):
+        raise AssertionError('recipe recognize')
+    res.update(recognize_launches=launches, recognize_batches=nb,
+               recognize_uncapped=nu)
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# each kernel's outputs at every call of the recipe's f32 check, within
+# this share of the output's largest value of its plain version on the
+# call's own inputs: the f32 tolerances of check_k1_mask_k4 and check_ln
+RECIPE_CALL_TOL = {'K1': 1e-3, 'K4': 1e-3, 'K5': 1e-4, 'K6': 1e-4}
+
+
+def checked_kernels(errs):
+    """K1, K4, K5 and K6 as module attributes to swap in: each call runs
+    the kernel, then its plain version on the call's own inputs (K4 and K6
+    with the call's own upstream gradient), and keeps each output's worst
+    error relative to the output's largest value in errs.  K1's output is
+    compared on valid query rows only (a padded row is read by no one)."""
+    import torch
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    k1, k4, k5, k6 = fa._k1, fa._k4, ln.layer_norm_fwd, ln.layer_norm_bwd
+
+    def keep(name, got, want):
+        errs[name] = max(errs.get(name, 0.0), rel_err(got, want.reshape(
+            got.shape)))
+
+    def plain_attn(q, k, v, p, u, vb, lens, mask, rate):
+        return fa.rel_pos_attention_plain(q, k, v, p[None], u, vb, lens,
+                                          mask, rate)
+
+    def fwd(q, k, v, p, u, vb, lens, mask, rate, want_lse):
+        out, lse = k1(q, k, v, p, u, vb, lens, mask, rate, want_lse)
+        with torch.no_grad():
+            want = plain_attn(q, k, v, p, u, vb, lens, mask, rate)
+        ok = (torch.arange(q.shape[2], device=q.device)[None, :]
+              < lens[:, None])[:, None, :, None]
+        keep('K1 out', out * ok, want * ok)
+        return out, lse
+
+    def bwd(q, k, v, p, u, vb, lens, mask, rate, out, lse, g):
+        got = k4(q, k, v, p, u, vb, lens, mask, rate, out, lse, g)
+        with torch.enable_grad():
+            ins = [t.detach().clone().requires_grad_(True)
+                   for t in (q, k, v, p, u, vb)]
+            want = torch.autograd.grad(
+                plain_attn(*ins, lens, mask, rate), ins, g)
+        for n, a, b in zip(('dq', 'dk', 'dv', 'dp', 'du', 'dvb'), got, want):
+            keep(f'K4 {n}', a, b)
+        return got
+
+    def ln_fwd(x, weight, bias, eps):
+        y = k5(x, weight, bias, eps)
+        keep('K5 y', y, ln.layer_norm_plain(x, weight, bias, eps))
+        return y
+
+    def ln_bwd(x, weight, g, eps):
+        got = k6(x, weight, g, eps)
+        for n, a, b in zip(('dx', 'dw', 'db'), got,
+                           ln.layer_norm_bwd_plain(x, weight, g, eps)):
+            keep(f'K6 {n}', a, b)
+        return got
+    return {(fa, '_k1'): fwd, (fa, '_k4'): bwd, (ln, 'layer_norm_fwd'): ln_fwd,
+            (ln, 'layer_norm_bwd'): ln_bwd}
+
+
+def check_call_errs(errs, what: str):
+    """Raise unless every kernel output in errs is within RECIPE_CALL_TOL
+    and each of K1, K4, K5 and K6 was seen."""
+    bad = {n: e for n, e in errs.items()
+           if not e <= RECIPE_CALL_TOL[n.split()[0]]}
+    seen = {n.split()[0] for n in errs}
+    if bad or seen != set(RECIPE_CALL_TOL):
+        raise AssertionError(f'{what}: kernel calls against their plain '
+                             f'versions {errs} (tolerances '
+                             f'{RECIPE_CALL_TOL}; kernels seen {seen})')
+
+
+def recipe_reference_check(dev, workdir: Path, seed: int) -> dict:
+    """The recipe's own inputs in f32 (TF32 off) on the epoch_0 weights,
+    the kernels against their plain versions.
+
+    Training, on the recipe's first training batch (`recipe_first_batch`):
+    compute_loss + backward through the kernels, every K1/K4/K5/K6 call
+    held to its plain version on that call's inputs (`checked_kernels`,
+    RECIPE_CALL_TOL); again through the plain versions, and in f64
+    (`f64_versions`).  The loss within 1e-5 relative of the plain one; the kernels'
+    gradient no further from the f64 gradient than twice the plain f32
+    gradient is (on this batch the plain f32 gradient itself is ~1e-4 from
+    the f64 one: a difference of rounding alone moves the small gradients
+    of the decoders' ReLU layers by ~1e-3, so the per-tensor bound of
+    `train_reference_check` holds no version here).
+
+    Decoding, on recognize's CV batch (its test pipeline: B = 8, the
+    Dataset's padding): the encoder through the kernels (each K1/K5 call
+    held as above) and through the plain versions, valid frames within
+    1e-3; then recognize's decode (RECIPE_MODES at its defaults) twice on
+    the SAME encoder output (K2, K3, K5 in the decoder): tokens, times and
+    nbest identical, scores within 1e-4 or one f32 step, as `modes` holds
+    its decodes."""
+    import gc
+    import torch
+    from reverb_tpu_torch.bin.recognize import (eval_dataset,
+                                                load_model_for_eval)
+    from reverb_tpu_torch.cli.reverb import get_blank_id
+    from reverb_tpu_torch.decode import api
+    from reverb_tpu_torch.models.asr_model import build_model
+    from reverb_tpu_torch.ops import beam_scan as bs
+    from reverb_tpu_torch.text.tokenizer import init_tokenizer
+    from reverb_tpu_torch.train.executor import _device_batch
+    from reverb_tpu_torch.utils.config import load_config
+    exp = workdir / 'exp'
+    configs = load_config(exp / 'train.yaml')
+    tok = init_tokenizer(configs)
+    configs, _ = get_blank_id(configs, tok.symbol_table)
+    configs['output_dim'] = len(tok.symbol_table)
+    served = load_model_for_eval(configs, exp / 'epoch_0.npz', dev, True)
+    cfg = served.cfg.with_compute_dtype(torch.float32)
+    model = build_model(cfg, dev, state_dict=served.state_dict(), train=True)
+    del served
+    batch = recipe_first_batch(workdir, configs, tok, seed)
+    db = _device_batch(batch, dev)
+    errs = {}
+    loss_k, g_k = loss_and_grads(model, db, dev, checked_kernels(errs))
+    check_call_errs(errs, 'recipe reference, training batch')
+    loss_p, g_p = loss_and_grads(model, db, dev, plain_versions())
+    m64 = build_model(cfg.with_compute_dtype(torch.float64), dev,
+                      state_dict=model.state_dict(), train=True).double()
+    d64 = {k: v.double() if v.is_floating_point() else v
+           for k, v in db.items()}
+    loss_d, g_d = loss_and_grads(m64, d64, dev, f64_versions())
+    del m64, d64
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    dist = {'kernels vs plain': grad_dist(g_k, g_p),
+            'kernels vs f64': grad_dist(g_k, g_d),
+            'plain vs f64': grad_dist(g_p, g_d)}
+    log(f'recipe reference: epoch_0 in f32 on the first training batch '
+        f'(B={len(batch["keys"])}, T {batch["feats"].shape[1]}, lengths '
+        f'{batch["feats_lengths"].tolist()}), dropout 0.1: every kernel call '
+        f'against its plain version, worst share of scale '
+        + ', '.join(f'{n} {e:.2e}' for n, e in sorted(errs.items()))
+        + f'; loss {loss_k:.6f} vs plain {loss_p:.6f} (rel {loss_rel:.2e}), '
+        f'f64 {loss_d:.6f}; gradient distances '
+        + ', '.join(f'{n} {d:.2e}' for n, d in dist.items()))
+    if not (loss_rel <= 1e-5 and
+            dist['kernels vs f64'] <= 2 * dist['plain vs f64']):
+        raise AssertionError('recipe reference: the training batch\'s loss '
+                             'or gradient through the kernels differs from '
+                             'the plain versions')
+    res = {'call_errs': dict(errs), 'loss_rel': loss_rel, **dist}
+    del g_k, g_p, g_d
+    model.eval().requires_grad_(False)
+
+    cv = next(iter(eval_dataset(configs, tok, 'raw',
+                                str(workdir / 'cv.list'), 16)))
+    feats, lens = cv['feats'], cv['feats_lengths']
+    cat = np.asarray([1.0, 0.0], np.float32)       # verbatimicity 1
+    plain = {(bs, 'beam_scan_forward'): bs.beam_scan_forward_plain,
+             (bs, 'beam_backtrace'): bs.beam_backtrace_plain,
+             **plain_versions()}
+    x = torch.from_numpy(feats).to(dev)
+    x_lens = torch.from_numpy(lens).to(dev)
+    enc_errs, encoded = {}, []
+    for table in (checked_kernels(enc_errs), plain):
+        with swapped(table), torch.inference_mode():
+            encoded.append(model.forward_encoder(
+                x, x_lens, torch.from_numpy(cat).to(dev)))
+    (enc_k, mask), (enc_p, _) = encoded
+    enc_err = float(((enc_k - enc_p).abs() * mask[:, 0, :, None]).max())
+    bad = {n: e for n, e in enc_errs.items()
+           if not e <= RECIPE_CALL_TOL[n.split()[0]]}
+    if bad or {n.split()[0] for n in enc_errs} != {'K1', 'K5'} or \
+            not enc_err <= 1e-3:
+        raise AssertionError(f'recipe reference: f32 encoder on the CV '
+                             f'batch, kernel vs plain err {enc_err}, kernel '
+                             f'calls {enc_errs}')
+
+    def run(kernels: bool):
+        table = {(model, 'forward_encoder'): lambda *a, **k: (enc_k, mask),
+                 **({} if kernels else plain)}
+        with swapped(table):
+            return api.decode(model, RECIPE_MODES, feats, lens,
+                              beam_size=10, ctc_weight=0.1, cat_embs=cat)
+    got, want = run(True), run(False)
+    n_tok = {m: [len(r.tokens) for r in want[m]] for m in want}
+    compare_results(got, want, 1e-4, ulps=1)
+    if not all(sum(n_tok[m]) for m in RECIPE_MODES):
+        raise AssertionError(f'recipe reference: the decode emitted no '
+                             f'tokens ({n_tok})')
+    log(f'recipe reference: the CV batch (B={len(cv["keys"])}, T '
+        f'{feats.shape[1]}, lengths {lens.tolist()}) in f32: every encoder '
+        f'kernel call against its plain version, worst share of scale '
+        + ', '.join(f'{n} {e:.2e}' for n, e in sorted(enc_errs.items()))
+        + f'; encoder max abs err on valid frames {enc_err:.2e}; '
+        f'recognize\'s decode {RECIPE_MODES} on one encoder output, kernels '
+        f'vs plain: tokens, times and nbest identical, scores within 1e-4 or '
+        f'one f32 step (tokens of each best hyp {n_tok})')
+    res.update(encoder_err=enc_err, encoder_call_errs=enc_errs)
+    del model, encoded, enc_k, enc_p, mask
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_recipe(dev, seed=SEED):
+    """The dataset path at reverb_large width: a synthetic corpus, then
+    `bin.train` (6 steps at B = 8 with a mid-epoch snapshot and CV), one
+    dynamic-chunk step, then `bin.average_model`, `bin.get_loss` and
+    `bin.recognize`, then the kernels against their plain versions on the
+    recipe's own batches (`recipe_reference_check`)."""
+    import shutil
+    t_phase = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='reverb_recipe_') as tmp:
+        workdir = Path(tmp)
+        t0 = time.perf_counter()
+        audio_s = recipe_corpus(workdir, seed + 70)
+        free = shutil.disk_usage(tmp).free / 2 ** 30
+        log(f'recipe corpus: {RECIPE_TRAIN} + {RECIPE_CV} WAVs '
+            f'({audio_s["train"]:.1f} + {audio_s["cv"]:.1f} s of audio) and '
+            f'the CMVN stats in {time.perf_counter() - t0:.1f} s; {free:.0f} '
+            f'GiB free in {tmp}')
+        res = {'corpus_audio_s': audio_s,
+               'train': recipe_train(dev, workdir, seed),
+               'dynamic_chunk': recipe_dynamic_chunk(dev, workdir, seed)}
+        res.update(recipe_scripts(dev, workdir))
+        res['reference'] = recipe_reference_check(dev, workdir, seed)
+    log(f'recipe: the phase took {time.perf_counter() - t_phase:.1f} s; on '
+        f'{smi_line()}')
+    return res
+
+
 # ------------------------------ shared helpers ------------------------------
 
 class swapped:
@@ -2052,6 +2678,36 @@ def plain_versions():
     return {(fa, 'rel_pos_attention'): fa.rel_pos_attention_plain,
             (ln, 'layer_norm_fwd'): ln.layer_norm_plain,
             (ln, 'layer_norm_bwd'): ln.layer_norm_bwd_plain}
+
+
+def f64_versions():
+    """LayerNorm and rel-pos attention computed in their input's dtype, as
+    module attributes to swap in (the plain versions compute in f32): the
+    f64 yardstick of `recipe_reference_check`."""
+    import torch
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+
+    def layer_norm(x, weight, bias, eps):
+        return torch.nn.functional.layer_norm(
+            x, (x.shape[-1],), weight.to(x.dtype), bias.to(x.dtype), eps)
+
+    def attention(q, k, v, pos, u, vb, kv_lens, mask=None, rate=0.0):
+        Tk = k.shape[2]
+        u, vb = (t.to(q.dtype)[None, :, None, :] for t in (u, vb))
+        scores = ((q + u) @ k.transpose(-1, -2) + (q + vb) @ pos[
+            :, :, :Tk].to(q.dtype).transpose(-1, -2)) / math.sqrt(q.shape[-1])
+        valid = (torch.arange(Tk, device=q.device)[None, :]
+                 < kv_lens[:, None])[:, None, None, :]
+        attn = torch.softmax(scores.masked_fill(~valid, fa._MASK_VALUE),
+                             -1).masked_fill(~valid, 0.0)
+        if mask is not None and rate > 0.0:
+            attn = torch.where(mask != 0, attn / (1.0 - rate),
+                               torch.zeros((), dtype=q.dtype,
+                                           device=q.device))
+        return attn @ v
+    return {(fa, 'rel_pos_attention'): attention,
+            (ln, 'layer_norm_plain'): layer_norm}
 
 
 def ln_call_counter(model):
@@ -2325,6 +2981,36 @@ def train_model(dev, seed, dtype):
     return model, opt, make_train_step(cfg, opt, tc.accum_grad, tc.grad_clip)
 
 
+def loss_and_grads(model, batch, dev, table=None):
+    """(loss, [gradient of each parameter]) of compute_loss + backward on
+    `batch`, with the module attributes of `table` swapped in and dropout
+    from a generator of seed 7 (two calls draw the same masks)."""
+    import torch
+    from reverb_tpu_torch.models.asr_model import compute_loss
+    with swapped(table or {}):
+        for p in model.parameters():
+            p.grad = None
+        out = compute_loss(model, batch,
+                           torch.Generator(device=dev).manual_seed(7))
+        out['loss'].backward()
+        torch.cuda.synchronize()
+        grads = [p.grad.detach().clone() if p.grad is not None
+                 else torch.zeros_like(p) for p in model.parameters()]
+    for p in model.parameters():
+        p.grad = None
+    return float(out['loss'].detach()), grads
+
+
+def grad_dist(ga, gb) -> float:
+    """‖ga − gb‖ / ‖gb‖ over all the parameters' gradients (f64 sums)."""
+    import torch
+    diff = torch.stack([torch.linalg.vector_norm(a.double() - b.double())
+                        for a, b in zip(ga, gb)])
+    norm = torch.stack([torch.linalg.vector_norm(b.double()) for b in gb])
+    return float(torch.linalg.vector_norm(diff) / torch.linalg.vector_norm(
+        norm))
+
+
 def train_reference_check(dev, seed):
     """reverb_large in f32 (TF32 off), B = 2, dropout on: one loss +
     backward through the kernels and one through the plain versions, with
@@ -2334,28 +3020,14 @@ def train_reference_check(dev, seed):
     a gradient that is rounding noise, exactly 0 in exact arithmetic), the
     global gradient within 1e-4."""
     import torch
-    from reverb_tpu_torch.models.asr_model import compute_loss
     model, _, _ = train_model(dev, seed, torch.float32)
     batch = train_batch(dev, 2, seed + 1, model.cfg.vocab_size)
-    results = []
-    for kernels in (True, False):
-        with swapped({} if kernels else plain_versions()):
-            for p in model.parameters():
-                p.grad = None
-            out = compute_loss(model, batch,
-                               torch.Generator(device=dev).manual_seed(7))
-            out['loss'].backward()
-            torch.cuda.synchronize()
-            results.append((float(out['loss'].detach()),
-                            [p.grad.detach().clone() if p.grad is not None
-                             else torch.zeros_like(p)
-                             for p in model.parameters()]))
-    (loss_k, g_k), (loss_p, g_p) = results
+    loss_k, g_k = loss_and_grads(model, batch, dev)
+    loss_p, g_p = loss_and_grads(model, batch, dev, plain_versions())
     loss_rel = abs(loss_k - loss_p) / abs(loss_p)
     norm_p = float(torch.linalg.vector_norm(torch.stack(
         [torch.linalg.vector_norm(g) for g in g_p])))
-    diff = float(torch.linalg.vector_norm(torch.stack(
-        [torch.linalg.vector_norm(a - b) for a, b in zip(g_k, g_p)])))
+    glob = grad_dist(g_k, g_p)
     worst, worst_name = 0.0, ''
     for (name, _), a, b in zip(model.named_parameters(), g_k, g_p):
         r = float(torch.linalg.vector_norm(a - b)) / max(
@@ -2364,14 +3036,14 @@ def train_reference_check(dev, seed):
             worst, worst_name = r, name
     log(f'train reference: reverb_large f32, B=2, dropout 0.1, kernels vs '
         f'plain: loss {loss_k:.6f} vs {loss_p:.6f} (rel {loss_rel:.2e}); '
-        f'gradient rel err global {diff / norm_p:.2e}, worst tensor '
+        f'gradient rel err global {glob:.2e}, worst tensor '
         f'{worst:.2e} ({worst_name})')
-    if not (loss_rel <= 1e-5 and diff / norm_p <= 1e-4 and worst <= 1e-3):
+    if not (loss_rel <= 1e-5 and glob <= 1e-4 and worst <= 1e-3):
         raise AssertionError('train reference: kernels differ from the plain '
                              'versions')
-    del model, results, g_k, g_p
+    del model, g_k, g_p
     torch.cuda.empty_cache()
-    return loss_rel, diff / norm_p, worst
+    return loss_rel, glob, worst
 
 
 def run_train(dev, seed):
@@ -2774,8 +3446,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default=','.join(ALL_PHASES),
                     help='comma list of kernels, serve, train, modes, '
-                         'stream, diar (default all; the result lines need '
-                         'all six), or beam: the K2/K3 checks alone')
+                         'stream, diar, recipe (default all; the result '
+                         'lines need all seven), or beam: the K2/K3 checks '
+                         'alone')
     ap.add_argument('--profile', action='store_true',
                     help='also profile one bf16 training step')
     ap.add_argument('--ab-parent', type=Path, default=None,
@@ -2874,6 +3547,9 @@ def main():
     if 'diar' in phases:
         # phase 11: diarization, both routes
         diar = run_diar(dev, SEED)
+    if 'recipe' in phases:
+        # phase 12: the dataset path (train, recognize, get_loss, average)
+        recipe = run_recipe(dev, SEED)
     spilled = [n for n, r in {**tc, **lnk, **beamk}.items() if r[1] or r[2]]
     if spilled:
         raise AssertionError(f'kernels spill registers: {spilled}')
@@ -2884,7 +3560,7 @@ def main():
 
     kernels = kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches,
                              len(walls), t_launch, fallback, modes, stream,
-                             diar)
+                             diar, recipe)
     log(f'slice: second transcribe_modes call {walls[1]:.4f} s for '
         f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; six-mode '
         f'call {modes[2]:.3f} s; train {step_ms:.1f} ms/step at '
@@ -2893,7 +3569,9 @@ def main():
         f'{stream["pool"]["ms"]:.2f} ms per step; diarization xRT '
         f'{diar["native"]["xrt"]:.1f} (native), '
         f'{diar["pyannote"]["xrt"]:.1f} (pyannote) on '
-        f'{diar["audio_s"]:.0f} s; on {smi}')
+        f'{diar["audio_s"]:.0f} s; recipe {recipe["train"]["step_ms"]:.1f} '
+        f'ms/step through bin.train ({recipe["train"]["wait_ms"]:.2f} ms '
+        f'dataset wait), recognize {recipe["recognize_s"]:.1f} s; on {smi}')
     print(smi_line())
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
@@ -2903,11 +3581,13 @@ def main():
 
 
 def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
-                   t_launch, fallback, modes, stream, diar):
+                   t_launch, fallback, modes, stream, diar, recipe):
     """The {"kernels": [...]} entries: launches on the paths (in all, per
     serving call, per training step, per six-mode call, per streaming hop,
-    per pool step and per diarization call of either route; K2/K3 also
-    per call of the long-hypothesis path),
+    per pool step, per diarization call of either route, and on the
+    dataset path: per bin.train step (CV included), per dynamic-chunk
+    step, per get_loss utterance and per recognize batch; K2/K3 also per
+    call of the long-hypothesis path),
     the error against the plain version, kernel / plain / library times in
     bf16 at the timed shapes (K2 also resumed from a state at B = 1 and 8,
     T_hop = 16), and the bound computed from those shapes."""
@@ -2918,6 +3598,13 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
     s_launch, p_launch = (stream['single']['launches'],
                           stream['pool']['launches'])
     d_launch = diar['native']['launches']
+    r_train = recipe['train']['launches']
+    r_dyn = recipe['dynamic_chunk']['launches']
+    r_loss = recipe['get_loss_launches']
+    r_rec = recipe['recognize_launches']
+    r_all = {n: (r_train.get(n, 0) + r_dyn.get(n, 0) + r_loss.get(n, 0)
+                 + r_rec.get(n, 0)) for n in ('K1', 'K2', 'K3', 'K4', 'K5',
+                                              'K6')}
     per = {n: {'serve': launches.get(n, 0) / n_calls,
                'train': t_launch.get(n, 0) / TRAIN_STEPS,
                'six_modes': m_launch.get(n, 0),
@@ -2925,7 +3612,13 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
                'stream_pool_step': (p_launch.get(n, 0)
                                     / stream['pool']['steps']),
                'diarization': d_launch[n],
-               'diarization_pyannote': diar['pyannote']['launches'][n]}
+               'diarization_pyannote': diar['pyannote']['launches'][n],
+               'recipe_train_step': (r_train.get(n, 0)
+                                     / recipe['train']['steps']),
+               'recipe_dynamic_chunk_step': r_dyn.get(n, 0),
+               'recipe_get_loss_utterance': r_loss.get(n, 0) / RECIPE_CV,
+               'recipe_recognize_batch': (r_rec.get(n, 0)
+                                          / recipe['recognize_batches'])}
            for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6')}
     resume = {}
     for b, t in stream['resume'].items():
@@ -2942,7 +3635,8 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
                 'replaces': f'reverb_tpu/ops/{replaces}',
                 'launches': (launches.get(kid, 0) + t_launch.get(kid, 0)
                              + m_launch.get(kid, 0) + s_launch.get(kid, 0)
-                             + p_launch.get(kid, 0) + d_launch[kid]),
+                             + p_launch.get(kid, 0) + d_launch[kid]
+                             + r_all[kid]),
                 'launches_per_call': per[kid], 'max_abs_err': err,
                 'ms': ms, 'device_ms': dev_ms, 'plain_ms': plain_ms,
                 'bound_ms': bnd[0], 'bound_by': bnd[1], 'library_ms': lib_ms,

@@ -1,0 +1,264 @@
+"""Training entry point: `python -m reverb_tpu_torch.bin.train`.
+
+Counterpart of reverb_tpu/bin/train.py (reference asr/wenet/bin/train.py:
+64-216), with its flags and order: config and overrides → the tokenizer →
+train.yaml → the datasets (CV without augmentation) → the model with the
+global CMVN stats inside its parameters (or the `--checkpoint`'s
+parameters) → `--enc_init` → the optimizer and schedule → resume (epoch and
+step from the checkpoint's yaml) → the tracker, the watchdog and the
+profiler → the epoch loop {train with mid-epoch snapshots, CV,
+`epoch_N.npz` + `.yaml`} → the dataset statistics.
+
+`--device` (default cuda) is where the model and every step run; without a
+card it raises unless `--device cpu` is given.  Dropout draws from one
+`torch.Generator` on the device, seeded from `--seed`.  One process drives
+one device: the mesh flags above 1, `--zero3`, `--coordinator`,
+`--num_processes`/`--process_id` other than 1/0 and
+`--pipeline_microbatches` (ROADMAP item 14), `--prng_impl` other than
+auto, the registry's model families and teacher-student `ts_conf`
+(ROADMAP item 15) raise NotImplementedError.
+"""
+
+from __future__ import annotations
+
+import argparse
+import logging
+
+
+def get_args(argv=None):
+    p = argparse.ArgumentParser(description='train a reverb model (PyTorch)')
+    p.add_argument('--config', required=True)
+    p.add_argument('--data_type', default='raw', choices=['raw', 'shard'])
+    p.add_argument('--train_data', required=True)
+    p.add_argument('--cv_data', required=True)
+    p.add_argument('--model_dir', required=True)
+    p.add_argument('--checkpoint', default=None,
+                   help='resume/init checkpoint (.npz of either package or '
+                        'a reverb .pt)')
+    p.add_argument('--override_config', action='append', default=[])
+    p.add_argument('--max_epoch', type=int, default=None)
+    p.add_argument('--steps_per_epoch', type=int, default=None)
+    p.add_argument('--num_devices_model', type=int, default=1,
+                   help='tensor-parallel size (only 1: ROADMAP item 14)')
+    p.add_argument('--num_devices_seq', type=int, default=1,
+                   help='sequence-parallel size (only 1: ROADMAP item 14)')
+    p.add_argument('--num_devices_expert', type=int, default=1,
+                   help='expert-parallel size (only 1: ROADMAP item 14)')
+    p.add_argument('--num_devices_pipe', type=int, default=1,
+                   help='pipeline stages (only 1: ROADMAP item 14)')
+    p.add_argument('--pipeline_microbatches', type=int, default=None,
+                   help='pipeline microbatches (ROADMAP item 14)')
+    p.add_argument('--zero3', action='store_true',
+                   help='ZeRO-3 parameter sharding (ROADMAP item 14)')
+    p.add_argument('--stall_timeout_s', type=float, default=1800.0,
+                   help='straggler watchdog: abort/diagnose when no step '
+                        'completes for this long (0 disables; '
+                        'REVERB_STALL_EXIT=1 hard-exits for supervisor '
+                        'restart — the wenet_join timeout equivalent)')
+    p.add_argument('--coordinator', default=None,
+                   help='multi-process coordinator (ROADMAP item 14)')
+    p.add_argument('--num_processes', type=int, default=1,
+                   help='only 1 (ROADMAP item 14)')
+    p.add_argument('--process_id', type=int, default=0,
+                   help='only 0 (ROADMAP item 14)')
+    p.add_argument('--tensorboard_dir', default=None)
+    p.add_argument('--seed', type=int, default=777)
+    p.add_argument('--prng_impl', default='auto',
+                   choices=['auto', 'threefry2x32', 'rbg'],
+                   help="the JAX package's PRNG choice (only auto: the "
+                        "port's dropout draws from torch's generator)")
+    p.add_argument('--log_interval', type=int, default=100)
+    p.add_argument('--enc_init', default=None,
+                   help='partial-init checkpoint (load_trained_modules)')
+    p.add_argument('--enc_init_mods', default='encoder.',
+                   help='comma-separated module prefixes for --enc_init')
+    p.add_argument('--profile_dir', default=None,
+                   help='write a torch.profiler trace here')
+    p.add_argument('--profile_start_step', type=int, default=10)
+    p.add_argument('--profile_num_steps', type=int, default=5)
+    p.add_argument('--device', default='cuda',
+                   help='torch device (default cuda; raises without a card)')
+    return p.parse_args(argv)
+
+
+ALT_ENCODERS = ('branchformer', 'e_branchformer', 'squeezeformer',
+                'efficient_conformer')
+
+
+def check_supported(args, configs):
+    """Raise NotImplementedError for what the port does not train."""
+    for flag in ('num_devices_model', 'num_devices_seq',
+                 'num_devices_expert', 'num_devices_pipe'):
+        if getattr(args, flag) > 1:
+            raise NotImplementedError(
+                f'--{flag} {getattr(args, flag)}: one process drives one '
+                f'device in the port (ROADMAP item 14)')
+    if args.zero3 or args.coordinator or args.num_processes != 1 or \
+            args.process_id != 0 or args.pipeline_microbatches:
+        raise NotImplementedError(
+            '--zero3 / --coordinator / --num_processes / --process_id / '
+            '--pipeline_microbatches: sharded, multi-process and pipelined '
+            'training are not ported (ROADMAP item 14)')
+    if args.prng_impl != 'auto':
+        raise NotImplementedError(
+            f"--prng_impl {args.prng_impl}: the JAX package's PRNG choice; "
+            f"the port's dropout draws from torch's generator")
+    if configs.get('model', 'asr_model') != 'asr_model' or \
+            configs.get('encoder') in ALT_ENCODERS:
+        raise NotImplementedError(
+            f"model {configs.get('model')!r} / encoder "
+            f"{configs.get('encoder')!r}: the registry's model families are "
+            f'not ported (ROADMAP item 15)')
+    if configs.get('ts_conf'):
+        raise NotImplementedError(
+            'ts_conf: teacher-student distillation is not ported (ROADMAP '
+            'item 15)')
+
+
+def main(argv=None):
+    args = get_args(argv)
+    logging.basicConfig(
+        level=logging.INFO,
+        format='%(asctime)s %(filename)s %(levelname)s: %(message)s')
+    import torch
+
+    from reverb_tpu_torch.convert import (load_flat_checkpoint,
+                                          state_dict_from_jax)
+    from reverb_tpu_torch.data.dataset import Dataset
+    from reverb_tpu_torch.data.pipeline import mystats
+    from reverb_tpu_torch.frontend.cmvn import load_cmvn_from_configs
+    from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
+    from reverb_tpu_torch.text.tokenizer import init_tokenizer
+    from reverb_tpu_torch.train.checkpoint import (load_checkpoint,
+                                                   load_trained_modules,
+                                                   save_checkpoint)
+    from reverb_tpu_torch.train.executor import Executor
+    from reverb_tpu_torch.train.trainer import (TrainConfig,
+                                                build_optimizer,
+                                                make_eval_step,
+                                                make_train_step)
+    from reverb_tpu_torch.train.watchdog import epoch_barrier
+    from reverb_tpu_torch.utils.common import resolve_device
+    from reverb_tpu_torch.utils.config import (check_modify_and_save_config,
+                                               load_config, override_config)
+    from reverb_tpu_torch.utils.tracking import init_tracking
+
+    configs = override_config(load_config(args.config), args.override_config)
+    check_supported(args, configs)
+    dev = resolve_device(args.device)
+
+    tokenizer = init_tokenizer(configs)
+    configs = check_modify_and_save_config(args, configs,
+                                           tokenizer.symbol_table)
+
+    rank, world = 0, 1
+    if torch.distributed.is_available() and \
+            torch.distributed.is_initialized():
+        rank = torch.distributed.get_rank()
+        world = torch.distributed.get_world_size()
+    ds_conf = configs['dataset_conf']
+    cv_conf = dict(ds_conf)
+    # CV disables augmentation (train_utils.py:301-349)
+    for k in ('spec_aug', 'spec_sub', 'spec_trim', 'speed_perturb',
+              'apply_telephony', 'apply_rir'):
+        cv_conf[k] = False
+    cv_conf['shuffle'] = False
+    cv_conf['cycle'] = 1
+
+    def make_train_ds(epoch):
+        return Dataset(args.data_type, args.train_data, tokenizer, ds_conf,
+                       partition=True, rank=rank, world_size=world,
+                       seed=args.seed + epoch).prefetch(8)
+
+    def make_cv_ds():
+        return Dataset(args.data_type, args.cv_data, tokenizer, cv_conf,
+                       partition=False)
+
+    cfg = ModelConfig.from_config(configs)
+    tc = TrainConfig.from_config(configs)
+    if args.checkpoint:
+        # the checkpoint's parameters replace the initial ones, its CMVN
+        # stats (or their absence) included, as in the JAX package
+        model = build_model(cfg, dev, state_dict_from_jax(
+            load_flat_checkpoint(args.checkpoint)), train=True)
+    else:
+        # GlobalCMVN stats live IN the parameters from construction
+        # (init_model.py:102-104), so a trained checkpoint normalizes with
+        # the stats the serving CLI applies
+        model = build_model(cfg, dev, generator=torch.Generator(
+            device=dev).manual_seed(args.seed), train=True,
+            cmvn=load_cmvn_from_configs(configs))
+        if args.enc_init:
+            load_trained_modules(model, args.enc_init,
+                                 args.enc_init_mods.split(','))
+    optimizer, schedule = build_optimizer(tc, model)
+
+    start_epoch, start_step = 0, 0
+    if args.checkpoint:
+        info = load_checkpoint(args.checkpoint, model, optimizer)
+        start_epoch = int(info.get('epoch', 0))
+        start_step = int(info.get('step', 0))
+        logging.info('resumed from %s at epoch %d step %d', args.checkpoint,
+                     start_epoch, start_step)
+
+    train_step = make_train_step(cfg, optimizer, tc.accum_grad,
+                                 grad_clip=tc.grad_clip)
+    eval_step = make_eval_step(cfg)
+
+    # experiment tracking (wandb/tensorboard/jsonl; train_utils.py:495-533)
+    tracker = init_tracking(args.model_dir, configs,
+                            train_data=args.train_data, cv_data=args.cv_data,
+                            tensorboard_dir=args.tensorboard_dir)
+
+    snap_conf = configs.get('snapshot_saving_conf', {}) or {}
+    ex = Executor(train_step=train_step, eval_step=eval_step,
+                  model_dir=args.model_dir,
+                  log_interval=args.log_interval,
+                  save_interval=snap_conf.get('save_interval', 0),
+                  save_optimizer_every=snap_conf.get('save_optimizer_every',
+                                                     4),
+                  schedule=schedule, writer=tracker,
+                  save_to_tracker=bool(snap_conf.get('save_to_wandb')),
+                  use_named_snapshots=bool(
+                      snap_conf.get('use_named_snapshots', True)),
+                  run_tag=snap_conf.get('run_tag'),
+                  device=dev, step=start_step)
+    if args.stall_timeout_s > 0:
+        from reverb_tpu_torch.train.watchdog import StepWatchdog
+        ex.watchdog = StepWatchdog(args.stall_timeout_s)
+    if args.profile_dir:
+        from reverb_tpu_torch.utils.profiling import ProfileWindow
+        ex.profiler = ProfileWindow(args.profile_dir,
+                                    args.profile_start_step,
+                                    args.profile_num_steps)
+
+    max_epoch = args.max_epoch or configs.get('max_epoch', 100)
+    generator = torch.Generator(device=dev).manual_seed(args.seed)
+    try:
+        for epoch in range(start_epoch, max_epoch):
+            ex.train(model, optimizer, make_train_ds(epoch), epoch,
+                     generator,
+                     cv_dataset=make_cv_ds() if snap_conf.get(
+                         'save_interval') else None,
+                     max_steps=(args.steps_per_epoch * (epoch + 1)
+                                if args.steps_per_epoch else None))
+            epoch_barrier(f'epoch_{epoch}')
+            cv_metrics = ex.cv(model, make_cv_ds())
+            logging.info('epoch %d CV: %s', epoch, cv_metrics)
+            if rank == 0:
+                save_checkpoint(
+                    args.model_dir, f'epoch_{epoch}', model, optimizer,
+                    {'epoch': epoch, 'step': ex.step,
+                     'frames_seen': ex.frames_seen,
+                     'lr': float(schedule(ex.step)),
+                     'cv_loss': cv_metrics.get('loss')})
+    finally:
+        if ex.watchdog is not None:
+            ex.watchdog.stop()
+    tracker.finish()
+    logging.info('dataset statistics: %s', dict(mystats))
+    return ex
+
+
+if __name__ == '__main__':
+    main()

@@ -43,3 +43,17 @@ def load_cmvn(path, is_json: bool = True):
     if is_json:
         return _load_json_cmvn(path)
     return _load_kaldi_cmvn(path)
+
+
+def load_cmvn_from_configs(configs):
+    """(mean, istd) from a reference-schema config dict, or None when no
+    global CMVN is configured (reverb_tpu/frontend/cmvn.py:
+    load_cmvn_from_configs; a trained model carries the stats the serving
+    CLI applies)."""
+    if configs.get('cmvn') != 'global_cmvn':
+        return None
+    conf = configs.get('cmvn_conf', {}) or {}
+    path = conf.get('cmvn_file')
+    if not path:
+        return None
+    return load_cmvn(path, conf.get('is_json_cmvn', True))

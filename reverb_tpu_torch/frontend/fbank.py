@@ -7,7 +7,9 @@ torchaudio.compliance.kaldi.fbank's definition (snip_edges, no dither,
 Nyquist bin dropped).  The window and mel matrix are built on the host in
 numpy exactly as the JAX package builds them; the rest runs as torch ops
 on the waveform's device, for one waveform (`compute_fbank`) or a batch
-of rows (`compute_fbank_batch`, the diarization crops).
+of rows (`compute_fbank_batch`, the diarization crops).  The data
+pipeline's host path is `fbank_numpy` / `mfcc_numpy` (the JAX package's
+numpy functions, copied).
 """
 
 from __future__ import annotations
@@ -137,3 +139,65 @@ def compute_fbank_batch(waves: torch.Tensor, cfg: FbankConfig,
     mel = power @ banks.T
     return torch.log(torch.clamp(mel, min=cfg.epsilon)).reshape(
         B, n_frames, cfg.num_mel_bins)
+
+
+# --- the host numpy path of the data pipeline (data/processor.py) ---------
+
+@functools.lru_cache(maxsize=8)
+def dct_matrix(num_ceps: int, num_mel_bins: int) -> np.ndarray:
+    """(num_mel_bins, num_ceps) kaldi DCT-II basis: ortho-normalized rows,
+    C0 row = sqrt(1/N) (kaldi ComputeDctMatrix)."""
+    n = np.arange(num_mel_bins, dtype=np.float64)
+    k = np.arange(num_ceps, dtype=np.float64)[:, None]
+    dct = np.cos(np.pi / num_mel_bins * (n[None, :] + 0.5) * k)  # (C, M)
+    dct *= np.sqrt(2.0 / num_mel_bins)
+    dct[0, :] = np.sqrt(1.0 / num_mel_bins)
+    return dct.T.astype(np.float32)                              # (M, C)
+
+
+@functools.lru_cache(maxsize=8)
+def lifter_coeffs(num_ceps: int, q: float) -> np.ndarray:
+    """Cepstral liftering 1 + (Q/2)·sin(πi/Q) (kaldi ComputeLifterCoeffs)."""
+    i = np.arange(num_ceps, dtype=np.float64)
+    return (1.0 + 0.5 * q * np.sin(np.pi * i / q)).astype(np.float32)
+
+
+def mfcc_numpy(wave: np.ndarray, cfg: FbankConfig = FbankConfig(),
+               num_ceps: int = 13, cepstral_lifter: float = 22.0
+               ) -> np.ndarray:
+    """Kaldi MFCC on the host (use_energy=False): log-mel fbank → DCT-II →
+    cepstral liftering."""
+    assert num_ceps <= cfg.num_mel_bins, (num_ceps, cfg.num_mel_bins)
+    feat = fbank_numpy(wave, cfg) @ dct_matrix(num_ceps, cfg.num_mel_bins)
+    if cepstral_lifter != 0.0:
+        feat = feat * lifter_coeffs(num_ceps, cepstral_lifter)[None, :]
+    return feat.astype(np.float32)
+
+
+def fbank_numpy(wave: np.ndarray, cfg: FbankConfig = FbankConfig()
+                ) -> np.ndarray:
+    """The fbank of `compute_fbank` in numpy on the host (f32 rFFT), as
+    reverb_tpu/frontend/fbank.py:fbank_numpy computes it, bit for bit."""
+    T = num_frames(len(wave), cfg)
+    if T == 0:
+        return np.zeros((0, cfg.num_mel_bins), dtype=np.float32)
+    wave = wave.astype(np.float32)
+    shift, size = cfg.window_shift, cfg.window_size
+    idx = np.arange(T)[:, None] * shift + np.arange(size)[None, :]
+    frames = wave[idx]
+    if cfg.remove_dc_offset:
+        frames = frames - frames.mean(axis=1, keepdims=True)
+    if cfg.preemphasis:
+        out = frames.copy()
+        out[:, 0] -= cfg.preemphasis * frames[:, 0]
+        out[:, 1:] -= cfg.preemphasis * frames[:, :-1]
+        frames = out
+    frames = frames * _povey_window(size)[None, :]
+    padded = np.zeros((T, cfg.padded_window_size), dtype=np.float32)
+    padded[:, :size] = frames
+    spec = np.fft.rfft(padded, axis=1)
+    power = (spec.real ** 2 + spec.imag ** 2)[:, : cfg.padded_window_size // 2]
+    if not cfg.use_power:
+        power = np.sqrt(power)
+    mel = power @ mel_banks(cfg).T
+    return np.log(np.maximum(mel, cfg.epsilon)).astype(np.float32)

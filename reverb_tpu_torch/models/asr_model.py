@@ -16,6 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -177,17 +178,14 @@ def compute_loss(model: ASRModel, batch: Dict, generator=None) -> Dict:
 
     batch: feats (B,T,F), feats_lengths (B,), target (B,L) padded with
     ignore_id, target_lengths (B,), optional cat_embs (B, num_langs).
-    `generator` plays the part of the JAX rng: dropout runs only with one.
+    `generator` plays the part of the JAX rng: dropout runs only with one,
+    and a use_dynamic_chunk encoder draws its chunk from it.
     Returns {loss, loss_att, loss_ctc, th_accuracy} (None where a weight
     switches a term off)."""
     if model.cfg.apply_non_blank_embedding:
         raise NotImplementedError('apply_non_blank_embedding is not ported')
     if 'cv_list' in batch:
         raise NotImplementedError('the context adaptor is not ported')
-    if model.cfg.encoder.use_dynamic_chunk:
-        raise NotImplementedError(
-            'use_dynamic_chunk training (the random chunk mask the JAX '
-            'package draws per batch) is not ported: ROADMAP item 9')
     encoder_out, encoder_mask = model.forward_encoder(
         batch['feats'], batch['feats_lengths'], batch.get('cat_embs'),
         generator, decoding_chunk_size=0)
@@ -244,14 +242,18 @@ def loss_from_encoder(model: ASRModel, encoder_out, encoder_mask,
 
 def build_model(cfg: ModelConfig, device, state_dict: Optional[dict] = None,
                 generator: Optional[torch.Generator] = None,
-                train: bool = False) -> ASRModel:
+                train: bool = False, cmvn=None) -> ASRModel:
     """Build an ASRModel on `device`: from `state_dict` (strict; the encoder
     gets global CMVN when the state dict carries it) when given, else
-    randomly initialized from `generator` (a generator on `device`).
-    Serving models come back in eval mode with gradients off; `train=True`
-    gives a trainable model in training mode."""
-    with_cmvn = state_dict is not None and \
-        'encoder.global_cmvn.mean' in state_dict
+    randomly initialized from `generator` (a generator on `device`), with
+    the global CMVN stats `cmvn` = (mean, istd) inside the parameters when
+    given (as reverb_tpu's init_params(..., cmvn=)).  Serving models come
+    back in eval mode with gradients off; `train=True` gives a trainable
+    model in training mode."""
+    if state_dict is not None:
+        with_cmvn = 'encoder.global_cmvn.mean' in state_dict
+    else:
+        with_cmvn = cmvn is not None
     with torch.device('meta'):
         model = ASRModel(cfg, with_cmvn)
     model = model.to_empty(device=device)
@@ -261,6 +263,11 @@ def build_model(cfg: ModelConfig, device, state_dict: Optional[dict] = None,
         if generator is None:
             raise ValueError('build_model needs a state_dict or a generator')
         reset_parameters(model, generator)
+        if cmvn is not None:
+            with torch.no_grad():
+                for t, v in zip((model.encoder.global_cmvn.mean,
+                                 model.encoder.global_cmvn.istd), cmvn):
+                    t.copy_(torch.as_tensor(np.asarray(v, np.float32)))
     if train:
         return model.train().requires_grad_(True)
     return model.eval().requires_grad_(False)

@@ -25,8 +25,10 @@ Training: every forward takes an optional `torch.Generator`; with one,
 dropout runs at the JAX package's sites and rates (positional dropout after
 the subsampling, the FFNs' inner dropout, the residual-branch dropout of
 every block, attention dropout on the probabilities), and without one the
-forward is deterministic, as with rng=None there.  The random chunk draw
-of `use_dynamic_chunk` training is not ported (ROADMAP item 9) and raises.
+forward is deterministic, as with rng=None there.  `use_dynamic_chunk`
+training (decoding_chunk_size 0) draws its chunk from the same generator
+(utils/common.py:draw_dynamic_chunk) and attends through the masked route,
+as the JAX package's flash kernel rejects a (B, T, T) mask.
 """
 
 from __future__ import annotations
@@ -324,7 +326,9 @@ class ConformerEncoder(nn.Module):
         follows reverb_tpu/models/encoder.py:encoder_forward
         (`add_optional_chunk_mask`): decoding_chunk_size > 0 on a
         use_dynamic_chunk model, or a static_chunk_size, masks each frame to
-        its chunk and `num_decoding_left_chunks` chunks before it."""
+        its chunk and `num_decoding_left_chunks` chunks before it; in
+        use_dynamic_chunk training (decoding_chunk_size 0) the chunk is
+        drawn from `generator`."""
         cfg = self.cfg
         T = xs.shape[1]
         masks = (torch.arange(T, device=xs.device)[None, :]
@@ -343,7 +347,7 @@ class ConformerEncoder(nn.Module):
             chunk_masks = add_optional_chunk_mask(
                 masks, cfg.use_dynamic_chunk, cfg.use_dynamic_left_chunk,
                 decoding_chunk_size, cfg.static_chunk_size,
-                num_decoding_left_chunks)
+                num_decoding_left_chunks, generator)
         for layer in self.encoders:
             xs = layer(xs, kv_lens, pos_emb, masks, cat_embs, generator,
                        chunk_masks)

@@ -1,3 +1,4 @@
-"""Training of the hybrid CTC/attention model: schedules, the train step
-(Adam, clipping, non-finite skip, freeze rules) and checkpoints
-(counterpart of reverb_tpu/train/)."""
+"""Training of the hybrid CTC/attention model: schedules, the train and
+eval steps (Adam, clipping, non-finite skip, freeze rules), checkpoints,
+the executor's epoch loop and the stall watchdog (counterpart of
+reverb_tpu/train/)."""

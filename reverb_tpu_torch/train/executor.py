@@ -1,0 +1,157 @@
+"""Training executor: epoch loop, CV, snapshots, telemetry.
+
+Counterpart of reverb_tpu/train/executor.py (`Executor.train`, `cv`,
+`_snapshot`, `_log`) with its fields and snapshot rules.  Parity targets:
+  - Executor.train/cv                asr/wenet/utils/executor.py:51-285
+    (mid-epoch step snapshots every save_interval with CV run, full snapshot
+     every save_optimizer_every-th, frames-seen telemetry, fixed-steps
+     semantics instead of a join)
+  - epoch loop / ckpt metadata yaml  asr/wenet/bin/train.py:140-196
+  - log_per_step                     utils/train_utils.py:712-764
+
+The step is `train/trainer.py:make_train_step`'s: it takes the model, the
+batch on the device and the dropout generator, updates the model in place
+and returns its metrics as floats (one host read a step).  A batch's numpy
+arrays go to the device from pinned memory with non_blocking copies.
+"""
+
+from __future__ import annotations
+
+import logging
+import time
+from dataclasses import dataclass
+from typing import Callable, Dict, Iterable, Optional
+
+import numpy as np
+import torch
+
+from reverb_tpu_torch.data.pipeline import mystats
+from reverb_tpu_torch.train.checkpoint import (save_checkpoint,
+                                               should_force_snapshot)
+
+
+def _device_batch(batch: Dict, device) -> Dict:
+    """Drop host-only fields (keys, langs, tasks); ship the numpy arrays to
+    `device` (int32 as int64, the index dtype of the loss), from pinned
+    memory on a CUDA device."""
+    device = torch.device(device)
+    out = {}
+    for k, v in batch.items():
+        if not isinstance(v, np.ndarray):
+            continue
+        t = torch.from_numpy(v)
+        if t.dtype == torch.int32:
+            t = t.to(torch.int64)
+        if device.type == 'cuda':
+            t = t.pin_memory()
+        out[k] = t.to(device, non_blocking=True)
+    return out
+
+
+@dataclass
+class Executor:
+    train_step: Callable                # (model, batch, generator) → floats
+    eval_step: Callable                 # (model, batch) → floats
+    model_dir: str
+    log_interval: int = 100
+    save_interval: int = 0              # mid-epoch snapshot cadence (steps)
+    save_optimizer_every: int = 4       # every Nth snapshot keeps optimizer
+    schedule: Optional[Callable] = None
+    writer: Optional[object] = None     # tensorboard-like .add_scalar
+    save_to_tracker: bool = False       # snapshot_saving_conf.save_to_wandb
+    # snapshot_saving_conf.use_named_snapshots (checkpoint.py:157-168):
+    # True → one checkpoint per step tag; False → overwrite a single rolling
+    # 'snapshot[_and_optimizer]' file (bounded disk)
+    use_named_snapshots: bool = True
+    run_tag: Optional[str] = None       # snapshot_saving_conf.run_tag
+    device: object = 'cuda'
+    step: int = 0
+    frames_seen: float = 0.0
+    snapshots_taken: int = 0
+    profiler: Optional[object] = None   # utils.profiling.ProfileWindow
+    watchdog: Optional[object] = None   # train.watchdog.StepWatchdog
+
+    def train(self, model, optimizer, dataset: Iterable, epoch: int,
+              generator: Optional[torch.Generator] = None,
+              cv_dataset: Optional[Iterable] = None,
+              max_steps: Optional[int] = None):
+        """One pass over `dataset` (or up to `max_steps` steps in all);
+        the model and optimizer are updated in place."""
+        t0 = time.time()
+        for batch in dataset:
+            if max_steps is not None and self.step >= max_steps:
+                break
+            if self.watchdog is not None:
+                self.watchdog.check()
+            if self.profiler is not None:
+                self.profiler.maybe_start(self.step)
+            metrics = self.train_step(model,
+                                      _device_batch(batch, self.device),
+                                      generator)
+            if self.profiler is not None:
+                self.profiler.maybe_stop(self.step)
+            self.step += 1
+            if self.watchdog is not None:
+                self.watchdog.beat(self.step)
+            self.frames_seen += float(np.sum(batch['feats_lengths']))
+            if self.step % self.log_interval == 0:
+                self._log('TRAIN', epoch, metrics, t0)
+                t0 = time.time()
+            if self.save_interval and self.step % self.save_interval == 0:
+                self._snapshot(model, optimizer, epoch, cv_dataset)
+        if self.profiler is not None:
+            self.profiler.close()
+        return model, optimizer
+
+    def cv(self, model, dataset: Iterable) -> Dict[str, float]:
+        tot: Dict[str, float] = {}
+        n = 0
+        for batch in dataset:
+            m = self.eval_step(model, _device_batch(batch, self.device))
+            bs = batch['feats'].shape[0]
+            for k, v in m.items():
+                tot[k] = tot.get(k, 0.0) + float(v) * bs
+            n += bs
+        return {k: v / max(n, 1) for k, v in tot.items()}
+
+    # ------------------------------ internals ------------------------------
+
+    def _snapshot(self, model, optimizer, epoch, cv_dataset):
+        self.snapshots_taken += 1
+        with_opt = (self.save_optimizer_every > 0 and
+                    self.snapshots_taken % self.save_optimizer_every == 0)
+        if should_force_snapshot(self.model_dir):
+            with_opt = True
+        info = {'step': self.step, 'epoch': epoch,
+                'frames_seen': self.frames_seen,
+                'lr': float(self.schedule(self.step)) if self.schedule
+                else None,
+                'tag': f'step_{self.step}'}
+        if self.run_tag:
+            info['run_tag'] = self.run_tag
+        if cv_dataset is not None:
+            cv_metrics = self.cv(model, cv_dataset)
+            info['cv_loss'] = cv_metrics.get('loss')
+            logging.info('CV at step %d: %s', self.step, cv_metrics)
+        name = (f'step_{self.step}' if self.use_named_snapshots
+                else ('snapshot_and_optimizer' if with_opt else 'snapshot'))
+        path = save_checkpoint(self.model_dir, name, model,
+                               optimizer if with_opt else None, info)
+        if self.save_to_tracker and hasattr(self.writer, 'log_artifact'):
+            # ckpt artifact upload (utils/checkpoint.py:180-190)
+            self.writer.log_artifact(f'ckpt-step_{self.step}', 'checkpoint',
+                                     {path.name: str(path),
+                                      f'{name}.yaml':
+                                      str(path.with_suffix('.yaml'))})
+
+    def _log(self, tag, epoch, metrics, t0):
+        lr = float(self.schedule(self.step)) if self.schedule else float('nan')
+        msg = {k: round(float(v), 4) for k, v in metrics.items()}
+        logging.info('%s epoch %d step %d lr %.3e %s (%.2fs/%d steps, '
+                     'stats %s)', tag, epoch, self.step, lr, msg,
+                     time.time() - t0, self.log_interval, dict(mystats))
+        if self.writer is not None:
+            for k, v in metrics.items():
+                self.writer.add_scalar(f'{tag.lower()}/{k}', float(v),
+                                       self.step)
+            self.writer.add_scalar('train/lr', lr, self.step)

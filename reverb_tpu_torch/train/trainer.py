@@ -3,7 +3,8 @@ global-norm pass for clipping, the non-finite skip and the metric, and the
 freeze rules.
 
 Counterpart of reverb_tpu/train/trainer.py (`TrainConfig`,
-`trainable_mask`, `build_optimizer`, `make_train_step`), with the same
+`trainable_mask`, `build_optimizer`, `make_train_step`, `make_eval_step`),
+with the same
 update arithmetic as its optax chain:
 
     mu = b1·mu + (1−b1)·g,  nu = b2·nu + (1−b2)·g²        (g after the clip)
@@ -229,3 +230,19 @@ def make_train_step(cfg: ModelConfig, optimizer: Adam, accum_grad: int = 1,
         return metrics
 
     return train_step
+
+
+def make_eval_step(cfg: ModelConfig):
+    """Returns eval_step(model, batch) → {loss, loss_att, loss_ctc,
+    th_accuracy} as floats (0.0 where a weight switches a term off): the
+    loss with no dropout, under torch.no_grad()
+    (reverb_tpu/train/trainer.py:make_eval_step)."""
+
+    def eval_step(model, batch) -> Dict[str, float]:
+        if model.cfg != cfg:
+            raise ValueError('eval_step: the model has another config')
+        with torch.no_grad():
+            out = compute_loss(model, batch, None)
+        return {k: 0.0 if v is None else float(v) for k, v in out.items()}
+
+    return eval_step

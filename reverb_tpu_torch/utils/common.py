@@ -1,7 +1,7 @@
 """Sequence and mask utilities (counterpart of reverb_tpu/utils/common.py:
-`subsequent_chunk_mask`, `add_optional_chunk_mask` without the training
-draw, `add_sos_eos`, `th_accuracy` and the sequence reversal), and the
-entry points' device rule `resolve_device`."""
+`subsequent_chunk_mask`, `add_optional_chunk_mask` with its training draw,
+`add_sos_eos`, `th_accuracy` and the sequence reversal), and the entry
+points' device rule `resolve_device`."""
 
 from __future__ import annotations
 
@@ -63,31 +63,69 @@ def th_accuracy(pred, gold, ignore_label: int = IGNORE_ID):
     return num.to(torch.float32) / den.to(torch.float32)
 
 
-def subsequent_chunk_mask(size: int, chunk_size: int,
-                          num_left_chunks: int = -1, device=None):
-    """(size, size) bool chunk-causal mask: position i sees its own chunk
-    and up to `num_left_chunks` chunks before it (all of them if < 0)."""
+def subsequent_chunk_mask(size: int, chunk_size, num_left_chunks=-1,
+                          device=None):
+    """(size, size) bool chunk-causal mask: position i sees columns
+    [max((i // chunk_size − num_left_chunks)·chunk_size, 0),
+    min((i // chunk_size + 1)·chunk_size, size)), from column 0 when
+    num_left_chunks < 0.  `chunk_size` and `num_left_chunks` are ints or
+    0-dim tensors on `device` (a drawn chunk, read without a host sync)."""
     row = torch.arange(size, device=device)
     chunk_idx = row // chunk_size
     ending = torch.clamp((chunk_idx + 1) * chunk_size, max=size)
-    if num_left_chunks < 0:
-        start = torch.zeros_like(row)
-    else:
-        start = torch.clamp((chunk_idx - num_left_chunks) * chunk_size,
-                            min=0)
+    num_left = torch.as_tensor(num_left_chunks, device=device)
+    start = torch.where(num_left < 0, torch.zeros_like(row),
+                        torch.clamp((chunk_idx - num_left) * chunk_size,
+                                    min=0))
     col = torch.arange(size, device=device)[None, :]
     return (col >= start[:, None]) & (col < ending[:, None])
+
+
+def dynamic_chunk_from_draws(size: int, raw_chunk, raw_left,
+                             use_dynamic_left_chunk: bool,
+                             enable_full_context: bool = True):
+    """(chunk, num_left) from the two raw draws of dynamic-chunk training
+    (0-dim integer tensors), with the JAX package's arithmetic
+    (reverb_tpu/utils/common.py:103-116): raw_chunk in [1, max(size, 2)) →
+    the full context (chunk = size) when enable_full_context and
+    raw_chunk > size // 2, else raw_chunk % 25 + 1; raw_left in [0, 2^30)
+    → num_left = raw_left % max((size − 1) // chunk, 1) with
+    use_dynamic_left_chunk, else −1 (all history)."""
+    full = (raw_chunk > size // 2) & enable_full_context
+    chunk = torch.where(full, torch.full_like(raw_chunk, size),
+                        raw_chunk % 25 + 1)
+    if not use_dynamic_left_chunk:
+        return chunk, torch.full_like(chunk, -1)
+    max_left = torch.clamp((size - 1) // torch.clamp(chunk, min=1), min=1)
+    return chunk, raw_left % max_left
+
+
+def draw_dynamic_chunk(size: int, generator: torch.Generator,
+                       use_dynamic_left_chunk: bool,
+                       enable_full_context: bool = True):
+    """The training draw of a dynamic chunk: two raw draws from
+    `generator` (on its device, no host read), then
+    `dynamic_chunk_from_draws`.  Returns (chunk, num_left) as 0-dim int64
+    tensors."""
+    dev = generator.device
+    raw_chunk = torch.randint(1, max(size, 2), (), generator=generator,
+                              device=dev)
+    raw_left = torch.randint(0, 2 ** 30, (), generator=generator, device=dev)
+    return dynamic_chunk_from_draws(size, raw_chunk, raw_left,
+                                    use_dynamic_left_chunk,
+                                    enable_full_context)
 
 
 def add_optional_chunk_mask(masks, use_dynamic_chunk: bool,
                             use_dynamic_left_chunk: bool,
                             decoding_chunk_size: int, static_chunk_size: int,
-                            num_decoding_left_chunks: int):
+                            num_decoding_left_chunks: int, generator=None,
+                            enable_full_context: bool = True):
     """The pad mask (B, 1, T) combined with the chunk mask the flags ask
     for: (B, T, T) in the chunked cases, the pad mask itself otherwise.
-    With `use_dynamic_chunk` and decoding_chunk_size 0 (training) the JAX
-    package draws a random chunk size; that draw is not ported (ROADMAP
-    item 9) and raises."""
+    With `use_dynamic_chunk` and decoding_chunk_size 0 (training) the chunk
+    is drawn from `generator` (`draw_dynamic_chunk`); without one it
+    raises, as the JAX package asserts an rng there."""
     size = masks.shape[-1]
     if use_dynamic_chunk:
         if decoding_chunk_size < 0:
@@ -97,9 +135,14 @@ def add_optional_chunk_mask(masks, use_dynamic_chunk: bool,
             return masks & subsequent_chunk_mask(
                 size, decoding_chunk_size, num_decoding_left_chunks,
                 masks.device)[None]
-        raise NotImplementedError(
-            'use_dynamic_chunk training (a random chunk size per batch) is '
-            'not ported: ROADMAP item 9')
+        if generator is None:
+            raise ValueError('dynamic chunk training needs a generator (the '
+                             'JAX package asserts an rng here)')
+        chunk, num_left = draw_dynamic_chunk(
+            size, generator, use_dynamic_left_chunk, enable_full_context)
+        return masks & subsequent_chunk_mask(size, chunk.to(masks.device),
+                                             num_left.to(masks.device),
+                                             masks.device)[None]
     if static_chunk_size > 0:
         return masks & subsequent_chunk_mask(
             size, static_chunk_size, num_decoding_left_chunks,

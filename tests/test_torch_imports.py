@@ -65,7 +65,21 @@ def test_port_imports_no_jax_and_no_reverb_tpu():
                  'reverb_tpu_torch.diar.assign',
                  'reverb_tpu_torch.eval.wer', 'reverb_tpu_torch.eval.der',
                  'reverb_tpu_torch.eval.wder',
-                 'reverb_tpu_torch.bin.infer_diarization'):
+                 'reverb_tpu_torch.bin.infer_diarization',
+                 'reverb_tpu_torch.data.dataset',
+                 'reverb_tpu_torch.data.processor',
+                 'reverb_tpu_torch.data.rev_processor',
+                 'reverb_tpu_torch.data.source',
+                 'reverb_tpu_torch.text.langid',
+                 'reverb_tpu_torch.train.executor',
+                 'reverb_tpu_torch.train.watchdog',
+                 'reverb_tpu_torch.utils.config',
+                 'reverb_tpu_torch.utils.tracking',
+                 'reverb_tpu_torch.utils.profiling',
+                 'reverb_tpu_torch.bin.train',
+                 'reverb_tpu_torch.bin.recognize',
+                 'reverb_tpu_torch.bin.get_loss',
+                 'reverb_tpu_torch.bin.average_model'):
         assert name in out['modules']
     assert out['bad'] == []
 

@@ -105,11 +105,18 @@ def test_add_optional_chunk_mask_matches_jax(dyn, dyn_left, dcs, static,
 
 
 def test_dynamic_chunk_training_draw_raises():
-    """The random chunk of use_dynamic_chunk training is not ported: it
-    raises instead of falling back to the full context."""
+    """The random chunk of use_dynamic_chunk training needs a generator: it
+    raises without one instead of falling back to the full context, as the
+    JAX package asserts an rng there; with one it draws a chunk mask."""
     masks = torch.ones((2, 1, 9), dtype=torch.bool)
-    with pytest.raises(NotImplementedError, match='item 9'):
+    with pytest.raises(ValueError, match='generator'):
         tcommon.add_optional_chunk_mask(masks, True, False, 0, 0, -1)
+    with pytest.raises(AssertionError, match='rng'):
+        jcommon.add_optional_chunk_mask(jnp.ones((2, 1, 9), bool), True,
+                                        False, 0, 0, -1)
+    got = tcommon.add_optional_chunk_mask(
+        masks, True, False, 0, 0, -1, torch.Generator().manual_seed(0))
+    assert got.shape == (2, 9, 9) and bool(got[:, :, 0].all())
 
 
 # ------------------------------ modules ------------------------------
@@ -299,8 +306,9 @@ def test_config_keeps_the_dynamic_chunk_keys():
 
 
 def test_compute_loss_raises_for_dynamic_chunk(dynamic):
-    """use_dynamic_chunk training needs the random chunk draw (ROADMAP item
-    9): the loss raises instead of training without the masks."""
+    """use_dynamic_chunk training draws its chunk from the step's generator:
+    without one the loss raises (the JAX package asserts an rng) instead of
+    training without the masks; with one it gives a finite loss."""
     _, _, model = dynamic
     feats, lens = _feats()
     batch = {'feats': torch.from_numpy(feats),
@@ -308,8 +316,10 @@ def test_compute_loss_raises_for_dynamic_chunk(dynamic):
              'target': torch.tensor([[3, 4, 5], [6, 7, -1]]),
              'target_lengths': torch.tensor([3, 2]),
              'cat_embs': torch.from_numpy(np.stack([CAT, CAT]))}
-    with pytest.raises(NotImplementedError, match='item 9'):
+    with pytest.raises(ValueError, match='generator'):
         tam.compute_loss(model, batch)
+    out = tam.compute_loss(model, batch, torch.Generator().manual_seed(0))
+    assert np.isfinite(float(out['loss'].detach()))
 
 
 # ------------------------------ K2 resumed ------------------------------
