@@ -176,8 +176,9 @@ def run_scan(lib, args):
     fin = torch.empty((8, B, K), dtype=torch.int32, device=lp.device)
     rc = lib.reverb_beam_scan_forward(
         lp.data_ptr(), ix.data_ptr(), ts.data_ptr(), valid.data_ptr(),
-        acc.data_ptr(), hs.data_ptr(), None, rec.data_ptr(), fin.data_ptr(),
-        B, T, K, K2, blank, chunk, torch.cuda.current_stream().cuda_stream)
+        acc.data_ptr(), hs.data_ptr(), None, None, None, rec.data_ptr(),
+        fin.data_ptr(), B, T, K, K2, blank, chunk, 0, 0,
+        torch.cuda.current_stream().cuda_stream)
     if rc != 0:
         raise RuntimeError(f'beam_scan_forward: CUDA error {rc} at launch')
     return rec, fin

@@ -13,6 +13,9 @@
 
     python3 chip_smoke.py --phases recipe       # only the dataset path
 
+    python3 chip_smoke.py --phases context,tools   # context biasing; the
+                                                    #   alignment tools
+
     python3 chip_smoke.py --profile             # + one profiled train step
 
     python3 chip_smoke.py --ab-parent DIR       # + K1-K6 of the checkout
@@ -103,6 +106,26 @@ corpus (64 + 8 `speech_like` WAVs of 8-20.5 s, texts of 20-80 units of the
   output (tokens and times identical, scores within 1e-4, as in
   `modes`).
 
+then context biasing and the tools, on the serving model:
+
+- context: K2b (the biased scan) against the plain biased scan at B = 8,
+  T = 512, K = 10 on peaky top-k with a graph of 120 phrases of tokens
+  from that top-k (records, trie states exactly; scores within 1e-4; full
+  length and ragged; the graph changes hypotheses), timed beside K2;
+  then two bf16 `transcribe_modes(MODES, format='ctm', context_graph=g)`
+  calls on the 164 s wav with a graph of the file's CTC top-k tokens —
+  K1 18 and K2b = K3 = 1 per encoder call, K2 never — whose CTM some row
+  of the graph changes and which K2b/K3 swapped for their plain versions
+  leave byte-equal; then a deep-biasing model (the context adaptor beside
+  the encoder): one f32 loss + backward at B = 2 through the kernels and
+  the plain versions (loss within 1e-5, gradients as in training), and 3
+  bf16 steps at B = 8 with a cv_list batch (K1 = K4 = 18, K5 = K6 = 120 a
+  step);
+- tools: on f32 copies of the serving weights, `bin.alignment` on 4 WAVs,
+  `cli.transcribe --align`, `--context_path` and plain, each equal to the
+  same run on the CPU; one POST to `cli.app` served on 127.0.0.1 (port
+  0) from a thread; `force_align` at T = 512, timed.
+
 Each path runs with the launch counters set to 0 just before it and read
 just after.  Every phase raises on failure; the exit code is 0 only when
 all of them pass.
@@ -140,7 +163,7 @@ SEED = 0                     # weights, audio and beam inputs
 LAYERS_ENC, LN_ENC, LN_DEC = 18, 91, 29   # reverb_large: per-step counts
 TRAIN_B, TRAIN_STEPS = 8, 4
 ALL_PHASES = ('kernels', 'serve', 'train', 'modes', 'stream', 'diar',
-              'recipe')
+              'recipe', 'context', 'tools')
 
 
 def log(msg):
@@ -253,7 +276,10 @@ def both_times(fn, reps: int, pattern=None):
 # each kernel's device events, by name (the profiler's demangled names)
 KERNEL_PATTERNS = {
     'K1': r'reverb_rpa.*fwd_kernel|rel_pos_attn_kernel',
-    'K2': r'beam_scan_kernel',
+    # K2 is every scan kernel but the biased one (a parent checkout's scan
+    # may be no template)
+    'K2': r'beam_scan_kernel(?!<true>|<1>|ILb1E)',
+    'K2b': r'beam_scan_kernel(<true>|<1>|ILb1E)',
     'K3': r'beam_backtrace_kernel',
     'K4': r'attn_bwd_rowdot|reverb_rpa.*(dkdv|dq)_kernel|attn_bwd_d',
     'K5': r'ln_fwd',
@@ -509,10 +535,10 @@ def checked_beam_kernels(errs, what, routes):
     from reverb_tpu_torch.ops import beam_scan as bs
     fwd, bt = bs.beam_scan_forward, bs.beam_backtrace
 
-    def forward(*args):
-        got = fwd(*args)
+    def forward(*args, **kwargs):
+        got = fwd(*args, **kwargs)
         errs.append(assert_beam_records(
-            got, bs.beam_scan_forward_plain(*args), what))
+            got, bs.beam_scan_forward_plain(*args, **kwargs), what))
         return got
 
     def backtrace(*args):
@@ -1226,6 +1252,7 @@ def zero_launch_counts():
     from reverb_tpu_torch.ops import flash_attention as fa
     from reverb_tpu_torch.ops import layer_norm as ln
     fa.LAUNCHES = bs.FWD_LAUNCHES = bs.BT_LAUNCHES = ln.LAUNCHES = 0
+    bs.BIASED_LAUNCHES = 0
 
 
 def check_beam_resume(dev, seed):
@@ -2173,9 +2200,9 @@ def recipe_train(dev, workdir: Path, seed: int) -> dict:
         def make(cfg):
             fn = orig(cfg)
 
-            def eval_step(m, batch):
+            def eval_step(m, batch, generator=None):
                 rec['eval'] += 1
-                return fn(m, batch)
+                return fn(m, batch, generator)
             return eval_step
         return make
 
@@ -2645,6 +2672,825 @@ def run_recipe(dev, seed=SEED):
         res['reference'] = recipe_reference_check(dev, workdir, seed)
     log(f'recipe: the phase took {time.perf_counter() - t_phase:.1f} s; on '
         f'{smi_line()}')
+    return res
+
+
+# ------------------------------ phase 13: context biasing ------------------------------
+
+CTX_PHRASES = 120            # distinct phrases of each context graph here
+CTX_SCORE = 3.0              # their context_score in the kernel check
+# the context_scores the serving and tools graphs try, highest first: the
+# first one that changes the output (serving: without overflowing
+# max_hyp_len) is kept.  The random model's blank and its commonest token
+# lie within a few tenths of a nat on most frames, so a small bonus
+# already lengthens its hypotheses.
+CTX_SCORES = (3.0, 1.0, 0.3, 0.1, 0.03)
+ADAPTOR_STEPS = 3            # bf16 steps of the deep-biasing model
+
+
+def k2b_launches() -> int:
+    from reverb_tpu_torch.ops import beam_scan as bs
+    return bs.BIASED_LAUNCHES
+
+
+def token_graph(phrases, score=CTX_SCORE):
+    """A ContextGraph (context_score `score`) of token-id phrases."""
+    from reverb_tpu_torch.decode.context_graph import ContextGraph
+    g = ContextGraph(context_list=[], symbol_table={}, context_score=score)
+    g.build([[int(t) for t in p] for p in phrases])
+    return g
+
+
+def topk_phrases(ix, seed, n=CTX_PHRASES):
+    """n distinct phrases of 2-4 tokens that occur in the top-k ix (B, T,
+    K), sorted: half follow a row's top-1 path (a run of the tokens it
+    emits, one of them replaced by the second or third choice at its frame
+    where that is not blank), half are drawn from every non-blank token of
+    the top-k."""
+    rng = np.random.RandomState(seed)
+    top = ix.cpu().numpy()
+    paths = []
+    for row in top:
+        t1 = row[:, 0]
+        emit = np.flatnonzero((t1 != 0) & (t1 != np.r_[-1, t1[:-1]]))
+        if len(emit) > 4:
+            paths.append((row, emit))
+    pool = sorted(set(top.flatten().tolist()) - {0})
+    if len(pool) < 3:
+        raise AssertionError(f'the top-k holds {len(pool)} non-blank tokens')
+    out = set()
+    for _ in range(20 * n if paths else 0):
+        if len(out) >= n // 2:
+            break
+        row, emit = paths[rng.randint(len(paths))]
+        k = rng.randint(2, 5)
+        frames = emit[rng.randint(len(emit) - k + 1):][:k]
+        p = row[frames, 0].copy()
+        j = rng.randint(k)
+        alt = row[frames[j], 1 + rng.randint(2)]
+        if alt != 0:
+            p[j] = alt
+        out.add(tuple(int(t) for t in p))
+    while len(out) < n:
+        out.add(tuple(int(t) for t in rng.choice(pool, rng.randint(2, 5))))
+    return sorted(out)
+
+
+def check_beam_biased(dev, seed):
+    """K2b against the plain biased scan at B = 8, T = 512, K = K2 = 10 on
+    peaky top-k with a graph of CTX_PHRASES phrases of tokens from that
+    top-k: every record, plen, last, hash and trie state exactly, the
+    scores and bonuses within 1e-4; then the whole biased search (K2b, K3)
+    against the plain one, full length and ragged (a row of 0 and of 1
+    frame): prefixes, plens and times exactly, scores within 1e-4, and the
+    graph changing the best hypothesis of some row against the unbiased
+    search.  Times K2b per call and on the device alone beside the
+    unbiased K2 and the plain biased scan."""
+    import torch
+    from reverb_tpu_torch.decode import prefix_beam as pb
+    from reverb_tpu_torch.ops import beam_scan as bs
+    B, T, K = 8, 512, 10
+    lp, ix, blank = peaky_topk(dev, seed + 200)
+    g = token_graph(topk_phrases(ix, seed + 201))
+    tables = pb._graph_tables(g, VOCAB, dev)
+    nt_st = tables[:2]
+    errs, changed = [], 0
+    plain = {(bs, 'beam_scan_forward'): bs.beam_scan_forward_plain,
+             (bs, 'beam_backtrace'): bs.beam_backtrace_plain}
+    for what, lens in (('full length', [T] * B),
+                       ('ragged', [512, 480, 400, 512, 1, 256, 100, 0])):
+        lens = torch.tensor(lens, device=dev)
+        ts = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(
+            B, T).contiguous()
+        valid = torch.arange(T, device=dev)[None] < lens[:, None]
+        acc = torch.zeros((B, T), dtype=torch.float32, device=dev)
+        hs = torch.zeros((B, T), dtype=torch.bool, device=dev)
+        args = (lp, ix, ts, valid, acc, hs, K, 0)
+        got = bs.beam_scan_forward(*args, ctx_tables=nt_st)
+        want = bs.beam_scan_forward_plain(*args, ctx_tables=nt_st)
+        errs.append(assert_beam_records(got, want, f'K2b {what}'))
+        if not torch.equal(got[0]['ctx'], want[0]['ctx']):
+            raise AssertionError(f'K2b {what}: final trie states differ')
+        errs.append(float((got[0]['cum'] - want[0]['cum']).abs().max()))
+        if not errs[-1] <= 1e-4:
+            raise AssertionError(f'K2b {what}: bonuses differ by {errs[-1]}')
+        out_k = pb.ctc_prefix_beam_search_device_topk(
+            lp, ix, blank, lens, K, 0, 256, 0.0, 0, tables)
+        with swapped(plain):
+            out_p = pb.ctc_prefix_beam_search_device_topk(
+                lp, ix, blank, lens, K, 0, 256, 0.0, 0, tables)
+        unbiased = pb.ctc_prefix_beam_search_device_topk(
+            lp, ix, blank, lens, K, 0, 256)
+        torch.cuda.synchronize()
+        for a, b, name in zip(out_k, out_p, ('prefixes', 'plens', 'scores',
+                                            'times')):
+            if b.dtype.is_floating_point:
+                errs.append(float((a - b).abs().max()))
+                if not errs[-1] <= 1e-4:
+                    raise AssertionError(f'biased beam {what}: {name} differ '
+                                         f'by {errs[-1]}')
+            elif not torch.equal(a, b):
+                raise AssertionError(f'biased beam {what}: {name} differ')
+        n_changed = int(((out_k[0][:, 0] != unbiased[0][:, 0]).any(-1)
+                         | (out_k[1][:, 0] != unbiased[1][:, 0])).sum())
+        changed += n_changed
+        log(f'K2b+K3 biased beam ({what}, {g.num_nodes + 1} trie states, '
+            f'{CTX_PHRASES} phrases): records, trie states, prefixes, plens '
+            f'and times equal to the plain scan, score err {max(errs):.2e}; '
+            f'the graph changed the best hypothesis of {n_changed} of {B} '
+            f'rows')
+    if not changed:
+        raise AssertionError('the context graph changed no hypothesis')
+    ts = torch.arange(T, dtype=torch.int32, device=dev)[None].expand(
+        B, T).contiguous()
+    valid = torch.ones((B, T), dtype=torch.bool, device=dev)
+    acc = torch.zeros((B, T), dtype=torch.float32, device=dev)
+    hs = torch.zeros((B, T), dtype=torch.bool, device=dev)
+    args = (lp, ix, ts, valid, acc, hs, K, 0)
+    final, em = bs.beam_scan_forward(*args, ctx_tables=nt_st)
+    t = {'plain': cuda_time_ms(
+        lambda: bs.beam_scan_forward_plain(*args, ctx_tables=nt_st), 1)}
+    t['ms'], t['device_ms'] = both_times(
+        lambda: bs.beam_scan_forward(*args, ctx_tables=nt_st), 5,
+        KERNEL_PATTERNS['K2b'])
+    t['k2_ms'], t['k2_device_ms'] = both_times(
+        lambda: bs.beam_scan_forward(*args), 5, KERNEL_PATTERNS['K2'])
+    t['us_frame'] = t['device_ms'] * 1e3 / T
+    # each input read once, each output written once, and the table
+    # entries this run gathers: 4 + 4 bytes for each cell of a valid frame
+    t['nbytes'] = (nbytes(args[:6], final, em)
+                   + int(valid.sum()) * K * ix.shape[2] * 8)
+    log(f'K2b biased beam_scan_forward: kernel {t["ms"]:.4f} ms per call '
+        f'({t["device_ms"]:.4f} on the device, {t["us_frame"]:.3f} us a '
+        f'frame), unbiased K2 in the same process {t["k2_ms"]:.4f} ms '
+        f'({t["k2_device_ms"]:.4f} on the device), plain biased '
+        f'{t["plain"]:.1f} ms (B=8, T=512, K=10); on {smi_line()}')
+    return max(errs), t
+
+
+def file_topk(asr, feats):
+    """The CTC top-10 token ids (B, T, 10) of the file's chunks: the
+    tokens a context graph can promote."""
+    import torch
+    from reverb_tpu_torch.decode import api
+    dev = feats.device
+    batch, lens = next(asr.feats_batcher(feats, CHUNK, N_CHUNKS))
+    with torch.inference_mode():
+        return api.encode_and_ctc_topk(
+            asr.model, batch, torch.from_numpy(lens).to(dev),
+            torch.tensor([1.0, 0.0], device=dev), 10)[3]
+
+
+def matched_rows(a: str, b: str) -> int:
+    """The rows two CTMs share in order (difflib's matching blocks): a
+    word that one of them adds or drops costs its own row only."""
+    import difflib
+    ra, rb = a.splitlines(), b.splitlines()
+    return sum(m.size for m in difflib.SequenceMatcher(
+        None, ra, rb, autojunk=False).get_matching_blocks())
+
+
+def matched_tokens(got, want) -> tuple:
+    """(tokens of the hypotheses `want` that `got`'s share in order,
+    tokens of `want`), over two lists of token lists."""
+    import difflib
+    return (sum(m.size for a, b in zip(got, want)
+                for m in difflib.SequenceMatcher(
+                    None, a, b, autojunk=False).get_matching_blocks()),
+            sum(len(b) for b in want))
+
+
+def run_context_serving(dev, asr, wav, feats, audio_s):
+    """Biased serving at reverb_large width in bf16.  One unbiased
+    `transcribe_modes(MODES, format='ctm')` call; a graph of CTX_PHRASES
+    distinct phrases of the tokens in the file's CTC top-k (`topk_phrases`)
+    at the first context_score of CTX_SCORES whose biased call changes some
+    CTM row and runs no uncapped tail (no hypothesis past max_hyp_len);
+    then, counted: two biased calls (a warm-up and a timed one) with
+    launches K1 = 18 and K2b = K3 = 1 per encoder call, K2 never, and one
+    with max_hyp_len FALLBACK_MAX_HYP_LEN, where the uncapped tail runs K2b
+    and K3 again.  The same biased call with K2b and K3 swapped for their
+    plain versions gives the same CTM bytes; with every kernel swapped (K1
+    and K5 too: the bf16 encoder output moves) the best hypotheses' tokens
+    that still match are counted, biased and unbiased."""
+    import functools
+    import torch
+    from reverb_tpu_torch.cli import reverb as rv
+    from reverb_tpu_torch.decode import api
+    from reverb_tpu_torch.ops import beam_scan as bs
+    captured, tails = [], []
+    decode_fn, tail_fn = rv.decode_modes_fn, api._decode_uncapped
+    cap = [None]
+
+    def recording(*args, **kwargs):
+        if cap[0] is not None:
+            kwargs['max_hyp_len'] = cap[0]
+        out = decode_fn(*args, **kwargs)
+        captured.append(out)
+        return out
+
+    @functools.wraps(tail_fn)
+    def tail(*args, **kwargs):
+        tails.append(1)
+        return tail_fn(*args, **kwargs)
+
+    def changed_rows(out, ref):
+        return {m: len(c.splitlines()) - matched_rows(c, c0)
+                for m, c, c0 in zip(MODES, out, ref)}
+
+    def run(g=None):
+        """One call: (CTM strings, uncapped tails, the longest best
+        hypothesis of the prefix beam, each chunk's best hypothesis of
+        each mode)."""
+        del captured[:], tails[:]
+        out = asr.transcribe_modes(str(wav), MODES, format='ctm',
+                                   context_graph=g)
+        best = {m: [r.tokens for res in captured for r in res[m]]
+                for m in MODES}
+        return out, len(tails), max(
+            len(t) for t in best['ctc_prefix_beam_search']), best
+    phrases = topk_phrases(file_topk(asr, feats), SEED + 210)
+    tried = {}
+    with swapped({(rv, 'decode_modes_fn'): recording,
+                  (api, '_decode_uncapped'): tail}):
+        base, _, base_len, base_tok = run()
+        for score in CTX_SCORES:
+            g = token_graph(phrases, score)
+            out, n_tails, longest, out_tok = run(g)
+            tried[score] = (n_tails, longest, changed_rows(out, base))
+            if not n_tails and any(tried[score][2].values()):
+                break
+        else:
+            raise AssertionError(f'no context_score of {CTX_SCORES} changes '
+                                 f'a CTM row without an uncapped tail: '
+                                 f'(tails, longest hypothesis, changed rows) '
+                                 f'{tried}')
+        log(f'biased serving: longest best hypothesis {base_len} tokens '
+            f'unbiased; context_score tried (uncapped tails, longest best '
+            f'hypothesis, CTM rows changed) {tried}; kept {score}')
+
+        def counted(n_calls, max_hyp_len=None):
+            cap[0] = max_hyp_len
+            del captured[:], tails[:]
+            ln_calls, hooks = ln_call_counter(asr.model)
+            zero_launch_counts()
+            walls = []
+            try:
+                for _ in range(n_calls):
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    out = asr.transcribe_modes(str(wav), MODES, format='ctm',
+                                               context_graph=g)
+                    torch.cuda.synchronize()
+                    walls.append(time.perf_counter() - t0)
+            finally:
+                for h in hooks:
+                    h.remove()
+                cap[0] = None
+            launches = dict(launch_counts(), K2b=k2b_launches())
+            n_enc, n_beam = len(captured), len(captured) + len(tails)
+            want = {'K1': LAYERS_ENC * n_enc, 'K2': 0, 'K3': n_beam,
+                    'K5': ln_calls[0], 'K2b': n_beam}
+            what = ('no cap' if max_hyp_len is None
+                    else f'max_hyp_len={max_hyp_len}')
+            log(f'biased serving ({what}) launches {launches}, expected '
+                f'{want} ({n_enc} encoder calls in {n_calls} '
+                f'transcribe_modes calls, {len(tails)} uncapped tails)')
+            if launches != want or ln_calls[0] < LN_ENC * n_enc or \
+                    len(tails) != (0 if max_hyp_len is None else n_enc):
+                raise AssertionError(f'biased serving ({what}) did not run '
+                                     f'every kernel the expected number of '
+                                     f'times')
+            return out, launches, walls, n_enc
+        out, launches, walls, n_enc = counted(2)
+        out_tail, launches_tail, walls_tail, _ = counted(
+            1, FALLBACK_MAX_HYP_LEN)
+    rows = {m: check_ctm_rows(c, wav.name, m) for m, c in zip(MODES, out)}
+    for m, c in zip(MODES, out_tail):
+        check_ctm_rows(c, wav.name, m)
+    changed = changed_rows(out, base)
+    plain_beam = {(bs, 'beam_scan_forward'): bs.beam_scan_forward_plain,
+                  (bs, 'beam_backtrace'): bs.beam_backtrace_plain}
+    with swapped(plain_beam):
+        out_pb = asr.transcribe_modes(str(wav), MODES, format='ctm',
+                                      context_graph=g)
+    if out_pb != out:
+        raise AssertionError('biased serving: the CTM with K2b and K3 differs '
+                             'from the CTM with their plain versions')
+    # every kernel plain: the bf16 encoder output moves, and tokens whose
+    # log-probs lie within that rounding of blank's may flip
+    with swapped({**plain_beam, **plain_versions(),
+                  (rv, 'decode_modes_fn'): recording,
+                  (api, '_decode_uncapped'): tail}):
+        out_p, _, _, out_tok_p = run(g)
+        base_p, _, _, base_tok_p = run()
+    if out_p == base_p:
+        raise AssertionError('the context graph changed no CTM row with the '
+                             'plain versions')
+    agree = {m: matched_tokens(out_tok[m], out_tok_p[m]) for m in MODES}
+    agree_base = {m: matched_tokens(base_tok[m], base_tok_p[m])
+                  for m in MODES}
+    log(f'biased serving: {audio_s:.2f} s of audio, {len(phrases)} distinct '
+        f'phrases ({g.num_nodes + 1} trie states), context_score {score}; '
+        f'transcribe_modes wall {walls[0]:.4f} s (first), {walls[1]:.4f} s '
+        f'(second, xRT {audio_s / walls[1]:.1f}), {walls_tail[0]:.4f} s with '
+        f'max_hyp_len={FALLBACK_MAX_HYP_LEN} (the uncapped tail on every '
+        f'chunk); CTM rows {rows}, unbiased '
+        f'{ {m: len(c.splitlines()) for m, c in zip(MODES, base)} }, rows '
+        f'not matched in the unbiased CTM {changed}; CTM with K2b/K3 '
+        f'swapped for their plain versions byte-equal; with every kernel '
+        f'plain (the random model emits no word boundary: a CTM row is a '
+        f'chunk), best-hypothesis tokens matched in order (of the plain '
+        f'run\'s) biased {agree}, unbiased {agree_base}: the bf16 encoder '
+        f'output moves, and tokens within its rounding of blank flip with '
+        f'or without the graph')
+    return {'launches': launches, 'calls': 2, 'n_enc': n_enc,
+            'launches_tail': launches_tail, 'walls': walls,
+            'wall_tail': walls_tail[0], 'changed': changed, 'score': score,
+            'phrases': len(phrases), 'states': g.num_nodes + 1,
+            'tried': tried}
+
+
+def adaptor_model(dev, seed, dtype):
+    """presets.reverb_large with deep_bias_conf.deep_biasing (a context
+    adaptor beside the encoder), randomly initialized from `seed`; with
+    its optimizer and train step."""
+    import torch
+    from reverb_tpu_torch.models import presets
+    from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
+    from reverb_tpu_torch.train.trainer import (TrainConfig,
+                                                build_optimizer,
+                                                make_train_step)
+    configs = presets.reverb_large()
+    configs.setdefault('dataset_conf', {})['deep_bias_conf'] = {
+        'deep_biasing': True}
+    cfg = ModelConfig.from_config(configs).with_compute_dtype(dtype)
+    if not cfg.context_adaptor:
+        raise AssertionError('deep_biasing did not reach the model config')
+    model = build_model(cfg, dev, generator=torch.Generator(
+        device=dev).manual_seed(seed), train=True)
+    tc = TrainConfig.from_config(configs)
+    opt, _ = build_optimizer(tc, model)
+    return model, opt, make_train_step(cfg, opt, tc.accum_grad, tc.grad_clip)
+
+
+def with_cv_list(batch, seed):
+    """`batch` with the context phrases of a deep-biasing batch: two spans
+    of 2-4 tokens of each utterance's target, padded with 0."""
+    import torch
+    rng = np.random.RandomState(seed)
+    target = batch['target'].cpu().numpy()
+    tlens = batch['target_lengths'].cpu().numpy()
+    terms = []
+    for row, n in zip(target, tlens):
+        for _ in range(2):
+            k = rng.randint(2, 5)
+            i = rng.randint(0, n - k)
+            terms.append(row[i:i + k])
+    cv = np.zeros((len(terms), 4), np.int64)
+    for i, t in enumerate(terms):
+        cv[i, :len(t)] = t
+    dev = batch['feats'].device
+    return dict(batch, cv_list=torch.from_numpy(cv).to(dev),
+                cv_list_lengths=torch.tensor([len(t) for t in terms],
+                                             device=dev))
+
+
+def run_adaptor_training(dev, seed):
+    """The deep-biasing model: f32 at B = 2 with dropout and a cv_list
+    batch, one loss + backward through the kernels with every K1/K4/K5/K6
+    call held to its plain version on its own inputs (`checked_kernels`),
+    once through the plain versions and once in f64 (`f64_versions`), as
+    `recipe_reference_check` holds a training batch: the loss within 1e-5
+    relative of the plain one, the kernels' gradient no further from the
+    f64 one than twice the plain f32 gradient is (the f32 noise floor of
+    this model, 1e-4 globally, is what `train_reference_check`'s bound
+    sits on), the adaptor's gradient non-zero; then ADAPTOR_STEPS bf16
+    steps at B = 8 with a cv_list batch: launches K1 = K4 = 18 and K5 = K6
+    = 120 a step, finite losses, the adaptor's parameters updated and its
+    bias zero on the frames that pick the blank term only."""
+    import torch
+    from reverb_tpu_torch.models.asr_model import build_model
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    model, _, _ = adaptor_model(dev, seed, torch.float32)
+    batch = with_cv_list(train_batch(dev, 2, seed + 1, model.cfg.vocab_size),
+                         seed)
+    errs = {}
+    loss_k, g_k = loss_and_grads(model, batch, dev, checked_kernels(errs))
+    check_call_errs(errs, 'adaptor reference')
+    loss_p, g_p = loss_and_grads(model, batch, dev, plain_versions())
+    m64 = build_model(model.cfg.with_compute_dtype(torch.float64), dev,
+                      state_dict=model.state_dict(), train=True).double()
+    b64 = {k: v.double() if v.is_floating_point() else v
+           for k, v in batch.items()}
+    loss_d, g_d = loss_and_grads(m64, b64, dev, f64_versions())
+    del m64, b64
+    loss_rel = abs(loss_k - loss_p) / abs(loss_p)
+    dist = {'kernels vs plain': grad_dist(g_k, g_p),
+            'kernels vs f64': grad_dist(g_k, g_d),
+            'plain vs f64': grad_dist(g_p, g_d)}
+    ca_grad = math.sqrt(sum(
+        float(torch.linalg.vector_norm(g)) ** 2
+        for (name, _), g in zip(model.named_parameters(), g_p)
+        if name.startswith('context_adaptor.')))
+    log(f'adaptor reference: reverb_large + context adaptor f32, B=2, '
+        f'{int(batch["cv_list"].shape[0])} phrases, dropout 0.1: every '
+        f'kernel call against its plain version, worst share of scale '
+        + ', '.join(f'{n} {e:.2e}' for n, e in sorted(errs.items()))
+        + f'; loss {loss_k:.6f} vs plain {loss_p:.6f} (rel {loss_rel:.2e}), '
+        f'f64 {loss_d:.6f}; gradient distances '
+        + ', '.join(f'{n} {d:.2e}' for n, d in dist.items())
+        + f'; adaptor gradient norm {ca_grad:.3e}')
+    if not (loss_rel <= 1e-5 and ca_grad > 0 and
+            dist['kernels vs f64'] <= 2 * dist['plain vs f64']):
+        raise AssertionError('adaptor reference: the loss or gradient '
+                             'through the kernels differs from the plain '
+                             'versions, or no adaptor gradient')
+    del model, g_k, g_p, g_d
+    torch.cuda.empty_cache()
+
+    model, opt, step = adaptor_model(dev, seed, torch.bfloat16)
+    batch = with_cv_list(train_batch(dev, TRAIN_B, seed + 2,
+                                     model.cfg.vocab_size), seed + 1)
+    ca_before = [p.detach().clone()
+                 for p in model.context_adaptor.parameters()]
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    ln_calls, hooks = ln_call_counter(model)
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ln.LAUNCHES = ln.BWD_LAUNCHES = 0
+    walls, metrics = [], []
+    try:
+        for _ in range(ADAPTOR_STEPS):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            metrics.append(step(model, batch, gen))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+    finally:
+        for h in hooks:
+            h.remove()
+    launches = {'K1': fa.LAUNCHES, 'K4': fa.BWD_LAUNCHES,
+                'K5': ln.LAUNCHES, 'K6': ln.BWD_LAUNCHES}
+    n = ADAPTOR_STEPS
+    want = {'K1': LAYERS_ENC * n, 'K4': LAYERS_ENC * n,
+            'K5': (LN_ENC + LN_DEC) * n, 'K6': (LN_ENC + LN_DEC) * n}
+    log(f'adaptor training launches {launches}, expected {want} ({n} bf16 '
+        f'steps at B={TRAIN_B}); losses '
+        f'{[round(m["loss"], 4) for m in metrics]}, grad norms '
+        f'{[round(m["grad_norm"], 3) for m in metrics]}; ms a step '
+        f'{[round(w * 1e3, 1) for w in walls]}')
+    if launches != want or ln_calls[0] != want['K5']:
+        raise AssertionError('adaptor training did not run every kernel the '
+                             'expected number of times')
+    if not all(math.isfinite(m['loss']) and m['skipped'] == 0.0
+               for m in metrics):
+        raise AssertionError(f'adaptor training: {metrics}')
+    if all(torch.equal(a, p.detach()) for a, p in
+           zip(ca_before, model.context_adaptor.parameters())):
+        raise AssertionError('adaptor training left the adaptor unchanged')
+    share, moved = adaptor_blank_rule(model, batch)
+    log(f'adaptor: with the query bias moved by {moved:.3e} (the blank '
+        f'term\'s score raised by the median margin), the blank term wins '
+        f'on {share:.3f} of the valid frames; the bias is zero on exactly '
+        f'those')
+    step_ms = sum(walls[1:]) / (n - 1) * 1e3
+    del model, opt, step
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'steps': n, 'step_ms': step_ms,
+            'loss_rel': loss_rel, 'call_errs': dict(errs), **dist}
+
+
+def adaptor_blank_rule(model, batch):
+    """The adaptor's "picks blank → zero" rule on the trained model and the
+    batch.  Random weights leave the blank term last on every frame, so the
+    query bias first moves by the least-norm δ with δ·k_j = 0 for every
+    phrase key k_j and δ·k_0 = √dk · the median over the valid frames of
+    the margin (best phrase score − blank score): the blank term then wins
+    on about half of the frames and loses on the rest, and the rule is
+    tested both ways.  The bias must be zero on exactly the frames whose
+    attention argmax is the blank term.  Returns (the share of valid frames
+    that pick blank, |δ|)."""
+    import torch
+    from reverb_tpu_torch.models.context_adaptor import combine_layers
+    ca = model.context_adaptor
+    att = ca.attention
+    with torch.no_grad():
+        out, mask, layers = model.forward_encoder(
+            batch['feats'], batch['feats_lengths'], batch['cat_embs'],
+            decoding_chunk_size=0, return_layers=True)
+        emb = ca.encode_cv(batch['cv_list'], batch['cv_list_lengths'])
+        valid = mask[:, 0]
+        q = combine_layers(layers).to(emb.dtype)
+        k = att.cross_kv(emb)[0][0, 0].double()            # (N + 1, dk)
+        scores = att.linear_q(q).double() @ k.t()           # × √dk
+        margin = (scores[..., 1:].amax(-1) - scores[..., 0])[valid]
+        target = torch.zeros(k.shape[0], dtype=torch.float64,
+                             device=k.device)
+        target[0] = margin.median()
+        delta = torch.linalg.pinv(k) @ target
+        att.linear_q.bias += delta.to(att.linear_q.bias.dtype)
+        bias = ca(layers, emb)
+        kv = emb.expand(out.shape[0], -1, -1)
+        _, attn = att.forward_shared_kv_grouped(
+            q, att.cross_kv(kv), None, 1, return_weights=True)
+        zero = (bias == 0).all(-1)[valid]
+        blank = (torch.argmax(attn[:, 0], -1) == 0)[valid]
+    share = float(blank.float().mean())
+    if not 0 < share < 1:
+        raise AssertionError(f'the adaptor\'s blank term wins on {share} of '
+                             f'the frames: the rule is not tested both ways')
+    if not torch.equal(zero, blank):
+        raise AssertionError('the adaptor\'s bias is not zero exactly where '
+                             'the blank term wins')
+    return share, float(torch.linalg.vector_norm(delta))
+
+
+def run_context(dev, asr, wav, feats, audio_s, seed=SEED):
+    """Context biasing: K2b against its plain version, biased serving, and
+    a deep-biasing model's training steps."""
+    t0 = time.perf_counter()
+    err, t = check_beam_biased(dev, seed)
+    res = {'k2b_err': err, 'k2b': t,
+           'serving': run_context_serving(dev, asr, wav, feats, audio_s),
+           'adaptor': run_adaptor_training(dev, seed)}
+    log(f'context: the phase took {time.perf_counter() - t0:.1f} s; on '
+        f'{smi_line()}')
+    return res
+
+
+# ------------------------------ phase 14: the tools ------------------------------
+
+TOOLS_WAVS = 4                        # WAVs of 3-6 s for bin/alignment
+
+
+def tools_asr(asr, device, tokenizer):
+    """A ReverbASR over an f32 copy of asr's weights on `device`."""
+    import torch
+    from reverb_tpu_torch.cli.reverb import ReverbASR
+    from reverb_tpu_torch.models.asr_model import build_model
+    sd = {k: v.detach().to('cpu') for k, v in asr.model.state_dict().items()}
+    cfg = asr.model.cfg.with_compute_dtype(torch.float32)
+    return ReverbASR.from_model(asr.configs, build_model(cfg, device, sd),
+                                tokenizer)
+
+
+def post_wav(port: int, wav: Path) -> dict:
+    """POST `wav` as multipart form data to the demo app on 127.0.0.1
+    (http.client: no proxy is consulted)."""
+    import http.client
+    boundary = 'reverbsmokeboundary'
+    body = (f'--{boundary}\r\nContent-Disposition: form-data; name="audio";'
+            f' filename="{wav.name}"\r\nContent-Type: audio/wav\r\n\r\n'
+            ).encode() + wav.read_bytes() + f'\r\n--{boundary}--\r\n'.encode()
+    conn = http.client.HTTPConnection('127.0.0.1', port, timeout=120)
+    try:
+        conn.request('POST', '/transcribe', body=body, headers={
+            'Content-Type': f'multipart/form-data; boundary={boundary}'})
+        resp = conn.getresponse()
+        if resp.status != 200:
+            raise AssertionError(f'app: HTTP {resp.status}')
+        return json.loads(resp.read())
+    finally:
+        conn.close()
+
+
+class tools_counter:
+    """Context manager around one card-side run of a tool: every launch
+    count zeroed on entry and read on exit (`launches`, K2b included), and
+    the encoder calls (`n_enc`) and LayerNorm calls on CUDA inputs of a
+    shape K5 takes (`ln`) of any model, through global module hooks (the
+    tools build their own models).  On exit it asserts K1 = 18 and K5 ≥
+    LN_ENC per encoder call, K5 = the LayerNorm calls, and, by `beam`:
+    None no beam, 'plain' K2 = K3 ≥ 1 a call and no K2b, 'biased' K2b = K3
+    ≥ 1 a call and no K2."""
+
+    def __init__(self, name: str, beam=None):
+        self.name, self.beam = name, beam
+
+    def __enter__(self):
+        from torch.nn.modules.module import register_module_forward_hook
+        from reverb_tpu_torch.models.encoder import ConformerEncoder
+        from reverb_tpu_torch.models.modules import LayerNorm
+        from reverb_tpu_torch.ops import layer_norm as ln
+        self.n_enc = self.ln = 0
+
+        def hook(mod, args, out):
+            if isinstance(mod, ConformerEncoder):
+                self.n_enc += 1
+            elif (isinstance(mod, LayerNorm) and args[0].is_cuda
+                  and ln.eligible(args[0])):
+                self.ln += 1
+        self.handle = register_module_forward_hook(hook)
+        zero_launch_counts()
+        return self
+
+    def __exit__(self, *exc):
+        import torch
+        torch.cuda.synchronize()
+        self.handle.remove()
+        if exc[0] is not None:
+            return False
+        got = dict(launch_counts(), K2b=k2b_launches())
+        n = self.n_enc
+        beam = {'K2': 0, 'K3': 0, 'K2b': 0}
+        if self.beam == 'plain':
+            beam = {'K2': got['K3'], 'K3': max(got['K3'], n), 'K2b': 0}
+        elif self.beam == 'biased':
+            beam = {'K2': 0, 'K3': max(got['K3'], n), 'K2b': got['K3']}
+        want = {'K1': LAYERS_ENC * n, **beam, 'K5': self.ln}
+        self.launches = got
+        log(f'tools {self.name}: launches {got}, expected {want} ({n} '
+            f'encoder calls, {self.ln} LayerNorm calls)')
+        if got != want or n < 1 or self.ln < LN_ENC * n:
+            raise AssertionError(f'tools {self.name}: the kernels did not '
+                                 f'run the expected number of times')
+        return False
+
+
+def run_tools(dev, asr, wav, feats, audio_s, workdir: Path, seed=SEED):
+    """The tools on f32 copies of the serving weights, each against the
+    same run on the CPU: `bin.alignment` on TOOLS_WAVS WAVs (TextGrids
+    byte-equal), `cli.transcribe --align` (JSON equal), plain and
+    `--context_path` (text equal, and changed by the context against the
+    plain call, at the first context_score of CTX_SCORES that changes it);
+    one POST to `cli.app` on 127.0.0.1 (port 0, a thread), answered as
+    `transcribe` answers; each card-side run with its launches counted and
+    asserted (`tools_counter`); `force_align` timed at T = 512."""
+    import contextlib
+    import copy
+    import io
+    import threading
+    from http.server import HTTPServer
+
+    import torch
+    from reverb_tpu_torch import convert
+    from reverb_tpu_torch.bin import alignment
+    from reverb_tpu_torch.cli import app, transcribe
+    from reverb_tpu_torch.cli import reverb as rv
+    from reverb_tpu_torch.decode.api import encode_and_ctc
+    from reverb_tpu_torch.decode.ctc_utils import force_align
+    from reverb_tpu_torch.text.tokenizer import init_tokenizer
+    t_phase = time.perf_counter()
+    tdir = workdir / 'tools'
+    tdir.mkdir()
+    configs = copy.deepcopy(asr.configs)
+    configs['dtype'] = 'fp32'
+    configs['tokenizer_conf']['split_with_space'] = True
+    configs.setdefault('dataset_conf', {}).update({
+        'fbank_conf': {'num_mel_bins': 80, 'frame_length': 25,
+                       'frame_shift': 10, 'dither': 0.0},
+        'batch_conf': {'batch_type': 'static', 'batch_size': 1}})
+    tok = init_tokenizer(configs)
+    models = {'cuda': tools_asr(asr, dev, tok),
+              'cpu': tools_asr(asr, torch.device('cpu'), tok)}
+    units = [ln.split()[0] for ln in (workdir / 'units.txt').read_text(
+        encoding='utf8').splitlines()[2:-1]]
+    rng = np.random.RandomState(seed + 300)
+    lines = []
+    for i in range(TOOLS_WAVS):
+        n = int(rng.uniform(3.0, 6.0) * 16000)
+        path = tdir / f'align{i}.wav'
+        write_wav(path, n, seed + 310 + i)
+        text = ' '.join(rng.choice(units, n // 16000 * 3))
+        lines.append(json.dumps({'key': f'utt{i}', 'wav': str(path),
+                                 'txt': text, 'style': 'verbatim'}))
+    (tdir / 'align.list').write_text('\n'.join(lines) + '\n')
+    (tdir / 'config.json').write_text(json.dumps(configs))
+    np.savez(tdir / 'model.npz', **convert.flat_from_state_dict(
+        models['cpu'].model.state_dict()))
+    one = tdir / 'align0.wav'
+    label = json.loads(lines[0])['txt']
+    # the context phrases: tokens of the WAV's CTC top-k
+    phrases = topk_phrases(file_topk(models['cuda'], models[
+        'cuda'].compute_feats(str(one))), seed + 320)
+    (tdir / 'context.txt').write_text('\n'.join(
+        ' '.join(tok.ids2tokens(p)) for p in phrases) + '\n',
+        encoding='utf8')
+    res, out, counts = {'context_phrases': len(phrases)}, {}, {}
+
+    def timed(key, fn, counter=None):
+        t0 = time.perf_counter()
+        with counter or contextlib.nullcontext():
+            with contextlib.redirect_stdout(io.StringIO()):
+                got = fn()
+        res[key] = time.perf_counter() - t0
+        if counter is not None:
+            counts[counter.name] = (counter.launches, counter.n_enc)
+        return got
+
+    def align_grids(name):
+        alignment.main(['--config', str(tdir / 'config.json'),
+                        '--checkpoint', str(tdir / 'model.npz'),
+                        '--input_file', str(tdir / 'align.list'),
+                        '--result_dir', str(tdir / f'grid_{name}'),
+                        '--device', name])
+        return {p.name: p.read_bytes() for p in sorted(
+            (tdir / f'grid_{name}').glob('*.TextGrid'))}
+
+    def context_argv(score):
+        return [str(one), '--context_path', str(tdir / 'context.txt'),
+                '--context_score', str(score)]
+    argvs = {'align': [str(one), '--align', '--label', label],
+             'plain': [str(one)]}
+    beams = {'align': None, 'plain': 'plain', 'context': 'biased'}
+    for name in ('cuda', 'cpu'):
+        card = name == 'cuda'
+        base = ['-m', str(tdir), '--device', name]
+        out[name] = {'grids': timed(
+            f'alignment_{name}_s', lambda: align_grids(name),
+            tools_counter('alignment') if card else None)}
+        if card and counts['alignment'][1] != TOOLS_WAVS:
+            raise AssertionError(f'bin.alignment: {counts["alignment"][1]} '
+                                 f'encoder calls for {TOOLS_WAVS} WAVs')
+        with swapped({(rv, 'load_model'):
+                      lambda *a, name=name, **k: models[name]}):
+            for what in ('align', 'plain'):
+                out[name][what] = timed(
+                    f'transcribe_{what}_{name}_s',
+                    lambda: transcribe.main(argvs[what] + base),
+                    tools_counter(f'transcribe_{what}', beams[what])
+                    if card else None)
+            if card:
+                # the first context_score that changes the plain output
+                for score in CTX_SCORES:
+                    argvs['context'] = context_argv(score)
+                    got = timed('transcribe_context_cuda_s',
+                                lambda: transcribe.main(argvs['context']
+                                                        + base),
+                                tools_counter('transcribe_context',
+                                              'biased'))
+                    if got != out[name]['plain']:
+                        break
+                else:
+                    raise AssertionError(f'transcribe --context_path changed '
+                                         f'nothing at context_score '
+                                         f'{CTX_SCORES}')
+                res['context_score'] = score
+                out[name]['context'] = got
+            else:
+                out[name]['context'] = timed(
+                    'transcribe_context_cpu_s',
+                    lambda: transcribe.main(argvs['context'] + base))
+    grids = out['cuda']['grids']
+    if len(grids) != TOOLS_WAVS or grids != out['cpu']['grids']:
+        raise AssertionError('bin.alignment: the TextGrids on the card '
+                             'differ from the CPU run\'s')
+    for what in ('align', 'context', 'plain'):
+        if out['cuda'][what] != out['cpu'][what]:
+            raise AssertionError(f'transcribe ({what}): the card\'s output '
+                                 f'differs from the CPU run\'s')
+    n_tok = len(out['cuda']['align']['tokens'])
+    if n_tok != len(label.split()) or not all(
+            0 <= t['start'] <= t['end'] for t in out['cuda']['align'][
+                'tokens']):
+        raise AssertionError('transcribe --align: bad token times')
+
+    # the demo app: one POST on 127.0.0.1, port 0, served from a thread
+    server = HTTPServer(('127.0.0.1', 0), app.make_handler(
+        models['cuda'], 'ctc_prefix_beam_search'))
+    th = threading.Thread(target=server.serve_forever, daemon=True)
+    th.start()
+    try:
+        reply = timed('app_s', lambda: post_wav(server.server_address[1],
+                                                one),
+                      tools_counter('app_post', 'plain'))
+    finally:
+        server.shutdown()
+        server.server_close()
+        th.join(timeout=30)
+    if th.is_alive():
+        raise AssertionError('the demo app\'s thread did not stop')
+    want = models['cuda'].transcribe(str(one), mode='ctc_prefix_beam_search')
+    if reply != {'text': want}:
+        raise AssertionError(f'app reply {reply!r} != {{"text": {want!r}}}')
+
+    # force_align at T = 512 on the card
+    m = models['cuda']
+    x = feats[None, :CHUNK].float()
+    with torch.inference_mode():
+        _, lens, probs = encode_and_ctc(m.model, x,
+                                        torch.tensor([CHUNK], device=dev),
+                                        torch.tensor([1.0, 0.0], device=dev))
+    T = int(lens[0])
+    y = [int(u) for u in rng.randint(2, VOCAB - 1, T // 5)]
+    ali = force_align(probs[0, :T], y, 0)
+    if len(ali) != T or ali != force_align(probs[0, :T].cpu(), y, 0):
+        raise AssertionError('force_align on the card differs from the CPU')
+    res['force_align_ms'] = cuda_time_ms(
+        lambda: force_align(probs[0, :T], y, 0), 3)
+    res['force_align_T'], res['force_align_L'] = T, len(y)
+    res['launches'] = counts
+    log(f'tools: bin.alignment on {TOOLS_WAVS} WAVs {res["alignment_cuda_s"]:.2f} '
+        f's on the card ({res["alignment_cpu_s"]:.2f} s on the CPU), '
+        f'TextGrids byte-equal; transcribe --align ({n_tok} tokens), '
+        f'--context_path ({len(phrases)} distinct phrases, context_score '
+        f'{res["context_score"]}) and plain equal to the CPU run; app POST '
+        f'{res["app_s"]:.3f} s, reply equal to transcribe; force_align at '
+        f'T={T}, L={len(y)}: {res["force_align_ms"]:.2f} ms per call (equal '
+        f'to the CPU); the phase took {time.perf_counter() - t_phase:.1f} s; '
+        f'on {smi_line()}')
+    del models
+    torch.cuda.empty_cache()
     return res
 
 
@@ -3446,9 +4292,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default=','.join(ALL_PHASES),
                     help='comma list of kernels, serve, train, modes, '
-                         'stream, diar, recipe (default all; the result '
-                         'lines need all seven), or beam: the K2/K3 checks '
-                         'alone')
+                         'stream, diar, recipe, context, tools (default '
+                         'all; the result lines need all nine), or beam: '
+                         'the K2/K3 and K2b checks alone')
     ap.add_argument('--profile', action='store_true',
                     help='also profile one bf16 training step')
     ap.add_argument('--ab-parent', type=Path, default=None,
@@ -3511,13 +4357,15 @@ def main():
                     for n, r in sorted(beamk.items()))
         + '; static shared memory bytes '
         + ', '.join(str(b) for _, b in sorted(smem.items())))
-    if set(beamk) != {'beam_scan_kernel', 'beam_backtrace_kernel<0>',
+    if set(beamk) != {'beam_scan_kernel<0>', 'beam_scan_kernel<1>',
+                      'beam_backtrace_kernel<0>',
                       'beam_backtrace_kernel<1>'}:
         raise AssertionError(f'the beam kernels of the build: {set(beamk)}')
     if args.ab_parent is not None:
         ab_parent(dev, args.ab_parent)
     if 'beam' in phases and 'kernels' not in phases:
         check_beam(dev, SEED)       # a quick first check of K2/K3 alone
+        check_beam_biased(dev, SEED)
     if 'kernels' in phases:
         # phases 3-4, 6-7: kernels against their plain versions
         k1 = check_k1(dev)
@@ -3525,7 +4373,7 @@ def main():
         fwd_err, bt = check_beam(dev, SEED)
         k4 = check_k1_mask_k4(dev)[torch.bfloat16]
         lnr = check_ln(dev)[torch.bfloat16]
-    if phases & {'serve', 'modes', 'stream'}:
+    if phases & {'serve', 'modes', 'stream', 'context', 'tools'}:
         with tempfile.TemporaryDirectory(prefix='reverb_smoke_') as tmp:
             served = serving_setup(dev, SEED, Path(tmp))
             if 'serve' in phases:
@@ -3537,6 +4385,12 @@ def main():
             if 'stream' in phases:
                 # phase 10: streaming
                 stream = run_stream(dev, *served)
+            if 'context' in phases:
+                # phase 13: context biasing (K2b; serving and training)
+                context = run_context(dev, *served)
+            if 'tools' in phases:
+                # phase 14: alignment, transcribe, the app
+                tools = run_tools(dev, *served, Path(tmp))
             del served
     if 'train' in phases:
         # phase 8: the training path
@@ -3560,7 +4414,7 @@ def main():
 
     kernels = kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches,
                              len(walls), t_launch, fallback, modes, stream,
-                             diar, recipe)
+                             diar, recipe, context, tools)
     log(f'slice: second transcribe_modes call {walls[1]:.4f} s for '
         f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; six-mode '
         f'call {modes[2]:.3f} s; train {step_ms:.1f} ms/step at '
@@ -3571,7 +4425,13 @@ def main():
         f'{diar["pyannote"]["xrt"]:.1f} (pyannote) on '
         f'{diar["audio_s"]:.0f} s; recipe {recipe["train"]["step_ms"]:.1f} '
         f'ms/step through bin.train ({recipe["train"]["wait_ms"]:.2f} ms '
-        f'dataset wait), recognize {recipe["recognize_s"]:.1f} s; on {smi}')
+        f'dataset wait), recognize {recipe["recognize_s"]:.1f} s; biased '
+        f'serving {context["serving"]["walls"][1]:.4f} s '
+        f'({context["serving"]["wall_tail"]:.4f} s with the uncapped tail), '
+        f'adaptor '
+        f'{context["adaptor"]["step_ms"]:.1f} ms/step; force_align '
+        f'{tools["force_align_ms"]:.2f} ms at T={tools["force_align_T"]}; '
+        f'on {smi}')
     print(smi_line())
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
@@ -3581,13 +4441,16 @@ def main():
 
 
 def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
-                   t_launch, fallback, modes, stream, diar, recipe):
+                   t_launch, fallback, modes, stream, diar, recipe, context,
+                   tools):
     """The {"kernels": [...]} entries: launches on the paths (in all, per
     serving call, per training step, per six-mode call, per streaming hop,
     per pool step, per diarization call of either route, and on the
     dataset path: per bin.train step (CV included), per dynamic-chunk
     step, per get_loss utterance and per recognize batch; K2/K3 also per
-    call of the long-hypothesis path),
+    call of the long-hypothesis path; per biased serving call, with and
+    without the uncapped tail, and per deep-biasing training step; per
+    aligned WAV, per transcribe call and per app POST of the tools),
     the error against the plain version, kernel / plain / library times in
     bf16 at the timed shapes (K2 also resumed from a state at B = 1 and 8,
     T_hop = 16), and the bound computed from those shapes."""
@@ -3627,6 +4490,25 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
         per[n]['serve_long_hyp'] = fallback[0][n] / fallback[1]
     sdpa_call = ('F.scaled_dot_product_attention(cat(q+u, q+v), cat(k, p), '
                  'v, scale=1/sqrt(dk)), every row at full length')
+    # the context phase: biased serving and the adaptor's training steps
+    c_serve = context['serving']['launches']
+    c_tail = context['serving']['launches_tail']
+    c_train = context['adaptor']['launches']
+    t_runs = tools['launches']       # {run: (launches, encoder calls)}
+    t_per = {'alignment': TOOLS_WAVS}
+    for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6'):
+        per[n]['context_serve'] = c_serve.get(n, 0) / context['serving'][
+            'calls']
+        per[n]['context_serve_long_hyp'] = c_tail.get(n, 0)
+        per[n]['context_adaptor_train_step'] = (c_train.get(n, 0)
+                                                / context['adaptor']['steps'])
+        for run, (got, _) in t_runs.items():
+            key = 'tools_alignment_wav' if run == 'alignment' else \
+                f'tools_{run}'
+            per[n][key] = got.get(n, 0) / t_per.get(run, 1)
+    other = {n: (c_serve.get(n, 0) + c_tail.get(n, 0) + c_train.get(n, 0)
+                 + sum(got.get(n, 0) for got, _ in t_runs.values()))
+             for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6', 'K2b')}
 
     def rec(name, src, replaces, kid, err, ms, dev_ms, plain_ms, bnd,
             lib_ms, lib_dev_ms, lib_call, **extra):
@@ -3636,7 +4518,7 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
                 'launches': (launches.get(kid, 0) + t_launch.get(kid, 0)
                              + m_launch.get(kid, 0) + s_launch.get(kid, 0)
                              + p_launch.get(kid, 0) + d_launch[kid]
-                             + r_all[kid]),
+                             + r_all[kid] + other[kid]),
                 'launches_per_call': per[kid], 'max_abs_err': err,
                 'ms': ms, 'device_ms': dev_ms, 'plain_ms': plain_ms,
                 'bound_ms': bnd[0], 'bound_by': bnd[1], 'library_ms': lib_ms,
@@ -3667,6 +4549,29 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
             bound(0, bt['fwd_nbytes'], 'f32'), None, None, 'none',
             us_per_frame=bt['fwd_us_frame'],
             resume_cases=stream['resume_cases'], **resume),
+        # K2b: the biased scan (JAX runs it on its lax.scan path, no
+        # Pallas kernel); launched by biased serving only
+        {'name': 'beam_scan_forward_biased', 'route': 'cuda',
+         'source': 'reverb_tpu_torch/csrc/beam_scan.cu',
+         'replaces': 'reverb_tpu/decode/prefix_beam.py:82 (_step with '
+                     'ctx_tables, on lax.scan; the biased variant of '
+                     'reverb_tpu/ops/beam_scan.py:33)',
+         'launches': other['K2b'],
+         'launches_per_call': {
+             'context_serve': c_serve['K2b'] / context['serving']['calls'],
+             'context_serve_long_hyp': c_tail['K2b'],
+             'tools_transcribe_context': t_runs['transcribe_context'][0][
+                 'K2b']},
+         'max_abs_err': context['k2b_err'], 'ms': context['k2b']['ms'],
+         'device_ms': context['k2b']['device_ms'],
+         'plain_ms': context['k2b']['plain'],
+         'bound_ms': bound(0, context['k2b']['nbytes'], 'f32')[0],
+         'bound_by': bound(0, context['k2b']['nbytes'], 'f32')[1],
+         'library_ms': None, 'library_device_ms': None,
+         'library_call': 'none',
+         'us_per_frame': context['k2b']['us_frame'],
+         'unbiased_k2_ms_same_call': context['k2b']['k2_ms'],
+         'unbiased_k2_device_ms_same_call': context['k2b']['k2_device_ms']},
         rec('beam_backtrace', 'beam_scan.cu', 'beam_scan.py:137', 'K3', 0.0,
             bt['bt'], bt['bt_dev'], bt['bt_plain'],
             bound(0, bt['bt_nbytes'], 'f32'), None, None, 'none',

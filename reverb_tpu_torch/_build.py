@@ -64,9 +64,10 @@ _SIGNATURES = {
     # chunk, K, L, out_on_chip → the same of the backtrace
     'reverb_beam_backtrace_smem_bytes': [_I] * 4,
     # logp idx ts valid bacc hskip, state_in (NULL or the 8 state arrays),
-    # records (8 emit arrays then wval), finals (the 8 state arrays), B T K
-    # K2 blank_id chunk, stream
-    'reverb_beam_scan_forward': [_P] * 9 + [_I] * 6 + [_P],
+    # next_tab score_tab (NULL, or K2b's (S, V) context tables), records (8
+    # emit arrays then wval), finals (the 8 state arrays; K2b: then ctx and
+    # cum), B T K K2 blank_id chunk S V, stream
+    'reverb_beam_scan_forward': [_P] * 11 + [_I] * 8 + [_P],
     # 8 emit arrays, wval, order, sel_ns, prefixes, times, B T K L, chunk
     # smem_bytes out_on_chip, stream
     'reverb_beam_backtrace': [_P] * 13 + [_I] * 7 + [_P],

@@ -36,7 +36,7 @@ def main(argv=None):
     from reverb_tpu_torch.cli.reverb import get_blank_id
     from reverb_tpu_torch.models.asr_model import compute_loss
     from reverb_tpu_torch.text.tokenizer import init_tokenizer
-    from reverb_tpu_torch.train.executor import _device_batch
+    from reverb_tpu_torch.train.executor import CV_SEED, _device_batch
     from reverb_tpu_torch.utils.common import resolve_device
     from reverb_tpu_torch.utils.config import load_config
 
@@ -49,9 +49,13 @@ def main(argv=None):
 
     ds = eval_dataset(configs, tokenizer, args.data_type, args.test_data, 1)
 
+    # a dynamic-chunk model draws each utterance's chunk from this
+    # generator (no dropout): the executor's CV seed
+    gen = torch.Generator(device=dev).manual_seed(CV_SEED)
     with open(args.output, 'w') as out, torch.no_grad():
         for batch in ds:
-            m = compute_loss(model, _device_batch(batch, dev), None)
+            m = compute_loss(model, _device_batch(batch, dev), None,
+                             chunk_generator=gen)
             out.write(f"{batch['keys'][0]} {float(m['loss']):.4f} "
                       f"{float(m['loss_att']):.4f} "
                       f"{float(m['loss_ctc']):.4f}\n")

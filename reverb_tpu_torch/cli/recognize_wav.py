@@ -3,10 +3,11 @@ one CTM per mode (`result_dir/<mode>/<audio>.ctm`).
 
 Counterpart of reverb_tpu/cli/recognize_wav.py with the same flags and
 defaults, plus `--device` (default cuda; no silent CPU fallback).  Every
-mode runs; the streaming flags (`--decoding_chunk_size`,
-`--num_decoding_left_chunks`, `--simulate_streaming`) are accepted and
-rejected when set, `--quantize` takes only 'none', and there is no
-`--data_parallel`.
+mode runs; the streaming flags go to `transcribe_modes` as in the JAX
+package (`--decoding_chunk_size` reaches the encoder as a chunk mask on a
+use_dynamic_chunk model, `--num_decoding_left_chunks` and
+`--simulate_streaming` are accepted with no effect there), `--quantize`
+takes only 'none', and there is no `--data_parallel`.
 """
 
 from __future__ import annotations

@@ -174,12 +174,15 @@ class ReverbASR:
                          blank_penalty: float = 0.0,
                          length_penalty: float = 0.0,
                          timings_adjustment: float = 230,
-                         blank_skip_threshold: float = 0.0) -> List[str]:
+                         blank_skip_threshold: float = 0.0,
+                         context_graph=None) -> List[str]:
         """One output string per mode.  The streaming arguments are the
         JAX package's: `decoding_chunk_size` reaches the encoder (a chunk
         mask on a use_dynamic_chunk model), `num_decoding_left_chunks` is
         passed to `decode`, which does not use it, and `simulate_streaming`
-        is accepted with no effect, as reverb_tpu/cli/reverb.py accepts it."""
+        is accepted with no effect, as reverb_tpu/cli/reverb.py accepts it.
+        `context_graph` (decode/context_graph.ContextGraph) biases the
+        prefix beam in-beam."""
         feats = self.compute_feats(audio_file)
         if not batch_size:
             # all of a file's chunks in one batch, capped to bound memory
@@ -198,7 +201,8 @@ class ReverbASR:
                 decoding_chunk_size=decoding_chunk_size,
                 num_decoding_left_chunks=num_decoding_left_chunks,
                 cat_embs=torch.from_numpy(cat_embs),
-                blank_skip_threshold=blank_skip_threshold))
+                blank_skip_threshold=blank_skip_threshold,
+                context_graph=context_graph))
         return [self.get_output(format, Path(audio_file).name,
                                 list(chain(*(r[mode] for r in results))),
                                 timings_adjustment, chunk_size)

@@ -10,6 +10,18 @@
 // candidates with ties going to the lowest flat index.  It writes one
 // backpointer record per frame and the final beam state.
 //
+// Its biased instantiation (BIASED = true, K2b, launched by
+// beam_scan_forward with ctx_tables) is the same frame with in-beam context
+// biasing, as the plain `_step` with ctx_tables (JAX runs that on its
+// lax.scan path, reverb_tpu/decode/prefix_beam.py:_step, no kernel): each
+// beam carries its trie state ctx and bonus cum; extension cell (k, u)
+// gathers next_tab[ctx[k]·V + u] and score_tab[...] from device memory (the
+// (S, V) tables do not fit on chip), its pruning total gains cum[k] + bonus
+// and a keep entry's gains cum[k]; the winners rebuild ctx and cum.  The
+// gather's address is known at the top of the frame (the beam's state and
+// the frame's token), so the two loads are issued before the fold and their
+// latency hides behind it.  The records are the unbiased scan's.
+//
 // beam_backtrace_kernel replaces reverb_tpu/ops/beam_scan.py:_bt_kernel
 // (launched by beam_backtrace) and the scatter-max that follows it there:
 // it walks the records from the last frame back to the first and writes
@@ -111,10 +123,13 @@ struct ScanIn {
 };
 
 // beam state that other lanes read: one copy per warp.  The scores of beam
-// k stay in registers of lane k of every warp.
+// k stay in registers of lane k of every warp.  ctx/cum: the biased scan's
+// trie state and bonus.
 struct BeamState {
   int plen[MAXK], last[MAXK];
   uint2 h[MAXK];
+  int ctx[MAXK];
+  float cum[MAXK];
 };
 // per-beam values of this frame after the blank-run fold: one copy per warp
 struct Fold {
@@ -126,6 +141,8 @@ struct Fold {
 struct Cells {
   float mrg_s[MAXC], mrg_ns[MAXC], mrg_vs[MAXC], mrg_vns[MAXC], tot[MAXC];
   int meta[MAXC];  // midx | hasm << 8 | eq_last << 9
+  int nctx[MAXC];  // the biased scan's gathered trie state and bonus
+  float bonus[MAXC];
 };
 
 // v >= x  <=>  v > below(x): the next f32 under x (x finite; denormals are
@@ -136,10 +153,12 @@ __device__ __forceinline__ float below(float x) {
                                 : (x == 0.f ? (int)0x80000001 : b + 1));
 }
 
+template <bool BIASED>
 __global__ void __launch_bounds__(SCAN_NT, 1) beam_scan_kernel(
-    ScanIn in, const int* __restrict__ state_in, int* __restrict__ records,
-    int* __restrict__ finals, int B, int T, int K, int K2, int blank,
-    int chunk) {
+    ScanIn in, const int* __restrict__ state_in,
+    const int* __restrict__ next_tab, const float* __restrict__ score_tab,
+    int V, int* __restrict__ records, int* __restrict__ finals, int B, int T,
+    int K, int K2, int blank, int chunk) {
   extern __shared__ int4 scan_dyn[];
   __shared__ BeamState st_all[SCAN_NW];
   __shared__ Fold fo_all[SCAN_NW];
@@ -185,6 +204,8 @@ __global__ void __launch_bounds__(SCAN_NT, 1) beam_scan_kernel(
   if (lane < MAXK) {
     st.plen[lane] = 0;
     st.last[lane] = -1;
+    st.ctx[lane] = 0;      // the trie's root
+    st.cum[lane] = 0.f;
     st.h[lane] = active ? make_uint2(SEED1, SEED2)
                         : make_uint2((uint32_t)lane + 7u, (uint32_t)lane + 13u);
   }
@@ -309,6 +330,16 @@ __global__ void __launch_bounds__(SCAN_NT, 1) beam_scan_kernel(
       float* const kt = ktot[t & 1];
       unsigned* const mflag = &matched[t & 1];
 
+      // the biased cell's trie step, issued now, used after the fold
+      int c_next = 0;
+      float c_bonus = 0.f;
+      if (BIASED && is_cell) {
+        const int u = min(max(f_ix[my_j], 0), V - 1);
+        const size_t a = (size_t)st.ctx[my_k] * (size_t)V + (size_t)u;
+        c_next = __ldg(next_tab + a);
+        c_bonus = __ldg(score_tab + a);
+      }
+
       // ---- per beam, in every warp: fold, keep entries ----
       bool live = false;
       if (lane < K) {
@@ -401,13 +432,21 @@ __global__ void __launch_bounds__(SCAN_NT, 1) beam_scan_kernel(
         ce.mrg_vns[tid] = ext_vns;
         ce.tot[tid] = tot;   // the winner's next log_add(s, ns)
         ce.meta[tid] = midx | (hasm ? 256 : 0) | (eq_last ? 512 : 0);
+        float cand = (dead && !hasm) ? NEG_INF : tot;
+        if (BIASED) {   // the bonus enters the pruning total only
+          cand = cand <= NEG_INF ? NEG_INF : (cand + st.cum[k]) + c_bonus;
+          ce.nctx[tid] = c_next;
+          ce.bonus[tid] = c_bonus;
+        }
         // + 0: -0 becomes +0, so equal values have equal bits
-        vals[my_flat] = ((dead && !hasm) ? NEG_INF : tot) + 0.f;
+        vals[my_flat] = cand + 0.f;
       } else if (is_keep) {
         // log_add(keep_s, keep_ns) is NEG_INF for a beam that is not live
         const float tot = log_add(fo.keep_s[my_k], fo.keep_ns[my_k]);
         kt[my_k] = tot;      // the winner's next log_add(s, ns)
-        vals[my_flat] = tot + 0.f;
+        float cand = tot;
+        if (BIASED) cand = tot <= NEG_INF ? NEG_INF : tot + st.cum[my_k];
+        vals[my_flat] = cand + 0.f;
       }
       mbits = __reduce_or_sync(0xffffffffu, mbits);
       if (lane == 0 && mbits) atomicOr(mflag, mbits);
@@ -472,7 +511,8 @@ __global__ void __launch_bounds__(SCAN_NT, 1) beam_scan_kernel(
       __syncthreads();  // (3) the K winners are chosen
 
       // ---- in every warp: rebuild the K winners; the last warp emits ----
-      int n_plen = 0, n_last = 0;
+      int n_plen = 0, n_last = 0, n_ctx = 0;
+      float n_cum = 0.f;
       uint2 n_h = make_uint2(0u, 0u);
       if (lane < K) {
         const int k = lane;
@@ -493,6 +533,10 @@ __global__ void __launch_bounds__(SCAN_NT, 1) beam_scan_kernel(
         const uint32_t inc = (uint32_t)max(tok, 0) + 1u;
         const uint2 hp = st.h[parent];
         n_h = is_ext ? make_uint2(hp.x * MULT1 + inc, hp.y * MULT2 + inc) : hp;
+        if (BIASED) {
+          n_ctx = is_ext ? ce.nctx[cell] : st.ctx[parent];
+          n_cum = st.cum[parent] + (is_ext ? ce.bonus[cell] : 0.f);
+        }
 
         // the records leave from the keep warp: its next frame is the
         // lightest, so the stores hide behind the other warps' work
@@ -544,6 +588,10 @@ __global__ void __launch_bounds__(SCAN_NT, 1) beam_scan_kernel(
       }
       __syncwarp();  // this warp's reads of its old state are done
       if (lane < K && is_valid) {
+        if (BIASED) {
+          st.ctx[lane] = n_ctx;
+          st.cum[lane] = n_cum;
+        }
         st.plen[lane] = n_plen;
         st.last[lane] = n_last;
         st.h[lane] = n_h;
@@ -564,6 +612,10 @@ __global__ void __launch_bounds__(SCAN_NT, 1) beam_scan_kernel(
     finals[5 * BK + o] = __float_as_int(r_ns);
     finals[6 * BK + o] = __float_as_int(r_vs);
     finals[7 * BK + o] = __float_as_int(r_vns);
+    if (BIASED) {
+      finals[8 * BK + o] = st.ctx[lane];
+      finals[9 * BK + o] = __float_as_int(st.cum[lane]);
+    }
   }
 }
 
@@ -717,24 +769,37 @@ extern "C" int reverb_beam_backtrace_smem_bytes(int chunk, int K, int L,
 // (B,T) bool; records: the eight emit arrays (T,B,K) i32 one after another,
 // then wval (T,B) i32; state_in (NULL: the empty prefix) and finals: the
 // eight (B,K) arrays plen, last, h1, h2 (i32; the hashes' uint32 bits), s,
-// ns, v_s, v_ns (f32) one after another.  chunk: frames per stage of the
-// input ring (1..32).  Returns cudaError_t.
+// ns, v_s, v_ns (f32) one after another.  next_tab/score_tab NULL: the
+// unbiased scan (K2); else K2b, the scan biased by a context graph's (S, V)
+// tables, next_tab i32 (the goto of state s on token u) and score_tab f32
+// (its bonus), from the empty prefix (state_in NULL), with finals (10, B, K):
+// the eight arrays, then ctx (i32) and cum (f32).  chunk: frames per stage
+// of the input ring (1..32).  Returns cudaError_t.
 extern "C" int reverb_beam_scan_forward(
     const void* logp, const void* idx, const void* ts, const void* valid,
-    const void* bacc, const void* hskip, const void* state_in, void* records,
-    void* finals, int B, int T, int K, int K2, int blank_id, int chunk,
+    const void* bacc, const void* hskip, const void* state_in,
+    const void* next_tab, const void* score_tab, void* records, void* finals,
+    int B, int T, int K, int K2, int blank_id, int chunk, int S, int V,
     void* stream) {
+  const bool biased = next_tab != nullptr;
   if (K < 1 || K > MAXK || K2 < 1 || K2 > MAXK || K * (K2 + 1) > MAXC ||
-      chunk < 1 || chunk > 32 || T < 0)
+      chunk < 1 || chunk > 32 || T < 0 ||
+      biased != (score_tab != nullptr) ||
+      (biased && (state_in != nullptr || S < 1 || V < 1)))
     return (int)cudaErrorInvalidValue;
   if (B == 0) return 0;
   const int smem = 2 * scan_stage_bytes(chunk);   // at most 9 KB
   const ScanIn in{(const float*)logp,    (const int*)idx,
                   (const int*)ts,        (const uint8_t*)valid,
                   (const float*)bacc,    (const uint8_t*)hskip};
-  beam_scan_kernel<<<B, SCAN_NT, smem, (cudaStream_t)stream>>>(
-      in, (const int*)state_in, (int*)records, (int*)finals, B, T, K, K2,
-      blank_id, chunk);
+  if (biased)
+    beam_scan_kernel<true><<<B, SCAN_NT, smem, (cudaStream_t)stream>>>(
+        in, nullptr, (const int*)next_tab, (const float*)score_tab, V,
+        (int*)records, (int*)finals, B, T, K, K2, blank_id, chunk);
+  else
+    beam_scan_kernel<false><<<B, SCAN_NT, smem, (cudaStream_t)stream>>>(
+        in, (const int*)state_in, nullptr, nullptr, 0, (int*)records,
+        (int*)finals, B, T, K, K2, blank_id, chunk);
   return (int)cudaGetLastError();
 }
 

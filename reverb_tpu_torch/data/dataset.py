@@ -7,9 +7,10 @@ resample → [speed perturb] → [telephony] → [RIR] → fbank/log-mel →
 [spec_aug/sub/trim] → lang/task → [cat-emb add/pass] → shuffle → sort →
 batch(static|bucket|dynamic|distribute) → padded numpy batches.
 
-Not ported, and raising: `deep_bias_conf.deep_biasing` (context biasing,
-ROADMAP queue 1) and `device_feats` (fbank and SpecAugment inside the train
-step, ROADMAP item 9).
+`deep_bias_conf.deep_biasing` mines each utterance's context phrases and
+distractors (data/deep_bias.py) and the batches carry them as `cv_list`.
+Not ported, and raising: `device_feats` (fbank and SpecAugment inside the
+train step, ROADMAP item 9).
 """
 
 from __future__ import annotations
@@ -69,10 +70,16 @@ def Dataset(data_type: str, data_list_file, tokenizer=None, conf=None,
 
     deep_bias_conf = conf.get('deep_bias_conf', {}) or {}
     if deep_bias_conf.get('deep_biasing', False):
-        raise NotImplementedError(
-            'deep_bias_conf.deep_biasing (context biasing, '
-            'data/deep_bias.py) is not ported: ROADMAP queue 1, context '
-            'biasing')
+        from reverb_tpu_torch.data.deep_bias import (get_rare_words,
+                                                     rare_utt_filter,
+                                                     tokenize_cv_list)
+        rare_words = get_rare_words(deep_bias_conf)
+        ds = ds.map(partial(rare_utt_filter, rare_words=rare_words,
+                            conf=deep_bias_conf))
+        # an utterance with no rare word is dropped (the JAX package hands
+        # it on as None, and the next stage fails on it)
+        ds = ds.filter(lambda s: s is not None)
+        ds = ds.map(partial(tokenize_cv_list, tokenizer=tokenizer))
 
     if conf.get('speaker_switch_conf'):
         ssc = conf['speaker_switch_conf']

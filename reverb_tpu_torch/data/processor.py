@@ -277,8 +277,9 @@ def padding(data: List[Dict], pass_cat_emb: bool = False,
     feats with 0 / labels with -1, carry keys/pcm/langs/tasks/cat_embs.
 
     `pad_len_multiple`: round padded lengths up to a multiple, so the
-    device sees a small set of shapes instead of one per batch.  Context
-    biasing's `cv_list` is not ported (ROADMAP queue 1) and raises."""
+    device sees a small set of shapes instead of one per batch.  Samples
+    with context phrases (data/deep_bias.py) add the batch's bias terms
+    as `cv_list` (N, Lc) padded with 0 and `cv_list_lengths` (N,)."""
     order = np.argsort([-x['feat'].shape[0] for x in data], kind='stable')
     data = [data[i] for i in order]
     feats = [x['feat'] for x in data]
@@ -301,7 +302,10 @@ def padding(data: List[Dict], pass_cat_emb: bool = False,
     if 'speaker' in data[0]:
         batch['speaker'] = np.asarray([x['speaker'] for x in data], np.int32)
     if 'cv_list' in data[0]:
-        raise NotImplementedError(
-            'cv_list batches (context biasing, data/deep_bias.py) are not '
-            'ported: ROADMAP queue 1, context biasing')
+        from reverb_tpu_torch.data.deep_bias import batch_cv_list
+        terms = batch_cv_list(data, deep_biasing_conf or {})
+        batch['cv_list'] = _pad_stack(
+            [np.asarray(t, np.int64) for t in terms], 0)
+        batch['cv_list_lengths'] = np.asarray([len(t) for t in terms],
+                                              np.int32)
     return batch

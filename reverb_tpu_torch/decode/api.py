@@ -15,7 +15,9 @@ one fetch before packing.  When that fetch shows a hypothesis longer than
 run again.
 
 Every other set takes the generic route, in the reference's order and with
-its reuse of the prefix nbest for rescoring.  Modes that walk the whole
+its reuse of the prefix nbest for rescoring.  A `context_graph` biases the
+prefix beam in-beam on both routes (kernel K2b in place of K2), as the
+reference's search does.  Modes that walk the whole
 distribution (joint_decoding, hlg_*, the non-blank filter of
 apply_non_blank_embedding) get the dense (B, T, V) log-prob table; the
 others get the per-frame top-k (k = beam_size when a prefix mode is in the
@@ -66,13 +68,16 @@ def encode_and_ctc_topk(model, feats, feats_lens, cat_embs, k: int,
 def _beam_rescore_tail(model, tk_logp, tk_idx, blank_lp, encoder_out,
                        encoder_lens, beam_size: int, ctc_weight: float,
                        reverse_weight: float, blank_skip_threshold: float,
-                       max_hyp_len: int, cat_embs, rescore: bool = True):
+                       max_hyp_len: int, cat_embs, rescore: bool = True,
+                       context_graph=None):
     """Prefix beam → length-bucketed whole-batch attention rescoring."""
     keep_cap = (tk_logp.shape[1] // 2) if blank_skip_threshold > 0 else 0
     prefixes, plens, ctc_scores, times = \
         pb.ctc_prefix_beam_search_device_topk(
             tk_logp, tk_idx, blank_lp, encoder_lens, beam_size,
-            model.cfg.blank_id, max_hyp_len, blank_skip_threshold, keep_cap)
+            model.cfg.blank_id, max_hyp_len, blank_skip_threshold, keep_cap,
+            pb._graph_tables(context_graph, model.cfg.vocab_size,
+                             tk_logp.device))
     beam = (prefixes, plens, ctc_scores, times)
     if not rescore:
         return beam, None
@@ -106,7 +111,8 @@ def _beam_rescore_tail(model, tk_logp, tk_idx, blank_lp, encoder_out,
 def _decode_uncapped(model, methods, tk_logp, tk_idx, blank_lp, encoder_out,
                      encoder_lens, beam_size: int, ctc_weight: float,
                      reverse_weight: float, blank_skip_threshold: float,
-                     cat_embs) -> Dict[str, List[DecodeResult]]:
+                     cat_embs, context_graph=None
+                     ) -> Dict[str, List[DecodeResult]]:
     """The decode tail with no cap on the hypothesis length, on the encoder
     output and CTC top-k the caller already holds: the beam again (kernels
     K2/K3 a second time) with L = T, or the keep cap under blank-skip, then
@@ -115,7 +121,8 @@ def _decode_uncapped(model, methods, tk_logp, tk_idx, blank_lp, encoder_out,
     with torch.inference_mode():
         prefix_results, beam_raw = pb.ctc_prefix_beam_search_topk_raw(
             tk_logp, tk_idx, blank_lp, encoder_lens, beam_size,
-            model.cfg.blank_id, blank_skip_threshold)
+            model.cfg.blank_id, blank_skip_threshold, context_graph,
+            model.cfg.vocab_size)
         results: Dict[str, List[DecodeResult]] = {}
         if 'ctc_prefix_beam_search' in methods:
             results['ctc_prefix_beam_search'] = prefix_results
@@ -134,11 +141,13 @@ def decode(model, methods: List[str], feats, feats_lens,
            decoding_chunk_size: int = -1, num_decoding_left_chunks: int = -1,
            hlg_graph=None, hlg_lm_scale: float = 0.0,
            hlg_decoder_scale: float = 0.0,
-           hlg_r_decoder_scale: float = 0.0
+           hlg_r_decoder_scale: float = 0.0, context_graph=None
            ) -> Dict[str, List[DecodeResult]]:
     """Decode a batch of feature chunks (B, T, F) with methods ⊆
     ALL_MODES.  `length_penalty` is the attention mode's and the joint
-    search's length bonus; the hlg modes need `hlg_graph` (decode/hlg.Fst).
+    search's length bonus; the hlg modes need `hlg_graph` (decode/hlg.Fst);
+    `context_graph` (decode/context_graph.ContextGraph) biases the prefix
+    beam of ctc_prefix_beam_search and attention_rescoring.
     `decoding_chunk_size` goes to the encoder (a chunk mask on a
     use_dynamic_chunk model); `num_decoding_left_chunks` is accepted and,
     as in reverb_tpu/decode/api.py (whose encode programs never pass it
@@ -154,20 +163,21 @@ def decode(model, methods: List[str], feats, feats_lens,
         return _decode_fused(model, methods, feats, feats_lens, beam_size,
                              ctc_weight, reverse_weight, blank_penalty, cat,
                              blank_skip_threshold, max_hyp_len,
-                             decoding_chunk_size)
+                             decoding_chunk_size, context_graph)
     with torch.inference_mode():
         return _decode_generic(
             model, methods, feats, feats_lens, beam_size, ctc_weight,
             reverse_weight, blank_penalty, length_penalty, cat,
             blank_skip_threshold, hlg_graph, hlg_lm_scale,
-            hlg_decoder_scale, hlg_r_decoder_scale, decoding_chunk_size)
+            hlg_decoder_scale, hlg_r_decoder_scale, decoding_chunk_size,
+            context_graph)
 
 
 def _decode_fused(model, methods, feats, feats_lens, beam_size: int,
                   ctc_weight: float, reverse_weight: float,
                   blank_penalty: float, cat, blank_skip_threshold: float,
-                  max_hyp_len: int, decoding_chunk_size: int = -1
-                  ) -> Dict[str, List[DecodeResult]]:
+                  max_hyp_len: int, decoding_chunk_size: int = -1,
+                  context_graph=None) -> Dict[str, List[DecodeResult]]:
     """The serving mode set: one device pass, one fetch, host packing."""
     with torch.inference_mode():
         encoder_out, encoder_lens, tk_logp, tk_idx, blank_lp = \
@@ -176,14 +186,15 @@ def _decode_fused(model, methods, feats, feats_lens, beam_size: int,
         beam, resc = _beam_rescore_tail(
             model, tk_logp, tk_idx, blank_lp, encoder_out, encoder_lens,
             beam_size, ctc_weight, reverse_weight, blank_skip_threshold,
-            max_hyp_len, cat, rescore='attention_rescoring' in methods)
+            max_hyp_len, cat, rescore='attention_rescoring' in methods,
+            context_graph=context_graph)
     prefixes, plens, ctc_scores, times = (x.cpu().numpy() for x in beam)
     if plens.max(initial=0) > max_hyp_len:
         # a hypothesis outgrew the (B, K, max_hyp_len) buffers
         return _decode_uncapped(
             model, methods, tk_logp, tk_idx, blank_lp, encoder_out,
             encoder_lens, beam_size, ctc_weight, reverse_weight,
-            blank_skip_threshold, cat)
+            blank_skip_threshold, cat, context_graph)
     results: Dict[str, List[DecodeResult]] = {}
     if 'ctc_prefix_beam_search' in methods:
         results['ctc_prefix_beam_search'] = pb._pack_results(
@@ -212,8 +223,8 @@ def _decode_generic(model, methods, feats, feats_lens, beam_size: int,
                     blank_penalty: float, length_penalty: float, cat,
                     blank_skip_threshold: float, hlg_graph,
                     hlg_lm_scale: float, hlg_decoder_scale: float,
-                    hlg_r_decoder_scale: float, decoding_chunk_size: int = -1
-                    ) -> Dict[str, List[DecodeResult]]:
+                    hlg_r_decoder_scale: float, decoding_chunk_size: int = -1,
+                    context_graph=None) -> Dict[str, List[DecodeResult]]:
     """Every other mode set: one encoder pass, then each mode in the
     reference's order."""
     from reverb_tpu_torch.decode.attention_beam import attention_beam_search
@@ -250,11 +261,12 @@ def _decode_generic(model, methods, feats, feats_lens, beam_size: int,
         if ctc_probs is not None:
             prefix_results, beam_raw = pb.ctc_prefix_beam_search_raw(
                 ctc_probs, encoder_lens, beam_size, cfg.blank_id,
-                blank_skip_threshold)
+                blank_skip_threshold, context_graph)
         else:
             prefix_results, beam_raw = pb.ctc_prefix_beam_search_topk_raw(
                 tk_logp, tk_idx, blank_lp, encoder_lens, beam_size,
-                cfg.blank_id, blank_skip_threshold)
+                cfg.blank_id, blank_skip_threshold, context_graph,
+                cfg.vocab_size)
         if 'ctc_prefix_beam_search' in methods:
             results['ctc_prefix_beam_search'] = prefix_results
     if 'attention_rescoring' in methods:

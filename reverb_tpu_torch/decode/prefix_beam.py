@@ -1,8 +1,8 @@
 """Batched CTC prefix beam search over per-frame top-k candidates.
 
-Counterpart of reverb_tpu/decode/prefix_beam.py (unbiased search, its
-top-k and dense entry points).  Same state, same backpointer records, same
-tie rules:
+Counterpart of reverb_tpu/decode/prefix_beam.py (the search, unbiased and
+with in-beam context biasing, its top-k and dense entry points).  Same
+state, same backpointer records, same tie rules:
 
  * prefixes are identified by a pair of uint32 rolling hashes; a keep prefix
    that equals an extension of another beam is merged into that extension;
@@ -12,7 +12,12 @@ tie rules:
    successor exactly (`_compress_blanks`).
 
 `_step` and `_backtrace` below are the plain PyTorch versions of kernels K2
-and K3 (ops/beam_scan.py); they work on a (B, ...) batch of utterances.
+(K2b with context biasing) and K3 (ops/beam_scan.py); they work on a
+(B, ...) batch of utterances.  Context biasing (a `decode/context_graph.
+ContextGraph`) adds two carried values per beam, its trie state `ctx` and
+its cumulative bonus `cum`: an extension's bonus enters the pruning totals
+only, and the final order is by score + cum, while the reported score takes
+the finalize backoff −node_score[ctx] instead of cum.
 uint32 arithmetic is not available for CPU tensors, so the hashes live in
 int64 masked to 32 bits.
 """
@@ -35,6 +40,8 @@ _SEED1 = 0x12345679
 _SEED2 = 0x87654321
 
 STATE_KEYS = ('plen', 'last', 'h1', 'h2', 's', 'ns', 'v_s', 'v_ns')
+# the biased search's two extra per-beam values: trie state, bonus
+CTX_KEYS = ('ctx', 'cum')
 EMIT_KEYS = ('pfx_parent', 'pfx_tok', 'pfx_wpos', 's_src_beam',
              's_src_is_ns', 'ns_src_beam', 'ns_src_is_ns', 'ns_wpos')
 
@@ -69,13 +76,17 @@ def _take(v, idx):
     return torch.where(ok, g, torch.zeros_like(g))
 
 
-def _init_state(B: int, K: int, device) -> dict:
+def _init_state(B: int, K: int, device, biased: bool = False) -> dict:
+    """The empty prefix in beam 0; with `biased` the trie state (root, 0)
+    and bonus (0) of every beam too."""
     ix = torch.arange(K, device=device, dtype=torch.int64)
     active = (ix == 0)[None, :].expand(B, K)
     f32 = torch.float32
     neg = torch.full((B, K), NEG_INF, dtype=f32, device=device)
     zero = torch.zeros((B, K), dtype=f32, device=device)
-    return {
+    ctx = {'ctx': torch.zeros((B, K), dtype=torch.int32, device=device),
+           'cum': zero.clone()} if biased else {}
+    return {**ctx, 
         'plen': torch.zeros((B, K), dtype=torch.int32, device=device),
         'last': torch.full((B, K), -1, dtype=torch.int32, device=device),
         # dead beams get distinct sentinel hashes so they never merge
@@ -89,9 +100,11 @@ def _init_state(B: int, K: int, device) -> dict:
 
 
 def _step(state: dict, topk_logp, topk_idx, t, valid, blank_acc, has_skip,
-          K: int, blank_id: int):
+          K: int, blank_id: int, ctx_tables=None):
     """One frame for a batch of utterances.  topk_logp/topk_idx (B, K2);
-    t/valid/blank_acc/has_skip (B,).  Returns (new_state, emits (B, K))."""
+    t/valid/blank_acc/has_skip (B,).  `ctx_tables` None, or (next_tab
+    (S, V) i32, score_tab (S, V) f32) of a context graph, with ctx/cum in
+    the state.  Returns (new_state, emits (B, K))."""
     B, K2 = topk_logp.shape
     dev = topk_logp.device
     C = K2 + 1
@@ -169,9 +182,26 @@ def _step(state: dict, topk_logp, topk_idx, t, valid, blank_acc, has_skip,
     keep_total = torch.where(matched_to_ext | ~live_keep, neg,
                              _log_add(keep_s, keep_ns))
 
+    # context biasing: the bonus enters the PRUNING totals only; a keep
+    # entry carries its state and bonus unchanged (the trie state is a
+    # function of the prefix, so a merged keep+extend entry gets the same
+    # state from either path)
+    if ctx_tables is not None:
+        next_tab, score_tab = ctx_tables
+        cum = state['cum']
+        addr = (state['ctx'].to(torch.int64)[:, :, None] * next_tab.shape[1]
+                + u.to(torch.int64))
+        ctx_ext = next_tab.reshape(-1)[addr]                # (B, K, K2)
+        bonus_ext = score_tab.reshape(-1)[addr]
+        ext_prune = torch.where(ext_total <= NEG_INF, neg,
+                                (ext_total + cum[:, :, None]) + bonus_ext)
+        keep_prune = torch.where(keep_total <= NEG_INF, neg, keep_total + cum)
+    else:
+        ext_prune, keep_prune = ext_total, keep_total
+
     # second beam prune: flat row-major top-K over (K, K2+1), ties to the
     # lowest flat index
-    cand = torch.cat([ext_total, keep_total[:, :, None]], 2).reshape(B, -1)
+    cand = torch.cat([ext_prune, keep_prune[:, :, None]], 2).reshape(B, -1)
     top_idx = topk_lastdim(cand, K)[1].to(torch.int32)
     col = top_idx % C
     is_ext = col < K2
@@ -220,9 +250,14 @@ def _step(state: dict, topk_logp, topk_idx, t, valid, blank_acc, has_skip,
     new_state = {'plen': new_plen, 'last': new_last, 'h1': new_h1,
                  'h2': new_h2, 's': new_s, 'ns': new_ns, 'v_s': new_v_s,
                  'v_ns': new_v_ns}
+    if ctx_tables is not None:
+        new_state['ctx'] = torch.where(is_ext, flat(ctx_ext),
+                                       _take(state['ctx'], parent))
+        new_state['cum'] = _take(state['cum'], parent) + torch.where(
+            is_ext, flat(bonus_ext), torch.zeros_like(cum))
     # frozen steps (past the utterance's length) are true no-ops
-    merged = {n: torch.where(validk, new_state[n], state[n])
-              for n in STATE_KEYS}
+    merged = {n: torch.where(validk, v, state[n])
+              for n, v in new_state.items()}
     minus1 = torch.full_like(parent, -1)
     emit = {
         'pfx_parent': torch.where(validk, parent, beam_ix),
@@ -277,10 +312,12 @@ def _backtrace(emits: dict, order, final_sel_ns, L: int):
 
 def _search_batched(topk_logp, topk_idx, num_t, K: int, blank_id: int,
                     L: int, ts=None, blank_acc=None, has_skip=None,
-                    tail_acc=None):
-    """Batched search over (B, T, K2) inputs through kernels K2 and K3 (or
-    their plain versions for CPU tensors).  `ts`/`blank_acc`/`has_skip` are
-    (B, T) from `_compress_blanks`, or None for the dense path.
+                    tail_acc=None, ctx_tables=None):
+    """Batched search over (B, T, K2) inputs through kernels K2 (K2b with
+    `ctx_tables`) and K3, or their plain versions for CPU tensors.
+    `ts`/`blank_acc`/`has_skip` are (B, T) from `_compress_blanks`, or None
+    for the dense path; `ctx_tables` None or (next_tab, score_tab,
+    node_score) of `_graph_tables`.
     Returns (prefixes (B,K,L), plens (B,K), scores (B,K), times (B,K,L))."""
     from reverb_tpu_torch.ops.beam_scan import (beam_backtrace,
                                                 beam_scan_forward)
@@ -295,10 +332,18 @@ def _search_batched(topk_logp, topk_idx, num_t, K: int, blank_id: int,
         has_skip = torch.zeros((B, T), dtype=torch.bool, device=dev)
     tail = (torch.zeros((B,), dtype=torch.float32, device=dev)
             if tail_acc is None else tail_acc)
+    biased = {} if ctx_tables is None else {'ctx_tables': ctx_tables[:2]}
     final, em = beam_scan_forward(topk_logp, topk_idx, ts, valid, blank_acc,
-                                  has_skip, K, blank_id)
+                                  has_skip, K, blank_id, **biased)
     total = _log_add(final['s'], final['ns']) + tail[:, None]
-    order = torch.argsort(-total, dim=-1, stable=True)
+    if ctx_tables is not None:
+        # the reference's final rule (search.py:227-233): order by acoustic
+        # + accumulated bonus, report acoustic − node_score[ctx] (the
+        # finalize backoff)
+        order = torch.argsort(-(total + final['cum']), dim=-1, stable=True)
+        total = total - ctx_tables[2][final['ctx'].to(torch.int64)]
+    else:
+        order = torch.argsort(-total, dim=-1, stable=True)
     sel_ns = torch.gather(~(final['v_s'] > final['v_ns']), 1, order)
     prefixes, times = beam_backtrace(em, order.to(torch.int32), sel_ns, L)
     plens = torch.gather(final['plen'], 1, order)
@@ -342,9 +387,10 @@ def ctc_prefix_beam_search_device_topk(topk_logp, topk_idx, blank_logp,
                                        ctc_lens, beam_size: int,
                                        blank_id: int = 0, max_tokens: int = 0,
                                        blank_skip_threshold: float = 0.0,
-                                       keep_cap: int = 0):
+                                       keep_cap: int = 0, ctx_tables=None):
     """Batched search from per-frame top-k (models.ctc.ctc_topk_logprobs).
-    topk_logp (B,T,K2) f32, topk_idx (B,T,K2) i32, blank_logp (B,T).
+    topk_logp (B,T,K2) f32, topk_idx (B,T,K2) i32, blank_logp (B,T);
+    ctx_tables None or `_graph_tables` of a context graph.
     Returns (prefixes (B,K,L), plens (B,K), scores (B,K), times (B,K,L))."""
     T = topk_logp.shape[1]
     L = max_tokens or T
@@ -371,14 +417,29 @@ def ctc_prefix_beam_search_device_topk(topk_logp, topk_idx, blank_logp,
             g_logp[:, :Tb].contiguous(), g_idx[:, :Tb].contiguous(),
             torch.clamp(n_keep, max=Tb), beam_size, blank_id, L,
             ts[:, :Tb].contiguous(), blank_acc[:, :Tb].contiguous(),
-            has_skip[:, :Tb].contiguous(), tail_acc)
+            has_skip[:, :Tb].contiguous(), tail_acc, ctx_tables)
     return _search_batched(topk_logp, topk_idx, ctc_lens, beam_size,
-                           blank_id, L)
+                           blank_id, L, ctx_tables=ctx_tables)
+
+
+def _graph_tables(context_graph, vocab_size: int, device):
+    """(next_tab (S, V) i32, score_tab (S, V) f32, node_score (S,) f32) of
+    a ContextGraph on `device`, built once and cached on the graph."""
+    if context_graph is None:
+        return None
+    key = f'_device_tables_{vocab_size}_{torch.device(device)}'
+    cached = getattr(context_graph, key, None)
+    if cached is None:
+        cached = tuple(torch.from_numpy(np.ascontiguousarray(a)).to(device)
+                       for a in context_graph.device_tables(vocab_size))
+        setattr(context_graph, key, cached)
+    return cached
 
 
 def ctc_prefix_beam_search_raw(ctc_probs, ctc_lens, beam_size: int,
                                blank_id: int = 0,
-                               blank_skip_threshold: float = 0.0):
+                               blank_skip_threshold: float = 0.0,
+                               context_graph=None):
     """`ctc_prefix_beam_search_topk_raw` over a dense (B, T, V) log-prob
     table: each frame's top beam_size tokens (ties to the lowest index) and
     p(blank) feed `ctc_prefix_beam_search_device_topk` with L = T."""
@@ -387,21 +448,30 @@ def ctc_prefix_beam_search_raw(ctc_probs, ctc_lens, beam_size: int,
     topk_logp, topk_idx = topk_lastdim(ctc_probs, beam_size)
     out = ctc_prefix_beam_search_device_topk(
         topk_logp, topk_idx, ctc_probs[:, :, blank_id], ctc_lens, beam_size,
-        blank_id, 0, blank_skip_threshold, keep_cap)
+        blank_id, 0, blank_skip_threshold, keep_cap,
+        _graph_tables(context_graph, ctc_probs.shape[-1], ctc_probs.device))
     return _pack_results(*out), out
 
 
 def ctc_prefix_beam_search_topk_raw(topk_logp, topk_idx, blank_logp,
                                     ctc_lens, beam_size: int,
                                     blank_id: int = 0,
-                                    blank_skip_threshold: float = 0.0):
+                                    blank_skip_threshold: float = 0.0,
+                                    context_graph=None, vocab_size: int = 0):
     """The search with no cap on the hypothesis length (L = T, or the keep
     cap under blank-skip): the packed DecodeResults and the raw device tuple
-    (prefixes, plens, scores, times), which the rescorer takes as it is."""
+    (prefixes, plens, scores, times), which the rescorer takes as it is.
+    Context biasing (`context_graph`) needs the vocabulary size."""
     keep_cap = (topk_logp.shape[1] // 2) if blank_skip_threshold > 0 else 0
+    ctx_tables = None
+    if context_graph is not None:
+        if vocab_size <= 0:
+            raise ValueError('context biasing needs vocab_size')
+        ctx_tables = _graph_tables(context_graph, vocab_size,
+                                   topk_logp.device)
     out = ctc_prefix_beam_search_device_topk(
         topk_logp, topk_idx, blank_logp, ctc_lens, beam_size, blank_id, 0,
-        blank_skip_threshold, keep_cap)
+        blank_skip_threshold, keep_cap, ctx_tables)
     return _pack_results(*out), out
 
 

@@ -5,7 +5,8 @@ Counterpart of reverb_tpu/models/asr_model.py (`ModelConfig.from_config`,
 `forward_encoder`, `filter_blank_embedding`, init, `compute_loss`,
 `loss_from_encoder`).  The model is
 an `nn.Module` whose state-dict keys are WeNet's (`encoder.*`,
-`decoder.left_decoder.*`, `ctc.ctc_lo.*`), so a reverb checkpoint loads into
+`decoder.left_decoder.*`, `ctc.ctc_lo.*`; a deep-biasing model's
+`context_adaptor.*` as the JAX tree's), so a reverb checkpoint loads into
 it by name (convert.py).  It is built on the
 meta device and then either filled from a state dict or initialized from an
 explicit `torch.Generator` on its target device.
@@ -14,6 +15,7 @@ explicit `torch.Generator` on its target device.
 from __future__ import annotations
 
 import dataclasses
+import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -21,12 +23,51 @@ import torch
 from torch import nn
 
 from reverb_tpu_torch.models import ctc as ctc_mod
+from reverb_tpu_torch.models.context_adaptor import (ContextAdaptor,
+                                                     ContextAdaptorConfig)
 from reverb_tpu_torch.models.ctc import CTC
 from reverb_tpu_torch.models.decoder import DecoderConfig, build_decoder
 from reverb_tpu_torch.models.encoder import ConformerEncoder, EncoderConfig
 from reverb_tpu_torch.models.modules import reset_parameters
 from reverb_tpu_torch.utils.common import (IGNORE_ID, add_sos_eos,
                                            reverse_sequence, th_accuracy)
+
+
+# Keys the JAX package's EncoderConfig / DecoderConfig read that the port's
+# configs do not hold (reverb_tpu/models/{encoder,decoder}.py).  Each one is
+# handled by `_check_jax_only_keys`: refused where the port would build
+# another model, warned where only memory differs, and accepted where it
+# only tunes a refused or warned feature.  Any other unknown key is dropped,
+# as the JAX package drops it.
+_JAX_ONLY_ENCODER_KEYS = ('positionwise_layer_type', 'n_expert',
+                          'n_expert_per_token', 'gradient_checkpointing',
+                          'remat_policy', 'pipeline_stages',
+                          'pipeline_microbatches')
+_JAX_ONLY_DECODER_KEYS = ('tie_word_embedding', 'gradient_checkpointing',
+                          'remat_policy')
+
+
+def _check_jax_only_keys(enc_conf: Dict, dec_conf: Dict):
+    """Raise for the encoder options the port cannot build (a MoE
+    feed-forward: ROADMAP item 15; a GPipe pipeline: item 14) and warn for
+    gradient checkpointing (item 9), which changes memory, not values."""
+    if (enc_conf.get('positionwise_layer_type',
+                     'position_wise_feed_forward') == 'moe'
+            or (enc_conf.get('n_expert') or 0) > 0):
+        raise NotImplementedError(
+            'encoder_conf positionwise_layer_type: moe / n_expert (a MoE '
+            'feed-forward) is not ported: ROADMAP item 15')
+    if (enc_conf.get('pipeline_stages') or 0) > 1:
+        raise NotImplementedError(
+            f"encoder_conf pipeline_stages: {enc_conf['pipeline_stages']} "
+            f"(GPipe) is not ported: ROADMAP item 14")
+    for name, conf in (('encoder_conf', enc_conf),
+                       ('decoder_conf', dec_conf)):
+        if conf.get('gradient_checkpointing'):
+            warnings.warn(
+                f'{name} gradient_checkpointing: true is not ported '
+                f'(ROADMAP item 9): every activation is kept; the values '
+                f'are the same, only memory differs', stacklevel=3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -53,6 +94,10 @@ class ModelConfig:
     # ...' and token lines 'token id' (decode/joint.py:load_lexicon)
     lexicon_path: Optional[str] = None
     token_path: Optional[str] = None
+    # a context adaptor (deep biasing) beside the encoder: set by
+    # dataset_conf.deep_bias_conf.deep_biasing, as reverb_tpu's registry
+    # decides (reverb_tpu/models/registry.py:_asr_bundle)
+    context_adaptor: bool = False
 
     @staticmethod
     def from_config(configs: Dict) -> 'ModelConfig':
@@ -70,6 +115,8 @@ class ModelConfig:
         if enc_type in ('lsl_conformer', 'language_specific_conformer') \
                 and not num_langs:
             num_langs = int(enc_conf.get('num_langs', 3) or 3)
+        _check_jax_only_keys(enc_conf,
+                             dict(configs.get('decoder_conf', {}) or {}))
         enc_fields = {f.name for f in dataclasses.fields(EncoderConfig)}
         encoder = EncoderConfig(
             input_size=input_dim,
@@ -122,7 +169,9 @@ class ModelConfig:
                 'apply_non_blank_embedding', False),
             compute_dtype=compute_dtype,
             lexicon_path=model_conf.get('lexicon_path'),
-            token_path=model_conf.get('token_path'))
+            token_path=model_conf.get('token_path'),
+            context_adaptor=bool((ds_conf.get('deep_bias_conf') or {})
+                                 .get('deep_biasing', False)))
 
     def with_compute_dtype(self, dtype: torch.dtype) -> 'ModelConfig':
         """Set the activation dtype of the encoder input and the decoder."""
@@ -132,7 +181,8 @@ class ModelConfig:
 
 
 class ASRModel(nn.Module):
-    """Conformer encoder + bitransformer decoder + CTC head."""
+    """Conformer encoder + bitransformer decoder + CTC head, and a context
+    adaptor when the config asks for deep biasing."""
 
     def __init__(self, cfg: ModelConfig, with_cmvn: bool = False):
         super().__init__()
@@ -140,17 +190,23 @@ class ASRModel(nn.Module):
         self.encoder = ConformerEncoder(cfg.encoder, with_cmvn)
         self.decoder = build_decoder(cfg.decoder)
         self.ctc = CTC(cfg.vocab_size, cfg.encoder.output_size)
+        self.context_adaptor = (ContextAdaptor(ContextAdaptorConfig(
+            vocab_size=cfg.vocab_size, output_size=cfg.encoder.output_size))
+            if cfg.context_adaptor else None)
 
     def forward_encoder(self, feats, feats_lens, cat_embs=None,
                         generator=None, decoding_chunk_size: int = -1,
-                        num_decoding_left_chunks: int = -1):
+                        num_decoding_left_chunks: int = -1,
+                        chunk_generator=None, return_layers: bool = False):
         """(B,T,F) features → (encoder_out (B,T',D), masks (B,1,T'));
         dropout when a generator is given; the chunk arguments as
-        reverb_tpu/models/asr_model.py:forward_encoder passes them on."""
+        reverb_tpu/models/asr_model.py:forward_encoder passes them on
+        (`chunk_generator`, `return_layers`: ConformerEncoder.forward)."""
         feats = feats.to(self.cfg.compute_dtype)
         return self.encoder(feats, feats_lens,
                             cat_embs if self.cfg.lsl_enc else None, generator,
-                            decoding_chunk_size, num_decoding_left_chunks)
+                            decoding_chunk_size, num_decoding_left_chunks,
+                            chunk_generator, return_layers)
 
 
 def filter_blank_embedding(cfg: ModelConfig, ctc_probs, encoder_out,
@@ -173,22 +229,31 @@ def filter_blank_embedding(cfg: ModelConfig, ctc_probs, encoder_out,
     return new_out, new_mask[:, None, :]
 
 
-def compute_loss(model: ASRModel, batch: Dict, generator=None) -> Dict:
+def compute_loss(model: ASRModel, batch: Dict, generator=None,
+                 chunk_generator=None) -> Dict:
     """Training loss (reverb_tpu/models/asr_model.py:compute_loss).
 
     batch: feats (B,T,F), feats_lengths (B,), target (B,L) padded with
-    ignore_id, target_lengths (B,), optional cat_embs (B, num_langs).
+    ignore_id, target_lengths (B,), optional cat_embs (B, num_langs), and
+    for a model with a context adaptor optional cv_list (N, Lc) with
+    cv_list_lengths (N,): the adaptor's bias is added to the encoder output.
     `generator` plays the part of the JAX rng: dropout runs only with one,
-    and a use_dynamic_chunk encoder draws its chunk from it.
+    and a use_dynamic_chunk encoder draws its chunk from it, or from
+    `chunk_generator` when that is given (evaluation: a chunk, no dropout).
     Returns {loss, loss_att, loss_ctc, th_accuracy} (None where a weight
     switches a term off)."""
     if model.cfg.apply_non_blank_embedding:
         raise NotImplementedError('apply_non_blank_embedding is not ported')
-    if 'cv_list' in batch:
-        raise NotImplementedError('the context adaptor is not ported')
-    encoder_out, encoder_mask = model.forward_encoder(
+    use_adaptor = model.context_adaptor is not None and 'cv_list' in batch
+    out = model.forward_encoder(
         batch['feats'], batch['feats_lengths'], batch.get('cat_embs'),
-        generator, decoding_chunk_size=0)
+        generator, decoding_chunk_size=0, chunk_generator=chunk_generator,
+        return_layers=use_adaptor)
+    encoder_out, encoder_mask = out[0], out[1]
+    if use_adaptor:
+        ca = model.context_adaptor
+        cv_emb = ca.encode_cv(batch['cv_list'], batch['cv_list_lengths'])
+        encoder_out = encoder_out + ca(out[2], cv_emb)
     return loss_from_encoder(model, encoder_out, encoder_mask, batch,
                              generator)
 

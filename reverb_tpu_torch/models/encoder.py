@@ -320,15 +320,19 @@ class ConformerEncoder(nn.Module):
 
     def forward(self, xs, xs_lens, cat_embs=None, generator=None,
                 decoding_chunk_size: int = 0,
-                num_decoding_left_chunks: int = -1):
+                num_decoding_left_chunks: int = -1, chunk_generator=None,
+                return_layers: bool = False):
         """xs (B, T, F) features, xs_lens (B,) → (out (B, T', D), mask
         (B, 1, T')); dropout when a generator is given.  The chunk mask
         follows reverb_tpu/models/encoder.py:encoder_forward
         (`add_optional_chunk_mask`): decoding_chunk_size > 0 on a
         use_dynamic_chunk model, or a static_chunk_size, masks each frame to
-        its chunk and `num_decoding_left_chunks` chunks before it; in
-        use_dynamic_chunk training (decoding_chunk_size 0) the chunk is
-        drawn from `generator`."""
+        its chunk and `num_decoding_left_chunks` chunks before it; with
+        use_dynamic_chunk and decoding_chunk_size 0 the chunk is drawn from
+        `chunk_generator`, else from `generator` (an evaluation draws its
+        chunk, as WeNet's add_optional_chunk_mask does, without dropout).
+        `return_layers` adds the list of every layer's output, before the
+        final norm (the context adaptor's input)."""
         cfg = self.cfg
         T = xs.shape[1]
         masks = (torch.arange(T, device=xs.device)[None, :]
@@ -347,10 +351,15 @@ class ConformerEncoder(nn.Module):
             chunk_masks = add_optional_chunk_mask(
                 masks, cfg.use_dynamic_chunk, cfg.use_dynamic_left_chunk,
                 decoding_chunk_size, cfg.static_chunk_size,
-                num_decoding_left_chunks, generator)
+                num_decoding_left_chunks,
+                generator if chunk_generator is None else chunk_generator)
+        layer_outs = []
         for layer in self.encoders:
             xs = layer(xs, kv_lens, pos_emb, masks, cat_embs, generator,
                        chunk_masks)
+            layer_outs.append(xs)
+        if return_layers:
+            return self.after_norm(xs), masks, layer_outs
         return self.after_norm(xs), masks
 
     def forward_chunk(self, xs, offset, att_cache, cnn_cache, cat_embs=None):

@@ -11,7 +11,15 @@ per-frame records, with the scatter-max fused in: one block per utterance
 walks the records chunk by chunk in shared memory, last chunk first, and
 builds the outputs there too when they fit (`backtrace_launch_plan`).  Both
 take the plain version for CPU tensors and launch the kernel for CUDA
-tensors (csrc/beam_scan.cu) — there is no fallback.  Unbiased search only.
+tensors (csrc/beam_scan.cu) — there is no fallback.
+
+With `ctx_tables` (a context graph's (S, V) goto and score tables,
+decode/prefix_beam.py:_graph_tables) `beam_scan_forward` launches the
+biased instantiation of the scan, K2b: each extension cell gathers its
+next trie state and bonus, the bonus and the beam's carried bonus enter the
+pruning totals, and the final state gains `ctx` and `cum`.  The records,
+and so K3, are the unbiased scan's.  JAX has no biased streaming, so a
+biased call takes no `state`.
 
 Record layout (time-leading): eight (T, B, K) int32 arrays named by
 `prefix_beam.EMIT_KEYS` plus `wval` (T, B) int32, the frame index written by
@@ -37,8 +45,9 @@ from reverb_tpu_torch.decode.prefix_beam import (EMIT_KEYS, STATE_KEYS,
                                                  _backtrace, _init_state,
                                                  _step)
 
-# kernel launches in this process (read by chip_smoke.py)
+# kernel launches in this process (read by chip_smoke.py): K2, K2b, K3
 FWD_LAUNCHES = 0
+BIASED_LAUNCHES = 0
 BT_LAUNCHES = 0
 _MAX_K = 16
 _MAX_CAND = 128
@@ -90,18 +99,21 @@ def chunk_spans(T: int, chunk: int):
 
 
 def beam_scan_forward_plain(topk_logp, topk_idx, ts, valid, blank_acc,
-                            has_skip, K: int, blank_id: int, state=None):
+                            has_skip, K: int, blank_id: int, state=None,
+                            ctx_tables=None):
     """The frame loop of `prefix_beam._step`, from the empty prefix or from
-    `state` ({STATE_KEYS: (B, K)}).  Returns (final state {STATE_KEYS: (B,
-    K)}, emits as in the module docstring)."""
+    `state` ({STATE_KEYS: (B, K)}), biased by `ctx_tables` (next_tab,
+    score_tab) when given.  Returns (final state {STATE_KEYS (+ CTX_KEYS
+    when biased): (B, K)}, emits as in the module docstring)."""
     B, T, _ = topk_logp.shape
-    state = (_init_state(B, K, topk_logp.device) if state is None
-             else {n: state[n] for n in STATE_KEYS})
+    _check_biased(state, ctx_tables)
+    state = (_init_state(B, K, topk_logp.device, ctx_tables is not None)
+             if state is None else {n: state[n] for n in STATE_KEYS})
     records = []
     for t in range(T):
         state, em = _step(state, topk_logp[:, t], topk_idx[:, t], ts[:, t],
                           valid[:, t], blank_acc[:, t], has_skip[:, t], K,
-                          blank_id)
+                          blank_id, ctx_tables)
         records.append(em)
     dev = topk_logp.device
     emits = {n: (torch.stack([r[n] for r in records]) if T else
@@ -110,6 +122,13 @@ def beam_scan_forward_plain(topk_logp, topk_idx, ts, valid, blank_acc,
     emits['wval'] = (torch.stack([r['wval'] for r in records]) if T else
                      torch.zeros((0, B), dtype=torch.int32, device=dev))
     return state, emits
+
+
+def _check_biased(state, ctx_tables):
+    if state is not None and ctx_tables is not None:
+        raise ValueError('beam_scan_forward: a biased scan starts from the '
+                         'empty prefix (the JAX package has no biased '
+                         'streaming)')
 
 
 def pack_state(state: dict, B: int, K: int, device):
@@ -150,16 +169,18 @@ def beam_backtrace_plain(emits: dict, order, final_sel_ns, L: int):
 
 
 def beam_scan_forward(topk_logp, topk_idx, ts, valid, blank_acc, has_skip,
-                      K: int, blank_id: int, state=None):
+                      K: int, blank_id: int, state=None, ctx_tables=None):
     """topk_logp (B,T,K2) f32, topk_idx (B,T,K2) i32, ts (B,T) i32, valid
     and has_skip (B,T) bool, blank_acc (B,T) f32; `state` None (the empty
-    prefix) or {STATE_KEYS: (B, K)}.  Returns (final, emits) as
-    `beam_scan_forward_plain`."""
-    global FWD_LAUNCHES
+    prefix) or {STATE_KEYS: (B, K)}; `ctx_tables` None or (next_tab (S, V)
+    i32, score_tab (S, V) f32), which launches K2b.  Returns (final, emits)
+    as `beam_scan_forward_plain`."""
+    global FWD_LAUNCHES, BIASED_LAUNCHES
+    _check_biased(state, ctx_tables)
     if topk_logp.device.type == 'cpu':
         return beam_scan_forward_plain(topk_logp, topk_idx, ts, valid,
                                        blank_acc, has_skip, K, blank_id,
-                                       state)
+                                       state, ctx_tables)
     if topk_logp.device.type != 'cuda':
         raise RuntimeError(f'beam_scan_forward: no kernel for '
                            f'{topk_logp.device}')
@@ -181,18 +202,44 @@ def beam_scan_forward(topk_logp, topk_idx, ts, valid, blank_acc, has_skip,
     # one allocation for the nine records, one for the final state
     n = T * B * K
     rec = torch.empty(8 * n + T * B, dtype=torch.int32, device=dev)
-    fin = torch.empty((8, B, K), dtype=torch.int32, device=dev)
+    biased = ctx_tables is not None
+    fin = torch.empty((10 if biased else 8, B, K), dtype=torch.int32,
+                      device=dev)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    next_tab = score_tab = None
+    S = V = 0
+    if biased:
+        next_tab, score_tab = ctx_tables
+        S, V = next_tab.shape
+        if (next_tab.dtype != torch.int32 or score_tab.dtype != torch.float32
+                or tuple(score_tab.shape) != (S, V)):
+            raise ValueError('beam_scan_forward: ctx_tables must be (S, V) '
+                             'int32 and float32')
+        if (next_tab.device != dev or score_tab.device != dev
+                or not next_tab.is_contiguous()
+                or not score_tab.is_contiguous()):
+            raise ValueError('beam_scan_forward: ctx_tables must be '
+                             'contiguous tensors of the inputs\' device')
     rc = _build.load().reverb_beam_scan_forward(
         topk_logp.data_ptr(), topk_idx.data_ptr(), ts.data_ptr(),
         valid.data_ptr(), blank_acc.data_ptr(), has_skip.data_ptr(),
-        None if st is None else st.data_ptr(), rec.data_ptr(),
-        fin.data_ptr(), B, T, K, K2, blank_id, chunk,
-        torch.cuda.current_stream(dev).cuda_stream)
-    _build.check(rc, 'beam_scan_forward')
-    FWD_LAUNCHES += 1
+        None if st is None else st.data_ptr(),
+        None if next_tab is None else next_tab.data_ptr(),
+        None if score_tab is None else score_tab.data_ptr(), rec.data_ptr(),
+        fin.data_ptr(), B, T, K, K2, blank_id, chunk, S, V, stream)
+    _build.check(rc, 'beam_scan_forward (biased)' if biased
+                 else 'beam_scan_forward')
+    if biased:
+        BIASED_LAUNCHES += 1
+    else:
+        FWD_LAUNCHES += 1
     emits = dict(zip(EMIT_KEYS, rec[:8 * n].view(8, T, B, K).unbind(0)))
     emits['wval'] = rec[8 * n:].view(T, B)
-    return unpack_state(fin), emits
+    final = unpack_state(fin[:8])
+    if biased:
+        final['ctx'] = fin[8]
+        final['cum'] = fin[9].view(torch.float32)
+    return final, emits
 
 
 def beam_backtrace(emits: dict, order, final_sel_ns, L: int):

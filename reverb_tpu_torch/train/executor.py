@@ -48,10 +48,14 @@ def _device_batch(batch: Dict, device) -> Dict:
     return out
 
 
+# seed of the generator a CV (and bin/get_loss) draws dynamic chunks from
+CV_SEED = 0
+
+
 @dataclass
 class Executor:
     train_step: Callable                # (model, batch, generator) → floats
-    eval_step: Callable                 # (model, batch) → floats
+    eval_step: Callable       # (model, batch, generator) → floats
     model_dir: str
     log_interval: int = 100
     save_interval: int = 0              # mid-epoch snapshot cadence (steps)
@@ -104,10 +108,14 @@ class Executor:
         return model, optimizer
 
     def cv(self, model, dataset: Iterable) -> Dict[str, float]:
+        """Mean metrics over `dataset`; a dynamic-chunk model's chunks
+        come from a generator seeded with CV_SEED, so every CV of a run
+        draws the same chunks."""
         tot: Dict[str, float] = {}
         n = 0
+        gen = torch.Generator(device=self.device).manual_seed(CV_SEED)
         for batch in dataset:
-            m = self.eval_step(model, _device_batch(batch, self.device))
+            m = self.eval_step(model, _device_batch(batch, self.device), gen)
             bs = batch['feats'].shape[0]
             for k, v in m.items():
                 tot[k] = tot.get(k, 0.0) + float(v) * bs

@@ -174,15 +174,20 @@ def build_optimizer(tc: TrainConfig, model: torch.nn.Module):
     return opt, schedule
 
 
+# batch-level fields: the context phrases every utterance of a batch shares
+_WHOLE_BATCH_KEYS = ('cv_list', 'cv_list_lengths')
+
+
 def _micro_batches(batch: Dict, n: int):
-    """Split every tensor of the batch along its leading (batch) axis into
-    n equal micro-batches."""
+    """Split every per-utterance tensor of the batch along its leading
+    axis into n equal micro-batches; the context phrases go to each."""
     B = batch['feats'].shape[0]
     if B % n:
         raise ValueError(f'batch {B} does not split into {n} micro-batches')
     m = B // n
     for i in range(n):
-        yield {k: v[i * m:(i + 1) * m] for k, v in batch.items()}
+        yield {k: v if k in _WHOLE_BATCH_KEYS else v[i * m:(i + 1) * m]
+               for k, v in batch.items()}
 
 
 def make_train_step(cfg: ModelConfig, optimizer: Adam, accum_grad: int = 1,
@@ -233,16 +238,19 @@ def make_train_step(cfg: ModelConfig, optimizer: Adam, accum_grad: int = 1,
 
 
 def make_eval_step(cfg: ModelConfig):
-    """Returns eval_step(model, batch) → {loss, loss_att, loss_ctc,
-    th_accuracy} as floats (0.0 where a weight switches a term off): the
-    loss with no dropout, under torch.no_grad()
-    (reverb_tpu/train/trainer.py:make_eval_step)."""
+    """Returns eval_step(model, batch, generator=None) → {loss, loss_att,
+    loss_ctc, th_accuracy} as floats (0.0 where a weight switches a term
+    off): the loss with no dropout, under torch.no_grad()
+    (reverb_tpu/train/trainer.py:make_eval_step).  A use_dynamic_chunk
+    model draws its chunk from `generator`, as WeNet's
+    add_optional_chunk_mask draws it in evaluation too (the JAX package
+    has no rng there and raises)."""
 
-    def eval_step(model, batch) -> Dict[str, float]:
+    def eval_step(model, batch, generator=None) -> Dict[str, float]:
         if model.cfg != cfg:
             raise ValueError('eval_step: the model has another config')
         with torch.no_grad():
-            out = compute_loss(model, batch, None)
+            out = compute_loss(model, batch, None, chunk_generator=generator)
         return {k: 0.0 if v is None else float(v) for k, v in out.items()}
 
     return eval_step

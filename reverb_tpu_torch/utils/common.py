@@ -21,14 +21,17 @@ def resolve_device(device) -> torch.device:
 
 
 def reverse_sequence(ys_pad, ys_lens, pad_value: int = IGNORE_ID):
-    """Reverse each row's first `len` elements of (B, L) ys_pad; positions
-    >= len get pad_value."""
-    B, L = ys_pad.shape
+    """Reverse each row's first `len` elements of (B, L) ys_pad, or along
+    time of a (B, T, D) stream; positions >= len get pad_value."""
+    B, L = ys_pad.shape[:2]
     idx = torch.arange(L, device=ys_pad.device)[None, :]
     seq_mask = idx < ys_lens[:, None]
     gather = torch.where(seq_mask, ys_lens[:, None] - 1 - idx,
-                         torch.zeros_like(idx))
-    rev = torch.gather(ys_pad, 1, gather.to(torch.int64))
+                         torch.zeros_like(idx)).to(torch.int64)
+    if ys_pad.dim() == 3:
+        gather = gather[:, :, None].expand(-1, -1, ys_pad.shape[2])
+        seq_mask = seq_mask[:, :, None]
+    rev = torch.gather(ys_pad, 1, gather)
     return torch.where(seq_mask, rev, torch.full_like(rev, pad_value))
 
 

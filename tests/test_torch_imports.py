@@ -79,7 +79,16 @@ def test_port_imports_no_jax_and_no_reverb_tpu():
                  'reverb_tpu_torch.bin.train',
                  'reverb_tpu_torch.bin.recognize',
                  'reverb_tpu_torch.bin.get_loss',
-                 'reverb_tpu_torch.bin.average_model'):
+                 'reverb_tpu_torch.bin.average_model',
+                 'reverb_tpu_torch.bin.alignment',
+                 'reverb_tpu_torch.cli.transcribe',
+                 'reverb_tpu_torch.cli.app',
+                 'reverb_tpu_torch.decode.context_graph',
+                 'reverb_tpu_torch.decode.ctc_utils',
+                 'reverb_tpu_torch.data.deep_bias',
+                 'reverb_tpu_torch.models.context_adaptor',
+                 'reverb_tpu_torch.eval.aggregate_scoring',
+                 'reverb_tpu_torch.eval.scoring_commands'):
         assert name in out['modules']
     assert out['bad'] == []
 

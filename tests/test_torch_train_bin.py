@@ -28,6 +28,7 @@ from helpers import TINY_PIECES, write_sp_model
 from reverb_tpu.convert.torch_ckpt import (flatten_params, load_npz,
                                            save_npz)
 from reverb_tpu.models import asr_model as jam
+from reverb_tpu.models import encoder as jam_encoder
 from reverb_tpu.models import presets as jpresets
 from reverb_tpu.utils import common as jcommon
 from reverb_tpu.utils import tracking as jtracking
@@ -390,6 +391,11 @@ def test_entry_points_default_to_cuda(recipe, tmp_path):
     (['--prng_impl', 'rbg'], "torch's generator"),
     (['--override_config', 'model=transducer'], 'item 15'),
     (['--override_config', 'ts_conf.teacher_yaml=t.yaml'], 'item 15'),
+    # encoder keys the JAX package reads and the port does not build
+    (['--override_config', 'encoder_conf.positionwise_layer_type=moe'],
+     'item 15'),
+    (['--override_config', 'encoder_conf.n_expert=4'], 'item 15'),
+    (['--override_config', 'encoder_conf.pipeline_stages=2'], 'item 14'),
 ])
 def test_train_unported_options_raise(recipe, tmp_path, extra, match):
     d, cfg_path = recipe
@@ -398,11 +404,15 @@ def test_train_unported_options_raise(recipe, tmp_path, extra, match):
                                 'cpu', *extra))
 
 
-def test_dynamic_chunk_cv_raises_as_in_jax(recipe, tmp_path):
-    """A fault shared with the JAX package (ROADMAP queue 3): with
-    use_dynamic_chunk, bin/train's steps run, but its CV and get_loss
-    compute the loss with no generator, so no chunk is drawn and the mask
-    raises, where JAX asserts an rng."""
+def test_dynamic_chunk_cv_raises_as_in_jax(recipe, tmp_path, monkeypatch):
+    """A fault of the JAX package that the port repairs (ROADMAP queue 3):
+    JAX's CV and get_loss compute a use_dynamic_chunk model's loss with no
+    rng, so its chunk mask asserts.  The port's CV and get_loss draw the
+    chunk from a seeded generator, as WeNet's add_optional_chunk_mask draws
+    it in evaluation too: bin/train's epoch with CV and get_loss complete
+    with finite losses, and the eval step's loss equals JAX's compute_loss
+    when JAX's two draws are the port's (fixed draws,
+    `dynamic_chunk_from_draws`), with no dropout on either side."""
     import jax.numpy as jnp
     d, cfg_path = recipe
     with pytest.raises(AssertionError, match='needs an rng'):
@@ -413,18 +423,81 @@ def test_dynamic_chunk_cv_raises_as_in_jax(recipe, tmp_path):
     dyn = tmp_path / 'dynamic_chunk.yaml'
     dyn.write_text(yaml.safe_dump(conf))
     exp = tmp_path / 'exp'
-    with pytest.raises(ValueError, match='needs a generator') as exc:
-        ttrain.main(_train_argv(d, dyn, exp, '--device', 'cpu',
-                                '--max_epoch', '1', '--steps_per_epoch', '1'))
-    # the epoch's step ran; the CV after it raised
-    frames = [e.name for e in exc.traceback]
-    assert 'cv' in frames and 'eval_step' in frames, frames
-    assert 'train_step' not in frames, frames
-    with pytest.raises(ValueError, match='needs a generator'):
-        tget_loss.main(['--config', str(dyn), '--checkpoint',
-                        str(d / 'init.npz'), '--test_data',
-                        str(d / 'cv.list'), '--output',
-                        str(tmp_path / 'loss.txt'), '--device', 'cpu'])
+    ttrain.main(_train_argv(d, dyn, exp, '--device', 'cpu', '--max_epoch',
+                            '1', '--steps_per_epoch', '1'))
+    cv_loss = _yaml(exp / 'epoch_0.yaml')['cv_loss']
+    assert math.isfinite(cv_loss)
+    tget_loss.main(['--config', str(dyn), '--checkpoint',
+                    str(d / 'init.npz'), '--test_data', str(d / 'cv.list'),
+                    '--output', str(tmp_path / 'loss.txt'), '--device',
+                    'cpu'])
+    rows = [r.split() for r in
+            (tmp_path / 'loss.txt').read_text().splitlines()]
+    assert rows and all(len(r) == 4 and all(math.isfinite(float(x))
+                                            for x in r[1:]) for r in rows)
+
+    # the eval step's arithmetic against JAX's at the same draws
+    jconf = jpresets.reverb_tiny()
+    jconf['encoder_conf'].update(use_dynamic_chunk=True,
+                                 use_dynamic_left_chunk=True)
+    jcfg = jam.ModelConfig.from_config(jconf)
+    params = jam.init_params(jax.random.PRNGKey(0), jcfg)
+    tcfg = tam.ModelConfig.from_config(jconf)
+    model = tam.build_model(tcfg, 'cpu', convert.state_dict_from_jax(
+        flatten_params(params)))
+    rng = np.random.RandomState(4)
+    B, T = 2, 97
+    batch = {'feats': rng.randn(B, T, 80).astype(np.float32),
+             'feats_lengths': np.array([T, 70], np.int32),
+             'target': np.array([[3, 4, 5], [6, 7, -1]], np.int32),
+             'target_lengths': np.array([3, 2], np.int32),
+             'cat_embs': np.array([[1.0, 0.0], [0.0, 1.0]], np.float32)}
+    size = ((T - 1) // 2 - 1) // 2             # encoder frames
+    for seed in (0, 1, 2):
+        got = ttr.make_eval_step(tcfg)(
+            model, {k: torch.from_numpy(v) for k, v in batch.items()},
+            torch.Generator().manual_seed(seed))
+        g = torch.Generator().manual_seed(seed)
+        draws = iter([torch.randint(1, max(size, 2), (), generator=g),
+                      torch.randint(0, 2 ** 30, (), generator=g)])
+        monkeypatch.setattr(jax.random, 'randint',
+                            lambda *a, **k: jnp.asarray(int(next(draws))))
+        real_mask = jam_encoder.add_optional_chunk_mask
+        monkeypatch.setattr(
+            jam_encoder, 'add_optional_chunk_mask',
+            lambda *a, rng=None, **k: real_mask(
+                *a, rng=jax.random.PRNGKey(0), **k))
+        want = jam.compute_loss(params, jcfg,
+                                {k: jnp.asarray(v) for k, v in batch.items()})
+        monkeypatch.undo()
+        for k in ('loss', 'loss_att', 'loss_ctc'):
+            np.testing.assert_allclose(got[k], float(want[k]), rtol=1e-5,
+                                       err_msg=f'{k} (seed {seed})')
+
+
+def test_jax_only_config_keys(recipe):
+    """Every encoder/decoder key the JAX package's configs read is either a
+    field of the port's configs or one the port handles on its own
+    (_JAX_ONLY_*_KEYS); gradient_checkpointing warns and builds the same
+    model config, since only memory differs."""
+    import dataclasses as dc
+    from reverb_tpu.models.decoder import DecoderConfig as JDec
+    from reverb_tpu.models.encoder import EncoderConfig as JEnc
+    from reverb_tpu_torch.models.decoder import DecoderConfig as TDec
+    from reverb_tpu_torch.models.encoder import EncoderConfig as TEnc
+    for jc, tc, extra in ((JEnc, TEnc, tam._JAX_ONLY_ENCODER_KEYS),
+                          (JDec, TDec, tam._JAX_ONLY_DECODER_KEYS)):
+        jf = {f.name for f in dc.fields(jc)}
+        tf = {f.name for f in dc.fields(tc)}
+        assert jf - tf == set(extra), (jc, jf - tf)
+    _, cfg_path = recipe
+    conf = yaml.safe_load(cfg_path.read_text())
+    plain = tam.ModelConfig.from_config(conf)
+    for part in ('encoder_conf', 'decoder_conf'):
+        ck = json.loads(json.dumps(conf))
+        ck[part]['gradient_checkpointing'] = True
+        with pytest.warns(UserWarning, match='item 9'):
+            assert tam.ModelConfig.from_config(ck) == plain
 
 
 # ------------------------------ executor ------------------------------
