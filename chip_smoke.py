@@ -126,6 +126,27 @@ then context biasing and the tools, on the serving model:
   same run on the CPU; one POST to `cli.app` served on 127.0.0.1 (port
   0) from a thread; `force_align` at T = 512, timed.
 
+then the rest of training:
+
+- remat: reverb_large in f32 (TF32 off, B = 2, dropout 0.1): the
+  gradients with gradient checkpointing off (twice: the run-to-run
+  floor), under `full` and under `dots` (within 4 × that floor or 1e-5 of
+  each gradient's scale), and every K1/K4/K5/K6 call of a checkpointed
+  step held to its plain version; then in bf16 one model from the same
+  weights and generator seed: two steps under each policy at B = 8 and
+  B = 32 (ms, peak memory; K1 18 / 36 / 18 and K4 18 a step for off /
+  full / dots), two steps each with novograd, with Adam's first moment in
+  bf16 and with the non-blank-embedding loss on a sharpened CTC head;
+  then `bin.train.main` with `dataset_conf.device_feats` on the recipe's
+  corpus, as phase recipe runs it (launches asserted);
+- diartrain: the native nets at full width, f32: `train_embedding` (400
+  steps of 64 single-speaker 2 s crops of a 20 min corpus of 5
+  confusable speakers; K5 = K6 = 4 a step, K6 > 0 asserted) and
+  `train_segmentation` (10 steps of 8 × 10 s windows with powerset
+  labels); the loss before and after; one embedding step with every
+  K5/K6 call held to its plain version; the clusters the Diarizer finds
+  on a held-out 5 min with the trained and the random embedding net.
+
 Each path runs with the launch counters set to 0 just before it and read
 just after.  Every phase raises on failure; the exit code is 0 only when
 all of them pass.
@@ -163,7 +184,7 @@ SEED = 0                     # weights, audio and beam inputs
 LAYERS_ENC, LN_ENC, LN_DEC = 18, 91, 29   # reverb_large: per-step counts
 TRAIN_B, TRAIN_STEPS = 8, 4
 ALL_PHASES = ('kernels', 'serve', 'train', 'modes', 'stream', 'diar',
-              'recipe', 'context', 'tools')
+              'recipe', 'context', 'tools', 'remat', 'diartrain')
 
 
 def log(msg):
@@ -2122,9 +2143,11 @@ def recipe_corpus(workdir: Path, seed: int) -> dict:
     return audio_s
 
 
-def recipe_config(workdir: Path, dynamic_chunk: bool = False) -> dict:
+def recipe_config(workdir: Path, dynamic_chunk: bool = False,
+                  device_feats: bool = False) -> dict:
     """presets.reverb_large() in bf16 with the char tokenizer over the
-    generated table, global CMVN, and the dataset_conf of the recipe."""
+    generated table, global CMVN, and the dataset_conf of the recipe
+    (with `device_feats`, the fbank, dither and SpecAugment in the step)."""
     from reverb_tpu_torch.models import presets
     configs = presets.reverb_large()
     configs.update({
@@ -2145,14 +2168,19 @@ def recipe_config(workdir: Path, dynamic_chunk: bool = False) -> dict:
         configs['encoder_conf'] = dict(configs['encoder_conf'],
                                        use_dynamic_chunk=True,
                                        use_dynamic_left_chunk=True)
+    if device_feats:
+        configs['dataset_conf']['device_feats'] = True
     return configs
 
 
-def recipe_train(dev, workdir: Path, seed: int) -> dict:
+def recipe_train(dev, workdir: Path, seed: int,
+                 device_feats: bool = False) -> dict:
     """`bin.train.main` in-process: 1 epoch of RECIPE_STEPS steps at B = 8,
     a snapshot with CV at step RECIPE_SAVE, CV and epoch_0 at the end.
     The executor's dataset iterator and step are wrapped to time the wait
-    and the step; build_model to count the LayerNorm calls."""
+    and the step; build_model to count the LayerNorm calls.  With
+    `device_feats` the recipe's config computes its features in the step
+    (exp_device_feats/)."""
     import gc
     import torch
     from reverb_tpu_torch.bin import train as train_bin
@@ -2162,9 +2190,11 @@ def recipe_train(dev, workdir: Path, seed: int) -> dict:
     from reverb_tpu_torch.ops import layer_norm as ln
     from reverb_tpu_torch.train import executor as exmod
     from reverb_tpu_torch.train import trainer
-    cfg_path = workdir / 'recipe.yaml'
-    cfg_path.write_text(json.dumps(recipe_config(workdir)))
-    model_dir = workdir / 'exp'
+    tag = '_device_feats' if device_feats else ''
+    cfg_path = workdir / f'recipe{tag}.yaml'
+    cfg_path.write_text(json.dumps(recipe_config(
+        workdir, device_feats=device_feats)))
+    model_dir = workdir / f'exp{tag}'
     rec = {'wait': [], 'step': [], 'audio': [], 'eval': 0, 'ln': [0]}
 
     def timed_train(orig):
@@ -2197,8 +2227,8 @@ def recipe_train(dev, workdir: Path, seed: int) -> dict:
         return train
 
     def counted_eval(orig):
-        def make(cfg):
-            fn = orig(cfg)
+        def make(cfg, **kw):
+            fn = orig(cfg, **kw)
 
             def eval_step(m, batch, generator=None):
                 rec['eval'] += 1
@@ -2242,7 +2272,7 @@ def recipe_train(dev, workdir: Path, seed: int) -> dict:
     per = LN_ENC + LN_DEC
     want = {'K1': LAYERS_ENC * (steps + n_eval), 'K4': LAYERS_ENC * steps,
             'K5': per * (steps + n_eval), 'K6': per * steps}
-    log(f'recipe train: {steps} steps, {n_eval} CV batches (a CV with '
+    log(f'recipe train{tag}: {steps} steps, {n_eval} CV batches (a CV with '
         f'each snapshot, every {RECIPE_SAVE} steps, and at the epoch end); '
         f'launches {launches}, expected {want} (LayerNorm calls seen '
         f'{rec["ln"][0]})')
@@ -2280,7 +2310,7 @@ def recipe_train(dev, workdir: Path, seed: int) -> dict:
            'peak_gib': peak / 2 ** 30, 'wall_s': wall,
            'cv_loss': info['cv_loss'],
            'losses': [m['train/loss'] for m in metrics]}
-    log(f'recipe train: bin.train.main {wall:.1f} s in all; steps 2-{n}: '
+    log(f'recipe train{tag}: bin.train.main {wall:.1f} s in all; steps 2-{n}: '
         f'{step_ms:.1f} ms a step, {wait_ms:.2f} ms a step waiting on the '
         f'dataset iterator ({audio:.2f} s of audio a step: '
         f'{res["audio_s_per_s"]:.1f} audio-s/s); first step '
@@ -3494,6 +3524,447 @@ def run_tools(dev, asr, wav, feats, audio_s, workdir: Path, seed=SEED):
     return res
 
 
+# ------------------------------ phase 15: checkpointing and the training options ------------------------------
+
+REMAT_B, REMAT_BIG_B = 8, 32     # utterances of 1600-2051 frames a step
+REMAT_RUNS = (('off', None), ('full', 'full'), ('dots', 'dots'))
+REMAT_STEPS = 2                  # a step, then the timed one
+# K1 a step: once per encoder layer, again in the replay under 'full'
+REMAT_K1 = {'off': LAYERS_ENC, 'full': 2 * LAYERS_ENC, 'dots': LAYERS_ENC}
+
+
+def kernel_counts() -> dict:
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    return {'K1': fa.LAUNCHES, 'K4': fa.BWD_LAUNCHES, 'K5': ln.LAUNCHES,
+            'K6': ln.BWD_LAUNCHES}
+
+
+def set_remat(model, policy, **changes):
+    """Point the model's configs at gradient checkpointing under `policy`
+    (None: off), with `changes` to its ModelConfig."""
+    import dataclasses as dc
+    flags = {'gradient_checkpointing': policy is not None,
+             'remat_policy': policy or 'dots'}
+    enc = dc.replace(model.cfg.encoder, **flags)
+    dec = dc.replace(model.cfg.decoder, **flags)
+    model.cfg = dc.replace(model.cfg, encoder=enc, decoder=dec, **changes)
+    model.encoder.cfg = enc
+    for d in (model.decoder, model.decoder.left_decoder,
+              model.decoder.right_decoder):
+        d.cfg = dec
+
+
+def sharpen_for_filter(model, batch):
+    """The CTC head ×8 with its blank bias at the median of (best
+    non-blank − blank) over the batch's valid frames, so that about half
+    the frames survive the non-blank filter.  Returns that share."""
+    import torch
+    from reverb_tpu_torch.models.asr_model import filter_blank_embedding
+    from reverb_tpu_torch.models.ctc import ctc_logprobs
+    lo = model.ctc.ctc_lo
+    with torch.no_grad():
+        lo.weight.mul_(8.0)
+        lo.bias.zero_()
+        enc, mask = model.forward_encoder(batch['feats'],
+                                          batch['feats_lengths'],
+                                          batch['cat_embs'])
+        logits = lo(enc).float()
+        gap = (logits[..., 1:].amax(-1) - logits[..., 0])[mask[:, 0]]
+        lo.bias[0] = gap.median()
+        _, kept = filter_blank_embedding(model.cfg, ctc_logprobs(
+            model.ctc, enc), enc, mask)
+    return float(kept.sum()) / float(mask.sum())
+
+
+def remat_run(model, init, configs, batch, dev, seed, policy, what,
+              **changes):
+    """REMAT_STEPS make_train_step steps of `model` from the weights
+    `init` (host copies) with a fresh optimizer of `configs`, under
+    `policy`: (ms of the last step, first step ms, peak GiB, launches a
+    step, metrics)."""
+    import gc
+    import torch
+    from reverb_tpu_torch.train.trainer import (TrainConfig,
+                                                build_optimizer,
+                                                make_train_step)
+    with torch.no_grad():
+        for p, w in zip(model.parameters(), init):
+            p.copy_(w)
+    set_remat(model, policy, **changes)
+    kept = None
+    if changes.get('apply_non_blank_embedding'):
+        kept = sharpen_for_filter(model, batch)
+    tc = TrainConfig.from_config(configs)
+    opt, _ = build_optimizer(tc, model)
+    step = make_train_step(model.cfg, opt, tc.accum_grad, tc.grad_clip)
+    gen = torch.Generator(device=dev).manual_seed(seed + 3)
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    diar_zero_launch_counts()
+    walls, metrics = [], []
+    for _ in range(REMAT_STEPS):
+        t0 = time.perf_counter()
+        metrics.append(step(model, batch, gen))
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    launches = {k: v / REMAT_STEPS for k, v in kernel_counts().items()}
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del opt, step
+    gc.collect()
+    torch.cuda.empty_cache()
+    for m in metrics:
+        if not (math.isfinite(m['loss']) and m['skipped'] == 0.0):
+            raise AssertionError(f'remat {what}: step {m}')
+    log(f'remat {what}: B={batch["feats"].shape[0]}, {walls[-1] * 1e3:.1f} '
+        f'ms/step (first {walls[0] * 1e3:.1f}), peak {peak:.2f} GiB, '
+        f'launches a step {launches}, losses '
+        f'{[round(m["loss"], 4) for m in metrics]}'
+        + ('' if kept is None else f'; {kept:.3f} of the frames survive '
+           f'the non-blank filter'))
+    return {'ms': walls[-1] * 1e3, 'first_ms': walls[0] * 1e3,
+            'peak_gib': peak, 'launches': launches,
+            'loss': metrics[-1]['loss'], 'kept': kept}
+
+
+def remat_steps(dev, seed) -> dict:
+    """reverb_large in bf16 (f32 master weights, dropout 0.1, Adam,
+    warmuplr, clip 50), one model: each checkpointing policy at B = 8 and
+    B = 32 from the same weights and generator seed, then novograd, Adam
+    with a bf16 first moment, and the non-blank-embedding loss (Adam, no
+    checkpointing).  K1 and K4 a step asserted."""
+    import gc
+    import torch
+    from reverb_tpu_torch.models import presets
+    configs = presets.reverb_large()
+    model, opt, step = train_model(dev, seed, torch.bfloat16)
+    del opt, step
+    init = [p.detach().to('cpu', copy=True) for p in model.parameters()]
+    res = {}
+    for B in (REMAT_B, REMAT_BIG_B):
+        batch = train_batch(dev, B, seed + 2, model.cfg.vocab_size)
+        for name, policy in REMAT_RUNS:
+            r = remat_run(model, init, configs, batch, dev, seed, policy,
+                          f'{name} at B={B}')
+            want = {'K1': REMAT_K1[name], 'K4': LAYERS_ENC}
+            got = {k: r['launches'][k] for k in want}
+            if got != want:
+                raise AssertionError(f'remat {name} at B={B}: launches a '
+                                     f'step {got}, expected {want}')
+            res[f'{name}_b{B}'] = r
+        del batch
+    batch = train_batch(dev, REMAT_B, seed + 2, model.cfg.vocab_size)
+    novograd = dict(configs, optim='novograd')
+    mu = dict(configs, optim_conf=dict(configs['optim_conf'],
+                                       mu_dtype='bfloat16'))
+    for name, conf, changes in (
+            ('novograd', novograd, {}), ('adam_mu_bf16', mu, {}),
+            ('non_blank_embedding', configs,
+             {'apply_non_blank_embedding': True})):
+        r = remat_run(model, init, conf, batch, dev, seed, None, name,
+                      **changes)
+        if r['launches']['K1'] != LAYERS_ENC or \
+                r['launches']['K4'] != LAYERS_ENC:
+            raise AssertionError(f'remat {name}: launches {r["launches"]}')
+        res[name] = r
+    del model, init, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def grad_worst(ga, gb, names) -> tuple:
+    """(worst per-tensor ‖ga − gb‖ / ‖gb‖ with each norm floored at 1e-4
+    of the global one, its tensor, the global distance)."""
+    import torch
+    norm = float(torch.linalg.vector_norm(torch.stack(
+        [torch.linalg.vector_norm(g) for g in gb])))
+    worst, where = 0.0, ''
+    for n, a, b in zip(names, ga, gb):
+        r = float(torch.linalg.vector_norm(a - b)) / max(
+            float(torch.linalg.vector_norm(b)), 1e-4 * norm)
+        if r > worst:
+            worst, where = r, n
+    return worst, where, grad_dist(ga, gb)
+
+
+def remat_reference_check(dev, seed) -> dict:
+    """reverb_large in f32 (TF32 off), B = 2, dropout 0.1 from a generator
+    of seed 7: the gradients with checkpointing off (twice: the run-to-run
+    floor), under 'full' and under 'dots', each against the first; then
+    one 'full' and one 'dots' step with every K1/K4/K5/K6 call held to its
+    plain version on that call's inputs (`checked_kernels`)."""
+    import gc
+    import torch
+    model, opt, step = train_model(dev, seed, torch.float32)
+    del opt, step
+    names = [n for n, _ in model.named_parameters()]
+    batch = train_batch(dev, 2, seed + 1, model.cfg.vocab_size)
+    runs = {}
+    for name, policy in (('off', None), ('off again', None), ('full', 'full'),
+                         ('dots', 'dots')):
+        set_remat(model, policy)
+        diar_zero_launch_counts()
+        loss, g = loss_and_grads(model, batch, dev)
+        runs[name] = (loss, g, kernel_counts())
+    loss0, g0, _ = runs['off']
+    res = {'launches': {n: r[2] for n, r in runs.items()}}
+    for name in ('off again', 'full', 'dots'):
+        worst, where, glob = grad_worst(runs[name][1], g0, names)
+        res[name] = {'loss_rel': abs(runs[name][0] - loss0) / abs(loss0),
+                     'worst': worst, 'worst_tensor': where, 'global': glob}
+    floor = max(4 * res['off again']['worst'], 1e-5)
+    log(f'remat reference: reverb_large f32, B=2, dropout 0.1: gradients '
+        f'against checkpointing off — '
+        + '; '.join(f'{n}: loss rel {r["loss_rel"]:.2e}, worst tensor '
+                    f'{r["worst"]:.2e} ({r["worst_tensor"]}), global '
+                    f'{r["global"]:.2e}'
+                    for n, r in res.items() if n != 'launches')
+        + f'; launches {res["launches"]}')
+    for name in ('full', 'dots'):
+        if not (res[name]['worst'] <= floor
+                and res[name]['loss_rel'] <= 1e-6):
+            raise AssertionError(f'remat reference: {name} differs from '
+                                 f'checkpointing off beyond the floor '
+                                 f'{floor:.2e}')
+    if any(runs[n][2]['K1'] != REMAT_K1[n.split()[0]] for n in runs):
+        raise AssertionError(f'remat reference: K1 {res["launches"]}')
+    del runs, g0
+    for policy in ('full', 'dots'):
+        set_remat(model, policy)
+        errs = {}
+        loss_and_grads(model, batch, dev, checked_kernels(errs))
+        check_call_errs(errs, f'remat reference, {policy}')
+        res[f'call_errs_{policy}'] = dict(errs)
+        log(f'remat reference: {policy}, every kernel call against its '
+            f'plain version, worst share of scale '
+            + ', '.join(f'{n} {e:.2e}' for n, e in sorted(errs.items())))
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def run_remat(dev, seed=SEED):
+    """Gradient checkpointing at reverb_large width (the three policies at
+    B = 8 and 32, and against the plain versions in f32), steps through
+    novograd, a bf16 first moment and the non-blank-embedding loss, and
+    bin.train with dataset_conf.device_feats on the recipe corpus."""
+    t_phase = time.perf_counter()
+    res = {'reference': remat_reference_check(dev, seed),
+           'steps': remat_steps(dev, seed)}
+    with tempfile.TemporaryDirectory(prefix='reverb_remat_') as tmp:
+        workdir = Path(tmp)
+        recipe_corpus(workdir, seed + 70)
+        res['device_feats'] = recipe_train(dev, workdir, seed,
+                                           device_feats=True)
+    log(f'remat: the phase took {time.perf_counter() - t_phase:.1f} s; on '
+        f'{smi_line()}')
+    return res
+
+
+# ------------------------------ phase 16: diarization training ------------------------------
+
+DT_MIN, DT_HELD_MIN = 20.0, 5.0     # training and held-out corpora
+DT_EMB_B, DT_EMB_BATCHES, DT_EMB_EPOCHS = 64, 20, 20
+DT_SEG_B, DT_SEG_STEPS = 8, 10
+DT_CROP = 32000                     # 2 s embedding crops
+
+
+def single_speaker_turns(turns):
+    """The turns no other turn overlaps, (start s, end s, speaker)."""
+    out = []
+    for i, (s, e, spk) in enumerate(turns):
+        if all(e2 <= s or s2 >= e for j, (s2, e2, _) in enumerate(turns)
+               if j != i):
+            out.append((s, e, spk))
+    return out
+
+
+def embedding_batches(audio, turns, dev, seed):
+    """DT_EMB_BATCHES batches of DT_EMB_B 2 s crops inside single-speaker
+    turns, as the Diarizer embeds them (fbank of the wave × 2¹⁵): (feats
+    (B, T, 80), lens (B,), speakers (B,)) on the device."""
+    import torch
+    from reverb_tpu_torch.frontend.fbank import (FbankConfig,
+                                                 compute_fbank_batch,
+                                                 num_frames)
+    rng = np.random.RandomState(seed)
+    pool = [(int(s * 16000), int(e * 16000), spk)
+            for s, e, spk in single_speaker_turns(turns)
+            if (e - s) * 16000 > DT_CROP]
+    wave = torch.from_numpy(audio).to(dev)
+    n = num_frames(DT_CROP)
+    out = []
+    for _ in range(DT_EMB_BATCHES):
+        pick = [pool[i] for i in rng.randint(len(pool), size=DT_EMB_B)]
+        starts = torch.tensor([rng.randint(s, e - DT_CROP + 1)
+                               for s, e, _ in pick], device=dev)
+        rows = wave[starts[:, None] + torch.arange(DT_CROP, device=dev)]
+        feats = compute_fbank_batch(rows * (1 << 15), FbankConfig(), n)
+        out.append((feats, torch.full((DT_EMB_B,), n, device=dev),
+                    torch.tensor([spk for _, _, spk in pick], device=dev)))
+    return out
+
+
+def segmentation_batches(seg, audio, turns, dev, seed):
+    """DT_SEG_STEPS batches of DT_SEG_B 10 s windows with one-hot powerset
+    labels at the net's frame rate (speakers numbered by first appearance
+    in the window, at most 3, at most 2 at once): (wave (B, S), labels
+    (B, T', 7)) on the device."""
+    import torch
+    from reverb_tpu_torch.diar.models import powerset_classes
+    cfg = seg.cfg
+    classes = {c: i for i, c in enumerate(powerset_classes(
+        cfg.max_speakers, cfg.max_simultaneous))}
+    S = 160000
+    with torch.inference_mode():
+        T = seg(torch.zeros((1, S), device=dev)).shape[1]
+    hop = cfg.sinc_stride * cfg.pool
+    centre = (np.arange(T) * hop + (hop + cfg.sinc_kernel) / 2) / 16000
+    rng = np.random.RandomState(seed)
+    out = []
+    for _ in range(DT_SEG_STEPS):
+        waves, labels = [], []
+        for start in rng.randint(0, len(audio) - S, DT_SEG_B):
+            t = start / 16000 + centre
+            near = [x for x in turns if x[1] > t[0] and x[0] <= t[-1]]
+            local, lab = {}, np.zeros((T, len(classes)), np.float32)
+            for i, ti in enumerate(t):
+                active = []
+                for s, e, spk in near:
+                    if s <= ti < e:
+                        if spk not in local and len(local) < cfg.max_speakers:
+                            local[spk] = len(local)
+                        if spk in local:
+                            active.append(local[spk])
+                lab[i, classes[tuple(sorted(active)[:cfg.max_simultaneous])]] \
+                    = 1.0
+            waves.append(audio[start:start + S])
+            labels.append(lab)
+        out.append((torch.from_numpy(np.stack(waves)).to(dev),
+                    torch.from_numpy(np.stack(labels)).to(dev)))
+    return out
+
+
+def recorded(fn, losses):
+    """fn, with the float of each loss it returns appended to `losses`."""
+    def wrapper(*a, **k):
+        loss, aux = fn(*a, **k)
+        losses.append(float(loss.detach()))
+        return loss, aux
+    return wrapper
+
+
+def diar_clusters(seg, emb, audio, dev) -> int:
+    from reverb_tpu_torch.diar.pipeline import Diarizer
+    return len({s.speaker for s in Diarizer(seg, emb, device=dev)(audio,
+                                                                  16000)})
+
+
+def run_diartrain(dev, seed=SEED):
+    """The native nets at full width (f32): train_embedding on
+    DT_EMB_EPOCHS × DT_EMB_BATCHES steps of 2 s single-speaker crops of a
+    DT_MIN-minute corpus of DIAR_SPK confusable speakers (K5 and K6 at the
+    TDNN's 512-channel LayerNorms a step; K6 > 0 asserted), and
+    train_segmentation on DT_SEG_STEPS batches of 10 s windows; the loss
+    before and after; one embedding step with every K5/K6 call held to its
+    plain version; the clusters the Diarizer finds on a held-out
+    DT_HELD_MIN minutes with the trained embedding net and with the random
+    one (reported, not gated)."""
+    import copy
+    import torch
+    from reverb_tpu_torch.diar import train_embedding as tte
+    from reverb_tpu_torch.diar import train_segmentation as tts
+    t_phase = time.perf_counter()
+    audio, turns = diar_corpus(DT_MIN, DIAR_SPK, seed + 80, DIAR_OVERLAP)
+    held, _ = diar_corpus(DT_HELD_MIN, DIAR_SPK, seed + 81, DIAR_OVERLAP)
+    seg, emb = diar_routes(dev, seed)['native']
+    emb_random = copy.deepcopy(emb)
+    ebatches = embedding_batches(audio, turns, dev, seed + 82)
+    sbatches = segmentation_batches(seg, audio, turns, dev, seed + 83)
+    res = {}
+    e_losses, s_losses = [], []
+    torch.cuda.synchronize()
+    diar_zero_launch_counts()
+    t0 = time.perf_counter()
+    with swapped({(tte, 'embedding_loss'): recorded(tte.embedding_loss,
+                                                    e_losses)}):
+        tte.train_embedding(emb, DIAR_SPK, lambda: ebatches,
+                            max_epochs=DT_EMB_EPOCHS, margin=0.2,
+                            seed=seed + 84)
+    torch.cuda.synchronize()
+    n = DT_EMB_EPOCHS * DT_EMB_BATCHES
+    wall = time.perf_counter() - t0
+    res['embedding'] = {'steps': n, 'ms': wall / n * 1e3,
+                        'launches': {k: v / n for k, v in
+                                     kernel_counts().items()},
+                        'loss_first': e_losses[0],
+                        'loss_last': float(np.mean(e_losses[-DT_EMB_BATCHES:]))}
+    if not res['embedding']['launches']['K6'] > 0:
+        raise AssertionError('diartrain: K6 did not launch on the embedding '
+                             'backward')
+    diar_zero_launch_counts()
+    t0 = time.perf_counter()
+    with swapped({(tts, 'segmentation_loss'): recorded(
+            tts.segmentation_loss, s_losses)}):
+        tts.train_segmentation(seg, lambda: sbatches, max_epochs=1,
+                               lr=1e-3)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    res['segmentation'] = {'steps': DT_SEG_STEPS,
+                           'ms': wall / DT_SEG_STEPS * 1e3,
+                           'launches': {k: v / DT_SEG_STEPS for k, v in
+                                        kernel_counts().items()},
+                           'loss_first': s_losses[0],
+                           'loss_last': s_losses[-1]}
+    for part in ('embedding', 'segmentation'):
+        r = res[part]
+        if not all(math.isfinite(x) for x in (r['loss_first'],
+                                              r['loss_last'])):
+            raise AssertionError(f'diartrain {part}: {r}')
+        log(f'diartrain {part}: {r["steps"]} steps, {r["ms"]:.2f} ms a '
+            f'step, launches a step {r["launches"]}, loss {r["loss_first"]:.4f} '
+            f'→ {r["loss_last"]:.4f}')
+    # one embedding step, every K5/K6 call against its plain version
+    errs = {}
+    feats, lens, labels = ebatches[0]
+    with swapped(checked_kernels(errs)):
+        emb.train().requires_grad_(True)
+        head = torch.randn((DIAR_SPK, emb.cfg.embed_dim), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(
+                               seed)) * 0.1
+        loss, _ = tte.embedding_loss(emb, head, feats, lens, labels,
+                                     margin=0.2)
+        loss.backward()
+        torch.cuda.synchronize()
+        emb.eval().requires_grad_(False)
+        for p in emb.parameters():
+            p.grad = None
+    bad = {k: e for k, e in errs.items()
+           if not e <= RECIPE_CALL_TOL[k.split()[0]]}
+    if bad or {k.split()[0] for k in errs} != {'K5', 'K6'}:
+        raise AssertionError(f'diartrain: K5/K6 against their plain '
+                             f'versions {errs}')
+    res['call_errs'] = errs
+    log('diartrain: one embedding step, every K5/K6 call against its plain '
+        'version, worst share of scale '
+        + ', '.join(f'{k} {e:.2e}' for k, e in sorted(errs.items())))
+    diar_bias_off_silence(seg, held, dev, 'native (trained)')
+    res['clusters_trained'] = diar_clusters(seg, emb, held, dev)
+    res['clusters_random'] = diar_clusters(seg, emb_random, held, dev)
+    log(f'diartrain: the Diarizer on a held-out {DT_HELD_MIN:.0f} min '
+        f'({DIAR_SPK} speakers): {res["clusters_trained"]} clusters with the '
+        f'trained embedding net, {res["clusters_random"]} with the random '
+        f'one; the phase took {time.perf_counter() - t_phase:.1f} s; on '
+        f'{smi_line()}')
+    del seg, emb, emb_random, ebatches, sbatches
+    torch.cuda.empty_cache()
+    return res
+
+
 # ------------------------------ shared helpers ------------------------------
 
 class swapped:
@@ -4292,9 +4763,10 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default=','.join(ALL_PHASES),
                     help='comma list of kernels, serve, train, modes, '
-                         'stream, diar, recipe, context, tools (default '
-                         'all; the result lines need all nine), or beam: '
-                         'the K2/K3 and K2b checks alone')
+                         'stream, diar, recipe, context, tools, remat, '
+                         'diartrain (default all; the result lines need '
+                         'all eleven), or beam: the K2/K3 and K2b checks '
+                         'alone')
     ap.add_argument('--profile', action='store_true',
                     help='also profile one bf16 training step')
     ap.add_argument('--ab-parent', type=Path, default=None,
@@ -4404,6 +4876,13 @@ def main():
     if 'recipe' in phases:
         # phase 12: the dataset path (train, recognize, get_loss, average)
         recipe = run_recipe(dev, SEED)
+    if 'remat' in phases:
+        # phase 15: gradient checkpointing, the new training options,
+        # device_feats through bin.train
+        remat = run_remat(dev, SEED)
+    if 'diartrain' in phases:
+        # phase 16: diarization training (K6 on the TDNN)
+        diartrain = run_diartrain(dev, SEED)
     spilled = [n for n, r in {**tc, **lnk, **beamk}.items() if r[1] or r[2]]
     if spilled:
         raise AssertionError(f'kernels spill registers: {spilled}')
@@ -4414,7 +4893,7 @@ def main():
 
     kernels = kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches,
                              len(walls), t_launch, fallback, modes, stream,
-                             diar, recipe, context, tools)
+                             diar, recipe, context, tools, remat, diartrain)
     log(f'slice: second transcribe_modes call {walls[1]:.4f} s for '
         f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; six-mode '
         f'call {modes[2]:.3f} s; train {step_ms:.1f} ms/step at '
@@ -4431,7 +4910,25 @@ def main():
         f'adaptor '
         f'{context["adaptor"]["step_ms"]:.1f} ms/step; force_align '
         f'{tools["force_align_ms"]:.2f} ms at T={tools["force_align_T"]}; '
-        f'on {smi}')
+        f'checkpointed steps at B={REMAT_B}: '
+        + ', '.join(f'{n} {remat["steps"][f"{n}_b{REMAT_B}"]["ms"]:.1f} ms '
+                    f'{remat["steps"][f"{n}_b{REMAT_B}"]["peak_gib"]:.2f} GiB'
+                    for n, _ in REMAT_RUNS)
+        + f'; at B={REMAT_BIG_B}: '
+        + ', '.join(f'{n} {remat["steps"][f"{n}_b{REMAT_BIG_B}"]["ms"]:.1f} '
+                    f'ms {remat["steps"][f"{n}_b{REMAT_BIG_B}"]["peak_gib"]:.2f}'
+                    f' GiB' for n, _ in REMAT_RUNS)
+        + f'; bin.train with device_feats '
+        f'{remat["device_feats"]["step_ms"]:.1f} ms/step '
+        f'({remat["device_feats"]["wait_ms"]:.2f} ms wait, '
+        f'{remat["device_feats"]["audio_s_per_s"]:.1f} audio-s/s) beside '
+        f'host fbank {recipe["train"]["step_ms"]:.1f} ms/step '
+        f'({recipe["train"]["wait_ms"]:.2f} ms wait, '
+        f'{recipe["train"]["audio_s_per_s"]:.1f} audio-s/s); diarization '
+        f'training {diartrain["embedding"]["ms"]:.2f} ms an embedding step, '
+        f'{diartrain["segmentation"]["ms"]:.2f} ms a segmentation step, '
+        f'{diartrain["clusters_trained"]} clusters trained vs '
+        f'{diartrain["clusters_random"]} random; on {smi}')
     print(smi_line())
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
@@ -4442,7 +4939,7 @@ def main():
 
 def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
                    t_launch, fallback, modes, stream, diar, recipe, context,
-                   tools):
+                   tools, remat, diartrain):
     """The {"kernels": [...]} entries: launches on the paths (in all, per
     serving call, per training step, per six-mode call, per streaming hop,
     per pool step, per diarization call of either route, and on the
@@ -4506,9 +5003,31 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
             key = 'tools_alignment_wav' if run == 'alignment' else \
                 f'tools_{run}'
             per[n][key] = got.get(n, 0) / t_per.get(run, 1)
+    # phases remat and diartrain: launches a step of each run
+    r_steps = remat['steps']
+    r_df = remat['device_feats']
+    r_ref = remat['reference']['launches']
+    for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6'):
+        for run, r in r_steps.items():
+            per[n][f'remat_{run}_step'] = r['launches'].get(n, 0)
+        for run, got in r_ref.items():
+            per[n][f'remat_f32_{run.replace(" ", "_")}_step'] = got.get(n, 0)
+        per[n]['remat_device_feats_bin_train_step'] = (
+            r_df['launches'].get(n, 0) / r_df['steps'])
+        for part in ('embedding', 'segmentation'):
+            per[n][f'diartrain_{part}_step'] = diartrain[part][
+                'launches'].get(n, 0)
     other = {n: (c_serve.get(n, 0) + c_tail.get(n, 0) + c_train.get(n, 0)
-                 + sum(got.get(n, 0) for got, _ in t_runs.values()))
+                 + sum(got.get(n, 0) for got, _ in t_runs.values())
+                 + sum(r['launches'].get(n, 0) * REMAT_STEPS
+                       for r in r_steps.values())
+                 + sum(got.get(n, 0) for got in r_ref.values())
+                 + r_df['launches'].get(n, 0)
+                 + sum(round(diartrain[p]['launches'].get(n, 0)
+                             * diartrain[p]['steps'])
+                       for p in ('embedding', 'segmentation')))
              for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6', 'K2b')}
+    other = {n: int(round(v)) for n, v in other.items()}
 
     def rec(name, src, replaces, kid, err, ms, dev_ms, plain_ms, bnd,
             lib_ms, lib_dev_ms, lib_call, **extra):

@@ -5,7 +5,9 @@ Counterpart of reverb_tpu/bin/train.py (reference asr/wenet/bin/train.py:
 train.yaml → the datasets (CV without augmentation) → the model with the
 global CMVN stats inside its parameters (or the `--checkpoint`'s
 parameters) → `--enc_init` → the optimizer and schedule → resume (epoch and
-step from the checkpoint's yaml) → the tracker, the watchdog and the
+step from the checkpoint's yaml, the optimizer from the port's
+`.torch_opt.pt` or the JAX package's `.opt.npz`) → the device frontend of
+`dataset_conf.device_feats` → the tracker, the watchdog and the
 profiler → the epoch loop {train with mid-epoch snapshots, CV,
 `epoch_N.npz` + `.yaml`} → the dataset statistics.
 
@@ -127,6 +129,7 @@ def main(argv=None):
     from reverb_tpu_torch.data.dataset import Dataset
     from reverb_tpu_torch.data.pipeline import mystats
     from reverb_tpu_torch.frontend.cmvn import load_cmvn_from_configs
+    from reverb_tpu_torch.frontend.device_feats import frontend_from_configs
     from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
     from reverb_tpu_torch.text.tokenizer import init_tokenizer
     from reverb_tpu_torch.train.checkpoint import (load_checkpoint,
@@ -201,9 +204,12 @@ def main(argv=None):
         logging.info('resumed from %s at epoch %d step %d', args.checkpoint,
                      start_epoch, start_step)
 
+    # dataset_conf.device_feats: fbank and SpecAugment on the device inside
+    # the step; the host pipeline ships the padded PCM only
+    frontend = frontend_from_configs(configs)
     train_step = make_train_step(cfg, optimizer, tc.accum_grad,
-                                 grad_clip=tc.grad_clip)
-    eval_step = make_eval_step(cfg)
+                                 grad_clip=tc.grad_clip, frontend=frontend)
+    eval_step = make_eval_step(cfg, frontend=frontend)
 
     # experiment tracking (wandb/tensorboard/jsonl; train_utils.py:495-533)
     tracker = init_tracking(args.model_dir, configs,

@@ -9,8 +9,9 @@ batch(static|bucket|dynamic|distribute) → padded numpy batches.
 
 `deep_bias_conf.deep_biasing` mines each utterance's context phrases and
 distractors (data/deep_bias.py) and the batches carry them as `cv_list`.
-Not ported, and raising: `device_feats` (fbank and SpecAugment inside the
-train step, ROADMAP item 9).
+`device_feats` leaves the fbank and SpecAugment to the train step
+(frontend/device_feats.py): each sample carries a zero-width `feat` of its
+frame count instead.
 """
 
 from __future__ import annotations
@@ -18,11 +19,13 @@ from __future__ import annotations
 from functools import partial
 from typing import Optional
 
+import numpy as np
 
 from reverb_tpu_torch.data import processor, rev_processor
 from reverb_tpu_torch.data.pipeline import Pipeline, mystats
 from reverb_tpu_torch.data.source import (line_source, parse_json,
                                           tar_shard_source)
+from reverb_tpu_torch.frontend.fbank import FbankConfig, num_frames
 
 
 def Dataset(data_type: str, data_list_file, tokenizer=None, conf=None,
@@ -119,12 +122,31 @@ def Dataset(data_type: str, data_list_file, tokenizer=None, conf=None,
         feat_fns.append(engine.apply_rir)
 
     feats_type = conf.get('feats_type', 'fbank')
-    if conf.get('device_feats', False):
-        raise NotImplementedError(
-            'dataset_conf.device_feats (fbank and SpecAugment inside the '
-            'train step, frontend/device_feats.py) is not ported: ROADMAP '
-            'item 9')
-    if feats_type == 'fbank':
+    device_feats = bool(conf.get('device_feats', False))
+    if device_feats:
+        # fbank and SpecAugment run in the train step on the device
+        # (frontend/device_feats.py); the host only needs frame counts for
+        # sort/filter/batch, carried by a zero-width feat, and the PCM that
+        # processor.padding already packs
+        if feats_type != 'fbank':
+            raise ValueError('device_feats requires feats_type: fbank')
+        if conf.get('spec_sub', False) or conf.get('spec_trim', False):
+            raise ValueError('device_feats supports spec_aug only; '
+                             'spec_sub/spec_trim need host features')
+        fb = conf.get('fbank_conf', {}) or {}
+        # the post-resample rate, so the stub's frame count is the device
+        # fbank's at any rate
+        rs = conf.get('resample_conf', {}) or {}
+        fc = FbankConfig(sample_rate=int(rs.get('resample_rate', 16000)),
+                         frame_length_ms=fb.get('frame_length', 25),
+                         frame_shift_ms=fb.get('frame_shift', 10))
+
+        def _frames_stub(sample):
+            n = num_frames(sample['wav'].shape[1], fc)
+            sample['feat'] = np.zeros((n, 0), np.float32)
+            return sample
+        feat_fns.append(_frames_stub)
+    elif feats_type == 'fbank':
         feat_fns.append(partial(processor.compute_fbank,
                                 **conf.get('fbank_conf', {})))
     elif feats_type == 'mfcc':
@@ -136,7 +158,7 @@ def Dataset(data_type: str, data_list_file, tokenizer=None, conf=None,
     else:
         raise ValueError(f'unsupported feats_type {feats_type!r}')
 
-    if conf.get('spec_aug', True):
+    if conf.get('spec_aug', True) and not device_feats:
         feat_fns.append(partial(processor.spec_aug,
                                 **conf.get('spec_aug_conf', {})))
     if conf.get('spec_sub', False):

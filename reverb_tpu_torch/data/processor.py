@@ -19,11 +19,13 @@ sample_rate, ...} → feat (T,80 np.float32) → padded batch dict of np arrays.
 
 from __future__ import annotations
 
+import os
 import random
 from typing import Dict, List, Optional
 
 import numpy as np
 
+from reverb_tpu_torch import native
 from reverb_tpu_torch.data.pipeline import mystats
 from reverb_tpu_torch.frontend.audio import (_parse_wav,
                                              resample as _resample_fn)
@@ -33,10 +35,17 @@ from reverb_tpu_torch.frontend.fbank import (FbankConfig, fbank_numpy,
 
 def decode_wav(sample: Dict) -> Dict:
     """Decode wav bytes/path → float32 (C, T) in [-1, 1) + sample_rate.
-    Supports start/end sub-segment fields (processor.py:179-211)."""
+    Supports start/end sub-segment fields (processor.py:179-211).  Bytes
+    go through the native C++ decoder (reverb_tpu_torch.native) where it
+    builds, else through the numpy parser, as in the JAX package."""
     wav = sample['wav']
     if isinstance(wav, (bytes, bytearray)):
-        data, sr = _parse_wav(bytes(wav))
+        decoded = None
+        try:
+            decoded = native.decode_wav(bytes(wav))
+        except ValueError:
+            decoded = None
+        data, sr = decoded if decoded is not None else _parse_wav(bytes(wav))
     elif isinstance(wav, str):
         from reverb_tpu_torch.frontend.audio import load_audio
         data, sr = load_audio(wav)
@@ -85,7 +94,14 @@ def compute_fbank(sample: Dict, num_mel_bins: int = 23,
     wave = sample['wav'][0] * (1 << 15)
     if dither > 0:
         wave = wave + dither * np.random.randn(len(wave)).astype(np.float32)
-    sample['feat'] = fbank_numpy(wave, cfg)
+    feat = None
+    if os.environ.get('REVERB_TPU_NATIVE_FBANK', '') not in ('', '0'):
+        # the C++ frame loop (the numpy path's batched FFT is the faster
+        # default in the JAX package's measurements); the numpy path where
+        # the library does not build
+        feat = native.fbank(wave, cfg.sample_rate, cfg.num_mel_bins,
+                            cfg.frame_length_ms, cfg.frame_shift_ms)
+    sample['feat'] = feat if feat is not None else fbank_numpy(wave, cfg)
     return sample
 
 

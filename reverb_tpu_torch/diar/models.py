@@ -90,10 +90,13 @@ def powerset_to_multilabel(probs: torch.Tensor, max_speakers: int = 3,
 
 def sinc_filters(low_hz, band_hz, kernel_size: int, sample_rate: int):
     """(F, 1) low/band parameters → (F, K) band-pass filters (SincNet,
-    arXiv 1808.00158), each scaled to a peak of 1."""
-    low = 30.0 + torch.abs(low_hz)
-    high = torch.clamp(low + 50.0 + torch.abs(band_hz), 50.0,
-                       sample_rate / 2)
+    arXiv 1808.00158), each scaled to a peak of 1.  |x| is taken as
+    where(x ≥ 0, x, −x), whose gradient at 0 is 1 as jnp.abs's is (torch's
+    abs has 0 there): the first mel band starts at exactly 0 Hz."""
+    low = 30.0 + torch.where(low_hz >= 0, low_hz, -low_hz)
+    high = torch.clamp(low + 50.0 + torch.where(band_hz >= 0, band_hz,
+                                                -band_hz),
+                       50.0, sample_rate / 2)
     dev = low_hz.device
     n = (torch.arange(kernel_size, dtype=torch.float32, device=dev)
          - (kernel_size - 1) / 2) / sample_rate

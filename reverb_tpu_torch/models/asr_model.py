@@ -15,7 +15,6 @@ explicit `torch.Generator` on its target device.
 from __future__ import annotations
 
 import dataclasses
-import warnings
 from typing import Dict, Optional
 
 import numpy as np
@@ -36,21 +35,17 @@ from reverb_tpu_torch.utils.common import (IGNORE_ID, add_sos_eos,
 # Keys the JAX package's EncoderConfig / DecoderConfig read that the port's
 # configs do not hold (reverb_tpu/models/{encoder,decoder}.py).  Each one is
 # handled by `_check_jax_only_keys`: refused where the port would build
-# another model, warned where only memory differs, and accepted where it
-# only tunes a refused or warned feature.  Any other unknown key is dropped,
-# as the JAX package drops it.
+# another model, and accepted where it only tunes a refused feature.  Any
+# other unknown key is dropped, as the JAX package drops it.
 _JAX_ONLY_ENCODER_KEYS = ('positionwise_layer_type', 'n_expert',
-                          'n_expert_per_token', 'gradient_checkpointing',
-                          'remat_policy', 'pipeline_stages',
+                          'n_expert_per_token', 'pipeline_stages',
                           'pipeline_microbatches')
-_JAX_ONLY_DECODER_KEYS = ('tie_word_embedding', 'gradient_checkpointing',
-                          'remat_policy')
+_JAX_ONLY_DECODER_KEYS = ('tie_word_embedding',)
 
 
-def _check_jax_only_keys(enc_conf: Dict, dec_conf: Dict):
-    """Raise for the encoder options the port cannot build (a MoE
-    feed-forward: ROADMAP item 15; a GPipe pipeline: item 14) and warn for
-    gradient checkpointing (item 9), which changes memory, not values."""
+def _check_jax_only_keys(enc_conf: Dict):
+    """Raise for the encoder options the port cannot build: a MoE
+    feed-forward (ROADMAP item 15) or a GPipe pipeline (item 14)."""
     if (enc_conf.get('positionwise_layer_type',
                      'position_wise_feed_forward') == 'moe'
             or (enc_conf.get('n_expert') or 0) > 0):
@@ -61,13 +56,6 @@ def _check_jax_only_keys(enc_conf: Dict, dec_conf: Dict):
         raise NotImplementedError(
             f"encoder_conf pipeline_stages: {enc_conf['pipeline_stages']} "
             f"(GPipe) is not ported: ROADMAP item 14")
-    for name, conf in (('encoder_conf', enc_conf),
-                       ('decoder_conf', dec_conf)):
-        if conf.get('gradient_checkpointing'):
-            warnings.warn(
-                f'{name} gradient_checkpointing: true is not ported '
-                f'(ROADMAP item 9): every activation is kept; the values '
-                f'are the same, only memory differs', stacklevel=3)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -115,8 +103,7 @@ class ModelConfig:
         if enc_type in ('lsl_conformer', 'language_specific_conformer') \
                 and not num_langs:
             num_langs = int(enc_conf.get('num_langs', 3) or 3)
-        _check_jax_only_keys(enc_conf,
-                             dict(configs.get('decoder_conf', {}) or {}))
+        _check_jax_only_keys(enc_conf)
         enc_fields = {f.name for f in dataclasses.fields(EncoderConfig)}
         encoder = EncoderConfig(
             input_size=input_dim,
@@ -242,8 +229,6 @@ def compute_loss(model: ASRModel, batch: Dict, generator=None,
     `chunk_generator` when that is given (evaluation: a chunk, no dropout).
     Returns {loss, loss_att, loss_ctc, th_accuracy} (None where a weight
     switches a term off)."""
-    if model.cfg.apply_non_blank_embedding:
-        raise NotImplementedError('apply_non_blank_embedding is not ported')
     use_adaptor = model.context_adaptor is not None and 'cv_list' in batch
     out = model.forward_encoder(
         batch['feats'], batch['feats_lengths'], batch.get('cat_embs'),
@@ -262,7 +247,8 @@ def loss_from_encoder(model: ASRModel, encoder_out, encoder_mask,
                       batch: Dict, generator=None) -> Dict:
     """The post-encoder half of `compute_loss`: CTC and the label-smoothed
     attention loss of both decoder directions, mixed by ctc_weight and
-    reverse_weight."""
+    reverse_weight; with apply_non_blank_embedding the decoders see only
+    the frames whose CTC argmax is not blank."""
     cfg = model.cfg
     cat_embs = batch.get('cat_embs')
     encoder_out_lens = encoder_mask[:, 0, :].sum(-1)
@@ -274,6 +260,13 @@ def loss_from_encoder(model: ASRModel, encoder_out, encoder_mask,
             torch.where(text == cfg.ignore_id, torch.zeros_like(text), text),
             text_lens, cfg.blank_id, cfg.focal_ctc, cfg.focal_alpha,
             cfg.focal_gamma)
+    if cfg.apply_non_blank_embedding:
+        # the decoder attends to the frames whose CTC argmax is not blank
+        # (reverb_tpu/models/asr_model.py:443-447); the gradient flows
+        # through the gather
+        encoder_out, encoder_mask = filter_blank_embedding(
+            cfg, ctc_mod.ctc_logprobs(model.ctc, encoder_out), encoder_out,
+            encoder_mask)
     loss_att = acc_att = None
     if cfg.ctc_weight != 1.0:
         ys_in, ys_out = add_sos_eos(text, text_lens, cfg.sos, cfg.eos,

@@ -35,7 +35,8 @@ from reverb_tpu_torch.models.attention import (MultiHeadedAttention,
                                                _split_heads)
 from reverb_tpu_torch.models.encoder import FeedForward, lsl_mix
 from reverb_tpu_torch.models.modules import (Embedding, LayerNorm, Linear,
-                                             dropout)
+                                             check_remat_policy,
+                                             checkpoint_layer, dropout)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -59,6 +60,9 @@ class DecoderConfig:
     num_langs: int = 0           # >0 → first+last layers are LSL
     decoder_type: str = 'bitransformer'   # 'transformer' | 'bitransformer'
     compute_dtype: Optional[torch.dtype] = None
+    # per-layer activation checkpointing in training (models/encoder.py)
+    gradient_checkpointing: bool = False
+    remat_policy: str = 'dots'
 
 
 class DecoderLayer(nn.Module):
@@ -84,9 +88,14 @@ class DecoderLayer(nn.Module):
                 Linear(d, d) for _ in range(cfg.num_langs))
 
     def forward(self, x, tgt_mask, mem_kv, memory_mask, mem_group: int,
-                cat_embs=None, generator=None):
+                cat_embs=None, generator=None, memory=None):
+        """mem_kv: this layer's cross-attention (k, v), or None to project
+        them here from `memory`."""
         def drop(v):
             return dropout(v, self.rate, generator)
+
+        if mem_kv is None:
+            mem_kv = self.src_attn.cross_kv(memory)
 
         xn = self.norm1(x)
         x = x + drop(self.self_attn(xn, xn, xn, tgt_mask, self.self_rate,
@@ -151,8 +160,13 @@ class TransformerDecoder(nn.Module):
         return [layer.src_attn.cross_kv(memory) for layer in self.decoders]
 
     def forward(self, ys_in, ys_lens, mem_kv, memory_mask, mem_group: int,
-                cat_embs=None, generator=None):
-        """ys_in (N, L) sos-prefixed; ys_lens (N,) → logits (N, L, V)."""
+                cat_embs=None, generator=None, memory=None):
+        """ys_in (N, L) sos-prefixed; ys_lens (N,) → logits (N, L, V).
+        mem_kv: every layer's cross-attention (k, v) (`cross_kv`), or None
+        for each layer to project its own from `memory` (B, T, D): then a
+        checkpointed layer keeps only memory and its input, and replays
+        its projection in the backward, as the JAX package's remat
+        does."""
         L = ys_in.shape[1]
         dev = ys_in.device
         pad = (torch.arange(L, device=dev)[None, :] < ys_lens[:, None])
@@ -163,9 +177,13 @@ class TransformerDecoder(nn.Module):
                                          generator)
         if self.cfg.compute_dtype is not None:
             x = x.to(self.cfg.compute_dtype)
-        for layer, kv in zip(self.decoders, mem_kv):
-            x = layer(x, tgt_mask, kv, memory_mask, mem_group, cat_embs,
-                      generator)
+        remat = (self.cfg.gradient_checkpointing and generator is not None
+                 and torch.is_grad_enabled())
+        for i, layer in enumerate(self.decoders):
+            args = (x, tgt_mask, None if mem_kv is None else mem_kv[i],
+                    memory_mask, mem_group, cat_embs, generator, memory)
+            x = (checkpoint_layer(layer, self.cfg.remat_policy, generator,
+                                  *args) if remat else layer(*args))
         return self.output_layer(self.after_norm(x))
 
     def init_cache(self, rows: int, length: int, dtype, device):
@@ -224,19 +242,17 @@ class BiTransformerDecoder(nn.Module):
         """Teacher-forced pass over memory (B, T, D): ys_in (B·group, L)
         rows grouped by utterance (group 1 in training).  Returns
         (l_x (N,L,V), r_x or None)."""
-        l_x = self.left_decoder(ys_in, ys_lens,
-                                self.left_decoder.cross_kv(memory),
-                                memory_mask, mem_group, cat_embs, generator)
+        l_x = self.left_decoder(ys_in, ys_lens, None, memory_mask,
+                                mem_group, cat_embs, generator, memory)
         r_x = None
         if reverse_weight > 0.0 and self.cfg.r_num_blocks > 0:
-            r_x = self.right_decoder(r_ys_in, ys_lens,
-                                     self.right_decoder.cross_kv(memory),
-                                     memory_mask, mem_group, cat_embs,
-                                     generator)
+            r_x = self.right_decoder(r_ys_in, ys_lens, None, memory_mask,
+                                     mem_group, cat_embs, generator, memory)
         return l_x, r_x
 
 
 def build_decoder(cfg: DecoderConfig) -> nn.Module:
+    check_remat_policy(cfg.remat_policy)
     ported = {'decoder_type': 'bitransformer', 'input_layer': 'embed',
               'use_output_layer': True, 'normalize_before': True,
               'src_attention': True}

@@ -28,7 +28,11 @@ every block, attention dropout on the probabilities), and without one the
 forward is deterministic, as with rng=None there.  `use_dynamic_chunk`
 training (decoding_chunk_size 0) draws its chunk from the same generator
 (utils/common.py:draw_dynamic_chunk) and attends through the masked route,
-as the JAX package's flash kernel rejects a (B, T, T) mask.
+as the JAX package's flash kernel rejects a (B, T, T) mask.  With
+`gradient_checkpointing` a training forward checkpoints each layer
+(models/modules.py:checkpoint_layer under `remat_policy`), replaying its
+dropout draws exactly, as the JAX package remats each layer when it has
+an rng.
 """
 
 from __future__ import annotations
@@ -42,7 +46,8 @@ from reverb_tpu_torch.models import embedding as emb
 from reverb_tpu_torch.models.attention import RelPositionMultiHeadedAttention
 from reverb_tpu_torch.models.modules import (ACTIVATIONS, BatchNorm, Conv1d,
                                              Conv2d, LayerNorm, Linear,
-                                             dropout, glu)
+                                             check_remat_policy,
+                                             checkpoint_layer, dropout, glu)
 from reverb_tpu_torch.utils.common import add_optional_chunk_mask
 
 
@@ -72,6 +77,11 @@ class EncoderConfig:
     key_bias: bool = True
     num_langs: int = 0          # >0 → first+last layers are LSL
     encoder_type: str = 'conformer'
+    # per-layer activation checkpointing in training (with a generator):
+    # models/modules.py:checkpoint_layer, policy 'full' | 'dots' |
+    # 'dots_no_ln'
+    gradient_checkpointing: bool = False
+    remat_policy: str = 'dots'
 
     @property
     def head_dim(self):
@@ -100,6 +110,7 @@ class EncoderConfig:
                 'batch_norm', 'layer_norm'):
             raise NotImplementedError(
                 f'cnn_module_norm={self.cnn_module_norm!r} is not ported')
+        check_remat_policy(self.remat_policy)
 
 
 def subsampled_len(cfg: EncoderConfig, T: int) -> int:
@@ -354,9 +365,13 @@ class ConformerEncoder(nn.Module):
                 num_decoding_left_chunks,
                 generator if chunk_generator is None else chunk_generator)
         layer_outs = []
+        remat = (cfg.gradient_checkpointing and generator is not None
+                 and torch.is_grad_enabled())
         for layer in self.encoders:
-            xs = layer(xs, kv_lens, pos_emb, masks, cat_embs, generator,
-                       chunk_masks)
+            args = (xs, kv_lens, pos_emb, masks, cat_embs, generator,
+                    chunk_masks)
+            xs = (checkpoint_layer(layer, cfg.remat_policy, generator, *args)
+                  if remat else layer(*args))
             layer_outs.append(xs)
         if return_layers:
             return self.after_norm(xs), masks, layer_outs

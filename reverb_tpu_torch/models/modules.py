@@ -10,17 +10,84 @@ so a model is built on the meta device and filled on its target device.
 
 Dropout draws from an explicit `torch.Generator` (the counterpart of the
 JAX package's rng): with no generator it is the identity, as with rng=None.
+`checkpoint_layer` is the per-layer gradient checkpointing of the encoder
+and decoder stacks (reverb_tpu/models/modules.py:remat_policy).
 """
 
 from __future__ import annotations
 
+import functools
 import math
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
+from reverb_tpu_torch.ops import flash_attention as fa
 from reverb_tpu_torch.ops import layer_norm as ln_ops
+
+REMAT_POLICIES = ('full', 'dots', 'dots_no_ln')
+_aten = torch.ops.aten
+# what 'dots' keeps: the matmul and convolution outputs and the attention
+# output of kernel K1 (with its logsumexp), so the backward neither
+# recomputes a product nor replays K1 — JAX's dots_with_no_batch_dims
+# plus its 'attn_out' name.  Batched matmuls (the masked attention's
+# scores) are recomputed, as JAX recomputes dots with batch dimensions.
+_SAVED_OPS = frozenset((_aten.mm.default, _aten.addmm.default,
+                        _aten.convolution.default, fa.ATTENTION_OP))
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _SAVED_OPS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+def check_remat_policy(policy: str):
+    """Raise for a remat_policy that is not one of REMAT_POLICIES."""
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f'unknown remat_policy {policy!r} '
+                         f'({"|".join(REMAT_POLICIES)})')
+
+
+def checkpoint_layer(layer, policy: str, generator, *args):
+    """layer(*args) under non-reentrant activation checkpointing: the
+    forward keeps the layer's inputs (and under 'dots' / 'dots_no_ln' the
+    outputs of `_SAVED_OPS`), and the backward replays the rest.
+
+    'dots_no_ln' is 'dots' here: JAX's 'dots' also keeps the LayerNorm
+    statistics, but the port's LayerNorm keeps none (K6 recomputes them
+    from its input), so there is nothing to leave out.
+
+    The replay draws the same dropout masks: torch's preserve_rng_state
+    restores only the default generators, so the explicit `generator`'s
+    state is taken before the forward, set again for the replay, and put
+    back after it, where the backward found it.  The forward leaves the
+    generator where an unchecked layer leaves it, so later draws do not
+    shift."""
+    start = generator.get_state()
+    replay = False
+
+    def run(*a):
+        nonlocal replay
+        if not replay:
+            replay = True
+            return layer(*a)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return layer(*a)
+        finally:
+            generator.set_state(now)
+
+    context_fn = ckpt.noop_context_fn
+    if policy != 'full':
+        context_fn = functools.partial(
+            ckpt.create_selective_checkpoint_contexts, _dots_policy)
+    # the layers draw only from `generator`: the default generators need
+    # no saving
+    return ckpt.checkpoint(run, *args, use_reentrant=False,
+                           preserve_rng_state=False, context_fn=context_fn)
 
 
 def dropout(x, rate: float, generator=None):

@@ -23,6 +23,7 @@ from __future__ import annotations
 
 import ctypes
 import math
+from typing import Optional, Tuple
 
 import torch
 
@@ -197,22 +198,42 @@ def _k4(q, k, v, p, u, vb, lens, mask, rate, out, lse, g):
     return dq, dkk, dv, dp, du, dvb
 
 
-class _RelPosAttention(torch.autograd.Function):
-    """K1 forward with the row logsumexp kept; K4 backward (the counterpart
-    of `_flash_core`'s custom VJP)."""
+@torch.library.custom_op('reverb::rel_pos_attention', mutates_args=(),
+                         device_types='cuda')
+def _attention_op(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  p: torch.Tensor, u: torch.Tensor, vb: torch.Tensor,
+                  lens: torch.Tensor, mask: Optional[torch.Tensor],
+                  rate: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """K1 with the row logsumexp kept, as one operator (the counterpart of
+    `_flash_core`'s custom VJP): the dispatcher sees it whole, so a
+    selective checkpoint policy can keep its outputs
+    (models/modules.py:checkpoint_layer, 'dots'), which is what JAX's
+    'attn_out' name does.  Its gradient is K4."""
+    return _k1(q, k, v, p, u, vb, lens, mask, rate, want_lse=True)
 
-    @staticmethod
-    def forward(ctx, q, k, v, p, u, vb, lens, mask, rate):
-        out, lse = _k1(q, k, v, p, u, vb, lens, mask, rate, want_lse=True)
-        ctx.save_for_backward(q, k, v, p, u, vb, lens, mask, out, lse)
-        ctx.rate = rate
-        return out
 
-    @staticmethod
-    def backward(ctx, g):
-        q, k, v, p, u, vb, lens, mask, out, lse = ctx.saved_tensors
-        grads = _k4(q, k, v, p, u, vb, lens, mask, ctx.rate, out, lse, g)
-        return (*grads, None, None, None)
+@_attention_op.register_fake
+def _(q, k, v, p, u, vb, lens, mask, rate):
+    B, H, Tq, dk = q.shape
+    out = q.new_empty((B, Tq, H, dk)).permute(0, 2, 1, 3)
+    return out, q.new_empty((B * H * Tq,), dtype=torch.float32)
+
+
+def _attention_setup(ctx, inputs, output):
+    q, k, v, p, u, vb, lens, mask, rate = inputs
+    ctx.save_for_backward(q, k, v, p, u, vb, lens, mask, *output)
+    ctx.rate = rate
+
+
+def _attention_backward(ctx, g, g_lse):
+    q, k, v, p, u, vb, lens, mask, out, lse = ctx.saved_tensors
+    grads = _k4(q, k, v, p, u, vb, lens, mask, ctx.rate, out, lse, g)
+    return (*grads, None, None, None)
+
+
+_attention_op.register_autograd(_attention_backward,
+                                setup_context=_attention_setup)
+ATTENTION_OP = torch.ops.reverb.rel_pos_attention.default
 
 
 def rel_pos_attention(q, k, v, pos, pos_bias_u, pos_bias_v, kv_lens,
@@ -238,7 +259,7 @@ def rel_pos_attention(q, k, v, pos, pos_bias_u, pos_bias_v, kv_lens,
     lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
     if torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v, p, u, vb)):
-        return _RelPosAttention.apply(q, k, v, p, u.contiguous(),
-                                      vb.contiguous(), lens, mask, rate)
+        return _attention_op(q, k, v, p, u.contiguous(), vb.contiguous(),
+                             lens, mask, rate)[0]
     return _k1(q, k, v, p, u.contiguous(), vb.contiguous(), lens, mask, rate,
                want_lse=False)[0]

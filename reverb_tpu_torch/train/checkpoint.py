@@ -7,8 +7,8 @@ parameters as flat float32 arrays under the JAX tree's keys (WeNet's
 state-dict keys with the conv-module parameters flat, as
 reverb_tpu/convert/torch_ckpt.py:save_npz writes them), `<tag>.yaml` the
 info dict.  Each package loads the other's parameters.  The optimizer state
-is the port's own: `<tag>.torch_opt.pt`; the JAX package's `<tag>.opt.npz`
-(optax leaves) is not read, and Adam's moments then start fresh.
+the port writes is its own, `<tag>.torch_opt.pt`; it also resumes from the
+JAX package's `<tag>.opt.npz` (the optax state's leaves, `load_optax_state`).
 
 The info file is written as a JSON object, which is YAML too; it is read
 with PyYAML where that is installed (utils/config.py:load_config).
@@ -46,8 +46,9 @@ def save_checkpoint(model_dir, tag: str, model: torch.nn.Module,
 
 def load_checkpoint(path, model: torch.nn.Module, optimizer=None) -> Dict:
     """Load `<tag>.npz` (written by either package) into `model` (strict),
-    and `<tag>.torch_opt.pt` into `optimizer` when both exist.  Returns the
-    info dict of `<tag>.yaml` ({} without one)."""
+    and into `optimizer` the port's `<tag>.torch_opt.pt`, or else the JAX
+    package's `<tag>.opt.npz`, when one exists.  Returns the info dict of
+    `<tag>.yaml` ({} without one)."""
     path = Path(path)
     state = convert.state_dict_from_jax(convert.load_flat_checkpoint(path))
     model.load_state_dict(state, strict=True)
@@ -57,14 +58,71 @@ def load_checkpoint(path, model: torch.nn.Module, optimizer=None) -> Dict:
             optimizer.load_state_dict(torch.load(opt_path,
                                                  map_location='cpu'))
         elif path.with_suffix('.opt.npz').exists():
-            logging.warning(
-                '%s: the JAX optimizer state (optax leaves) is not read; '
-                "Adam's moments and count start fresh", path.with_suffix(
-                    '.opt.npz'))
+            load_optax_state(path.with_suffix('.opt.npz'), optimizer)
     info_path = path.with_suffix('.yaml')
     if not info_path.exists():
         return {}
     return load_config(info_path) or {}
+
+
+_LIST_KEYS = ('encoders', 'decoders', 'language_layers', 'encoders0',
+              'decoders3', 'experts')
+
+
+def _tree_order_key(key: str):
+    """Sort key of a flat JAX key in `jax.tree.flatten` order: dict keys
+    sort as strings, the indices of the module lists (the JAX tree's lists,
+    reverb_tpu/convert/torch_ckpt.py:_LIST_KEYS) as integers."""
+    parts = key.split('.')
+    return tuple((1, int(p), '') if i and p.isdigit()
+                 and parts[i - 1] in _LIST_KEYS else (0, 0, p)
+                 for i, p in enumerate(parts))
+
+
+def _leaf_tensor(arr: np.ndarray) -> torch.Tensor:
+    """An npz leaf as a tensor; a bfloat16 leaf (stored by ml_dtypes,
+    read back as 2-byte raw values without it) keeps its bits."""
+    if arr.dtype.itemsize == 2 and arr.dtype.kind in 'Vf' and \
+            arr.dtype != np.float16:
+        return torch.from_numpy(np.array(arr).view(np.int16)).view(
+            torch.bfloat16)
+    return torch.from_numpy(np.array(arr))
+
+
+def load_optax_state(path, optimizer):
+    """Load the JAX package's `<tag>.opt.npz` into the port's Adam or
+    NovoGrad.  Its keys are `leaf_i` in `jax.tree.flatten` order of the
+    optax state: the chain's states in order — scale_by_adam's or
+    scale_by_novograd's (count, mu, nu), each moment a tree of the
+    parameters with its dict keys sorted, then the schedule's count (the
+    weight decay and the frozen mask hold no leaf).  Moments are loaded for
+    the trainable parameters; a file of another layout raises."""
+    with np.load(path, allow_pickle=False) as data:
+        leaves = [data[f'leaf_{i}'] for i in range(len(data.files))]
+    names = optimizer.names
+    keys = [convert.tree_key(n) for n in names]
+    order = sorted(range(len(names)), key=lambda i: _tree_order_key(keys[i]))
+    n = len(names)
+    if len(leaves) != 2 * n + 2:
+        raise ValueError(
+            f'{path}: {len(leaves)} optax leaves, expected {2 * n + 2} '
+            f'(count, {n} mu, {n} nu, the schedule count) for the '
+            f'{type(optimizer).__name__} of this model')
+    mu = {names[i]: leaves[1 + j] for j, i in enumerate(order)}
+    nu = {names[i]: leaves[1 + n + j] for j, i in enumerate(order)}
+    state = {'count': int(leaves[0]), 'mu': {}, 'nu': {}}
+    for i, m, v in zip(optimizer.train_idx, optimizer.mu, optimizer.nu):
+        name = names[i]
+        for part, want, leaf in (('mu', m, mu[name]), ('nu', v, nu[name])):
+            t = _leaf_tensor(leaf)
+            if t.shape != want.shape or t.dtype != want.dtype:
+                raise ValueError(
+                    f'{path}: the {part} leaf of {name} is {t.dtype} '
+                    f'{tuple(t.shape)}, the optimizer holds {want.dtype} '
+                    f'{tuple(want.shape)}')
+            state[part][name] = t
+    optimizer.load_state_dict(state)
+    logging.info('%s: optax state loaded at count %d', path, state['count'])
 
 
 def load_trained_modules(model: torch.nn.Module, ckpt_path,

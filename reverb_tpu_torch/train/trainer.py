@@ -1,4 +1,4 @@
-"""Training step: Adam/AdamW with a schedule, gradient accumulation, one
+"""Training step: Adam/AdamW/NovoGrad with a schedule, gradient accumulation, one
 global-norm pass for clipping, the non-finite skip and the metric, and the
 freeze rules.
 
@@ -29,6 +29,8 @@ import numpy as np
 import torch
 
 from reverb_tpu_torch.convert import tree_key
+from reverb_tpu_torch.frontend.device_feats import (FrontendSpec,
+                                                    apply_frontend)
 from reverb_tpu_torch.models.asr_model import ModelConfig, compute_loss
 from reverb_tpu_torch.train.scheduler import build_scheduler
 
@@ -90,54 +92,37 @@ def _f32_pow_complement(decay: float, n: int) -> float:
     return float(np.float32(1.0) - np.float32(decay) ** np.int32(n))
 
 
-class Adam:
-    """optax.adam / optax.adamw over the trainable parameters of a model.
+_MU_DTYPES = {'bfloat16': torch.bfloat16, 'bf16': torch.bfloat16,
+              'float16': torch.float16, 'float32': torch.float32}
 
-    `count` is the number of applied updates (optax's count); the schedule
-    is evaluated at it before it advances."""
+
+class _Optimizer:
+    """Moments over the trainable parameters of a model, and optax's
+    count: the number of applied updates, at which the schedule is
+    evaluated before it advances.
+
+    The JAX package's optax state also holds moments for frozen leaves and
+    masks only their final update; here frozen parameters have no moments,
+    which gives the same trainable updates (each moment is per parameter:
+    elementwise for Adam, per leaf for NovoGrad)."""
 
     def __init__(self, model: torch.nn.Module, schedule: Callable,
-                 trainable: Dict[str, bool], b1: float = 0.9,
-                 b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 0.0):
+                 trainable: Dict[str, bool]):
         self.schedule = schedule
-        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, \
-            weight_decay
         named = list(model.named_parameters())
         self.names = [n for n, _ in named]
         self.params = [p for _, p in named]
         self.train_idx = [i for i, n in enumerate(self.names) if trainable[n]]
-        with torch.no_grad():
-            self.mu = [torch.zeros_like(self.params[i])
-                       for i in self.train_idx]
-            self.nu = [torch.zeros_like(self.params[i])
-                       for i in self.train_idx]
+        self.mu: List[torch.Tensor] = []
+        self.nu: List[torch.Tensor] = []
         self.count = 0
 
-    def step(self, grads: List[torch.Tensor], scale: float = 1.0):
-        """One update from `grads` (aligned with self.params) × scale."""
-        lr = self.schedule(self.count)
-        self.count += 1
-        b1, b2 = self.b1, self.b2
-        with torch.no_grad():
-            params = [self.params[i] for i in self.train_idx]
-            g = [grads[i] for i in self.train_idx]
-            if scale != 1.0:
-                g = torch._foreach_mul(g, scale)
-            torch._foreach_mul_(self.mu, b1)
-            torch._foreach_add_(self.mu, g, alpha=1.0 - b1)
-            torch._foreach_mul_(self.nu, b2)
-            torch._foreach_addcmul_(self.nu, g, g, value=1.0 - b2)
-            denom = torch._foreach_div(
-                self.nu, _f32_pow_complement(b2, self.count))
-            torch._foreach_sqrt_(denom)
-            torch._foreach_add_(denom, self.eps)
-            upd = torch._foreach_div(self.mu,
-                                     _f32_pow_complement(b1, self.count))
-            torch._foreach_div_(upd, denom)
-            if self.weight_decay:
-                torch._foreach_add_(upd, params, alpha=self.weight_decay)
-            torch._foreach_add_(params, upd, alpha=-lr)
+    def _trainable(self, grads, scale):
+        params = [self.params[i] for i in self.train_idx]
+        g = [grads[i] for i in self.train_idx]
+        if scale != 1.0:
+            g = torch._foreach_mul(g, scale)
+        return params, g
 
     def state_dict(self) -> Dict:
         names = [self.names[i] for i in self.train_idx]
@@ -150,27 +135,147 @@ class Adam:
         with torch.no_grad():
             for dst, src in ((self.mu, state['mu']), (self.nu, state['nu'])):
                 for t, n in zip(dst, names):
-                    t.copy_(src[n])
+                    t.copy_(torch.as_tensor(src[n]))
         self.count = int(state['count'])
 
 
+class Adam(_Optimizer):
+    """optax.adam / optax.adamw over the trainable parameters of a model.
+
+    With `mu_dtype` (optim_conf.mu_dtype) the first moment is stored in
+    that dtype, in optax.scale_by_adam's order: b1·mu is taken in the
+    stored dtype (the JAX package's weakly typed b1 is rounded to it too),
+    added to (1−b1)·g in f32, the update is taken from that f32 moment,
+    and only then is the moment stored rounded.  nu stays f32.  (XLA may
+    keep the product in f32 inside a fused program; this is the op-by-op
+    arithmetic of the optax code.)"""
+
+    def __init__(self, model: torch.nn.Module, schedule: Callable,
+                 trainable: Dict[str, bool], b1: float = 0.9,
+                 b2: float = 0.999, eps: float = 1e-8,
+                 weight_decay: float = 0.0, mu_dtype=None):
+        super().__init__(model, schedule, trainable)
+        self.b1, self.b2, self.eps, self.weight_decay = b1, b2, eps, \
+            weight_decay
+        self.mu_dtype = mu_dtype
+        with torch.no_grad():
+            self.mu = [torch.zeros_like(self.params[i], dtype=mu_dtype)
+                       for i in self.train_idx]
+            self.nu = [torch.zeros_like(self.params[i])
+                       for i in self.train_idx]
+
+    def step(self, grads: List[torch.Tensor], scale: float = 1.0):
+        """One update from `grads` (aligned with self.params) × scale."""
+        lr = self.schedule(self.count)
+        self.count += 1
+        b1, b2 = self.b1, self.b2
+        with torch.no_grad():
+            params, g = self._trainable(grads, scale)
+            if self.mu_dtype is None:
+                torch._foreach_mul_(self.mu, b1)
+                torch._foreach_add_(self.mu, g, alpha=1.0 - b1)
+                mu = self.mu
+            else:
+                decay = torch.tensor(b1, dtype=self.mu_dtype,
+                                     device=self.mu[0].device)
+                mu = torch._foreach_mul(g, 1.0 - b1)
+                torch._foreach_add_(mu, [m.float() for m in
+                                         torch._foreach_mul(self.mu, decay)])
+            torch._foreach_mul_(self.nu, b2)
+            torch._foreach_addcmul_(self.nu, g, g, value=1.0 - b2)
+            denom = torch._foreach_div(
+                self.nu, _f32_pow_complement(b2, self.count))
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            upd = torch._foreach_div(mu, _f32_pow_complement(b1, self.count))
+            torch._foreach_div_(upd, denom)
+            if self.mu_dtype is not None:
+                torch._foreach_copy_(self.mu, mu)
+            if self.weight_decay:
+                torch._foreach_add_(upd, params, alpha=self.weight_decay)
+            torch._foreach_add_(params, upd, alpha=-lr)
+
+
+class NovoGrad(_Optimizer):
+    """optax.novograd over the trainable parameters of a model
+    (optax.scale_by_novograd, then the schedule), with optax.novograd's
+    defaults.  nu is one scalar per parameter (a leaf of the JAX tree):
+
+        step 1:  nu = ‖g‖²,                 mu = g/(√(nu+eps_root)+eps) + wd·p
+        later:   nu = (1−b2)·‖g‖² + b2·nu,  mu = b1·mu + that
+        p = p − lr(count)·mu                (no bias correction)"""
+
+    def __init__(self, model: torch.nn.Module, schedule: Callable,
+                 trainable: Dict[str, bool], b1: float = 0.9,
+                 b2: float = 0.25, eps: float = 1e-6, eps_root: float = 0.0,
+                 weight_decay: float = 0.0):
+        super().__init__(model, schedule, trainable)
+        self.b1, self.b2, self.eps, self.eps_root = b1, b2, eps, eps_root
+        self.weight_decay = weight_decay
+        with torch.no_grad():
+            self.mu = [torch.zeros_like(self.params[i])
+                       for i in self.train_idx]
+            self.nu = [torch.zeros((), dtype=self.params[i].dtype,
+                                   device=self.params[i].device)
+                       for i in self.train_idx]
+
+    def step(self, grads: List[torch.Tensor], scale: float = 1.0):
+        lr = self.schedule(self.count)
+        self.count += 1
+        b1, b2 = self.b1, self.b2
+        with torch.no_grad():
+            params, g = self._trainable(grads, scale)
+            sq = [n * n for n in torch._foreach_norm(g)]
+            if self.count == 1:
+                torch._foreach_copy_(self.nu, sq)
+            else:
+                torch._foreach_mul_(self.nu, b2)
+                torch._foreach_add_(self.nu, sq, alpha=1.0 - b2)
+            denom = torch._foreach_add(self.nu, self.eps_root)
+            torch._foreach_sqrt_(denom)
+            torch._foreach_add_(denom, self.eps)
+            add = torch._foreach_div(g, denom)
+            if self.weight_decay:
+                torch._foreach_add_(add, params, alpha=self.weight_decay)
+            if self.count == 1:
+                torch._foreach_copy_(self.mu, add)
+            else:
+                torch._foreach_mul_(self.mu, b1)
+                torch._foreach_add_(self.mu, add)
+            torch._foreach_add_(params, self.mu, alpha=-lr)
+
+
 def build_optimizer(tc: TrainConfig, model: torch.nn.Module):
-    """adam / adamw with the configured schedule, betas, eps and weight
-    decay over the trainable parameters.  Returns (optimizer, schedule)."""
+    """adam / adamw / novograd with the configured schedule, betas, eps,
+    weight decay and (adam) mu_dtype over the trainable parameters, as
+    reverb_tpu/train/trainer.py:build_optimizer builds its optax chain.
+    Returns (optimizer, schedule)."""
     conf = tc.optim_conf
-    if conf.get('mu_dtype'):
-        raise NotImplementedError('optim_conf.mu_dtype is not ported')
     schedule = build_scheduler(tc.scheduler, conf.get('lr', 1e-3),
                                tc.scheduler_conf)
+    kwargs = {}
+    if 'betas' in conf:
+        kwargs.update(b1=conf['betas'][0], b2=conf['betas'][1])
+    if 'eps' in conf:
+        kwargs.update(eps=conf['eps'])
+    mu_dtype = conf.get('mu_dtype')
+    wd = conf.get('weight_decay', 0.0)
+    trainable = trainable_mask(model, tc)
     name = tc.optim.lower()
-    if name == 'novograd':
-        raise NotImplementedError('novograd is not ported')
-    if name not in ('adam', 'adamw'):
+    if name in ('adam', 'adamw'):
+        if mu_dtype:
+            if str(mu_dtype) not in _MU_DTYPES:
+                raise ValueError(f'unknown optim_conf.mu_dtype {mu_dtype!r}')
+            kwargs.update(mu_dtype=_MU_DTYPES[str(mu_dtype)])
+        opt = Adam(model, schedule, trainable, weight_decay=wd, **kwargs)
+    elif name == 'novograd':
+        if mu_dtype:
+            # optax.novograd takes no mu_dtype: the JAX package's
+            # build_optimizer fails on this config too
+            raise TypeError('novograd takes no optim_conf.mu_dtype')
+        opt = NovoGrad(model, schedule, trainable, weight_decay=wd, **kwargs)
+    else:
         raise ValueError(f'unknown optimizer {tc.optim!r}')
-    b1, b2 = conf.get('betas', (0.9, 0.999))
-    opt = Adam(model, schedule, trainable_mask(model, tc), b1=b1, b2=b2,
-               eps=conf.get('eps', 1e-8),
-               weight_decay=conf.get('weight_decay', 0.0))
     return opt, schedule
 
 
@@ -190,8 +295,9 @@ def _micro_batches(batch: Dict, n: int):
                for k, v in batch.items()}
 
 
-def make_train_step(cfg: ModelConfig, optimizer: Adam, accum_grad: int = 1,
-                    grad_clip: float = 0.0):
+def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
+                    accum_grad: int = 1, grad_clip: float = 0.0,
+                    frontend: Optional[FrontendSpec] = None):
     """Returns train_step(model, batch, generator=None) → metrics {loss,
     loss_att, loss_ctc, th_accuracy, grad_norm, skipped} as floats, for a
     model of config `cfg` whose parameters `optimizer` updates.
@@ -200,7 +306,10 @@ def make_train_step(cfg: ModelConfig, optimizer: Adam, accum_grad: int = 1,
     micro-batch gradients are summed and divided by accum_grad before ONE
     update, and the metrics are the micro-batch means.  grad_clip > 0 scales
     the gradients by clip/‖g‖ when ‖g‖ ≥ clip.  `generator` drives dropout
-    (None: no dropout, as rng=None)."""
+    (None: no dropout, as rng=None).  With a `frontend`
+    (dataset_conf.device_feats) each micro-batch's features are computed
+    from its `pcm` first, dithered and SpecAugmented from the generator
+    (frontend/device_feats.py:apply_frontend)."""
 
     def train_step(model, batch, generator=None) -> Dict[str, float]:
         if model.cfg != cfg:
@@ -210,6 +319,8 @@ def make_train_step(cfg: ModelConfig, optimizer: Adam, accum_grad: int = 1,
             p.grad = None
         sums: Dict[str, float] = {}
         for micro in _micro_batches(batch, accum_grad):
+            if frontend is not None:
+                micro = apply_frontend(micro, frontend, generator)
             out = compute_loss(model, micro, generator)
             out['loss'].backward()
             for k, v in out.items():
@@ -237,18 +348,22 @@ def make_train_step(cfg: ModelConfig, optimizer: Adam, accum_grad: int = 1,
     return train_step
 
 
-def make_eval_step(cfg: ModelConfig):
+def make_eval_step(cfg: ModelConfig,
+                   frontend: Optional[FrontendSpec] = None):
     """Returns eval_step(model, batch, generator=None) → {loss, loss_att,
     loss_ctc, th_accuracy} as floats (0.0 where a weight switches a term
     off): the loss with no dropout, under torch.no_grad()
     (reverb_tpu/train/trainer.py:make_eval_step).  A use_dynamic_chunk
     model draws its chunk from `generator`, as WeNet's
     add_optional_chunk_mask draws it in evaluation too (the JAX package
-    has no rng there and raises)."""
+    has no rng there and raises).  With a `frontend` the features come
+    from `pcm`, with neither dither nor SpecAugment."""
 
     def eval_step(model, batch, generator=None) -> Dict[str, float]:
         if model.cfg != cfg:
             raise ValueError('eval_step: the model has another config')
+        if frontend is not None:
+            batch = apply_frontend(batch, frontend, None)
         with torch.no_grad():
             out = compute_loss(model, batch, None, chunk_generator=generator)
         return {k: 0.0 if v is None else float(v) for k, v in out.items()}

@@ -314,7 +314,9 @@ def test_pipeline_stages_equal_jax():
 def test_padding_and_unported_options_raise(corpus, tmp_path):
     """padding's arrays equal JAX's; deep biasing (context phrases mined
     from rare words, batched as cv_list) gives JAX's batches from the same
-    Python random stream; device_feats raises, naming its ROADMAP item."""
+    Python random stream; with device_feats the samples carry JAX's
+    zero-width feature stub (frame counts only) and the padded PCM reaches
+    the batch, and spec_sub with it raises as in JAX."""
     data = [{'key': 'a', 'feat': np.ones((37, 4), np.float32),
              'label': [1, 2], 'wav': np.ones((1, 100), np.float32),
              'cat_emb': np.array([0.0, 1.0], np.float32)},
@@ -340,9 +342,19 @@ def test_padding_and_unported_options_raise(corpus, tmp_path):
     keys = [k for b in tds.Dataset('raw', str(d / 'raw.list'), ttok, conf,
                                    partition=False) for k in b['keys']]
     assert len(keys) == 7 and 'job2_utt6' not in keys
-    with pytest.raises(NotImplementedError, match='item 9'):
+    conf = _conf(BATCH_CONFS['static'], device_feats=True, spec_aug=True)
+    want, got = _both(corpus, 'raw', conf)
+    _assert_batches_equal(want, got)
+    host = _both(corpus, 'raw', _conf(BATCH_CONFS['static']))[1]
+    for b, h in zip(got, host):
+        assert b['feats'].shape == h['feats'].shape[:2] + (0,)
+        np.testing.assert_array_equal(b['feats_lengths'], h['feats_lengths'])
+        assert b['pcm'].shape[0] == len(b['keys']) and \
+            b['pcm'].dtype == np.float32 and np.abs(b['pcm']).max() > 0
+    with pytest.raises(ValueError, match='spec_aug only'):
         tds.Dataset('raw', str(d / 'raw.list'), ttok,
-                    _conf(BATCH_CONFS['static'], device_feats=True))
+                    _conf(BATCH_CONFS['static'], device_feats=True,
+                          spec_sub=True))
 
 
 def test_rev_stages_and_workers_equal_jax(corpus, tmp_path):

@@ -88,7 +88,13 @@ def test_port_imports_no_jax_and_no_reverb_tpu():
                  'reverb_tpu_torch.data.deep_bias',
                  'reverb_tpu_torch.models.context_adaptor',
                  'reverb_tpu_torch.eval.aggregate_scoring',
-                 'reverb_tpu_torch.eval.scoring_commands'):
+                 'reverb_tpu_torch.eval.scoring_commands',
+                 'reverb_tpu_torch.frontend.device_feats',
+                 'reverb_tpu_torch.native',
+                 'reverb_tpu_torch.diar.train_segmentation',
+                 'reverb_tpu_torch.diar.train_embedding',
+                 'reverb_tpu_torch.data.wav_distortion',
+                 'reverb_tpu_torch.data.kaldi_io'):
         assert name in out['modules']
     assert out['bad'] == []
 

@@ -255,7 +255,8 @@ def test_train_metrics_jsonl_agree_with_jax(trained):
 
 
 def test_checkpoints_cross_load(trained):
-    """Each package loads the other's epoch_1.npz."""
+    """Each package loads the other's epoch_1.npz; the port resumes the
+    JAX optimizer state beside it (epoch_1.opt.npz: 4 steps)."""
     from reverb_tpu.train.checkpoint import load_checkpoint as jload
     d, jdir, tdir, _ = trained
     conf = _yaml(tdir / 'train.yaml')
@@ -264,7 +265,8 @@ def test_checkpoints_cross_load(trained):
                             train=True, cmvn=(np.zeros(80), np.ones(80)))
     opt, _ = ttr.build_optimizer(ttr.TrainConfig.from_config(conf), model)
     info = tckpt.load_checkpoint(jdir / 'epoch_1.npz', model, opt)
-    assert info['epoch'] == 1 and opt.count == 0   # optax moments not read
+    assert info['epoch'] == 1 and opt.count == 4   # the optax state
+    assert all(float(m.abs().max()) > 0 for m in opt.nu)
     want = flatten_params(load_npz(str(jdir / 'epoch_1.npz'))[0])
     for k, v in convert.flat_from_state_dict(model.state_dict()).items():
         np.testing.assert_array_equal(v, want[k])
@@ -478,9 +480,11 @@ def test_dynamic_chunk_cv_raises_as_in_jax(recipe, tmp_path, monkeypatch):
 def test_jax_only_config_keys(recipe):
     """Every encoder/decoder key the JAX package's configs read is either a
     field of the port's configs or one the port handles on its own
-    (_JAX_ONLY_*_KEYS); gradient_checkpointing warns and builds the same
-    model config, since only memory differs."""
+    (_JAX_ONLY_*_KEYS); gradient_checkpointing (with a remat_policy)
+    builds a checkpointed model with the same parameters, without a
+    warning, and an unknown remat_policy raises."""
     import dataclasses as dc
+    import warnings
     from reverb_tpu.models.decoder import DecoderConfig as JDec
     from reverb_tpu.models.encoder import EncoderConfig as JEnc
     from reverb_tpu_torch.models.decoder import DecoderConfig as TDec
@@ -493,11 +497,30 @@ def test_jax_only_config_keys(recipe):
     _, cfg_path = recipe
     conf = yaml.safe_load(cfg_path.read_text())
     plain = tam.ModelConfig.from_config(conf)
-    for part in ('encoder_conf', 'decoder_conf'):
-        ck = json.loads(json.dumps(conf))
-        ck[part]['gradient_checkpointing'] = True
-        with pytest.warns(UserWarning, match='item 9'):
-            assert tam.ModelConfig.from_config(ck) == plain
+    with torch.device('meta'):
+        want = {k: v.shape for k, v in tam.ASRModel(plain).state_dict()
+                .items()}
+    for part, sub in (('encoder_conf', 'encoder'), ('decoder_conf',
+                                                    'decoder')):
+        for policy in ('full', 'dots', 'dots_no_ln'):
+            ck = json.loads(json.dumps(conf))
+            ck[part].update(gradient_checkpointing=True,
+                            remat_policy=policy)
+            with warnings.catch_warnings():
+                warnings.simplefilter('error')
+                cfg = tam.ModelConfig.from_config(ck)
+            assert getattr(cfg, sub).gradient_checkpointing
+            assert dc.replace(cfg, **{sub: dc.replace(
+                getattr(cfg, sub), gradient_checkpointing=False,
+                remat_policy='dots')}) == plain
+            with torch.device('meta'):
+                got = {k: v.shape for k, v in tam.ASRModel(cfg).state_dict()
+                       .items()}
+            assert got == want
+        ck[part]['remat_policy'] = 'some'
+        with pytest.raises(ValueError, match='remat_policy'):
+            tam.build_model(tam.ModelConfig.from_config(ck), 'cpu',
+                            generator=torch.Generator().manual_seed(0))
 
 
 # ------------------------------ executor ------------------------------
