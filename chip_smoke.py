@@ -16,6 +16,8 @@
     python3 chip_smoke.py --phases context,tools   # context biasing; the
                                                     #   alignment tools
 
+    python3 chip_smoke.py --phases int8,export  # int8 serving; bin.export
+
     python3 chip_smoke.py --profile             # + one profiled train step
 
     python3 chip_smoke.py --ab-parent DIR       # + K1-K6 of the checkout
@@ -147,6 +149,33 @@ then the rest of training:
   K5/K6 call held to its plain version; the clusters the Diarizer finds
   on a held-out 5 min with the trained and the random embedding net.
 
+then the int8 serving path and the export of the serving subgraphs, on
+the serving model:
+
+- int8: `quantize_model_int8` of the bf16 serving model on the card
+  (weight_q8 and w_scale bit-equal to the CPU's `quantize_params_int8`
+  of the same weights); `_int_mm`'s int32 accumulators equal to an int64
+  CPU product at a q projection (4096 × 1024), the decoder output layer
+  (N = 10000), 16 rows (padded) and the first subsampling conv on a
+  chunk (im2col, K = 9 padded); the serve phase's f32 reference check on
+  the int8 model, each int8 site of the plain run fed the kernel run's
+  input (`site_forcing`; the encoder within 1e-3, the decode tail's
+  tokens, times and choices identical, scores within 1e-4); one bf16
+  and one int8 `transcribe_modes` call timed
+  in this process after a warm-up each (wall, peak memory; K1 18, K2 =
+  K3 = 1, K5 110 asserted on the int8 call); `calibrate_activation_scales`
+  on two chunks, then a static-scale call (wall; its tokens beside the
+  dynamic call's);
+- export: `bin.export` on reverb_large in f32 — `--format pt2` (three
+  `torch.export` programs and the manifest, seconds and file sizes),
+  each program loaded back and held to the eager module within 1e-4
+  (the encoder chunk over 4 chained windows with the caches carried; K5
+  91 a chunk and 29 a decoder call inside the loaded programs);
+  `scriptability_check`; `recognize_wav --quantize int8` on the same
+  checkpoint (launches asserted); then `--format aot` into a fresh
+  directory, which a process started with REVERB_KERNEL_DIR set to it
+  loads without building.
+
 Each path runs with the launch counters set to 0 just before it and read
 just after.  Every phase raises on failure; the exit code is 0 only when
 all of them pass.
@@ -162,6 +191,7 @@ the device alone, and the bound), and last
 from __future__ import annotations
 
 import argparse
+import gc
 import json
 import math
 import re
@@ -184,7 +214,8 @@ SEED = 0                     # weights, audio and beam inputs
 LAYERS_ENC, LN_ENC, LN_DEC = 18, 91, 29   # reverb_large: per-step counts
 TRAIN_B, TRAIN_STEPS = 8, 4
 ALL_PHASES = ('kernels', 'serve', 'train', 'modes', 'stream', 'diar',
-              'recipe', 'context', 'tools', 'remat', 'diartrain')
+              'recipe', 'context', 'tools', 'remat', 'diartrain', 'int8',
+              'export')
 
 
 def log(msg):
@@ -4759,14 +4790,514 @@ def ab_parent(dev, parent: Path):
     return rows
 
 
+# ------------------------------ phase 17: int8 serving ------------------------------
+
+class site_forcing:
+    """Context manager over the int8 products of ops/quant.py.  'record'
+    keeps each call's activation input, in call order; 'force' feeds the
+    recorded inputs, in the same order, in place of the run's own, after
+    comparing the two (`worst`: the largest difference).  A forced run
+    of the plain versions thus differs from the recorded kernel run only
+    by what the kernels do between two int8 sites: an f32 difference of
+    1e-6 that puts an activation on an int8 rounding boundary would
+    otherwise move its product by a whole quantization step, and 18
+    layers amplify such steps."""
+
+    def __init__(self, mode: str, recorded=None):
+        self.mode = mode
+        self.recorded = [] if recorded is None else recorded
+        self.calls = 0
+        self.worst = 0.0
+
+    def _wrap(self, orig):
+        def call(x, *args, **kwargs):
+            if self.mode == 'record':
+                self.recorded.append(x)
+            else:
+                want = self.recorded[self.calls]
+                if want.shape != x.shape:
+                    raise AssertionError('int8 sites ran in another order')
+                self.worst = max(self.worst, float(
+                    (x.float() - want.float()).abs().max()))
+                x = want
+            self.calls += 1
+            return orig(x, *args, **kwargs)
+        return call
+
+    def __enter__(self):
+        from reverb_tpu_torch.ops import quant
+        self.swap = swapped({(quant, n): self._wrap(getattr(quant, n))
+                             for n in ('int8_matmul', 'int8_matmul_static',
+                                       'int8_conv2d')})
+        self.swap.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        return self.swap.__exit__(*exc)
+
+
+def check_int_mm(dev, qmodel, feats):
+    """The int32 accumulators of the int8 path on the card (`_int_mm`,
+    padded to its shape rules; the conv as im2col) against an int64 CPU
+    product of the same int8 operands, exactly: a q projection at 4096 ×
+    1024 (the 8-chunk batch), the decoder output layer at N = 10000, 16
+    rows (a streaming chunk at B = 1, padded to 17), and the first
+    subsampling conv (K = 9, padded to 16) on one chunk.  Also the int8
+    GEMM's time beside the bf16 one at the q projection's shape."""
+    import torch
+    from reverb_tpu_torch.ops import quant
+    g = torch.Generator(device=dev).manual_seed(SEED)
+    wq = qmodel.encoder.encoders[0].self_attn.linear_q.weight_q8
+    wo = qmodel.decoder.left_decoder.output_layer.weight_q8
+    xq = quant.quantize_rows(torch.randn(4096, 1024, generator=g,
+                                         device=dev))[0]
+    hq = quant.quantize_rows(torch.randn(640, 1024, generator=g,
+                                         device=dev))[0]
+    cases = [('q projection 4096x1024x1024', xq, wq),
+             ('decoder output_layer 640x1024x10000', hq, wo),
+             ('16 rows (padded to 17) x1024x1024', xq[:16], wq)]
+    out = {}
+    for name, a, w in cases:
+        got = quant.matmul_acc(a, w)
+        want = a.cpu().long() @ w.cpu().long().t()
+        if got.dtype != torch.int32 or not torch.equal(got.cpu().long(),
+                                                         want):
+            raise AssertionError(f'_int_mm {name}: not the int64 product')
+        out[name] = 0
+    w0 = qmodel.encoder.embed.conv['0'].weight_q8
+    x = feats[:CHUNK].float()[None, None]
+    s = torch.clamp(x.abs().amax((1, 2, 3), keepdim=True), min=1e-8) / 127
+    cq = torch.clamp(torch.round(x / s), -127, 127).to(torch.int8)
+    got = quant.conv_acc(cq, w0, (2, 2))
+    p = cq.cpu().long().unfold(2, 3, 2).unfold(3, 3, 2)
+    Ho, Wo = p.shape[2], p.shape[3]
+    want = (p.permute(0, 2, 3, 1, 4, 5).reshape(Ho * Wo, 9)
+            @ w0.cpu().long().reshape(-1, 9).t())
+    want = want.reshape(1, Ho, Wo, -1).permute(0, 3, 1, 2)
+    if not torch.equal(got.cpu().long(), want):
+        raise AssertionError('int8 conv (im2col + _int_mm): not the int64 '
+                             'product')
+    out[f'embed.conv.0 on a chunk ({Ho * Wo}x9(16)x1024)'] = 0
+    xb = torch.randn(4096, 1024, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    wb = torch.randn(1024, 1024, generator=g, device=dev,
+                     dtype=torch.bfloat16)
+    t_int8 = cuda_time_ms(lambda: quant.int_mm(xq, wq), 50)
+    t_bf16 = cuda_time_ms(lambda: torch.nn.functional.linear(xb, wb), 50)
+    log(f'int8: _int_mm int32 accumulators equal the int64 CPU product at '
+        f'{sorted(out)}; at 4096x1024x1024 int_mm {t_int8:.4f} ms, bf16 '
+        f'F.linear {t_bf16:.4f} ms')
+    return {'cases': sorted(out), 'int_mm_ms': t_int8, 'bf16_mm_ms': t_bf16}
+
+
+def int8_reference_check(qasr, feats, dev):
+    """The serve phase's reference check on the int8 model in f32 (TF32
+    off), the plain versions' run fed each int8 site's input from the
+    kernels' run (`site_forcing`): one chunk's encoder within 1e-3, then
+    the decode tail (CTC top-k → beam → rescoring) on the SAME encoder
+    output, tokens, times and choices identical and scores within 1e-4.
+    The unforced plain encoder's difference is reported beside it."""
+    import torch
+    from reverb_tpu_torch.decode import api
+    from reverb_tpu_torch.models.asr_model import build_model
+    from reverb_tpu_torch.ops import beam_scan as bs
+    model = qasr.model
+    f32 = build_model(model.cfg.with_compute_dtype(torch.float32), dev,
+                      state_dict=model.state_dict())
+    x = feats[None, :CHUNK]
+    lens = torch.tensor([CHUNK], device=dev)
+    cat = torch.tensor([1.0, 0.0], device=dev)
+    plain = {(bs, 'beam_scan_forward'): bs.beam_scan_forward_plain,
+             (bs, 'beam_backtrace'): bs.beam_backtrace_plain,
+             **plain_versions()}
+
+    def run(kernels: bool, fn):
+        with swapped({} if kernels else plain), torch.inference_mode():
+            return fn()
+
+    def encode():
+        return api.encode_and_ctc_topk(f32, x, lens, cat, 10)
+    with site_forcing('record') as rec:
+        enc_k = run(True, encode)
+    free = float((run(False, encode)[0] - enc_k[0]).abs().max())
+    with site_forcing('force', rec.recorded) as forced:
+        enc_p = run(False, encode)
+    err = float((enc_k[0] - enc_p[0]).abs().max())
+    if forced.calls != len(rec.recorded) or not err <= 1e-3 or \
+            not forced.worst <= 1e-3:
+        raise AssertionError(f'int8 f32 encoder: kernel vs plain err {err}, '
+                             f'at the int8 sites {forced.worst}')
+
+    def tail():
+        return api._beam_rescore_tail(f32, enc_k[2], enc_k[3], enc_k[4],
+                                      enc_k[0], enc_k[1], 10, 0.1, 0.0, 0.0,
+                                      256, cat)
+    with site_forcing('record') as rec_t:
+        beam_k, resc_k = run(True, tail)
+    with site_forcing('force', rec_t.recorded) as forced_t:
+        beam_p, resc_p = run(False, tail)
+    for g, w in zip(beam_k + resc_k, beam_p + resc_p):
+        if w.dtype.is_floating_point:
+            ok = torch.allclose(g, w, rtol=0, atol=1e-4, equal_nan=True)
+        else:
+            ok = torch.equal(g, w)
+        if not ok or forced_t.calls != len(rec_t.recorded):
+            raise AssertionError('int8 f32 decode tail: kernels differ from '
+                                 'the plain versions')
+    log(f'int8 reference: f32 one chunk, kernels vs plain with each int8 '
+        f'site fed the kernel run\'s input ({len(rec.recorded)} encoder and '
+        f'{len(rec_t.recorded)} decode-tail sites; largest input difference '
+        f'there {max(forced.worst, forced_t.worst)}): encoder max abs err '
+        f'{err}; decode tail tokens, times and choices identical, scores '
+        f'within 1e-4 ({int(beam_k[1][0, 0])} tokens in the best hyp); '
+        f'unforced, the encoder differs by {free} (rounding-boundary steps)')
+    del f32, rec, rec_t
+    torch.cuda.empty_cache()
+    return {'enc_err': err, 'site_err': max(forced.worst, forced_t.worst),
+            'enc_err_unforced': free}
+
+
+def served_call(asr, wav):
+    """One transcribe_modes(MODES) call, timed, with its DecodeResults and
+    the peak device memory over it: (seconds, CTMs, results, peak
+    bytes)."""
+    import torch
+    from reverb_tpu_torch.cli import reverb as rv
+    captured = []
+    decode_fn = rv.decode_modes_fn
+
+    def recording_decode(*args, **kwargs):
+        out = decode_fn(*args, **kwargs)
+        captured.append(out)
+        return out
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with swapped({(rv, 'decode_modes_fn'): recording_decode}):
+        wall, out = transcribe_s(asr, wav, MODES)
+    return wall, out, captured, torch.cuda.max_memory_allocated()
+
+
+def hyp_tokens(results) -> list:
+    return [r.tokens for res in results for mode in MODES
+            for r in res[mode]]
+
+
+def run_int8(dev, asr, wav, feats, audio_s):
+    """`--quantize int8` serving at reverb_large width (bf16 compute, the
+    serve phase's file and sharpened head): quantized weights on the card
+    against the CPU's; `_int_mm` exact at the path's shapes; the f32
+    reference check; one bf16 and one int8 call timed in this process
+    after a warm-up each (launches asserted on the int8 call); then
+    calibration on two chunks and a static-scale call."""
+    import torch
+    from reverb_tpu_torch.cli.reverb import ReverbASR
+    from reverb_tpu_torch.decode import api
+    from reverb_tpu_torch.models.asr_model import (build_model,
+                                                   quantize_model_int8)
+    from reverb_tpu_torch.ops import quant
+    smi = smi_line()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    qmodel = quantize_model_int8(asr.model)
+    torch.cuda.synchronize()
+    quantize_s = time.perf_counter() - t0
+    card = qmodel.state_dict()
+    cpu = quant.quantize_params_int8({k: v.detach().cpu() for k, v in
+                                      asr.model.state_dict().items()})
+    if set(card) != set(cpu):
+        raise AssertionError('int8: the card and the CPU quantize different '
+                             'keys')
+    sites = [k for k in cpu if k.endswith('.weight_q8')]
+    for k in cpu:
+        if k.endswith(('.weight_q8', '.w_scale')) and not torch.equal(
+                card[k].cpu(), cpu[k]):
+            raise AssertionError(f'int8: {k} differs between the card and '
+                                 f'the CPU')
+    q_bytes = sum(card[k].numel() for k in sites)
+    del cpu
+    log(f'int8: quantize_model_int8 {quantize_s:.3f} s on the card; '
+        f'{len(sites)} int8 sites ({q_bytes / 1e6:.1f}M int8 weights), '
+        f'weight_q8 and w_scale bit-equal to the CPU\'s; on {smi}')
+    mm = check_int_mm(dev, qmodel, feats)
+    qasr = ReverbASR.from_model(asr.configs, qmodel, asr.tokenizer)
+    ref = int8_reference_check(qasr, feats, dev)
+
+    walls, peaks, results = {}, {}, {}
+    ln_calls, hooks = ln_call_counter(qmodel)
+    try:
+        for name, a in (('bf16', asr), ('int8', qasr)):
+            transcribe_s(a, wav, MODES)                 # warm-up
+            zero_launch_counts()
+            ln_calls[0] = 0
+            walls[name], outs, results[name], peaks[name] = served_call(a,
+                                                                        wav)
+            if name == 'int8':
+                launches = launch_counts()
+                k5_calls = ln_calls[0]
+            for mode, ctm in zip(MODES, outs):
+                if not check_ctm_rows(ctm, wav.name,
+                                      f'int8 phase {name} {mode}'):
+                    raise AssertionError(f'int8 phase {name} {mode}: empty '
+                                         f'CTM')
+    finally:
+        for h in hooks:
+            h.remove()
+    n_enc = len(results['int8'])
+    layers = qmodel.cfg.encoder.num_blocks
+    want = {'K1': layers * n_enc, 'K2': n_enc, 'K3': n_enc, 'K5': k5_calls}
+    log(f'int8 serving call launches {launches}, expected {want} ({n_enc} '
+        f'encoder call(s); K5 = LayerNorm calls on the path)')
+    if launches != want or k5_calls < LN_ENC * n_enc:
+        raise AssertionError('the int8 serving path did not run every '
+                             'kernel the expected number of times')
+    same, total = matched_tokens(hyp_tokens(results['int8']),
+                                 hyp_tokens(results['bf16']))
+    log(f'int8 vs bf16 serving, second call of each in this process: wall '
+        f'{walls["int8"]:.4f} s vs {walls["bf16"]:.4f} s (xRT '
+        f'{audio_s / walls["int8"]:.1f} vs {audio_s / walls["bf16"]:.1f}), '
+        f'peak {peaks["int8"] / 2**30:.2f} vs {peaks["bf16"] / 2**30:.2f} '
+        f'GiB; {same} of the bf16 call\'s {total} tokens shared in order; '
+        f'on {smi}')
+
+    # static activation scales: calibrate a copy on two chunks
+    smodel = build_model(qmodel.cfg, dev, state_dict=qmodel.state_dict())
+    cat = torch.tensor([1.0, 0.0], device=dev)
+    lens = torch.tensor([CHUNK], device=dev)
+    batches = [(feats[None, i * CHUNK:(i + 1) * CHUNK],) for i in range(2)]
+
+    def run_fn(model, x):
+        api.decode(model, MODES, x, lens, beam_size=10, ctc_weight=0.1,
+                   cat_embs=cat)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    scales = quant.calibrate_activation_scales(smodel, run_fn, batches)
+    calib_s = time.perf_counter() - t0
+    quant.apply_activation_scales(smodel, scales)
+    sasr = ReverbASR.from_model(asr.configs, smodel, asr.tokenizer)
+    transcribe_s(sasr, wav, MODES)                       # warm-up
+    zero_launch_counts()
+    walls['int8_static'], outs, results['static'], peaks['int8_static'] = \
+        served_call(sasr, wav)
+    static_launches = launch_counts()
+    for mode, ctm in zip(MODES, outs):
+        if not check_ctm_rows(ctm, wav.name, f'int8 static {mode}'):
+            raise AssertionError(f'int8 static {mode}: empty CTM')
+    s_same, s_total = matched_tokens(hyp_tokens(results['static']),
+                                     hyp_tokens(results['int8']))
+    log(f'int8 static scales: {len(scales)} of {len(sites)} sites calibrated '
+        f'on 2 chunks in {calib_s:.2f} s; a static-scale call '
+        f'{walls["int8_static"]:.4f} s (dynamic {walls["int8"]:.4f} s), '
+        f'peak {peaks["int8_static"] / 2**30:.2f} GiB, launches '
+        f'{static_launches}; {s_same} of the dynamic call\'s {s_total} '
+        f'tokens shared in order; on {smi}')
+    del smodel, sasr, qasr, qmodel
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'calls': 1, 'walls': walls,
+            'peaks': peaks, 'ref': ref, 'mm': mm, 'quantize_s': quantize_s,
+            'sites': len(sites), 'calibrated': len(scales),
+            'calib_s': calib_s, 'tokens_vs_bf16': (same, total),
+            'static_tokens_vs_dynamic': (s_same, s_total)}
+
+
+# ------------------------------ phase 18: export ------------------------------
+
+EXPORT_TOL = 1e-4            # the f32 port tests' bar
+EXPORT_CHUNKS = 4
+_KERNEL_DIR_PROBE = r'''
+import json, sys
+sys.path.insert(0, sys.argv[1])
+import torch
+from reverb_tpu_torch import _build
+from reverb_tpu_torch.ops import layer_norm as ln
+x = torch.randn(8, 1024, device='cuda')
+ln.layer_norm(x, torch.ones(1024, device='cuda'),
+              torch.zeros(1024, device='cuda'))
+torch.cuda.synchronize()
+print(json.dumps({'build_seconds': _build.build_seconds,
+                  'kernel_dir': str(_build.kernel_dir()),
+                  'k5': ln.LAUNCHES}))
+'''
+
+
+def _max_err(got, want) -> float:
+    return max(float((g.float() - w.float()).abs().max())
+               for g, w in zip(got, want) if w is not None)
+
+
+def run_export(dev, asr, wav, feats, audio_s, workdir: Path):
+    """`python -m reverb_tpu_torch.bin.export` on reverb_large in f32 (the
+    serving weights): `--format pt2` into a directory under _chipwork/,
+    each program loaded back and held to the eager module on the same
+    inputs (the encoder chunk over EXPORT_CHUNKS chained windows of the
+    file with the caches carried) within EXPORT_TOL, K5 counted inside
+    the loaded programs; `recognize_wav --quantize int8` on the same
+    checkpoint (launches asserted); then `--format aot` into a fresh
+    directory, and a process started with REVERB_KERNEL_DIR set to it
+    loads the library without building.  The directory is removed at the
+    end."""
+    import os
+    import shutil
+    import torch
+    from reverb_tpu_torch import _build
+    from reverb_tpu_torch.bin import export as export_bin
+    from reverb_tpu_torch.cli import recognize_wav
+    from reverb_tpu_torch.export import aot
+    from reverb_tpu_torch.models.asr_model import build_model
+    from reverb_tpu_torch.ops import layer_norm as ln
+    from reverb_tpu_torch.utils.config import save_config
+    smi = smi_line()
+    base = ROOT / '_chipwork'
+    base.mkdir(exist_ok=True)
+    tmp = Path(tempfile.mkdtemp(prefix='export_', dir=base))
+    try:
+        f32 = build_model(asr.model.cfg.with_compute_dtype(torch.float32),
+                          dev, state_dict=asr.model.state_dict())
+        conf, ckpt = tmp / 'config.json', tmp / 'model.pt'
+        save_config(asr.configs, conf)
+        torch.save({k: v.detach().cpu() for k, v in
+                    f32.state_dict().items()}, ckpt)
+        args = ['--config', str(conf), '--checkpoint', str(ckpt)]
+        t0 = time.perf_counter()
+        export_bin.main(args + ['--output_dir', str(tmp / 'pt2')])
+        export_s = time.perf_counter() - t0
+        sizes = {p.name: p.stat().st_size for p in (tmp / 'pt2').iterdir()}
+        manifest = json.loads((tmp / 'pt2' / 'manifest.json').read_text())
+        t0 = time.perf_counter()
+        progs = {n: aot.load_serialized(str(tmp / 'pt2' / f'{n}.pt2'))
+                 for n in aot.NAMES}
+        load_s = time.perf_counter() - t0
+        eager, info = aot.serving_inputs(f32)
+        if (info['window'], info['cache_t']) != (manifest['window'],
+                                                 manifest['cache_t']):
+            raise AssertionError('export: manifest shapes')
+        cat = torch.tensor([1.0, 0.0], device=dev)
+        att_p = att_e = info['att_cache']
+        errs, k5, k5_total = {'encoder_chunk': 0.0}, {}, 0
+        stride = manifest['subsampling_rate'] * manifest['chunk_size']
+        with torch.inference_mode():
+            for i in range(EXPORT_CHUNKS):
+                x = feats[None, i * stride:i * stride + info['window']].float()
+                off = torch.tensor(i * manifest['chunk_size'],
+                                   dtype=torch.int32, device=dev)
+                ln.LAUNCHES = 0
+                got = progs['encoder_chunk'](x, off, att_p, None, cat)
+                k5['encoder_chunk'] = ln.LAUNCHES
+                k5_total += ln.LAUNCHES
+                want = eager['encoder_chunk'][0](x, off, att_e, None, cat)
+                errs['encoder_chunk'] = max(errs['encoder_chunk'],
+                                            _max_err(got, want))
+                att_p, att_e = got[1], want[1]
+                if not torch.isfinite(got[0]).all():
+                    raise AssertionError('export: non-finite chunk output')
+            ln.LAUNCHES = 0
+            got = progs['ctc_activation'](got[0])
+            k5['ctc_activation'] = ln.LAUNCHES
+            k5_total += ln.LAUNCHES
+            errs['ctc_activation'] = _max_err(
+                (got,), (eager['ctc_activation'][0](want[0]),))
+            g = torch.Generator(device=dev).manual_seed(SEED)
+            cfg = f32.cfg
+            hyps = torch.randint(1, cfg.vocab_size - 1, (10, 64), generator=g,
+                                 device=dev, dtype=torch.int32)
+            hyps[:, 0] = cfg.sos
+            hl = torch.randint(2, 65, (10,), generator=g, device=dev,
+                               dtype=torch.int32)
+            enc = torch.randn(1, info['cache_t'], cfg.encoder.output_size,
+                              generator=g, device=dev)
+            ln.LAUNCHES = 0
+            got = progs['attention_decoder'](hyps, hl, enc)
+            k5['attention_decoder'] = ln.LAUNCHES
+            k5_total += ln.LAUNCHES
+            errs['attention_decoder'] = _max_err(
+                got, eager['attention_decoder'][0](hyps, hl, enc))
+            times = {}
+            for n, args_ in (('encoder_chunk', (x, off, att_p, None, cat)),
+                             ('attention_decoder', (hyps, hl, enc))):
+                times[n] = (cuda_time_ms(lambda: progs[n](*args_), 5),
+                            cuda_time_ms(lambda: eager[n][0](*args_), 5))
+        want_k5 = {'encoder_chunk': LN_ENC, 'ctc_activation': 0,
+                   'attention_decoder': LN_DEC}
+        log(f'export: bin.export --format pt2 {export_s:.1f} s, files '
+            + ', '.join(f'{n} {b / 1e6:.1f} MB' for n, b in sorted(
+                sizes.items()))
+            + f'; loaded in {load_s:.1f} s; loaded vs eager max abs err '
+            f'{errs} (bar {EXPORT_TOL}); K5 launches inside the loaded '
+            f'programs {k5} (expected {want_k5}); ms a call loaded vs eager '
+            + ', '.join(f'{n} {a:.2f} vs {b:.2f}' for n, (a, b) in
+                        times.items()) + f'; on {smi}')
+        if any(not e <= EXPORT_TOL for e in errs.values()):
+            raise AssertionError('export: a loaded program differs from the '
+                                 'eager module')
+        if k5 != want_k5:
+            raise AssertionError('export: K5 did not run inside the loaded '
+                                 'programs as expected')
+        del progs
+        t0 = time.perf_counter()
+        if not aot.scriptability_check(f32):
+            raise AssertionError('export: scriptability_check')
+        log(f'export: scriptability_check (encode_and_ctc at (1, 67), K1 as '
+            f'its operator) {time.perf_counter() - t0:.1f} s')
+        # the console entry with --quantize int8 on the same checkpoint
+        zero_launch_counts()
+        t0 = time.perf_counter()
+        recognize_wav.main(['--audio_file', str(wav), '--config', str(conf),
+                            '--checkpoint', str(ckpt), '--modes', *MODES,
+                            '--quantize', 'int8', '--compute_dtype',
+                            'bfloat16', '--result_dir', str(tmp / 'rec')])
+        cli_s = time.perf_counter() - t0
+        cli_launches = launch_counts()
+        rows = {m: check_ctm_rows((tmp / 'rec' / m / f'{wav.stem}.ctm')
+                                  .read_text(), wav.name, f'int8 CLI {m}')
+                for m in MODES}
+        want_cli = {'K1': LAYERS_ENC, 'K2': 1, 'K3': 1}
+        log(f'int8 CLI: recognize_wav --quantize int8 --compute_dtype '
+            f'bfloat16 {cli_s:.1f} s with the load; CTM rows {rows}; '
+            f'launches {cli_launches} (expected {want_cli} and K5 > 0); on '
+            f'{smi}')
+        if not all(rows.values()) or {k: cli_launches[k] for k in want_cli} \
+                != want_cli or not cli_launches['K5']:
+            raise AssertionError('the int8 CLI did not decode through the '
+                                 'kernels')
+        t0 = time.perf_counter()
+        export_bin.main(args + ['--output_dir', str(tmp / 'aot'), '--format',
+                                'aot'])
+        aot_s = time.perf_counter() - t0
+        res = subprocess.run(
+            [sys.executable, '-c', _KERNEL_DIR_PROBE, str(ROOT)],
+            capture_output=True, text=True, timeout=300, cwd=str(tmp),
+            env={**os.environ, _build.KERNEL_DIR_ENV: str(tmp / 'aot')})
+        if res.returncode != 0:
+            raise AssertionError(f'export: the kernel-dir probe failed:\n'
+                                 f'{res.stderr[-2000:]}')
+        probe = json.loads(res.stdout.strip().splitlines()[-1])
+        log(f'export: bin.export --format aot {aot_s:.1f} s (build into a '
+            f'fresh directory and one run of each subgraph); a process with '
+            f'REVERB_KERNEL_DIR set to it: {probe}; on {smi}')
+        if probe['build_seconds'] is not None or probe['k5'] != 1 or \
+                Path(probe['kernel_dir']) != tmp / 'aot':
+            raise AssertionError('export: the primed kernel directory was '
+                                 'not loaded as built')
+        del f32, eager
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+        # the exported programs and the CLI's models sit in reference
+        # cycles: collect them now, not in a later phase's peak
+        gc.collect()
+        torch.cuda.empty_cache()
+    return {'export_s': export_s, 'load_s': load_s, 'sizes': sizes,
+            'errs': errs, 'k5': k5, 'k5_total': k5_total, 'times': times,
+            'aot_s': aot_s, 'cli_launches': cli_launches}
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default=','.join(ALL_PHASES),
                     help='comma list of kernels, serve, train, modes, '
                          'stream, diar, recipe, context, tools, remat, '
-                         'diartrain (default all; the result lines need '
-                         'all eleven), or beam: the K2/K3 and K2b checks '
-                         'alone')
+                         'diartrain, int8, export (default all; the result '
+                         'lines need all thirteen), or beam: the K2/K3 and '
+                         'K2b checks alone')
     ap.add_argument('--profile', action='store_true',
                     help='also profile one bf16 training step')
     ap.add_argument('--ab-parent', type=Path, default=None,
@@ -4845,7 +5376,8 @@ def main():
         fwd_err, bt = check_beam(dev, SEED)
         k4 = check_k1_mask_k4(dev)[torch.bfloat16]
         lnr = check_ln(dev)[torch.bfloat16]
-    if phases & {'serve', 'modes', 'stream', 'context', 'tools'}:
+    if phases & {'serve', 'modes', 'stream', 'context', 'tools', 'int8',
+                  'export'}:
         with tempfile.TemporaryDirectory(prefix='reverb_smoke_') as tmp:
             served = serving_setup(dev, SEED, Path(tmp))
             if 'serve' in phases:
@@ -4863,6 +5395,12 @@ def main():
             if 'tools' in phases:
                 # phase 14: alignment, transcribe, the app
                 tools = run_tools(dev, *served, Path(tmp))
+            if 'int8' in phases:
+                # phase 17: --quantize int8 serving (and static scales)
+                int8 = run_int8(dev, *served)
+            if 'export' in phases:
+                # phase 18: bin.export (pt2 programs, the aot kernel dir)
+                export = run_export(dev, *served, Path(tmp))
             del served
     if 'train' in phases:
         # phase 8: the training path
@@ -4893,7 +5431,8 @@ def main():
 
     kernels = kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches,
                              len(walls), t_launch, fallback, modes, stream,
-                             diar, recipe, context, tools, remat, diartrain)
+                             diar, recipe, context, tools, remat, diartrain,
+                             int8, export)
     log(f'slice: second transcribe_modes call {walls[1]:.4f} s for '
         f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; six-mode '
         f'call {modes[2]:.3f} s; train {step_ms:.1f} ms/step at '
@@ -4928,7 +5467,12 @@ def main():
         f'training {diartrain["embedding"]["ms"]:.2f} ms an embedding step, '
         f'{diartrain["segmentation"]["ms"]:.2f} ms a segmentation step, '
         f'{diartrain["clusters_trained"]} clusters trained vs '
-        f'{diartrain["clusters_random"]} random; on {smi}')
+        f'{diartrain["clusters_random"]} random; int8 serving '
+        f'{int8["walls"]["int8"]:.4f} s (bf16 {int8["walls"]["bf16"]:.4f} s, '
+        f'static scales {int8["walls"]["int8_static"]:.4f} s), peak '
+        f'{int8["peaks"]["int8"] / 2**30:.2f} GiB (bf16 '
+        f'{int8["peaks"]["bf16"] / 2**30:.2f}); export {export["export_s"]:.1f}'
+        f' s, aot {export["aot_s"]:.1f} s; on {smi}')
     print(smi_line())
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
@@ -4939,7 +5483,7 @@ def main():
 
 def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
                    t_launch, fallback, modes, stream, diar, recipe, context,
-                   tools, remat, diartrain):
+                   tools, remat, diartrain, int8, export):
     """The {"kernels": [...]} entries: launches on the paths (in all, per
     serving call, per training step, per six-mode call, per streaming hop,
     per pool step, per diarization call of either route, and on the
@@ -5017,7 +5561,15 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
         for part in ('embedding', 'segmentation'):
             per[n][f'diartrain_{part}_step'] = diartrain[part][
                 'launches'].get(n, 0)
-    other = {n: (c_serve.get(n, 0) + c_tail.get(n, 0) + c_train.get(n, 0)
+    # phases int8 and export: an int8 serving call; a call of each loaded
+    # program
+    for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6'):
+        per[n]['int8_serve'] = int8['launches'].get(n, 0) / int8['calls']
+        for prog in ('encoder_chunk', 'ctc_activation', 'attention_decoder'):
+            per[n][f'export_{prog}'] = export['k5'][prog] if n == 'K5' else 0
+    other = {n: (int8['launches'].get(n, 0)
+                 + (export['k5_total'] if n == 'K5' else 0)
+                 + c_serve.get(n, 0) + c_tail.get(n, 0) + c_train.get(n, 0)
                  + sum(got.get(n, 0) for got, _ in t_runs.values())
                  + sum(r['launches'].get(n, 0) * REMAT_STEPS
                        for r in r_steps.values())

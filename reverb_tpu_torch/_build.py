@@ -3,10 +3,14 @@
 Every `csrc/*.cu` file is compiled by its own `nvcc` process, all started
 together, and the objects are linked into ONE shared library with a plain C
 interface (`sm_90a`, no PyTorch headers, so the build takes seconds) that
-is loaded with `ctypes`.  The library lives in `_build/` beside this file,
-keyed by a hash of the sources and flags: a changed source rebuilds it, an
-unchanged one is loaded as it is.  Nothing here runs at import time — the
-first kernel launch builds — and a failed build or load raises.
+is loaded with `ctypes`.  The library lives in the directory that
+`REVERB_KERNEL_DIR` names, else in `_build/` beside this file, keyed by a
+hash of the sources and flags: a changed source rebuilds it, an unchanged
+one is loaded as it is.  `python -m reverb_tpu_torch.bin.export --format
+aot --output_dir D` primes such a directory, so a serving process started
+with REVERB_KERNEL_DIR=D runs no nvcc; a stale or missing library there is
+rebuilt.  Nothing here runs at import time — the first kernel launch
+builds — and a failed build or load raises.
 
 No `--use_fast_math`: the beam kernel's parity with its plain PyTorch version
 needs IEEE `expf`/`log1pf`, and its rank count compares against the next f32
@@ -26,6 +30,7 @@ from pathlib import Path
 
 _CSRC = Path(__file__).resolve().parent / 'csrc'
 _OUT = Path(__file__).resolve().parent / '_build'
+KERNEL_DIR_ENV = 'REVERB_KERNEL_DIR'
 _NAME = 'libreverb_kernels'
 _ARCH = ['-gencode', 'arch=compute_90a,code=sm_90a']
 _FLAGS = _ARCH + ['-std=c++17', '-O3', '-Xcompiler', '-fPIC', '-lineinfo',
@@ -112,11 +117,19 @@ def commands(csrc: Path, out: Path, nvcc: str = 'nvcc', tag: str = 'tmp'):
     return compiles, link
 
 
-def build(csrc: Path = _CSRC, out: Path = _OUT) -> Path:
-    """Compile the kernels of `csrc` into `out` unless a library for these
-    sources exists there.  Returns the library path."""
+def kernel_dir() -> Path:
+    """The package's library directory: $REVERB_KERNEL_DIR when set and
+    not empty, else `_build/` beside this file."""
+    d = os.environ.get(KERNEL_DIR_ENV)
+    return Path(d) if d else _OUT
+
+
+def build(csrc: Path = _CSRC, out: Path = None) -> Path:
+    """Compile the kernels of `csrc` into `out` (default `kernel_dir()`)
+    unless a library for these sources exists there.  Returns the library
+    path."""
     global build_seconds, build_log
-    csrc, out = Path(csrc), Path(out)
+    csrc, out = Path(csrc), Path(kernel_dir() if out is None else out)
     digest = _digest(csrc)
     lib = out / f'{_NAME}.so'
     stamp = out / f'{_NAME}.hash'
@@ -175,15 +188,16 @@ def load_from(csrc: Path, out: Path, signatures=None):
     return lib
 
 
-def load():
-    """The package's kernel library (built on first use).  Once it is
-    loaded this is a read of a global: no lock on the launch path."""
+def load(out: Path = None):
+    """The package's kernel library, built on first use into `out`
+    (default `kernel_dir()`).  Once it is loaded this is a read of a
+    global: no lock on the launch path."""
     global _lib
     lib = _lib
     if lib is None:
         with _lock:
             if _lib is None:
-                _lib = load_from(_CSRC, _OUT)
+                _lib = load_from(_CSRC, kernel_dir() if out is None else out)
             lib = _lib
     return lib
 

@@ -31,10 +31,7 @@ from reverb_tpu_torch.decode.streaming_beam import (IncrementalBeam,
                                                     IncrementalGreedy)
 from reverb_tpu_torch.frontend.fbank import compute_fbank, num_frames
 from reverb_tpu_torch.models.ctc import ctc_logprobs
-from reverb_tpu_torch.models.encoder import init_stream_caches
-
-# right context + 1 of each subsampling: raw frames of a one-frame window
-CONTEXT = {1: 1, 4: 7, 6: 11, 8: 15}
+from reverb_tpu_torch.models.encoder import CONTEXT, init_stream_caches
 
 
 class StreamingASR:

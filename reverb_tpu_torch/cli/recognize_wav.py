@@ -6,8 +6,8 @@ defaults, plus `--device` (default cuda; no silent CPU fallback).  Every
 mode runs; the streaming flags go to `transcribe_modes` as in the JAX
 package (`--decoding_chunk_size` reaches the encoder as a chunk mask on a
 use_dynamic_chunk model, `--num_decoding_left_chunks` and
-`--simulate_streaming` are accepted with no effect there), `--quantize`
-takes only 'none', and there is no `--data_parallel`.
+`--simulate_streaming` are accepted with no effect there), `--quantize
+int8` serves the int8 model, and there is no `--data_parallel`.
 """
 
 from __future__ import annotations
@@ -59,8 +59,9 @@ def get_args(argv=None):
                         help='0.0 = nonverbatim, 1.0 = verbatim (LSL input)')
     parser.add_argument('--timings_adjustment', type=float, default=230,
                         help='ms adjustment of word timings')
-    parser.add_argument('--quantize', default='none', choices=['none'],
-                        help='int8 is not ported')
+    parser.add_argument('--quantize', default='none',
+                        choices=['none', 'int8'],
+                        help='int8: post-training-quantized serving path')
     parser.add_argument('--compute_dtype', default='float32',
                         choices=['float32', 'bfloat16'])
     parser.add_argument('--log_level', default='INFO')
@@ -81,14 +82,14 @@ def main(argv=None):
             'One of either --model or (--checkpoint and --config) must be set.')
     if model_set:
         model = load_model(args.model, compute_dtype=args.compute_dtype,
-                           device=args.device)
+                           quantize=args.quantize, device=args.device)
     else:
         model = ReverbASR(args.config, args.checkpoint,
                           cmvn_path=args.cmvn_path,
                           tokenizer_symbols=args.tokenizer_symbols,
                           bpe_path=args.bpe_path,
                           compute_dtype=args.compute_dtype,
-                          device=args.device)
+                          quantize=args.quantize, device=args.device)
 
     files = {}
     for mode in args.modes:

@@ -5,7 +5,8 @@ Counterpart of reverb_tpu/cli/reverb.py (`ReverbASR`, `load_model`,
 `feats_batcher`, `transcribe_modes`, `get_output`) with the same defaults
 (chunk_size=2051, beam_size=10, ctc_weight=0.1, verbatimicity=1.0,
 timings_adjustment=230 ms) and the same txt/CTM bytes, plus an explicit
-`device`.  The device defaults to 'cuda' and is never swapped silently:
+`device`; `quantize='int8'` serves the int8 model (ops/quant.py), as
+there.  The device defaults to 'cuda' and is never swapped silently:
 asking for CUDA on a machine without it raises.  Every decode mode of the
 reference runs (decode/api.py), with the chunk arguments handed to the
 encoder as there; incremental streaming is cli/model.py:StreamingASR and
@@ -34,9 +35,11 @@ from reverb_tpu_torch.frontend.cmvn import load_cmvn
 from reverb_tpu_torch.frontend.fbank import (FbankConfig, compute_fbank,
                                              num_frames)
 from reverb_tpu_torch.models.asr_model import (ASRModel, ModelConfig,
-                                               build_model)
+                                               build_model,
+                                               quantize_model_int8)
 from reverb_tpu_torch.text.tokenizer import init_tokenizer
 from reverb_tpu_torch.utils.common import resolve_device
+from reverb_tpu_torch.utils.config import load_config
 
 _FRAME_DOWNSAMPLING_FACTOR = {'linear': 1, 'conv2d': 4, 'conv2d6': 6,
                               'conv2d8': 8}
@@ -62,13 +65,14 @@ class ReverbASR:
                  tokenizer_symbols: Optional[str] = None,
                  bpe_path: Optional[str] = None,
                  compute_dtype: str = 'float32',
+                 quantize: str = 'none',
                  device='cuda'):
-        import yaml                      # only a config file needs it
         if compute_dtype not in ('float32', 'bfloat16'):
             raise ValueError(f'compute_dtype {compute_dtype!r}')
+        if quantize not in ('none', 'int8'):
+            raise ValueError(f'quantize {quantize!r} (none|int8)')
         self.checkpoint = checkpoint
-        with open(config) as f:
-            configs = yaml.safe_load(f)
+        configs = load_config(config)
         cm = configs.setdefault('cmvn_conf', {})
         if 'cmvn_file' in cm or cmvn_path:
             cm['cmvn_file'] = self._abspath(cm.get('cmvn_file'), cmvn_path)
@@ -92,6 +96,10 @@ class ReverbASR:
         if compute_dtype == 'bfloat16':
             cfg = cfg.with_compute_dtype(torch.bfloat16)
         model = build_model(cfg, dev, state_dict_from_jax(flat))
+        if quantize == 'int8':
+            # serving PTQ: per-channel int8 weights, dynamic per-token int8
+            # activations, int32 products (ops/quant.py)
+            model = quantize_model_int8(model)
         self._setup(configs, model, tokenizer)
 
     @classmethod

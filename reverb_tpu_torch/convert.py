@@ -40,7 +40,9 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
     """`flatten_params(jax_params)` (or a converted checkpoint) → a state
     dict for `models.asr_model.ASRModel` (strict loading).  Floating values
     become float32 tensors, the encoder's global_cmvn (mean, istd) and the
-    conv modules' batch-norm running stats included."""
+    conv modules' batch-norm running stats included; the int8 weights of a
+    quantized tree (`weight_q8`) stay int8, with their f32 `w_scale` and
+    `a_scale`."""
     out = {}
     for key, val in flat.items():
         key = _CONV_MODULE.sub(r'\1conv_module.\2.', key)
@@ -52,10 +54,13 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
 
 
 def flat_from_state_dict(state_dict) -> Dict[str, np.ndarray]:
-    """A port state dict → flat {JAX key: float32 array}, the inverse of
-    `state_dict_from_jax` (feeds reverb_tpu's nest_state_dict)."""
-    return {tree_key(k): v.detach().to('cpu', torch.float32).numpy()
-            for k, v in state_dict.items()}
+    """A port state dict → flat {JAX key: array}, the inverse of
+    `state_dict_from_jax` (feeds reverb_tpu's nest_state_dict): floating
+    values as float32, the int8 weights of a quantized model
+    (`weight_q8`) as int8."""
+    return {tree_key(k): (v.detach().to('cpu', torch.float32)
+                          if v.is_floating_point() else v.detach().cpu())
+            .numpy() for k, v in state_dict.items()}
 
 
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:

@@ -3,7 +3,7 @@ training loss.
 
 Counterpart of reverb_tpu/models/asr_model.py (`ModelConfig.from_config`,
 `forward_encoder`, `filter_blank_embedding`, init, `compute_loss`,
-`loss_from_encoder`).  The model is
+`loss_from_encoder`, `forward_attention_decoder`).  The model is
 an `nn.Module` whose state-dict keys are WeNet's (`encoder.*`,
 `decoder.left_decoder.*`, `ctc.ctc_lo.*`; a deep-biasing model's
 `context_adaptor.*` as the JAX tree's), so a reverb checkpoint loads into
@@ -21,6 +21,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from reverb_tpu_torch.convert import tree_key
 from reverb_tpu_torch.models import ctc as ctc_mod
 from reverb_tpu_torch.models.context_adaptor import (ContextAdaptor,
                                                      ContextAdaptorConfig)
@@ -28,6 +29,7 @@ from reverb_tpu_torch.models.ctc import CTC
 from reverb_tpu_torch.models.decoder import DecoderConfig, build_decoder
 from reverb_tpu_torch.models.encoder import ConformerEncoder, EncoderConfig
 from reverb_tpu_torch.models.modules import reset_parameters
+from reverb_tpu_torch.ops import quant
 from reverb_tpu_torch.utils.common import (IGNORE_ID, add_sos_eos,
                                            reverse_sequence, th_accuracy)
 
@@ -216,6 +218,38 @@ def filter_blank_embedding(cfg: ModelConfig, ctc_probs, encoder_out,
     return new_out, new_mask[:, None, :]
 
 
+def forward_attention_decoder(model: ASRModel, hyps_pad, hyps_lens,
+                              encoder_out, reverse_weight: float = 0.0,
+                              cat_embs=None, encoder_lens=None):
+    """Batched rescoring decoder pass over one utterance
+    (reverb_tpu/models/asr_model.py:forward_attention_decoder): hyps_pad
+    (N, L) sos-prefixed and eos-padded, hyps_lens (N,) counting sos,
+    encoder_out (1, T, D) shared by the N rows, encoder_lens (a 0-d or
+    (1,) count of valid frames, or None for all T).  Returns (log-softmax
+    l_x (N, L, V) f32, r_x (N, L, V): the right decoder's, or zeros when
+    reverse_weight is 0)."""
+    cfg = model.cfg
+    N = hyps_pad.shape[0]
+    T = encoder_out.shape[1]
+    dev = encoder_out.device
+    if encoder_lens is None:
+        enc_mask = torch.ones((1, 1, T), dtype=torch.bool, device=dev)
+    else:
+        enc_mask = (torch.arange(T, device=dev)
+                    < encoder_lens.reshape(()))[None, None]
+    r_body = reverse_sequence(hyps_pad[:, 1:], hyps_lens - 1, cfg.eos)
+    r_hyps = torch.cat([hyps_pad[:, :1], r_body], 1)
+    l_x, r_x = model.decoder(encoder_out, enc_mask, hyps_pad, hyps_lens,
+                             r_hyps, reverse_weight,
+                             cat_embs if cfg.lsl_dec else None, mem_group=N)
+    l_x = torch.log_softmax(l_x.to(torch.float32), -1)
+    if r_x is not None:
+        r_x = torch.log_softmax(r_x.to(torch.float32), -1)
+    else:
+        r_x = torch.zeros_like(l_x)
+    return l_x, r_x
+
+
 def compute_loss(model: ASRModel, batch: Dict, generator=None,
                  chunk_generator=None) -> Dict:
     """Training loss (reverb_tpu/models/asr_model.py:compute_loss).
@@ -307,13 +341,19 @@ def build_model(cfg: ModelConfig, device, state_dict: Optional[dict] = None,
     the global CMVN stats `cmvn` = (mean, istd) inside the parameters when
     given (as reverb_tpu's init_params(..., cmvn=)).  Serving models come
     back in eval mode with gradients off; `train=True` gives a trainable
-    model in training mode."""
+    model in training mode.  A state dict of `quant.quantize_params_int8`
+    (or of a JAX-quantized tree) builds each layer that holds `weight_q8`
+    in its int8 form: attention q/k/v/out/pos, the FFNs, the decoders with
+    their output layers and the subsampling convs, where the JAX package
+    quantizes."""
     if state_dict is not None:
         with_cmvn = 'encoder.global_cmvn.mean' in state_dict
     else:
         with_cmvn = cmvn is not None
     with torch.device('meta'):
         model = ASRModel(cfg, with_cmvn)
+        if state_dict is not None:
+            _int8_modules(model, state_dict)
     model = model.to_empty(device=device)
     if state_dict is not None:
         model.load_state_dict(state_dict, strict=True)
@@ -329,3 +369,23 @@ def build_model(cfg: ModelConfig, device, state_dict: Optional[dict] = None,
     if train:
         return model.train().requires_grad_(True)
     return model.eval().requires_grad_(False)
+
+
+def _int8_modules(model: ASRModel, state_dict):
+    """Switch the layers whose `weight_q8` the state dict holds to their
+    int8 form (models/modules.py:_Int8Form), each with its JAX path."""
+    for name, m in model.named_modules():
+        if f'{name}.weight_q8' in state_dict:
+            if not hasattr(m, 'to_int8'):
+                raise ValueError(f'{name}: no int8 form for '
+                                 f'{type(m).__name__}')
+            m.to_int8(tree_key(name), f'{name}.a_scale' in state_dict)
+
+
+def quantize_model_int8(model: ASRModel) -> ASRModel:
+    """Serving PTQ of a built model (reverb_tpu/cli/reverb.py:100-104):
+    `quant.quantize_params_int8` of its state dict, on the model's device,
+    then the model rebuilt from it in eval mode."""
+    device = next(model.parameters()).device
+    return build_model(model.cfg, device,
+                       quant.quantize_params_int8(model.state_dict()))

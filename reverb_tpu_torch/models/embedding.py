@@ -40,8 +40,9 @@ def pe_table_on(d_model: int, device: torch.device) -> torch.Tensor:
 
 
 def _pe(d_model: int, T: int, x):
-    return torch.from_numpy(pe_table(d_model)[:T]).to(device=x.device,
-                                                       dtype=x.dtype)[None]
+    # rows of the one table on x's device: an exported program
+    # (export/aot.py) then holds the table once, with views of it
+    return pe_table_on(d_model, x.device)[:T].to(x.dtype)[None]
 
 
 def abs_position_encoding(x, rate: float = 0.0, generator=None):

@@ -50,6 +50,10 @@ from reverb_tpu_torch.models.modules import (ACTIVATIONS, BatchNorm, Conv1d,
                                              checkpoint_layer, dropout, glu)
 from reverb_tpu_torch.utils.common import add_optional_chunk_mask
 
+# right context + 1 of each subsampling rate: the raw frames of a
+# one-frame window
+CONTEXT = {1: 1, 4: 7, 6: 11, 8: 15}
+
 
 @dataclasses.dataclass(frozen=True)
 class EncoderConfig:
@@ -428,7 +432,7 @@ class ConformerEncoder(nn.Module):
         cache_t = chunk · num_left (16 when num_left < 0).  Returns (ys
         (B, T', D), mask (B, 1, T'))."""
         sub = self.cfg.subsampling_rate
-        context = {1: 1, 4: 7, 6: 11, 8: 15}[sub]
+        context = CONTEXT[sub]
         stride = sub * decoding_chunk_size
         window = (decoding_chunk_size - 1) * sub + context
         num_left = (num_decoding_left_chunks if num_decoding_left_chunks >= 0

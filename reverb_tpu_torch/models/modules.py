@@ -12,6 +12,9 @@ Dropout draws from an explicit `torch.Generator` (the counterpart of the
 JAX package's rng): with no generator it is the identity, as with rng=None.
 `checkpoint_layer` is the per-layer gradient checkpointing of the encoder
 and decoder stacks (reverb_tpu/models/modules.py:remat_policy).
+`Linear` and `Conv2d` also have an int8 serving form (`to_int8`,
+ops/quant.py), which `models/asr_model.py:build_model` takes where the
+state dict holds `weight_q8`.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from torch.utils import checkpoint as ckpt
 
 from reverb_tpu_torch.ops import flash_attention as fa
 from reverb_tpu_torch.ops import layer_norm as ln_ops
+from reverb_tpu_torch.ops import quant
 
 REMAT_POLICIES = ('full', 'dots', 'dots_no_ln')
 _aten = torch.ops.aten
@@ -107,14 +111,51 @@ def _uniform(t: torch.Tensor, bound: float, g):
         t.uniform_(-bound, bound, generator=g)
 
 
-class Linear(nn.Module):
-    """y = x Wᵀ + b with W (out, in) cast to x.dtype."""
+class _Int8Form:
+    """The int8 serving form of a layer (ops/quant.py): `to_int8` swaps the
+    float `weight` for the buffers `weight_q8` (int8, the weight's shape)
+    and `w_scale` (f32, one per output channel), and `a_scale` (a 0-d f32
+    static activation scale) where the state dict to load holds one.
+    `q8_path` is the site's JAX path and `calib` the calibration context
+    it records its input into, while one is set."""
+
+    def _init_int8(self):
+        self.register_buffer('weight_q8', None)
+        self.register_buffer('w_scale', None)
+        self.register_buffer('a_scale', None)
+        self.q8_path = None
+        self.calib = None
+
+    def to_int8(self, path: str, a_scale: bool = False):
+        w = self.weight
+        del self.weight
+        self.register_parameter('weight', None)
+        self.weight_q8 = torch.empty(w.shape, dtype=torch.int8,
+                                     device=w.device)
+        self.w_scale = torch.empty(w.shape[0], device=w.device)
+        if a_scale:
+            self.a_scale = torch.empty((), device=w.device)
+        self.q8_path = path
+        return self
+
+    def _int8_input(self, x):
+        if self.calib is not None:
+            self.calib.record(self.q8_path, x)
+        return x
+
+
+class Linear(_Int8Form, nn.Module):
+    """y = x Wᵀ + b with W (out, in) cast to x.dtype; in the int8 form
+    (reverb_tpu/models/modules.py:linear with `weight_q8`) the int8
+    product rescaled to x.dtype, static when `a_scale` is set, plus the
+    bias in that dtype."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
+        self._init_int8()
 
     def reset_parameters(self, g):
         bound = math.sqrt(1.0 / self.weight.shape[1])
@@ -123,6 +164,14 @@ class Linear(nn.Module):
             _uniform(self.bias, bound, g)
 
     def forward(self, x):
+        if self.weight_q8 is not None:
+            x = self._int8_input(x)
+            if self.a_scale is not None:
+                y = quant.int8_matmul_static(x, self.weight_q8, self.w_scale,
+                                             self.a_scale)
+            else:
+                y = quant.int8_matmul(x, self.weight_q8, self.w_scale)
+            return y if self.bias is None else y + self.bias.to(y.dtype)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
 
@@ -158,13 +207,18 @@ class Conv1d(nn.Module):
         return y.transpose(1, 2)
 
 
-class Conv2d(nn.Module):
+class Conv2d(_Int8Form, nn.Module):
+    """2-D convolution, no padding; in the int8 form
+    (reverb_tpu/models/modules.py:conv2d with `weight_q8`) im2col and the
+    int8 product with a per-sample (or static) activation scale."""
+
     def __init__(self, in_ch: int, out_ch: int, kh: int, kw: int,
                  stride=(1, 1)):
         super().__init__()
         self.stride = stride
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch, kh, kw))
         self.bias = nn.Parameter(torch.empty(out_ch))
+        self._init_int8()
 
     def reset_parameters(self, g):
         w = self.weight
@@ -173,6 +227,11 @@ class Conv2d(nn.Module):
         _uniform(self.bias, bound, g)
 
     def forward(self, x):
+        if self.weight_q8 is not None:
+            y = quant.int8_conv2d(self._int8_input(x), self.weight_q8,
+                                  self.w_scale, self.stride,
+                                  a_scale=self.a_scale)
+            return y + self.bias[None, :, None, None].to(y.dtype)
         return F.conv2d(x, self.weight.to(x.dtype), self.bias.to(x.dtype),
                         stride=self.stride)
 

@@ -257,7 +257,8 @@ def rel_pos_attention(q, k, v, pos, pos_bias_u, pos_bias_v, kv_lens,
     u = pos_bias_u.to(device=q.device, dtype=q.dtype)
     vb = pos_bias_v.to(device=q.device, dtype=q.dtype)
     lens = kv_lens.to(device=q.device, dtype=torch.int32).contiguous()
-    if torch.is_grad_enabled() and any(
+    # a traced program (torch.export) sees K1 only as the operator
+    if torch.compiler.is_compiling() or torch.is_grad_enabled() and any(
             t.requires_grad for t in (q, k, v, p, u, vb)):
         return _attention_op(q, k, v, p, u.contiguous(), vb.contiguous(),
                              lens, mask, rate)[0]

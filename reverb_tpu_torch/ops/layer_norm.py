@@ -13,8 +13,10 @@ The backward recomputes the row statistics, so only (x, w) are saved.
 Eligibility is the reference's own rule (C % 128 == 0, C <= 8192, f32 or
 bf16): an ineligible shape takes the plain formulation with autograd, as
 the JAX package takes its XLA path.  For an eligible tensor a CPU tensor
-takes the plain versions and a CUDA tensor launches the hand-written
-kernels (csrc/layer_norm.cu) or raises — there is no fallback.
+takes the plain versions and a CUDA tensor goes through the operator
+`reverb::layer_norm` (a `torch.library.custom_op` with a fake for tracing,
+its autograd K6), which launches the hand-written kernels
+(csrc/layer_norm.cu) or raises — there is no fallback.
 """
 
 from __future__ import annotations
@@ -177,8 +179,8 @@ def layer_norm_bwd(x, weight, g, eps: float):
 
 
 class _LayerNorm(torch.autograd.Function):
-    """K5 forward, K6 backward (the counterpart of `fused_layer_norm`'s
-    custom VJP); on CPU tensors their plain versions."""
+    """K5 forward, K6 backward through their wrappers, on CPU tensors:
+    their plain versions, with the kernels' backward arithmetic."""
 
     @staticmethod
     def forward(ctx, x, weight, bias, eps):
@@ -189,17 +191,61 @@ class _LayerNorm(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         x, weight = ctx.saved_tensors
-        dx, dw, db = layer_norm_bwd(x, weight, g, ctx.eps)
-        if weight.dtype != torch.float32:
-            dw, db = dw.to(weight.dtype), db.to(weight.dtype)
-        return dx, dw, db, None
+        return (*_grads(x, weight, g, ctx.eps), None)
+
+
+def _grads(x, weight, g, eps):
+    dx, dw, db = layer_norm_bwd(x, weight, g, eps)
+    if weight.dtype != torch.float32:
+        dw, db = dw.to(weight.dtype), db.to(weight.dtype)
+    return dx, dw, db
+
+
+@torch.library.custom_op('reverb::layer_norm', mutates_args=(),
+                         device_types='cuda')
+def _layer_norm_op(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor,
+                   eps: float) -> torch.Tensor:
+    """K5 as one operator (the counterpart of `fused_layer_norm`'s custom
+    VJP): the dispatcher sees it whole, so `torch.export` keeps it in an
+    exported graph (export/aot.py) and a selective checkpoint policy sees
+    it.  Its gradient is K6."""
+    return layer_norm_fwd(x, weight, bias, eps)
+
+
+@_layer_norm_op.register_fake
+def _(x, weight, bias, eps):
+    return x.new_empty(x.shape)
+
+
+def _layer_norm_setup(ctx, inputs, output):
+    x, weight, _, eps = inputs
+    ctx.save_for_backward(x, weight)
+    ctx.eps = eps
+
+
+def _layer_norm_backward(ctx, g):
+    x, weight = ctx.saved_tensors
+    return (*_grads(x, weight, g, ctx.eps), None)
+
+
+_layer_norm_op.register_autograd(_layer_norm_backward,
+                                 setup_context=_layer_norm_setup)
+LAYER_NORM_OP = torch.ops.reverb.layer_norm.default
 
 
 def layer_norm(x, weight, bias, eps: float = 1e-5):
-    """LayerNorm over the last axis of x with f32 weight/bias (C,)."""
+    """LayerNorm over the last axis of x with f32 weight/bias (C,): the
+    plain formulation for an ineligible shape; for an eligible one the
+    plain versions of K5/K6 on a CPU tensor, and on a CUDA tensor the op
+    `reverb::layer_norm` (K5, gradient K6)."""
     if not eligible(x):
         return layer_norm_plain(x, weight, bias, eps)
-    if torch.is_grad_enabled() and (x.requires_grad or weight.requires_grad
-                                    or bias.requires_grad):
-        return _LayerNorm.apply(x, weight, bias, eps)
-    return layer_norm_fwd(x, weight, bias, eps)
+    if x.device.type == 'cpu':
+        if torch.is_grad_enabled() and (x.requires_grad
+                                        or weight.requires_grad
+                                        or bias.requires_grad):
+            return _LayerNorm.apply(x, weight, bias, eps)
+        return layer_norm_fwd(x, weight, bias, eps)
+    if x.device.type != 'cuda':
+        raise RuntimeError(f'layer_norm: no kernel for {x.device}')
+    return _layer_norm_op(x, weight, bias, eps)

@@ -205,7 +205,10 @@ def test_bin_train_with_device_feats(tmp_path):
         assert all(np.isfinite(z[k]).all() for k in z.files)
     saved = yaml.safe_load((tmp_path / 'exp' / 'train.yaml').read_text())
     tok = init_tokenizer(saved)
-    cv_conf = dict(saved['dataset_conf'], spec_aug=False, shuffle=False)
+    # the two passes compared below must read cv.list in one order: with
+    # list_shuffle on (unseeded) they batch it differently
+    cv_conf = dict(saved['dataset_conf'], spec_aug=False, shuffle=False,
+                   list_shuffle=False)
     from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
     from reverb_tpu_torch import convert
     cfg = ModelConfig.from_config(saved)

@@ -94,7 +94,10 @@ def test_port_imports_no_jax_and_no_reverb_tpu():
                  'reverb_tpu_torch.diar.train_segmentation',
                  'reverb_tpu_torch.diar.train_embedding',
                  'reverb_tpu_torch.data.wav_distortion',
-                 'reverb_tpu_torch.data.kaldi_io'):
+                 'reverb_tpu_torch.data.kaldi_io',
+                 'reverb_tpu_torch.ops.quant',
+                 'reverb_tpu_torch.export.aot',
+                 'reverb_tpu_torch.bin.export'):
         assert name in out['modules']
     assert out['bad'] == []
 

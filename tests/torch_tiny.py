@@ -9,15 +9,19 @@ import numpy as np
 from helpers import build_tiny_model_dir, write_wav
 
 
-def reshaped_tiny_dir(d):
+def reshaped_tiny_dir(d, output_size=None, attention_heads=None):
     """build_tiny_model_dir(d) plus a 3 s `a.wav`, the CTC head's weight ×8,
     each token's logit centred over the wav's frames and the blank bias
-    raised to the 75th percentile of (best non-blank − blank)."""
+    raised to the 75th percentile of (best non-blank − blank).  With
+    `output_size` / `attention_heads` the encoder and decoder take that
+    width and head count, their weights drawn anew from PRNGKey(0)."""
     from reverb_tpu.cli.reverb import ReverbASR
     from reverb_tpu.convert.torch_ckpt import load_npz, save_npz
     from reverb_tpu.decode.api import encode_and_ctc
     from reverb_tpu.models import ctc as ctc_mod
     d = build_tiny_model_dir(d)
+    if output_size or attention_heads:
+        _widen(d, output_size, attention_heads)
     wav = write_wav(d / 'a.wav', seconds=3.0)
     ref = ReverbASR(str(d / 'config.yaml'), str(d / 'model.npz'))
     feats = np.asarray(ref.compute_feats(str(wav)))
@@ -38,6 +42,24 @@ def reshaped_tiny_dir(d):
     params['ctc']['ctc_lo'] = {'weight': w, 'bias': bias.astype(np.float32)}
     save_npz(str(d / 'model.npz'), params)
     return d
+
+
+def _widen(d, output_size, attention_heads):
+    """Rewrite the tiny dir's config at another width / head count and
+    draw its weights anew."""
+    import jax
+    import yaml
+    from reverb_tpu.convert.torch_ckpt import save_npz
+    from reverb_tpu.models.asr_model import ModelConfig, init_params
+    conf = yaml.safe_load((d / 'config.yaml').read_text())
+    if output_size:
+        conf['encoder_conf']['output_size'] = output_size
+    if attention_heads:
+        conf['encoder_conf']['attention_heads'] = attention_heads
+        conf['decoder_conf']['attention_heads'] = attention_heads
+    (d / 'config.yaml').write_text(yaml.safe_dump(conf))
+    save_npz(d / 'model.npz', init_params(jax.random.PRNGKey(0),
+                                          ModelConfig.from_config(conf)))
 
 
 def speechy_wav(path, seconds: float, seed: int, sr: int = 16000):
