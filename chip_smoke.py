@@ -18,6 +18,9 @@
 
     python3 chip_smoke.py --phases int8,export  # int8 serving; bin.export
 
+    python3 chip_smoke.py --phases parallel     # sharded training steps;
+                                                #   data-parallel serving
+
     python3 chip_smoke.py --profile             # + one profiled train step
 
     python3 chip_smoke.py --ab-parent DIR       # + K1-K6 of the checkout
@@ -176,6 +179,32 @@ the serving model:
   directory, which a process started with REVERB_KERNEL_DIR set to it
   loads without building.
 
+then parallelism (parallel/, the sharded step of train/trainer.py):
+
+- parallel: at world size 1 over NCCL, the sharded step (ZeRO and TP
+  split nothing at one rank) against the unwrapped step in f32 at B = 2
+  with dropout (loss and grad norm within 1e-5 relative, parameters
+  within 1e-5 after an Adam step at lr 1e-3), every K1/K4/K5/K6 call held
+  to its plain version and counted, and its bf16 step at B = 8 (ms, peak
+  memory); then two ranks on the one card over gloo with CUDA tensors
+  (processes of this script, `--parallel-child`, joined by
+  parallel/mesh.py:init_distributed): DDP, ZeRO-1/2, ZeRO-3 and TP 2,
+  each an f32 step held to the unwrapped one on loss, grad norm and
+  every parameter — within 1e-3 of the whole batch at once (TP with
+  dropout: the split layers draw the unwrapped masks; at world 1 the
+  row split alone is measured by loss term, the floor under that bound)
+  and, for the data-parallel forms, within 1e-5 of the batch as
+  micro-batches of a rank's rows — rank 0's kernel calls held to their
+  plain versions, and
+  a bf16 step held to the
+  unwrapped bf16 step (PAR_BF16_TOL) with ms a step and peak memory per
+  rank, every step of every rank launching PAR_STEP_LAUNCHES; a form
+  whose collective gloo does not carry for CUDA tensors reported on its
+  own line; the same over NCCL where there are two cards, and DP 2 × TP
+  2 over NCCL where there are four; and
+  `ReverbASR(data_parallel=device_count)` on the serving file, its CTM
+  byte-identical to one replica's decoding the same row blocks.
+
 Each path runs with the launch counters set to 0 just before it and read
 just after.  Every phase raises on failure; the exit code is 0 only when
 all of them pass.
@@ -215,7 +244,7 @@ LAYERS_ENC, LN_ENC, LN_DEC = 18, 91, 29   # reverb_large: per-step counts
 TRAIN_B, TRAIN_STEPS = 8, 4
 ALL_PHASES = ('kernels', 'serve', 'train', 'modes', 'stream', 'diar',
               'recipe', 'context', 'tools', 'remat', 'diartrain', 'int8',
-              'export')
+              'export', 'parallel')
 
 
 def log(msg):
@@ -1194,12 +1223,12 @@ def modes_reference_check(asr, feats, dev):
     torch.cuda.empty_cache()
 
 
-def transcribe_s(asr, wav, modes) -> tuple:
+def transcribe_s(asr, wav, modes, **kwargs) -> tuple:
     """(seconds, outputs) of one transcribe_modes call, synchronised."""
     import torch
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    out = asr.transcribe_modes(str(wav), modes, format='ctm')
+    out = asr.transcribe_modes(str(wav), modes, format='ctm', **kwargs)
     torch.cuda.synchronize()
     return time.perf_counter() - t0, out
 
@@ -4313,14 +4342,16 @@ def train_batch(dev, B, seed, vocab):
             'cat_embs': torch.tensor([[1.0, 0.0]] * B, device=dev)}
 
 
-def train_model(dev, seed, dtype):
+def train_model(dev, seed, dtype, overrides=None):
+    """reverb_large from a generator of `seed` in `dtype`, its optimizer
+    and its step; `overrides` replace keys of the preset's config."""
     import torch
     from reverb_tpu_torch.models import presets
     from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
     from reverb_tpu_torch.train.trainer import (TrainConfig,
                                                 build_optimizer,
                                                 make_train_step)
-    configs = presets.reverb_large()
+    configs = {**presets.reverb_large(), **(overrides or {})}
     cfg = ModelConfig.from_config(configs).with_compute_dtype(dtype)
     model = build_model(cfg, dev, generator=torch.Generator(
         device=dev).manual_seed(seed), train=True)
@@ -5290,14 +5321,535 @@ def run_export(dev, asr, wav, feats, audio_s, workdir: Path):
             'aot_s': aot_s, 'cli_launches': cli_launches}
 
 
+# ------------------------------ phase 19: parallelism ------------------------------
+
+# (name, mesh axes, Sharding options): the forms of two ranks (gloo on one
+# card; NCCL on two cards) and of four (NCCL on four cards).  At one rank
+# ZeRO and TP split nothing, so world 1 runs the sharded step once
+PAR_FORMS_N = {2: (('ddp', {'data': 2}, {'zero': False}),
+                   ('zero12', {'data': 2}, {'zero': True}),
+                   ('zero3', {'data': 2}, {'zero3': True}),
+                   ('tp2', {'model': 2}, {'zero': True})),
+               4: (('dp2tp2', {'data': 2, 'model': 2}, {'zero': True}),)}
+PAR_STEPS = 2                     # a step, then the timed one
+# the K1/K4/K5/K6 launches of every reverb_large step, whatever the form
+# (K1/K4 on a TP rank's H/tp heads, K5/K6 on the replicated rows)
+PAR_STEP_LAUNCHES = {'K1': LAYERS_ENC, 'K4': LAYERS_ENC,
+                     'K5': LN_ENC + LN_DEC, 'K6': LN_ENC + LN_DEC}
+# the f32 checks' optimizer: Adam's first step at lr 1e-3 (warm-up 1)
+# with eps 1e-3, so a parameter moves by up to 1e-3, in proportion to its
+# gradient below 1e-3, and agrees within PAR_F32_TOL only where its
+# gradient does (reverb_large's own first step, lr 4e-8, moves nothing
+# by 1e-5)
+PAR_CHECK_CONF = {'optim_conf': {'lr': 1e-3, 'eps': 1e-3},
+                  'scheduler_conf': {'warmup_steps': 1}}
+# loss, grad norm (rel), parameters (abs) against an unwrapped step of
+# the same arithmetic: the sharded step at world 1, and a data-parallel
+# form against the batch split into micro-batches of a rank's rows
+PAR_F32_TOL = 1e-5
+# a multi-rank form against the whole batch at once.  At random init
+# (a CTC loss near 1500 an utterance) the CTC term's backward amplifies
+# f32 rounding: splitting the rows alone moves the gradient by ≈ 2e-4
+# of its norm, the attention term's by ≈ 5e-7 (`row_split`), and a TP
+# rank's split GEMMs and sums feed it other roundings of its logits
+PAR_RANKS_F32_TOL = 1e-3
+PAR_F32_B = 2
+# a bf16 step of two ranks against the unwrapped bf16 step on the same
+# batch: the two ranks' bf16 GEMMs run at other shapes (TP: the
+# row-parallel outputs are sums of two bf16 partial products)
+PAR_BF16_TOL = {'loss': 5e-3, 'grad_norm': 5e-2}
+
+
+def train_launches() -> dict:
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    return {'K1': fa.LAUNCHES, 'K4': fa.BWD_LAUNCHES, 'K5': ln.LAUNCHES,
+            'K6': ln.BWD_LAUNCHES}
+
+
+def zero_train_launches():
+    from reverb_tpu_torch.ops import flash_attention as fa
+    from reverb_tpu_torch.ops import layer_norm as ln
+    fa.LAUNCHES = fa.BWD_LAUNCHES = ln.LAUNCHES = ln.BWD_LAUNCHES = 0
+
+
+def counted_step(step, model, batch, gen, total) -> tuple:
+    """One step with the K1/K4/K5/K6 counts set to 0 before it and read
+    after it: (metrics, its launches), the launches added to `total`."""
+    zero_train_launches()
+    metrics = step(model, batch, gen)
+    got = train_launches()
+    for n, v in got.items():
+        total[n] = total.get(n, 0) + v
+    return metrics, got
+
+
+def sharded(model, opt, axes, opts):
+    """The model and optimizer split over make_mesh(**axes) (the
+    `Sharding`), and their sharded step (reverb_large's accum 1 and clip
+    50)."""
+    from reverb_tpu_torch.parallel import mesh as pm
+    from reverb_tpu_torch.parallel.sharding import Sharding
+    from reverb_tpu_torch.train.trainer import make_train_step
+    sh = Sharding(pm.make_mesh(**axes), **opts).apply(model, opt)
+    return sh, make_train_step(model.cfg, opt, 1, 50.0, sharding=sh)
+
+
+def timed_steps(step, model, batch, gen, total) -> tuple:
+    """PAR_STEPS counted steps: (first step's metrics, ms of the last,
+    each step's launches)."""
+    import torch
+    metrics, walls, launches = [], [], []
+    for _ in range(PAR_STEPS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        m, got = counted_step(step, model, batch, gen, total)
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        metrics.append(m)
+        launches.append(got)
+    return metrics[0], walls[-1] * 1e3, launches
+
+
+def param_err(params, want) -> float:
+    return max(float((p.detach() - w.to(p.device)).abs().max())
+               for p, w in zip(params, want))
+
+
+def worst_params(model, want, k=3) -> list:
+    """The k parameters farthest from `want`: [(name, max abs error,
+    largest |value| of want)]."""
+    errs = [(n, float((p.detach() - w.to(p.device)).abs().max()),
+             float(w.abs().max()))
+            for (n, p), w in zip(model.named_parameters(), want)]
+    return sorted(errs, key=lambda e: -e[1])[:k]
+
+
+def row_split(dev, seed, batch, total) -> dict:
+    """What splitting the f32 batch into one-row halves alone moves, by
+    loss term, in one process with no collective: {term: (|Δ‖g‖| / ‖g‖,
+    ‖Δg‖ / ‖g‖)} of the whole batch's gradient against the mean of the
+    halves'.  The floor under a multi-rank form's comparison with the
+    whole batch (PAR_RANKS_F32_TOL)."""
+    import torch
+    from reverb_tpu_torch.models.asr_model import compute_loss
+    model = train_model(dev, seed, torch.float32)[0]
+    params = list(model.parameters())
+
+    def grads(term, parts):
+        for p in params:
+            p.grad = None
+        zero_train_launches()
+        for part in parts:
+            (compute_loss(model, part, None)[term] / len(parts)).backward()
+        for n, v in train_launches().items():
+            total[n] = total.get(n, 0) + v
+        return [torch.zeros_like(p) if p.grad is None else p.grad
+                for p in params]
+
+    def norm(ts):
+        return float(torch.linalg.vector_norm(torch.stack(
+            torch._foreach_norm(ts))))
+    halves = [{k: v[i:i + 1] for k, v in batch.items()}
+              for i in range(batch['feats'].shape[0])]
+    out = {}
+    for term in ('loss_ctc', 'loss_att'):
+        whole = [g.clone() for g in grads(term, [batch])]
+        split = grads(term, halves)
+        n = norm(whole)
+        out[term] = (abs(norm(split) - n) / n,
+                     norm(torch._foreach_sub(split, whole)) / n)
+    log('parallel world 1, the row split alone (the whole f32 batch '
+        'against the mean of its one-row halves, one process): '
+        + ', '.join(f'{t} gradient norm rel {a:.2e}, ‖Δg‖/‖g‖ {b:.2e}'
+                    for t, (a, b) in out.items()))
+    del model, params
+    gc.collect()
+    torch.cuda.empty_cache()
+    return out
+
+
+def parallel_world1(dev, seed) -> dict:
+    """World size 1 over NCCL: the sharded step (`Sharding` over a one-rank
+    mesh; ZeRO and TP split nothing at one rank, so one form stands for
+    all) takes the step the unwrapped one takes.  f32 (TF32 off) at
+    B = PAR_F32_B with dropout 0.1 (both from a generator of seed 7) and
+    PAR_CHECK_CONF's optimizer: loss and grad norm within PAR_F32_TOL
+    relative and every parameter within PAR_F32_TOL of the unwrapped
+    step's, every K1, K4, K5 and K6 call of the step held to its plain
+    version on its own inputs (`checked_kernels`, RECIPE_CALL_TOL) and
+    counted.  Then bf16 at B = 8: its ms a step and peak memory, and the
+    unwrapped step without dropout, which the multi-rank forms are held
+    to.  Every step's launches are counted into 'total'."""
+    import torch
+    import torch.distributed as dist
+    from reverb_tpu_torch.parallel import mesh as pm
+    pm.init_distributed(f'file://{tempfile.mkdtemp()}/pg', 1, 0, dev)
+    total = {}
+    out = {'total': total}
+    try:
+        batch = train_batch(dev, PAR_F32_B, seed + 1, VOCAB)
+        model, opt, step = train_model(dev, seed, torch.float32,
+                                       PAR_CHECK_CONF)
+        want, _ = counted_step(step, model, batch, torch.Generator(
+            device=dev).manual_seed(7), total)
+        want_p = [p.detach().clone() for p in model.parameters()]
+        del model, opt, step
+        model, opt = train_model(dev, seed, torch.float32,
+                                 PAR_CHECK_CONF)[:2]
+        sh, step = sharded(model, opt, {}, {'zero3': True})
+        errs = {}
+        with swapped(checked_kernels(errs)):
+            got, launches = counted_step(
+                step, model, batch, torch.Generator(device=dev).manual_seed(7),
+                total)
+        check_call_errs(errs, 'parallel world 1, the sharded step')
+        rel = {k: abs(got[k] - want[k]) / abs(want[k])
+               for k in ('loss', 'grad_norm')}
+        dp = param_err(model.parameters(), want_p)
+        log(f'parallel world 1 (NCCL), the sharded step, f32 B={PAR_F32_B}: '
+            f'loss {got["loss"]:.6f} vs unwrapped {want["loss"]:.6f} (rel '
+            f'{rel["loss"]:.2e}), grad norm {got["grad_norm"]:.6f} vs '
+            f'{want["grad_norm"]:.6f} (rel {rel["grad_norm"]:.2e}), '
+            f'parameters within {dp:.2e}; launches {launches}, each call '
+            f'against its plain version, worst share of scale '
+            + ', '.join(f'{n} {e:.2e}' for n, e in sorted(errs.items())))
+        if launches != PAR_STEP_LAUNCHES or not (
+                max(rel.values()) <= PAR_F32_TOL and dp <= PAR_F32_TOL):
+            raise AssertionError(f'parallel world 1: not the unwrapped '
+                                 f'step, or launches {launches} != '
+                                 f'{PAR_STEP_LAUNCHES}')
+        out['f32'] = {'rel': rel, 'param_err': dp, 'launches': launches,
+                      'call_errs': errs}
+        del model, opt, step, sh, want_p
+        gc.collect()
+        torch.cuda.empty_cache()
+        out['row_split'] = row_split(dev, seed, batch, total)
+        batch = train_batch(dev, TRAIN_B, seed + 2, VOCAB)
+        model, opt, step = train_model(dev, seed, torch.bfloat16)
+        out['unwrapped_bf16'], _ = counted_step(step, model, batch, None,
+                                                total)
+        del model, opt, step
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        model, opt = train_model(dev, seed, torch.bfloat16)[:2]
+        sh, step = sharded(model, opt, {}, {'zero3': True})
+        gen = torch.Generator(device=dev).manual_seed(seed + 3)
+        _, ms, launches = timed_steps(step, model, batch, gen, total)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        if any(got != PAR_STEP_LAUNCHES for got in launches):
+            raise AssertionError(f'parallel world 1, bf16: launches '
+                                 f'{launches} != {PAR_STEP_LAUNCHES} a step')
+        out['bf16'] = {'ms': ms, 'peak_gib': peak, 'launches': launches[0]}
+        log(f'parallel world 1 (NCCL), the sharded step, bf16 B={TRAIN_B}: '
+            f'{ms:.1f} ms a step, peak {peak:.2f} GiB, launches a step '
+            f'{launches[0]}')
+        del model, opt, step, sh
+    finally:
+        dist.destroy_process_group()
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+def parallel_child(spec: str) -> int:
+    """One rank of a multi-rank run (`--parallel-child rank,world,backend,
+    dir`), through `parallel.mesh.init_distributed`.  Rank 0 first takes
+    the unwrapped f32 steps the forms are held to (`par_refs`).  Then
+    every form of PAR_FORMS_N[world] in turn:
+
+    - f32 (TF32 off) at B = PAR_F32_B, PAR_CHECK_CONF's optimizer, the
+      rank's rows; dropout from `dropout_generator(7, ...)` where the data
+      axis is 1 (TP: every rank draws the unwrapped step's masks), none
+      where data ranks draw their own.  Rank 0's K1/K4/K5/K6 calls are
+      held to their plain versions (`checked_kernels`), and its metrics
+      and gathered parameters compared with each reference of the form;
+    - bf16 reverb_large at B = 8 (the rank's rows), no dropout: the first
+      step's metrics, ms of the last, peak GiB.
+
+    Every step's launches are read.  Writes {form: results} or {form:
+    error, whether it came from a collective}, and the rank's launches in
+    all ('total'), to dir/rank<r>_<backend>.json.  A form that raises
+    inside torch.distributed is recorded (gloo carries some collectives
+    for CUDA tensors only); any other error fails the rank."""
+    import traceback
+    import torch
+    import torch.distributed as dist
+    from reverb_tpu_torch.parallel import mesh as pm
+    rank, world, backend, workdir = spec.split(',')
+    rank, world = int(rank), int(world)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = pm.init_distributed(
+        f'file://{workdir}/pg_{backend}', world, rank,
+        f'cuda:{rank if backend == "nccl" else 0}', backend=backend)
+    total = {}
+    f32_batch = train_batch(dev, PAR_F32_B, SEED + 1, VOCAB)
+    batch = train_batch(dev, TRAIN_B, SEED + 2, VOCAB)
+    refs = par_refs(dev, world, f32_batch, total) if rank == 0 else {}
+    out = {}
+    for name, axes, opts in PAR_FORMS_N[world]:
+        gc.collect()
+        torch.cuda.empty_cache()
+        model = opt = step = sh = None
+        res = out[name] = {}
+        try:
+            model, opt = train_model(dev, SEED, torch.float32,
+                                     PAR_CHECK_CONF)[:2]
+            sh, step = sharded(model, opt, axes, opts)
+            drop = pm.axis_size(sh.mesh, 'data') == 1
+            gen = pm.dropout_generator(7, sh.mesh, dev) if drop else None
+            errs = {}
+            with swapped(checked_kernels(errs) if rank == 0 else {}):
+                m32, got = counted_step(step, model,
+                                        pm.local_rows(f32_batch, sh.mesh),
+                                        gen, total)
+            res['f32'] = {'metrics': m32, 'launches': got, 'dropout': drop,
+                          'call_errs': errs, 'against': {}}
+            keys = (('dropout', PAR_RANKS_F32_TOL),) if drop else (
+                ('whole', PAR_RANKS_F32_TOL),)
+            if 'model' not in axes:
+                keys += (('rows', PAR_F32_TOL),)
+            with sh.gathered():
+                for key, tol in keys if rank == 0 else ():
+                    want, want_p = refs[key]
+                    res['f32']['against'][key] = {
+                        'tol': tol,
+                        'rel': {k: abs(m32[k] - want[k]) / abs(want[k])
+                                for k in ('loss', 'grad_norm')},
+                        'param_err': param_err(model.parameters(), want_p),
+                        'worst': worst_params(model, want_p)}
+            del model, opt, step, sh
+            gc.collect()
+            torch.cuda.empty_cache()
+            torch.cuda.reset_peak_memory_stats(dev)
+            model, opt = train_model(dev, SEED, torch.bfloat16)[:2]
+            sh, step = sharded(model, opt, axes, opts)
+            metrics, ms, launches = timed_steps(
+                step, model, pm.local_rows(batch, sh.mesh), None, total)
+            res.update(metrics=metrics, ms=ms, launches=launches,
+                       peak_gib=torch.cuda.max_memory_allocated(dev)
+                       / 2**30)
+        except Exception as e:              # noqa: BLE001 (recorded)
+            frames = traceback.extract_tb(e.__traceback__)
+            if not any('torch/distributed' in f.filename for f in frames):
+                raise
+            out[name] = {'error': f'{type(e).__name__}: {e}'[:400]}
+        del model, opt, step, sh
+    out['total'] = total
+    with open(Path(workdir) / f'rank{rank}_{backend}.json', 'w') as f:
+        json.dump(out, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def par_refs(dev, world, batch, total) -> dict:
+    """The unwrapped f32 steps (PAR_CHECK_CONF) on the whole f32 batch
+    that the multi-rank forms are held to, {key: (metrics, parameters in
+    host memory, so the bf16 peaks stay the forms' own)}: 'whole' without
+    dropout, 'dropout' with a generator of seed 7, and where a form of
+    `world` is data-parallel alone, 'rows': the batch as one micro-batch
+    (accum_grad) for each data rank, no dropout — the row split's own
+    arithmetic, which that form's sums repeat."""
+    import torch
+    from reverb_tpu_torch.train.trainer import make_train_step
+    refs = {}
+    runs = [('whole', 1, None), ('dropout', 1, 7)] + [
+        ('rows', n, None) for n in {axes['data'] for _, axes, _ in
+                                    PAR_FORMS_N[world] if 'model' not in axes}]
+    for key, accum, seed in runs:
+        model, opt = train_model(dev, SEED, torch.float32,
+                                 PAR_CHECK_CONF)[:2]
+        step = make_train_step(model.cfg, opt, accum, 50.0)
+        gen = None if seed is None else torch.Generator(
+            device=dev).manual_seed(seed)
+        metrics, _ = counted_step(step, model, batch, gen, total)
+        refs[key] = (metrics, [p.detach().cpu()
+                               for p in model.parameters()])
+        del model, opt, step
+    return refs
+
+
+def wait_all(procs, timeout: float) -> list:
+    """Exit codes of `procs`; the first to fail, or the time limit, stops
+    the rest (a rank left in a collective would wait for its peer)."""
+    deadline = time.monotonic() + timeout
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.poll() not in (None, 0) for p in procs) or \
+                    time.monotonic() > deadline:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    return [p.returncode for p in procs]
+
+
+def parallel_ranks(backend: str, want: dict, world: int = 2) -> dict:
+    """The run of `world` ranks over `backend`: processes of this script
+    (all on cuda:0 under gloo; cuda:r under NCCL).  Each form's f32 step
+    is held to the unwrapped f32 step (PAR_F32_TOL on loss, grad norm and
+    every parameter; rank 0's kernel calls to RECIPE_CALL_TOL), its bf16
+    step to the unwrapped bf16 step (PAR_BF16_TOL), every rank's every
+    step to PAR_STEP_LAUNCHES, and the ranks to one another.  Under gloo a
+    form whose collective gloo does not carry for CUDA tensors is reported
+    on its own line; DDP must run; under NCCL every form must."""
+    workdir = tempfile.mkdtemp(prefix='reverb_par_')
+    procs = [subprocess.Popen([sys.executable, str(ROOT / 'chip_smoke.py'),
+                               '--parallel-child',
+                               f'{r},{world},{backend},{workdir}'])
+             for r in range(world)]
+    codes = wait_all(procs, 900)
+    what = f'parallel {backend} x{world}'
+    if codes != [0] * world:
+        raise AssertionError(f'{what}: ranks exited {codes}')
+    ranks = [json.loads((Path(workdir) / f'rank{r}_{backend}.json')
+                        .read_text()) for r in range(world)]
+    where = 'one card' if backend == 'gloo' else f'{world} cards'
+    for name, _, _ in PAR_FORMS_N[world]:
+        rs = [r[name] for r in ranks]
+        errors = [r['error'] for r in rs if 'error' in r]
+        if errors:
+            log(f'{what} on {where}: {name} cannot run: {errors[0]}')
+            if backend != 'gloo' or name == 'ddp':
+                raise AssertionError(f'{what}: {name} failed')
+            continue
+        f32 = rs[0]['f32']
+        check_call_errs(f32['call_errs'], f'{what}: {name}, rank 0\'s f32 '
+                                          f'step')
+        m = rs[0]['metrics']
+        rel = {k: abs(m[k] - want[k]) / abs(want[k]) for k in PAR_BF16_TOL}
+        steps = [r['f32']['launches'] for r in rs] + [
+            got for r in rs for got in r['launches']]
+        log(f'{what} on {where}: {name}: f32 B={PAR_F32_B} '
+            f'({"with" if f32["dropout"] else "without"} dropout) against '
+            f'the unwrapped step '
+            + '; '.join(f'({key}, tolerance {a["tol"]:.0e}): loss rel '
+                        f'{a["rel"]["loss"]:.2e}, grad norm rel '
+                        f'{a["rel"]["grad_norm"]:.2e}, parameters within '
+                        f'{a["param_err"]:.2e} (worst: '
+                        + ', '.join(f'{n} {e:.2e} of {w:.2e}'
+                                    for n, e, w in a['worst']) + ')'
+                        for key, a in f32['against'].items())
+            + '; rank 0\'s calls against their plain versions, worst '
+            'share of scale '
+            + ', '.join(f'{n} {e:.2e}' for n, e in
+                        sorted(f32['call_errs'].items()))
+            + f'; bf16 B={TRAIN_B}: loss {m["loss"]:.5f} vs unwrapped '
+            f'{want["loss"]:.5f} (rel {rel["loss"]:.2e}), grad norm '
+            f'{m["grad_norm"]:.4f} vs {want["grad_norm"]:.4f} (rel '
+            f'{rel["grad_norm"]:.2e}); ms a step by rank '
+            + ' / '.join(f'{r["ms"]:.1f}' for r in rs) + ', peak GiB by rank '
+            + ' / '.join(f'{r["peak_gib"]:.2f}' for r in rs)
+            + f'; rank 0\'s launches a step {rs[0]["launches"][0]}')
+        if any(s != PAR_STEP_LAUNCHES for s in steps):
+            raise AssertionError(f'{what}: {name}: launches a step {steps} '
+                                 f'!= {PAR_STEP_LAUNCHES}')
+        if any(max(a['rel'].values()) > a['tol'] or a['param_err'] > a['tol']
+               for a in f32['against'].values()) or \
+                not f32['against'] or \
+                any(r['f32']['metrics'] != f32['metrics'] for r in rs):
+            raise AssertionError(f'{what}: {name}: the f32 step differs '
+                                 f'from the unwrapped one, or between '
+                                 f'ranks')
+        if any(rel[k] > PAR_BF16_TOL[k] for k in rel) or \
+                any(r['metrics'] != m for r in rs) or m['skipped'] != 0.0:
+            raise AssertionError(f'{what}: {name} differs from the '
+                                 f'unwrapped step (tolerances '
+                                 f'{PAR_BF16_TOL}) or between ranks')
+    total = {}
+    for r in ranks:
+        for n, v in r['total'].items():
+            total[n] = total.get(n, 0) + v
+    return {'ranks': ranks, 'total': total}
+
+
+def ctm_rows_differing(a, b) -> int:
+    return sum(x != y for ga, gb in zip(a, b)
+               for x, y in zip(ga.splitlines(), gb.splitlines())) + sum(
+        abs(len(ga.splitlines()) - len(gb.splitlines()))
+        for ga, gb in zip(a, b))
+
+
+def parallel_serve(asr, wav) -> dict:
+    """`ReverbASR(data_parallel=device_count)` on the serve phase's file:
+    its one batch of 8 chunks goes to the replicas in blocks of 8/N rows,
+    and its CTM must be, byte for byte, that of data_parallel=0 decoding
+    the same blocks (batch_size 8/N): in bf16 a block's GEMM and
+    convolution algorithms, so its rounding, follow its row count, so
+    against data_parallel=0's default batch of 8 the rows that differ are
+    reported, not asserted.  Launches of the timed call, and of the four
+    calls in all ('total')."""
+    import torch
+    from reverb_tpu_torch.cli.reverb import ReverbASR
+    n = torch.cuda.device_count()
+    dp = ReverbASR.from_model(asr.configs, asr.model, asr.tokenizer,
+                              data_parallel=n)
+    per = -(-N_CHUNKS // n)
+    total = {}
+
+    def call(model, **kwargs):
+        zero_launch_counts()
+        res = transcribe_s(model, wav, MODES, **kwargs)
+        got = launch_counts()
+        for k, v in got.items():
+            total[k] = total.get(k, 0) + v
+        return res, got
+    (_, want), _ = call(asr, batch_size=per)
+    (_, whole), _ = call(asr)
+    call(dp)                                    # the replicas' first call
+    (wall, got), launches = call(dp)
+    if got != want or not all(got):
+        raise AssertionError(f'data_parallel={n}: the CTM differs from one '
+                             f'replica\'s on the same row blocks '
+                             f'({ctm_rows_differing(got, want)} rows)')
+    apart = ctm_rows_differing(got, whole)
+    log(f'parallel serving: data_parallel={n} ({len(dp.replicas)} '
+        f'replicas, blocks of {per} chunks) CTM byte-identical to '
+        f'data_parallel=0 at batch_size {per}; {apart} of '
+        f'{sum(len(c.splitlines()) for c in whole)} CTM rows differ from '
+        f'its default batch of {N_CHUNKS}; {wall:.4f} s a call, launches '
+        f'{launches}')
+    del dp
+    return {'n': n, 'wall': wall, 'launches': launches, 'total': total,
+            'rows_apart_from_default_batch': apart}
+
+
+def run_parallel(dev, seed=SEED) -> dict:
+    """Phase `parallel` (the serving check runs in the serving block):
+    world size 1 over NCCL, two ranks on one card over gloo, two ranks
+    over NCCL where there are two cards."""
+    import torch
+    smi = smi_line()
+    t0 = time.perf_counter()
+    res = {'world1': parallel_world1(dev, seed)}
+    res['gloo'] = parallel_ranks('gloo', res['world1']['unwrapped_bf16'])
+    n = torch.cuda.device_count()
+    for world in (2, 4):
+        if n >= world:
+            res[f'nccl{world}'] = parallel_ranks(
+                'nccl', res['world1']['unwrapped_bf16'], world)
+        else:
+            log(f'parallel nccl x{world}: {n} card(s); the NCCL run of '
+                f'{world} ranks needs {world}')
+    log(f'parallel: {time.perf_counter() - t0:.1f} s on {smi}')
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default=','.join(ALL_PHASES),
                     help='comma list of kernels, serve, train, modes, '
                          'stream, diar, recipe, context, tools, remat, '
-                         'diartrain, int8, export (default all; the result '
-                         'lines need all thirteen), or beam: the K2/K3 and '
-                         'K2b checks alone')
+                         'diartrain, int8, export, parallel (default all; '
+                         'the result lines need all fourteen), or beam: the '
+                         'K2/K3 and K2b checks alone')
+    ap.add_argument('--parallel-child', default=None,
+                    help=argparse.SUPPRESS)
     ap.add_argument('--profile', action='store_true',
                     help='also profile one bf16 training step')
     ap.add_argument('--ab-parent', type=Path, default=None,
@@ -5317,6 +5869,9 @@ def main():
         print('chip_smoke.py: torch.cuda.is_available() is False',
               file=sys.stderr)
         return 2
+    if args.parallel_child:
+        # one rank of phase parallel's two-rank runs
+        return parallel_child(args.parallel_child)
     dev = torch.device('cuda', 0)
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -5377,7 +5932,7 @@ def main():
         k4 = check_k1_mask_k4(dev)[torch.bfloat16]
         lnr = check_ln(dev)[torch.bfloat16]
     if phases & {'serve', 'modes', 'stream', 'context', 'tools', 'int8',
-                  'export'}:
+                  'export', 'parallel'}:
         with tempfile.TemporaryDirectory(prefix='reverb_smoke_') as tmp:
             served = serving_setup(dev, SEED, Path(tmp))
             if 'serve' in phases:
@@ -5401,6 +5956,9 @@ def main():
             if 'export' in phases:
                 # phase 18: bin.export (pt2 programs, the aot kernel dir)
                 export = run_export(dev, *served, Path(tmp))
+            if 'parallel' in phases:
+                # phase 19, serving: data_parallel over the cards
+                par_serve = parallel_serve(served[0], served[1])
             del served
     if 'train' in phases:
         # phase 8: the training path
@@ -5421,6 +5979,9 @@ def main():
     if 'diartrain' in phases:
         # phase 16: diarization training (K6 on the TDNN)
         diartrain = run_diartrain(dev, SEED)
+    if 'parallel' in phases:
+        # phase 19: the sharded training step (DDP, ZeRO-1/2, ZeRO-3, TP)
+        par = run_parallel(dev, SEED)
     spilled = [n for n, r in {**tc, **lnk, **beamk}.items() if r[1] or r[2]]
     if spilled:
         raise AssertionError(f'kernels spill registers: {spilled}')
@@ -5432,7 +5993,7 @@ def main():
     kernels = kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches,
                              len(walls), t_launch, fallback, modes, stream,
                              diar, recipe, context, tools, remat, diartrain,
-                             int8, export)
+                             int8, export, par, par_serve)
     log(f'slice: second transcribe_modes call {walls[1]:.4f} s for '
         f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; six-mode '
         f'call {modes[2]:.3f} s; train {step_ms:.1f} ms/step at '
@@ -5472,7 +6033,16 @@ def main():
         f'static scales {int8["walls"]["int8_static"]:.4f} s), peak '
         f'{int8["peaks"]["int8"] / 2**30:.2f} GiB (bf16 '
         f'{int8["peaks"]["bf16"] / 2**30:.2f}); export {export["export_s"]:.1f}'
-        f' s, aot {export["aot_s"]:.1f} s; on {smi}')
+        f' s, aot {export["aot_s"]:.1f} s; the sharded bf16 step at world '
+        f'1 {par["world1"]["bf16"]["ms"]:.1f} ms '
+        f'{par["world1"]["bf16"]["peak_gib"]:.2f} GiB; two ranks on one '
+        f'card over gloo: '
+        + ', '.join(f'{n} ' + (f'{r["ms"]:.1f} ms {r["peak_gib"]:.2f} GiB'
+                               if 'ms' in r else 'cannot run')
+                    for n, r in par['gloo']['ranks'][0].items()
+                    if n != 'total')
+        + f'; data_parallel={par_serve["n"]} serving '
+        f'{par_serve["wall"]:.4f} s; on {smi}')
     print(smi_line())
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
@@ -5483,7 +6053,7 @@ def main():
 
 def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
                    t_launch, fallback, modes, stream, diar, recipe, context,
-                   tools, remat, diartrain, int8, export):
+                   tools, remat, diartrain, int8, export, par, par_serve):
     """The {"kernels": [...]} entries: launches on the paths (in all, per
     serving call, per training step, per six-mode call, per streaming hop,
     per pool step, per diarization call of either route, and on the
@@ -5491,7 +6061,9 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
     step, per get_loss utterance and per recognize batch; K2/K3 also per
     call of the long-hypothesis path; per biased serving call, with and
     without the uncapped tail, and per deep-biasing training step; per
-    aligned WAV, per transcribe call and per app POST of the tools),
+    aligned WAV, per transcribe call and per app POST of the tools;
+    per sharded step of each parallel form, rank 0's, and per
+    data-parallel serving call),
     the error against the plain version, kernel / plain / library times in
     bf16 at the timed shapes (K2 also resumed from a state at B = 1 and 8,
     T_hop = 16), and the bound computed from those shapes."""
@@ -5567,7 +6139,30 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
         per[n]['int8_serve'] = int8['launches'].get(n, 0) / int8['calls']
         for prog in ('encoder_chunk', 'ctc_activation', 'attention_decoder'):
             per[n][f'export_{prog}'] = export['k5'][prog] if n == 'K5' else 0
-    other = {n: (int8['launches'].get(n, 0)
+    # phase parallel: a step of the sharded f32 and bf16 step at world 1
+    # and of each multi-rank form (rank 0's first), a data-parallel serving
+    # call; the total is every launch the phase read, each step and call
+    # counted on its own (the unwrapped reference steps, every rank's
+    # steps and the reference, first and timed serving calls included)
+    w1 = par['world1']
+    runs = {'parallel_world1_f32_step': w1['f32']['launches'],
+            'parallel_world1_step': w1['bf16']['launches']}
+    totals = [w1['total'], par_serve['total']]
+    for run in ('gloo', 'nccl2', 'nccl4'):
+        if run not in par:
+            continue
+        totals.append(par[run]['total'])
+        for f, r in par[run]['ranks'][0].items():
+            if f != 'total' and 'launches' in r:
+                runs[f'parallel_{run}_{f}_f32_step'] = r['f32']['launches']
+                runs[f'parallel_{run}_{f}_step'] = r['launches'][0]
+    par_total = {n: sum(t.get(n, 0) for t in totals)
+                 for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6')}
+    for n in par_total:
+        for run, got in runs.items():
+            per[n][run] = got.get(n, 0)
+        per[n]['parallel_serve'] = par_serve['launches'].get(n, 0)
+    other = {n: (par_total.get(n, 0) + int8['launches'].get(n, 0)
                  + (export['k5_total'] if n == 'K5' else 0)
                  + c_serve.get(n, 0) + c_tail.get(n, 0) + c_train.get(n, 0)
                  + sum(got.get(n, 0) for got, _ in t_runs.values())

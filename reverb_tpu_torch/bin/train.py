@@ -12,19 +12,32 @@ profiler → the epoch loop {train with mid-epoch snapshots, CV,
 `epoch_N.npz` + `.yaml`} → the dataset statistics.
 
 `--device` (default cuda) is where the model and every step run; without a
-card it raises unless `--device cpu` is given.  Dropout draws from one
-`torch.Generator` on the device, seeded from `--seed`.  One process drives
-one device: the mesh flags above 1, `--zero3`, `--coordinator`,
-`--num_processes`/`--process_id` other than 1/0 and
-`--pipeline_microbatches` (ROADMAP item 14), `--prng_impl` other than
-auto, the registry's model families and teacher-student `ts_conf`
-(ROADMAP item 15) raise NotImplementedError.
+card it raises unless `--device cpu` is given.  Dropout draws from a
+`torch.Generator` on the device, seeded from `--seed` (and the rank's data
+coordinate: parallel/mesh.py:dropout_generator).
+
+Several processes train one model as the JAX package's do: each process
+drives one device (`cuda:<local rank>`, NCCL; gloo with `--device cpu`),
+joined by `--coordinator host:port --num_processes N --process_id r` or by
+torchrun's environment.  The processes form the mesh
+(parallel/mesh.py:make_mesh) with `--num_devices_model` ranks of tensor
+parallelism and the rest data-parallel; the optimizer's moments are split
+over 'data' (ZeRO-1/2, as the JAX package always splits them) and, with
+`--zero3`, the large parameters too (parallel/sharding.py).  Each rank
+reads its data coordinate's partition of the training list and the whole
+CV list; rank 0 logs and writes the checkpoints, gathered to the
+single-process layout.  `--num_devices_seq` / `--num_devices_pipe` above 1
+and `--pipeline_microbatches` (ROADMAP item 14b), `--num_devices_expert`
+above 1 (the MoE feed-forward, item 15), `--prng_impl` other than auto,
+the registry's model families and teacher-student `ts_conf` (ROADMAP item
+15) raise NotImplementedError.
 """
 
 from __future__ import annotations
 
 import argparse
 import logging
+import os
 
 
 def get_args(argv=None):
@@ -41,28 +54,29 @@ def get_args(argv=None):
     p.add_argument('--max_epoch', type=int, default=None)
     p.add_argument('--steps_per_epoch', type=int, default=None)
     p.add_argument('--num_devices_model', type=int, default=1,
-                   help='tensor-parallel size (only 1: ROADMAP item 14)')
+                   help="tensor-parallel size (the mesh's 'model' axis)")
     p.add_argument('--num_devices_seq', type=int, default=1,
-                   help='sequence-parallel size (only 1: ROADMAP item 14)')
+                   help='sequence-parallel size (only 1: ROADMAP item 14b)')
     p.add_argument('--num_devices_expert', type=int, default=1,
-                   help='expert-parallel size (only 1: ROADMAP item 14)')
+                   help='expert-parallel size (only 1: ROADMAP item 15)')
     p.add_argument('--num_devices_pipe', type=int, default=1,
-                   help='pipeline stages (only 1: ROADMAP item 14)')
+                   help='pipeline stages (only 1: ROADMAP item 14b)')
     p.add_argument('--pipeline_microbatches', type=int, default=None,
-                   help='pipeline microbatches (ROADMAP item 14)')
+                   help='pipeline microbatches (ROADMAP item 14b)')
     p.add_argument('--zero3', action='store_true',
-                   help='ZeRO-3 parameter sharding (ROADMAP item 14)')
+                   help='ZeRO-3: split the large parameters over the data '
+                        'ranks too')
     p.add_argument('--stall_timeout_s', type=float, default=1800.0,
                    help='straggler watchdog: abort/diagnose when no step '
                         'completes for this long (0 disables; '
                         'REVERB_STALL_EXIT=1 hard-exits for supervisor '
                         'restart — the wenet_join timeout equivalent)')
     p.add_argument('--coordinator', default=None,
-                   help='multi-process coordinator (ROADMAP item 14)')
-    p.add_argument('--num_processes', type=int, default=1,
-                   help='only 1 (ROADMAP item 14)')
-    p.add_argument('--process_id', type=int, default=0,
-                   help='only 0 (ROADMAP item 14)')
+                   help='host:port of the process group (or a tcp:// or '
+                        "file:// init method); without it torchrun's "
+                        'environment, when set')
+    p.add_argument('--num_processes', type=int, default=1)
+    p.add_argument('--process_id', type=int, default=0)
     p.add_argument('--tensorboard_dir', default=None)
     p.add_argument('--seed', type=int, default=777)
     p.add_argument('--prng_impl', default='auto',
@@ -89,18 +103,17 @@ ALT_ENCODERS = ('branchformer', 'e_branchformer', 'squeezeformer',
 
 def check_supported(args, configs):
     """Raise NotImplementedError for what the port does not train."""
-    for flag in ('num_devices_model', 'num_devices_seq',
-                 'num_devices_expert', 'num_devices_pipe'):
+    for flag, item in (('num_devices_seq', '14b'), ('num_devices_pipe',
+                                                    '14b'),
+                       ('num_devices_expert', '15')):
         if getattr(args, flag) > 1:
             raise NotImplementedError(
-                f'--{flag} {getattr(args, flag)}: one process drives one '
-                f'device in the port (ROADMAP item 14)')
-    if args.zero3 or args.coordinator or args.num_processes != 1 or \
-            args.process_id != 0 or args.pipeline_microbatches:
+                f'--{flag} {getattr(args, flag)}: that mesh axis is not '
+                f'ported (ROADMAP item {item})')
+    if args.pipeline_microbatches:
         raise NotImplementedError(
-            '--zero3 / --coordinator / --num_processes / --process_id / '
-            '--pipeline_microbatches: sharded, multi-process and pipelined '
-            'training are not ported (ROADMAP item 14)')
+            '--pipeline_microbatches: pipelined training is not ported '
+            '(ROADMAP item 14b)')
     if args.prng_impl != 'auto':
         raise NotImplementedError(
             f"--prng_impl {args.prng_impl}: the JAX package's PRNG choice; "
@@ -131,10 +144,13 @@ def main(argv=None):
     from reverb_tpu_torch.frontend.cmvn import load_cmvn_from_configs
     from reverb_tpu_torch.frontend.device_feats import frontend_from_configs
     from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
+    from reverb_tpu_torch.parallel.mesh import (axis_rank, axis_size,
+                                                dropout_generator,
+                                                init_distributed, make_mesh)
+    from reverb_tpu_torch.parallel.sharding import Sharding
     from reverb_tpu_torch.text.tokenizer import init_tokenizer
     from reverb_tpu_torch.train.checkpoint import (load_checkpoint,
-                                                   load_trained_modules,
-                                                   save_checkpoint)
+                                                   load_trained_modules)
     from reverb_tpu_torch.train.executor import Executor
     from reverb_tpu_torch.train.trainer import (TrainConfig,
                                                 build_optimizer,
@@ -148,17 +164,30 @@ def main(argv=None):
 
     configs = override_config(load_config(args.config), args.override_config)
     check_supported(args, configs)
-    dev = resolve_device(args.device)
+    mesh = sharding = None
+    if args.coordinator or args.num_processes > 1 or \
+            int(os.environ.get('WORLD_SIZE', '1')) > 1:
+        dev = init_distributed(args.coordinator if args.coordinator or
+                               args.num_processes > 1 else None,
+                               args.num_processes, args.process_id,
+                               args.device)
+        mesh = make_mesh(model=args.num_devices_model)
+    elif args.num_devices_model > 1 or args.zero3:
+        raise ValueError('--num_devices_model / --zero3 need several '
+                         'processes (--coordinator / --num_processes, or '
+                         'torchrun)')
+    else:
+        dev = resolve_device(args.device)
+    first = torch.distributed.get_rank() == 0 if mesh is not None else True
+    # the data coordinate's partition: ranks of one 'model' group read the
+    # same rows
+    rank, world = axis_rank(mesh, 'data'), axis_size(mesh, 'data')
 
     tokenizer = init_tokenizer(configs)
-    configs = check_modify_and_save_config(args, configs,
-                                           tokenizer.symbol_table)
+    configs = check_modify_and_save_config(
+        args if first else argparse.Namespace(), configs,
+        tokenizer.symbol_table)
 
-    rank, world = 0, 1
-    if torch.distributed.is_available() and \
-            torch.distributed.is_initialized():
-        rank = torch.distributed.get_rank()
-        world = torch.distributed.get_world_size()
     ds_conf = configs['dataset_conf']
     cv_conf = dict(ds_conf)
     # CV disables augmentation (train_utils.py:301-349)
@@ -204,17 +233,27 @@ def main(argv=None):
         logging.info('resumed from %s at epoch %d step %d', args.checkpoint,
                      start_epoch, start_step)
 
+    if mesh is not None:
+        # every rank holds the whole state here (one seed, one
+        # checkpoint): split it over the mesh
+        sharding = Sharding(mesh, zero=True, zero3=args.zero3).apply(
+            model, optimizer)
+
     # dataset_conf.device_feats: fbank and SpecAugment on the device inside
     # the step; the host pipeline ships the padded PCM only
     frontend = frontend_from_configs(configs)
     train_step = make_train_step(cfg, optimizer, tc.accum_grad,
-                                 grad_clip=tc.grad_clip, frontend=frontend)
+                                 grad_clip=tc.grad_clip, frontend=frontend,
+                                 sharding=sharding)
     eval_step = make_eval_step(cfg, frontend=frontend)
 
     # experiment tracking (wandb/tensorboard/jsonl; train_utils.py:495-533)
-    tracker = init_tracking(args.model_dir, configs,
-                            train_data=args.train_data, cv_data=args.cv_data,
-                            tensorboard_dir=args.tensorboard_dir)
+    tracker = None
+    if first:
+        tracker = init_tracking(args.model_dir, configs,
+                                train_data=args.train_data,
+                                cv_data=args.cv_data,
+                                tensorboard_dir=args.tensorboard_dir)
 
     snap_conf = configs.get('snapshot_saving_conf', {}) or {}
     ex = Executor(train_step=train_step, eval_step=eval_step,
@@ -228,7 +267,7 @@ def main(argv=None):
                   use_named_snapshots=bool(
                       snap_conf.get('use_named_snapshots', True)),
                   run_tag=snap_conf.get('run_tag'),
-                  device=dev, step=start_step)
+                  device=dev, step=start_step, sharding=sharding)
     if args.stall_timeout_s > 0:
         from reverb_tpu_torch.train.watchdog import StepWatchdog
         ex.watchdog = StepWatchdog(args.stall_timeout_s)
@@ -239,7 +278,7 @@ def main(argv=None):
                                     args.profile_num_steps)
 
     max_epoch = args.max_epoch or configs.get('max_epoch', 100)
-    generator = torch.Generator(device=dev).manual_seed(args.seed)
+    generator = dropout_generator(args.seed, mesh, dev)
     try:
         for epoch in range(start_epoch, max_epoch):
             ex.train(model, optimizer, make_train_ds(epoch), epoch,
@@ -251,9 +290,7 @@ def main(argv=None):
             epoch_barrier(f'epoch_{epoch}')
             cv_metrics = ex.cv(model, make_cv_ds())
             logging.info('epoch %d CV: %s', epoch, cv_metrics)
-            if rank == 0:
-                save_checkpoint(
-                    args.model_dir, f'epoch_{epoch}', model, optimizer,
+            ex.save(f'epoch_{epoch}', model, optimizer,
                     {'epoch': epoch, 'step': ex.step,
                      'frames_seen': ex.frames_seen,
                      'lr': float(schedule(ex.step)),
@@ -261,7 +298,8 @@ def main(argv=None):
     finally:
         if ex.watchdog is not None:
             ex.watchdog.stop()
-    tracker.finish()
+    if tracker is not None:
+        tracker.finish()
     logging.info('dataset statistics: %s', dict(mystats))
     return ex
 

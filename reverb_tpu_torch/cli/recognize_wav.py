@@ -7,7 +7,8 @@ mode runs; the streaming flags go to `transcribe_modes` as in the JAX
 package (`--decoding_chunk_size` reaches the encoder as a chunk mask on a
 use_dynamic_chunk model, `--num_decoding_left_chunks` and
 `--simulate_streaming` are accepted with no effect there), `--quantize
-int8` serves the int8 model, and there is no `--data_parallel`.
+int8` serves the int8 model, and `--data_parallel N` serves with N model
+replicas on cuda:0..N-1 (cli/reverb.py).
 """
 
 from __future__ import annotations
@@ -64,6 +65,10 @@ def get_args(argv=None):
                         help='int8: post-training-quantized serving path')
     parser.add_argument('--compute_dtype', default='float32',
                         choices=['float32', 'bfloat16'])
+    parser.add_argument('--data_parallel', type=int, default=0,
+                        help='split each chunk batch over N model replicas '
+                             'on cuda:0..N-1 (data-parallel serving; 0 = '
+                             'one device)')
     parser.add_argument('--log_level', default='INFO')
     return parser.parse_args(argv)
 
@@ -82,14 +87,16 @@ def main(argv=None):
             'One of either --model or (--checkpoint and --config) must be set.')
     if model_set:
         model = load_model(args.model, compute_dtype=args.compute_dtype,
-                           quantize=args.quantize, device=args.device)
+                           quantize=args.quantize, device=args.device,
+                           data_parallel=args.data_parallel)
     else:
         model = ReverbASR(args.config, args.checkpoint,
                           cmvn_path=args.cmvn_path,
                           tokenizer_symbols=args.tokenizer_symbols,
                           bpe_path=args.bpe_path,
                           compute_dtype=args.compute_dtype,
-                          quantize=args.quantize, device=args.device)
+                          quantize=args.quantize, device=args.device,
+                          data_parallel=args.data_parallel)
 
     files = {}
     for mode in args.modes:

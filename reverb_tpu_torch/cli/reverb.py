@@ -7,7 +7,12 @@ Counterpart of reverb_tpu/cli/reverb.py (`ReverbASR`, `load_model`,
 timings_adjustment=230 ms) and the same txt/CTM bytes, plus an explicit
 `device`; `quantize='int8'` serves the int8 model (ops/quant.py), as
 there.  The device defaults to 'cuda' and is never swapped silently:
-asking for CUDA on a machine without it raises.  Every decode mode of the
+asking for CUDA on a machine without it raises.  `data_parallel=N` serves
+with N model replicas, on cuda:0..N-1 (or the first N of `devices`): each
+chunk batch is padded to a multiple of N with zero-length rows, each
+replica decodes its block of rows, and the results come back in order
+without the padded rows, as reverb_tpu/cli/reverb.py shards the batch
+over its 'data' mesh.  Every decode mode of the
 reference runs (decode/api.py), with the chunk arguments handed to the
 encoder as there; incremental streaming is cli/model.py:StreamingASR and
 cli/stream_pool.py:MultiStreamASR.
@@ -15,8 +20,11 @@ cli/stream_pool.py:MultiStreamASR.
 
 from __future__ import annotations
 
+import contextlib
+import copy
 import logging
 import math
+from concurrent.futures import ThreadPoolExecutor
 from itertools import chain
 from pathlib import Path
 from typing import Dict, Generator, List, Optional, Tuple
@@ -66,11 +74,14 @@ class ReverbASR:
                  bpe_path: Optional[str] = None,
                  compute_dtype: str = 'float32',
                  quantize: str = 'none',
-                 device='cuda'):
+                 device='cuda', data_parallel: int = 0, devices=None):
         if compute_dtype not in ('float32', 'bfloat16'):
             raise ValueError(f'compute_dtype {compute_dtype!r}')
         if quantize not in ('none', 'int8'):
             raise ValueError(f'quantize {quantize!r} (none|int8)')
+        replicas = _replica_devices(data_parallel, devices)
+        if replicas:
+            device = replicas[0]
         self.checkpoint = checkpoint
         configs = load_config(config)
         cm = configs.setdefault('cmvn_conf', {})
@@ -101,19 +112,35 @@ class ReverbASR:
             # activations, int32 products (ops/quant.py)
             model = quantize_model_int8(model)
         self._setup(configs, model, tokenizer)
+        self._replicate(replicas)
 
     @classmethod
-    def from_model(cls, configs: Dict, model: ASRModel, tokenizer):
+    def from_model(cls, configs: Dict, model: ASRModel, tokenizer,
+                   data_parallel: int = 0, devices=None):
         """A ReverbASR around an in-memory model (its device and dtype are
-        the model's)."""
+        the model's; with `data_parallel` it must sit on the first of the
+        replicas' devices)."""
         self = cls.__new__(cls)
         self.checkpoint = None
         self._setup(configs, model, tokenizer)
+        self._replicate(_replica_devices(data_parallel, devices))
         return self
+
+    def _replicate(self, devices):
+        """The replicas of data-parallel serving: the model, and a copy
+        of it (built, quantized) on each further device."""
+        if not devices:
+            return
+        if devices[0] != self.device:
+            raise ValueError(f'the model is on {self.device}, the first '
+                             f'replica on {devices[0]}')
+        self.replicas = [self.model] + [copy.deepcopy(self.model).to(d)
+                                        for d in devices[1:]]
 
     def _setup(self, configs, model, tokenizer):
         self.configs = configs
         self.model = model
+        self.replicas = [model]
         self.tokenizer = tokenizer
         self.device = next(model.parameters()).device
         self.test_conf = configs.get('dataset_conf', {}) or {}
@@ -194,27 +221,57 @@ class ReverbASR:
         feats = self.compute_feats(audio_file)
         if not batch_size:
             # all of a file's chunks in one batch, capped to bound memory
+            # (per replica)
             batch_size = min(max(math.ceil(feats.shape[0] / chunk_size), 1),
-                             8)
+                             8 * len(self.replicas))
         cat_embs = np.asarray([verbatimicity, 1.0 - verbatimicity],
                               dtype=np.float32)
+        kwargs = dict(beam_size=beam_size, ctc_weight=ctc_weight,
+                      reverse_weight=reverse_weight,
+                      blank_penalty=blank_penalty,
+                      length_penalty=length_penalty,
+                      decoding_chunk_size=decoding_chunk_size,
+                      num_decoding_left_chunks=num_decoding_left_chunks,
+                      cat_embs=torch.from_numpy(cat_embs),
+                      blank_skip_threshold=blank_skip_threshold,
+                      context_graph=context_graph)
         results = []
         for feats_batch, feats_lens in self.feats_batcher(
                 feats, chunk_size, batch_size):
-            results.append(decode_modes_fn(
-                self.model, modes, feats_batch, torch.from_numpy(feats_lens),
-                beam_size=beam_size, ctc_weight=ctc_weight,
-                reverse_weight=reverse_weight, blank_penalty=blank_penalty,
-                length_penalty=length_penalty,
-                decoding_chunk_size=decoding_chunk_size,
-                num_decoding_left_chunks=num_decoding_left_chunks,
-                cat_embs=torch.from_numpy(cat_embs),
-                blank_skip_threshold=blank_skip_threshold,
-                context_graph=context_graph))
+            results.append(self._decode_rows(modes, feats_batch,
+                                             torch.from_numpy(feats_lens),
+                                             kwargs))
         return [self.get_output(format, Path(audio_file).name,
                                 list(chain(*(r[mode] for r in results))),
                                 timings_adjustment, chunk_size)
                 for mode in modes]
+
+    def _decode_rows(self, modes, feats_batch, feats_lens, kwargs):
+        """decode_modes_fn of one chunk batch, its rows split over the
+        replicas (padded to a multiple of their count with zero-length
+        rows, which are dropped from the results), one thread a replica:
+        on cards each replica's host work overlaps the others' kernels."""
+        n = len(self.replicas)
+        rows = feats_batch.shape[0]
+        pad = -rows % n
+        if pad:
+            feats_batch = torch.nn.functional.pad(feats_batch,
+                                                  (0, 0, 0, 0, 0, pad))
+            feats_lens = torch.nn.functional.pad(feats_lens, (0, pad))
+        per = feats_batch.shape[0] // n
+
+        def run(i):
+            model = self.replicas[i]
+            dev = next(model.parameters()).device
+            with torch.cuda.device(dev) if dev.type == 'cuda' else \
+                    contextlib.nullcontext():
+                return decode_modes_fn(
+                    model, modes, feats_batch[i * per:(i + 1) * per].to(dev),
+                    feats_lens[i * per:(i + 1) * per], **kwargs)
+        with ThreadPoolExecutor(n) as pool:
+            parts = list(pool.map(run, range(n)))
+        return {m: list(chain(*(p[m] for p in parts)))[:rows]
+                for m in modes}
 
     def transcribe(self, audio_file, mode: str = 'ctc_prefix_beam_search',
                    **kwargs) -> str:
@@ -245,6 +302,21 @@ class ReverbASR:
             time_shift_ms += chunk_size * self.input_frame_length
             out.extend(fmt(path))
         return delim.join(out)
+
+
+def _replica_devices(data_parallel: int, devices) -> List[torch.device]:
+    """The N devices of data-parallel serving ([] for N = 0): the first N
+    of `devices`, else cuda:0..N-1.  N above the devices there are
+    raises."""
+    if not data_parallel:
+        return []
+    if devices is None:
+        count = torch.cuda.device_count() if torch.cuda.is_available() else 0
+        devices = [f'cuda:{i}' for i in range(count)]
+    if data_parallel > len(devices):
+        raise ValueError(f'data_parallel={data_parallel} needs as many '
+                         f'devices; {len(devices)} available')
+    return [resolve_device(d) for d in devices[:data_parallel]]
 
 
 def load_model(model: str, **kwargs) -> ReverbASR:

@@ -651,12 +651,6 @@ __global__ void __launch_bounds__(NT) attn_bwd_dq_kernel(
   }
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 // MASK: the dropout variant (a separate instantiation, so the serving
 // kernel carries no mask code and no mask tile in shared memory)
 template <typename T, bool MASK>
@@ -667,12 +661,10 @@ int launch_fwd_variant(const void* q, const void* k, const void* v,
                        cudaStream_t stream) {
   // the keep-mask tile sits at the end of shared memory
   constexpr int smem = MASK ? FWD_SMEM : FWD_SMEM - MASK_BYTES;
-  static bool attr_set = false;   // per instantiation, set on first launch
-  if (!attr_set) {
-    cudaError_t e = set_smem(rel_pos_attn_kernel<T, MASK>, smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static bool attr_set[64] = {};   // per instantiation and device
+  const cudaError_t e = reverb_rpa::set_smem_once(
+      rel_pos_attn_kernel<T, MASK>, smem, attr_set);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((g.Tq + BQ - 1) / BQ, B * g.H);
   rel_pos_attn_kernel<T, MASK><<<grid, NT, smem, stream>>>(
       (const T*)q, (const T*)k, (const T*)v, (const T*)p, (const T*)u,
@@ -708,15 +700,14 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* p,
                const float* lse, float* D, void* dq, void* dk, void* dv,
                float* dp_rows, float* du_part, float* dvb_part, int B,
                const Geom& g, cudaStream_t stream) {
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = set_smem(attn_bwd_dkdv_kernel<T>, DKDV_SMEM);
-    if (e == cudaSuccess) e = set_smem(attn_bwd_dq_kernel<T>, DQ_SMEM);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static bool dkdv_set[64] = {}, dq_set[64] = {};   // per device
+  cudaError_t e = reverb_rpa::set_smem_once(attn_bwd_dkdv_kernel<T>,
+                                            DKDV_SMEM, dkdv_set);
+  if (e == cudaSuccess)
+    e = reverb_rpa::set_smem_once(attn_bwd_dq_kernel<T>, DQ_SMEM, dq_set);
+  if (e != cudaSuccess) return (int)e;
   const int BH = B * g.H;
-  cudaError_t e = (cudaError_t)launch_rowdot<T>(out, gr, D, BH, g, stream);
+  e = (cudaError_t)launch_rowdot<T>(out, gr, D, BH, g, stream);
   if (e != cudaSuccess) return (int)e;
   dim3 gk((g.Tk + BK - 1) / BK, BH);
   attn_bwd_dkdv_kernel<T><<<gk, NT, DKDV_SMEM, stream>>>(

@@ -34,4 +34,22 @@ int bf16_bwd(const void* q, const void* k, const void* v, const void* p,
              float* du_part, float* dvb_part, int B, const Geom& g,
              cudaStream_t stream);
 
+// Raise `kernel`'s dynamic shared-memory limit to `bytes` once on each
+// device that launches it: the attribute is per device, and one process
+// may drive several cards (data-parallel serving's replicas).
+template <typename K>
+inline cudaError_t set_smem_once(K kernel, int bytes, bool (&done)[64]) {
+  int dev = 0;
+  cudaError_t e = cudaGetDevice(&dev);
+  if (e != cudaSuccess) return e;
+  if (dev < 0 || dev >= 64) return cudaErrorInvalidDevice;
+  if (!done[dev]) {
+    e = cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (e != cudaSuccess) return e;
+    done[dev] = true;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace reverb_rpa

@@ -760,24 +760,15 @@ __global__ void __launch_bounds__(NT) dq_kernel(
   }
 }
 
-template <typename K>
-cudaError_t set_smem(K kernel, int bytes) {
-  return cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
-}
-
 template <bool MASK>
 int launch_fwd(const void* q, const void* k, const void* v, const void* p,
                const void* u, const void* vb, const int* kv_lens,
                const int8_t* mask, void* out, float* lse, int B,
                const Geom& g, cudaStream_t stream) {
   constexpr int smem = MASK ? FWD_SMEM_MASK : FWD_SMEM_NOMASK;
-  static bool attr_set = false;   // per instantiation, set on first launch
-  if (!attr_set) {
-    const cudaError_t e = set_smem(fwd_kernel<MASK>, smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static bool attr_set[64] = {};   // per instantiation and device
+  const cudaError_t e = set_smem_once(fwd_kernel<MASK>, smem, attr_set);
+  if (e != cudaSuccess) return (int)e;
   dim3 grid((g.Tq + BQ - 1) / BQ, B * g.H);
   fwd_kernel<MASK><<<grid, NT, smem, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)p,
@@ -793,20 +784,17 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* p,
                float* du_part, float* dvb_part, int B, const Geom& g,
                cudaStream_t stream) {
   constexpr int dq_smem = MASK ? DQ_SMEM_MASK : DQ_SMEM_NOMASK;
-  static bool attr_set = false;
-  if (!attr_set) {
-    cudaError_t e = set_smem(dkdv_kernel<MASK>, DKDV_SMEM);
-    if (e == cudaSuccess) e = set_smem(dq_kernel<MASK>, dq_smem);
-    if (e != cudaSuccess) return (int)e;
-    attr_set = true;
-  }
+  static bool dkdv_set[64] = {}, dq_set[64] = {};   // per device
+  cudaError_t e = set_smem_once(dkdv_kernel<MASK>, DKDV_SMEM, dkdv_set);
+  if (e == cudaSuccess) e = set_smem_once(dq_kernel<MASK>, dq_smem, dq_set);
+  if (e != cudaSuccess) return (int)e;
   const int BH = B * g.H;
   dim3 gk((g.Tk + BK - 1) / BK, BH);
   dkdv_kernel<MASK><<<gk, NT, DKDV_SMEM, stream>>>(
       (const bf16*)q, (const bf16*)k, (const bf16*)v, (const bf16*)p,
       (const bf16*)u, (const bf16*)vb, kv_lens, mask, (const bf16*)gr, lse,
       D, (bf16*)dk, (bf16*)dv, dp_rows, g);
-  cudaError_t e = cudaGetLastError();
+  e = cudaGetLastError();
   if (e != cudaSuccess) return (int)e;
   dim3 gq((g.Tq + BQ - 1) / BQ, BH);
   dq_kernel<MASK><<<gq, NT, dq_smem, stream>>>(

@@ -47,7 +47,7 @@ _JAX_ONLY_DECODER_KEYS = ('tie_word_embedding',)
 
 def _check_jax_only_keys(enc_conf: Dict):
     """Raise for the encoder options the port cannot build: a MoE
-    feed-forward (ROADMAP item 15) or a GPipe pipeline (item 14)."""
+    feed-forward (ROADMAP item 15) or a GPipe pipeline (item 14b)."""
     if (enc_conf.get('positionwise_layer_type',
                      'position_wise_feed_forward') == 'moe'
             or (enc_conf.get('n_expert') or 0) > 0):
@@ -57,7 +57,7 @@ def _check_jax_only_keys(enc_conf: Dict):
     if (enc_conf.get('pipeline_stages') or 0) > 1:
         raise NotImplementedError(
             f"encoder_conf pipeline_stages: {enc_conf['pipeline_stages']} "
-            f"(GPipe) is not ported: ROADMAP item 14")
+            f"(GPipe) is not ported: ROADMAP item 14b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -251,7 +251,7 @@ def forward_attention_decoder(model: ASRModel, hyps_pad, hyps_lens,
 
 
 def compute_loss(model: ASRModel, batch: Dict, generator=None,
-                 chunk_generator=None) -> Dict:
+                 chunk_generator=None, norm: Optional[Dict] = None) -> Dict:
     """Training loss (reverb_tpu/models/asr_model.py:compute_loss).
 
     batch: feats (B,T,F), feats_lengths (B,), target (B,L) padded with
@@ -262,7 +262,10 @@ def compute_loss(model: ASRModel, batch: Dict, generator=None,
     and a use_dynamic_chunk encoder draws its chunk from it, or from
     `chunk_generator` when that is given (evaluation: a chunk, no dropout).
     Returns {loss, loss_att, loss_ctc, th_accuracy} (None where a weight
-    switches a term off)."""
+    switches a term off).  `norm` {'rows', 'tokens'} replaces this batch's
+    own denominators (its rows; its target tokens, eos included, for a
+    length-normalised loss and the accuracy) by a larger batch's, of
+    which this one is a part (train/trainer.py:_global_norms)."""
     use_adaptor = model.context_adaptor is not None and 'cv_list' in batch
     out = model.forward_encoder(
         batch['feats'], batch['feats_lengths'], batch.get('cat_embs'),
@@ -274,11 +277,12 @@ def compute_loss(model: ASRModel, batch: Dict, generator=None,
         cv_emb = ca.encode_cv(batch['cv_list'], batch['cv_list_lengths'])
         encoder_out = encoder_out + ca(out[2], cv_emb)
     return loss_from_encoder(model, encoder_out, encoder_mask, batch,
-                             generator)
+                             generator, norm)
 
 
 def loss_from_encoder(model: ASRModel, encoder_out, encoder_mask,
-                      batch: Dict, generator=None) -> Dict:
+                      batch: Dict, generator=None,
+                      norm: Optional[Dict] = None) -> Dict:
     """The post-encoder half of `compute_loss`: CTC and the label-smoothed
     attention loss of both decoder directions, mixed by ctc_weight and
     reverse_weight; with apply_non_blank_embedding the decoders see only
@@ -293,7 +297,7 @@ def loss_from_encoder(model: ASRModel, encoder_out, encoder_mask,
             model.ctc, encoder_out, encoder_out_lens,
             torch.where(text == cfg.ignore_id, torch.zeros_like(text), text),
             text_lens, cfg.blank_id, cfg.focal_ctc, cfg.focal_alpha,
-            cfg.focal_gamma)
+            cfg.focal_gamma, None if norm is None else norm['rows'])
     if cfg.apply_non_blank_embedding:
         # the decoder attends to the frames whose CTC argmax is not blank
         # (reverb_tpu/models/asr_model.py:443-447); the gradient flows
@@ -312,16 +316,21 @@ def loss_from_encoder(model: ASRModel, encoder_out, encoder_mask,
                                  text_lens + 1, r_ys_in, cfg.reverse_weight,
                                  cat_embs if cfg.lsl_dec else None,
                                  generator=generator)
+        denom = None
+        if norm is not None:
+            denom = (norm['tokens'] if cfg.length_normalized_loss
+                     else norm['rows'])
         loss_att = ctc_mod.label_smoothing_loss(
             l_x, ys_out, cfg.lsm_weight, cfg.vocab_size, cfg.ignore_id,
-            cfg.length_normalized_loss)
+            cfg.length_normalized_loss, denom)
         if r_x is not None:
             r_loss = ctc_mod.label_smoothing_loss(
                 r_x, r_ys_out, cfg.lsm_weight, cfg.vocab_size, cfg.ignore_id,
-                cfg.length_normalized_loss)
+                cfg.length_normalized_loss, denom)
             loss_att = (loss_att * (1 - cfg.reverse_weight)
                         + r_loss * cfg.reverse_weight)
-        acc_att = th_accuracy(l_x, ys_out, cfg.ignore_id)
+        acc_att = th_accuracy(l_x, ys_out, cfg.ignore_id,
+                              None if norm is None else norm['tokens'])
     if loss_ctc is None:
         loss = loss_att
     elif loss_att is None:

@@ -23,7 +23,7 @@ import math
 import torch
 from torch import nn
 
-from reverb_tpu_torch.models.modules import Linear, dropout
+from reverb_tpu_torch.models.modules import Linear, dropout, keep_mask
 from reverb_tpu_torch.ops import flash_attention as fa
 
 _MASK_VALUE = -1e9
@@ -52,10 +52,11 @@ def _masked_softmax(scores, mask, dtype):
 
 
 def _masked_softmax_av(scores, mask, value, rate: float = 0.0,
-                       generator=None):
-    """`_masked_softmax` in value.dtype, dropped out, then · V."""
+                       generator=None, split=None):
+    """`_masked_softmax` in value.dtype, dropped out (`split`: modules.
+    keep_mask's), then · V."""
     attn = dropout(_masked_softmax(scores, mask, value.dtype), rate,
-                   generator)
+                   generator, split)
     return torch.matmul(attn, value)
 
 
@@ -69,6 +70,10 @@ class MultiHeadedAttention(nn.Module):
         self.linear_k = Linear(n_feat, n_feat, bias=key_bias)
         self.linear_v = Linear(n_feat, n_feat)
         self.linear_out = Linear(n_feat, n_feat)
+        # (1, rank, n) when the heads are split over a 'model' group of n
+        # (parallel/sharding.py): dropout keeps the rank's heads of the
+        # unsplit mask
+        self.tp_split = None
 
     def forward(self, query, key, value, mask, rate: float = 0.0,
                 generator=None):
@@ -80,7 +85,8 @@ class MultiHeadedAttention(nn.Module):
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
         m = None if mask is None else mask[:, None, :, :scores.shape[-1]]
         return self.linear_out(_merge_heads(
-            _masked_softmax_av(scores, m, v, rate, generator)))
+            _masked_softmax_av(scores, m, v, rate, generator,
+                               self.tp_split)))
 
     def cross_kv(self, memory):
         """K/V heads of a memory shared by many query rows: (B,T,D) →
@@ -101,13 +107,13 @@ class MultiHeadedAttention(nn.Module):
         dtype, before dropout."""
         BG, L, D = query.shape
         B = BG // group
-        q = _split_heads(self.linear_q(query).reshape(B, group * L, D),
+        q = _split_heads(self.linear_q(query).reshape(B, group * L, -1),
                          self.h)
         k, v = kv
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
         m = None if mask is None else mask[:, None, :, :scores.shape[-1]]
         attn = _masked_softmax(scores, m, v.dtype)
-        ctx = torch.matmul(dropout(attn, rate, generator), v)
+        ctx = torch.matmul(dropout(attn, rate, generator, self.tp_split), v)
         out = self.linear_out(_merge_heads(ctx)).reshape(BG, L, -1)
         return (out, attn) if return_weights else out
 
@@ -144,8 +150,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         mask = None
         if generator is not None and rate > 0.0:
             B, H, T, _ = q.shape
-            mask = (torch.rand((B, H, T, k.shape[2]), generator=generator,
-                               device=x.device) < 1.0 - rate).to(torch.int8)
+            mask = keep_mask((B, H, T, k.shape[2]), rate, generator,
+                             x.device, self.tp_split).to(torch.int8)
         ctx = fa.rel_pos_attention(q, k, v, pos, self.pos_bias_u,
                                    self.pos_bias_v, kv_lens, mask, rate)
         return self.linear_out(_merge_heads(ctx))
@@ -175,5 +181,6 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
         scores = (matrix_ac + matrix_bd[..., :matrix_ac.shape[-1]]) \
             / math.sqrt(q.shape[-1])
         m = None if mask is None else mask[:, None, :, :scores.shape[-1]]
-        ctx = _masked_softmax_av(scores, m, v, rate, generator)
+        ctx = _masked_softmax_av(scores, m, v, rate, generator,
+                                 self.tp_split)
         return self.linear_out(_merge_heads(ctx)), new_cache

@@ -62,10 +62,10 @@ def ctc_logprobs(ctc: CTC, encoder_out, blank_penalty: float = 0.0,
 
 def ctc_loss(ctc: CTC, encoder_out, encoder_lens, ys_pad, ys_lens,
              blank_id: int = 0, focal: bool = False, focal_alpha: float = 0.5,
-             focal_gamma: float = 2.0):
+             focal_gamma: float = 2.0, denom=None):
     """Sum of the per-utterance CTC losses / B; with `focal`, the mean of
     α·(1 − p)^γ·loss with p = exp(−loss).  ys_pad may hold any padding
-    past ys_lens."""
+    past ys_lens.  `denom` replaces B (a larger batch's rows)."""
     logp = torch.log_softmax(ctc.ctc_lo(encoder_out).to(torch.float32), -1)
     B = logp.shape[0]
     L = ys_pad.shape[1]
@@ -78,16 +78,19 @@ def ctc_loss(ctc: CTC, encoder_out, encoder_lens, ys_pad, ys_lens,
                          reduction='none')
     if focal:
         p = torch.exp(-per_seq)
-        return (focal_alpha * (1 - p) ** focal_gamma * per_seq).mean()
-    return per_seq.sum() / B
+        per_seq = focal_alpha * (1 - p) ** focal_gamma * per_seq
+        return per_seq.mean() if denom is None else per_seq.sum() / denom
+    return per_seq.sum() / (B if denom is None else denom)
 
 
 def label_smoothing_loss(logits, target, smoothing: float, vocab_size: int,
-                         ignore_id: int = -1, normalize_length: bool = False):
+                         ignore_id: int = -1, normalize_length: bool = False,
+                         denom=None):
     """KL(smoothed one-hot ‖ softmax(logits)) over the non-ignored positions,
-    / B (or / their count with normalize_length).  Closed form: the cross
-    term needs only the target's log-prob and Σ_v logp_v = Σ_v logits −
-    V·lse; 0·log 0 = 0 as in torch's KLDivLoss."""
+    / B (or / their count with normalize_length; `denom` replaces either).
+    Closed form: the cross term needs only the target's log-prob and
+    Σ_v logp_v = Σ_v logits − V·lse; 0·log 0 = 0 as in torch's
+    KLDivLoss."""
     B = logits.shape[0]
     V = vocab_size
     confidence = 1.0 - smoothing
@@ -106,5 +109,6 @@ def label_smoothing_loss(logits, target, smoothing: float, vocab_size: int,
     else:
         cross = confidence * logp_tgt
     kl = torch.where(mask, ent - cross, torch.zeros_like(cross))
-    denom = mask.sum() if normalize_length else B
+    if denom is None:
+        denom = mask.sum() if normalize_length else B
     return kl.sum() / denom

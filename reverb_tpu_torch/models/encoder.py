@@ -162,9 +162,13 @@ class FeedForward(nn.Module):
         self.rate = rate
         self.w_1 = Linear(d, hidden)
         self.w_2 = Linear(hidden, d)
+        # (-1, rank, n) when the hidden units are split over a 'model'
+        # group of n (parallel/sharding.py)
+        self.tp_split = None
 
     def forward(self, x, generator=None):
-        return self.w_2(dropout(self.act(self.w_1(x)), self.rate, generator))
+        return self.w_2(dropout(self.act(self.w_1(x)), self.rate, generator,
+                                self.tp_split))
 
 
 class ConvolutionModule(nn.Module):

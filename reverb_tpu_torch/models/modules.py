@@ -15,6 +15,15 @@ and decoder stacks (reverb_tpu/models/modules.py:remat_policy).
 `Linear` and `Conv2d` also have an int8 serving form (`to_int8`,
 ops/quant.py), which `models/asr_model.py:build_model` takes where the
 state dict holds `weight_q8`.
+
+Tensor parallelism (parallel/sharding.py): a `Linear`, a pointwise
+`Conv1d` or the token `Embedding` whose `tp` is set holds its rank's block
+of the weight and runs as a column-parallel ('col': its input through
+`collectives.copy_in`), row-parallel ('row': the partial products summed
+by `collectives.reduce_out`, the bias added after the sum) or
+vocabulary-parallel layer ('vocab': column-parallel with the logits
+gathered; for the embedding, the rank's rows looked up and the ranks'
+lookups summed).  `tp` is None otherwise, and the layer runs unsplit.
 """
 
 from __future__ import annotations
@@ -30,6 +39,7 @@ from torch.utils import checkpoint as ckpt
 from reverb_tpu_torch.ops import flash_attention as fa
 from reverb_tpu_torch.ops import layer_norm as ln_ops
 from reverb_tpu_torch.ops import quant
+from reverb_tpu_torch.parallel import collectives as tpc
 
 REMAT_POLICIES = ('full', 'dots', 'dots_no_ln')
 _aten = torch.ops.aten
@@ -94,14 +104,33 @@ def checkpoint_layer(layer, policy: str, generator, *args):
                            preserve_rng_state=False, context_fn=context_fn)
 
 
-def dropout(x, rate: float, generator=None):
+def keep_mask(shape, rate: float, generator, device, split=None):
+    """Dropout's keep-mask over `shape`: True with probability 1 − rate,
+    drawn from `generator`.  `split` = (axis, rank, n) marks an activation
+    split over a 'model' group of n ranks (attention heads, FFN hidden
+    units), `shape` being rank's block along `axis`: the unsplit mask is
+    drawn and the rank's block kept, so a tensor-parallel layer drops the
+    units the unsplit layer drops, and the generator, shared by the
+    group, moves on as in the unsplit model."""
+    if split is None:
+        return torch.rand(shape, generator=generator,
+                          device=device) < 1.0 - rate
+    axis, rank, n = split
+    full = list(shape)
+    full[axis] *= n
+    u = torch.rand(full, generator=generator, device=device)
+    return u.narrow(axis, rank * shape[axis], shape[axis]) < 1.0 - rate
+
+
+def dropout(x, rate: float, generator=None, split=None):
     """reverb_tpu/models/modules.py:dropout — keep with probability
     1 − rate and scale kept entries by 1/(1 − rate), in x's dtype; the
-    identity without a generator or at rate 0."""
+    identity without a generator or at rate 0.  `split` as in
+    `keep_mask`."""
     if generator is None or rate <= 0.0:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = keep_mask(x.shape, rate, generator, x.device, split)
     return torch.where(mask, x / keep, torch.zeros((), dtype=x.dtype,
                                                    device=x.device))
 
@@ -156,6 +185,7 @@ class Linear(_Int8Form, nn.Module):
         self.weight = nn.Parameter(torch.empty(out_features, in_features))
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
         self._init_int8()
+        self.tp = None
 
     def reset_parameters(self, g):
         bound = math.sqrt(1.0 / self.weight.shape[1])
@@ -172,8 +202,22 @@ class Linear(_Int8Form, nn.Module):
             else:
                 y = quant.int8_matmul(x, self.weight_q8, self.w_scale)
             return y if self.bias is None else y + self.bias.to(y.dtype)
+        if self.tp is not None:
+            return _tp_linear(self.tp, x, self.weight, self.bias)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight.to(x.dtype), b)
+
+
+def _tp_linear(tp, x, weight, bias):
+    """x Wᵀ + b of a split layer: tp = (mode, group, rank)."""
+    mode, group, rank = tp
+    w = weight.to(x.dtype)
+    b = None if bias is None else bias.to(x.dtype)
+    if mode == 'row':
+        y = tpc.reduce_out(F.linear(x, w), group)
+        return y if b is None else y + b
+    y = F.linear(tpc.copy_in(x, group), w, b)
+    return tpc.gather_last(y, group, rank) if mode == 'vocab' else y
 
 
 class Conv1d(nn.Module):
@@ -186,6 +230,7 @@ class Conv1d(nn.Module):
         self.groups = groups
         self.weight = nn.Parameter(torch.empty(out_ch, in_ch // groups, k))
         self.bias = nn.Parameter(torch.empty(out_ch)) if bias else None
+        self.tp = None
 
     def reset_parameters(self, g):
         fan_in = self.weight.shape[1] * self.weight.shape[2]
@@ -196,6 +241,8 @@ class Conv1d(nn.Module):
 
     def pointwise(self, x):
         """1×1 conv over the channel axis of x (B, T, C_in)."""
+        if self.tp is not None:
+            return _tp_linear(self.tp, x, self.weight[:, :, 0], self.bias)
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight[:, :, 0].to(x.dtype), b)
 
@@ -293,13 +340,22 @@ class Embedding(nn.Module):
     def __init__(self, num: int, dim: int):
         super().__init__()
         self.weight = nn.Parameter(torch.empty(num, dim))
+        self.tp = None
 
     def reset_parameters(self, g):
         with torch.no_grad():
             self.weight.normal_(generator=g)
 
     def forward(self, ids):
-        return self.weight[ids]
+        if self.tp is None:
+            return self.weight[ids]
+        _, group, rank = self.tp
+        n = self.weight.shape[0]
+        local = ids - rank * n
+        mine = (local >= 0) & (local < n)
+        rows = self.weight[torch.where(mine, local, 0)]
+        rows = torch.where(mine[..., None], rows, 0.0)
+        return tpc.reduce_out(rows, group)
 
 
 def swish(x):

@@ -12,11 +12,19 @@ Counterpart of reverb_tpu/train/executor.py (`Executor.train`, `cv`,
 The step is `train/trainer.py:make_train_step`'s: it takes the model, the
 batch on the device and the dropout generator, updates the model in place
 and returns its metrics as floats (one host read a step).  A batch's numpy
-arrays go to the device from pinned memory with non_blocking copies.
+arrays go to the device from pinned memory with non_blocking copies
+(parallel/mesh.py:put_batch).
+
+Over a mesh (`sharding`: parallel/sharding.py) each rank's batch is its
+own partition's; every rank runs the CV (the whole CV list, as every JAX
+process reads it) with ZeRO-3 parameters gathered, and its metrics are
+averaged over 'data'; checkpoints are written by rank 0 from the gathered
+single-process layout (`save`).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import time
 from dataclasses import dataclass
@@ -26,6 +34,7 @@ import numpy as np
 import torch
 
 from reverb_tpu_torch.data.pipeline import mystats
+from reverb_tpu_torch.parallel.mesh import put_batch
 from reverb_tpu_torch.train.checkpoint import (save_checkpoint,
                                                should_force_snapshot)
 
@@ -34,18 +43,7 @@ def _device_batch(batch: Dict, device) -> Dict:
     """Drop host-only fields (keys, langs, tasks); ship the numpy arrays to
     `device` (int32 as int64, the index dtype of the loss), from pinned
     memory on a CUDA device."""
-    device = torch.device(device)
-    out = {}
-    for k, v in batch.items():
-        if not isinstance(v, np.ndarray):
-            continue
-        t = torch.from_numpy(v)
-        if t.dtype == torch.int32:
-            t = t.to(torch.int64)
-        if device.type == 'cuda':
-            t = t.pin_memory()
-        out[k] = t.to(device, non_blocking=True)
-    return out
+    return put_batch(batch, None, device)
 
 
 # seed of the generator a CV (and bin/get_loss) draws dynamic chunks from
@@ -74,6 +72,7 @@ class Executor:
     snapshots_taken: int = 0
     profiler: Optional[object] = None   # utils.profiling.ProfileWindow
     watchdog: Optional[object] = None   # train.watchdog.StepWatchdog
+    sharding: Optional[object] = None   # parallel.sharding.Sharding
 
     def train(self, model, optimizer, dataset: Iterable, epoch: int,
               generator: Optional[torch.Generator] = None,
@@ -114,13 +113,38 @@ class Executor:
         tot: Dict[str, float] = {}
         n = 0
         gen = torch.Generator(device=self.device).manual_seed(CV_SEED)
-        for batch in dataset:
-            m = self.eval_step(model, _device_batch(batch, self.device), gen)
-            bs = batch['feats'].shape[0]
-            for k, v in m.items():
-                tot[k] = tot.get(k, 0.0) + float(v) * bs
-            n += bs
-        return {k: v / max(n, 1) for k, v in tot.items()}
+        full = (self.sharding.full_params() if self.sharding is not None
+                else contextlib.nullcontext())
+        with full:
+            for batch in dataset:
+                m = self.eval_step(model, _device_batch(batch, self.device),
+                                   gen)
+                bs = batch['feats'].shape[0]
+                for k, v in m.items():
+                    tot[k] = tot.get(k, 0.0) + float(v) * bs
+                n += bs
+        out = {k: v / max(n, 1) for k, v in tot.items()}
+        if self.sharding is not None and out:
+            # each data rank read the whole CV list: the mean over 'data'
+            # is every rank's value, and keeps the ranks one
+            out = {k: v / self.sharding.data_size for k, v in
+                   self.sharding.sum_over_data(out).items()}
+        return out
+
+    def save(self, tag: str, model, optimizer, info: Dict):
+        """save_checkpoint of the single-process layout; over a mesh every
+        rank gathers and rank 0 writes.  Returns the npz path (None on
+        other ranks)."""
+        if self.sharding is None:
+            return save_checkpoint(self.model_dir, tag, model, optimizer,
+                                   info)
+        path = None
+        with self.sharding.gathered():
+            if torch.distributed.get_rank() == 0:
+                path = save_checkpoint(self.model_dir, tag, model,
+                                       optimizer, info)
+        torch.distributed.barrier()
+        return path
 
     # ------------------------------ internals ------------------------------
 
@@ -143,9 +167,10 @@ class Executor:
             logging.info('CV at step %d: %s', self.step, cv_metrics)
         name = (f'step_{self.step}' if self.use_named_snapshots
                 else ('snapshot_and_optimizer' if with_opt else 'snapshot'))
-        path = save_checkpoint(self.model_dir, name, model,
-                               optimizer if with_opt else None, info)
-        if self.save_to_tracker and hasattr(self.writer, 'log_artifact'):
+        path = self.save(name, model, optimizer if with_opt else None,
+                         info)
+        if path is not None and self.save_to_tracker and \
+                hasattr(self.writer, 'log_artifact'):
             # ckpt artifact upload (utils/checkpoint.py:180-190)
             self.writer.log_artifact(f'ckpt-step_{self.step}', 'checkpoint',
                                      {path.name: str(path),

@@ -116,10 +116,18 @@ class _Optimizer:
         self.mu: List[torch.Tensor] = []
         self.nu: List[torch.Tensor] = []
         self.count = 0
+        # set by parallel/sharding.py under ZeRO: each trainable
+        # parameter's block this rank updates, and the per-leaf ‖g‖² of
+        # NovoGrad summed over the blocks
+        self.views: Optional[List[Callable]] = None
+        self.leaf_sq: Optional[Callable] = None
 
     def _trainable(self, grads, scale):
         params = [self.params[i] for i in self.train_idx]
         g = [grads[i] for i in self.train_idx]
+        if self.views is not None:
+            params = [v(t) for v, t in zip(self.views, params)]
+            g = [v(t) for v, t in zip(self.views, g)]
         if scale != 1.0:
             g = torch._foreach_mul(g, scale)
         return params, g
@@ -226,6 +234,8 @@ class NovoGrad(_Optimizer):
         with torch.no_grad():
             params, g = self._trainable(grads, scale)
             sq = [n * n for n in torch._foreach_norm(g)]
+            if self.leaf_sq is not None:
+                sq = self.leaf_sq(sq)
             if self.count == 1:
                 torch._foreach_copy_(self.nu, sq)
             else:
@@ -295,9 +305,44 @@ def _micro_batches(batch: Dict, n: int):
                for k, v in batch.items()}
 
 
+def _global_norms(batch: Dict, accum: int, sharding) -> List[Dict]:
+    """The denominators of the JAX package's micro-batches, for each of
+    this rank's micro-batches.
+
+    JAX splits the GLOBAL batch (the ranks' rows in rank order) into accum
+    micro-batches of B/accum rows and normalises each one's losses and
+    accuracy by its own rows (or tokens: target length + 1 a row, eos
+    included).  Rank r's micro-batch j is the global chunk c = r·accum + j
+    of B/(accum·N) rows, which lies in JAX's micro-batch c // N; its
+    losses take that micro-batch's denominators, so that the sums over
+    ranks and micro-batches, / accum, are JAX's step.  The ranks' row
+    counts must agree (checked here)."""
+    B = batch['feats'].shape[0]
+    counts = torch.stack(
+        [torch.tensor(B, device=batch['feats'].device)]
+        + [(m['target_lengths'] + 1).sum()
+           for m in _micro_batches(batch, accum)]).to(torch.int64)
+    parts = [torch.empty_like(counts) for _ in range(sharding.data_size)]
+    torch.distributed.all_gather(parts, counts, group=sharding.data_group)
+    table = torch.stack(parts).cpu()
+    rows = [int(x) for x in table[:, 0]]
+    if len(set(rows)) != 1:
+        raise ValueError(f'ranks hold unequal batch rows {rows}: the loss '
+                         f'is a mean over the global batch')
+    N = sharding.data_size
+    tokens = table[:, 1:].reshape(-1)          # by chunk c = r·accum + j
+    out = []
+    for j in range(accum):
+        k = (sharding.data_rank * accum + j) // N
+        out.append({'rows': B * N // accum,
+                    'tokens': int(tokens[k * N:(k + 1) * N].sum())})
+    return out
+
+
 def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
                     accum_grad: int = 1, grad_clip: float = 0.0,
-                    frontend: Optional[FrontendSpec] = None):
+                    frontend: Optional[FrontendSpec] = None,
+                    sharding=None):
     """Returns train_step(model, batch, generator=None) → metrics {loss,
     loss_att, loss_ctc, th_accuracy, grad_norm, skipped} as floats, for a
     model of config `cfg` whose parameters `optimizer` updates.
@@ -309,29 +354,49 @@ def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
     (None: no dropout, as rng=None).  With a `frontend`
     (dataset_conf.device_feats) each micro-batch's features are computed
     from its `pcm` first, dithered and SpecAugmented from the generator
-    (frontend/device_feats.py:apply_frontend)."""
+    (frontend/device_feats.py:apply_frontend).
+
+    With a `sharding` (parallel/sharding.py, applied to the model and the
+    optimizer) the step is one rank's part of the JAX package's step over
+    its mesh: the batch is this rank's rows, each micro-batch's losses are
+    normalised by the global micro-batch's rows or tokens
+    (`_global_norms`), the gradients are summed over 'data' once, after
+    the last micro-batch, the norm is the whole model's, and the metrics
+    are the global means, the same on every rank.  `generator` is this
+    rank's own (seeded by its data coordinate: ranks of one 'model' group
+    draw the same masks, as their activations are one)."""
 
     def train_step(model, batch, generator=None) -> Dict[str, float]:
         if model.cfg != cfg:
             raise ValueError('train_step: the model has another config')
+        norms = [None] * accum_grad
+        if sharding is not None:
+            sharding.gather_params()
+            norms = _global_norms(batch, accum_grad, sharding)
         params = optimizer.params
         for p in params:
             p.grad = None
         sums: Dict[str, float] = {}
-        for micro in _micro_batches(batch, accum_grad):
+        for micro, norm in zip(_micro_batches(batch, accum_grad), norms):
             if frontend is not None:
                 micro = apply_frontend(micro, frontend, generator)
-            out = compute_loss(model, micro, generator)
+            out = compute_loss(model, micro, generator, norm=norm)
             out['loss'].backward()
             for k, v in out.items():
                 sums[k] = sums.get(k, 0.0) + (0.0 if v is None
                                               else v.detach())
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
+        if sharding is not None:
+            sharding.reduce_grads(grads)
+            sums = sharding.sum_over_data(sums)
         if accum_grad > 1:
             torch._foreach_div_(grads, float(accum_grad))
-        grad_norm = float(torch.linalg.vector_norm(
-            torch.stack(torch._foreach_norm(grads))))
+        if sharding is not None:
+            grad_norm = float(sharding.global_norm(grads))
+        else:
+            grad_norm = float(torch.linalg.vector_norm(
+                torch.stack(torch._foreach_norm(grads))))
         finite = np.isfinite(grad_norm)
         if finite:
             scale = 1.0
@@ -340,6 +405,8 @@ def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
             optimizer.step(grads, scale)
         for p in params:
             p.grad = None
+        if sharding is not None:
+            sharding.after_update()
         metrics = {k: float(v) / accum_grad for k, v in sums.items()}
         metrics['grad_norm'] = grad_norm
         metrics['skipped'] = 0.0 if finite else 1.0

@@ -57,11 +57,14 @@ def add_sos_eos(ys_pad, ys_lens, sos: int, eos: int,
     return ys_in, ys_out
 
 
-def th_accuracy(pred, gold, ignore_label: int = IGNORE_ID):
+def th_accuracy(pred, gold, ignore_label: int = IGNORE_ID, denom=None):
     """Token accuracy of (B, L, V) logits against (B, L) labels, padding
-    masked out; an f32 scalar tensor."""
+    masked out; an f32 scalar tensor.  `denom` replaces the count of the
+    labels (a larger batch's, of which this one is a part)."""
     mask = gold != ignore_label
     num = ((pred.argmax(-1) == gold) & mask).sum()
+    if denom is not None:
+        return num.to(torch.float32) / float(max(denom, 1))
     den = torch.clamp(mask.sum(), min=1)
     return num.to(torch.float32) / den.to(torch.float32)
 

@@ -21,6 +21,8 @@ import yaml
 from reverb_tpu.decode import ctc_utils as jcu
 from reverb_tpu_torch.decode import ctc_utils as tcu
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 TEXTS = ['a b ab c', 'ab c a', 'c ab a b ab', 'b a c']
 
 

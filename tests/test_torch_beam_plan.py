@@ -12,6 +12,8 @@ import torch
 from reverb_tpu_torch.ops import beam_scan as bs
 from reverb_tpu_torch.ops import layer_norm as ln
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 # T: every length up to 130 (all ragged last chunks of both rings), then
 # lengths around the chunk multiples and the longest supported
 _TS = list(range(1, 131)) + [255, 256, 257, 511, 512, 513, 1000, 2047, 2048,

@@ -34,6 +34,8 @@ from reverb_tpu_torch.decode.results import DecodeResult as TResult
 from reverb_tpu_torch.models import asr_model as tam
 from reverb_tpu_torch.ops import beam_scan as bs
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 B, T, V = 3, 64, 40
 
 

@@ -29,6 +29,8 @@ from test_model_forward import TINY
 from test_torch_model import _config, _models
 from test_torch_slice import tiny_dir  # noqa: F401 (fixture)
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 TOL = 1e-4
 CAT = np.array([1.0, 0.0], np.float32)
 CLI_MODES = ['attention', 'ctc_greedy_search', 'ctc_prefix_beam_search',

@@ -17,6 +17,8 @@ import yaml
 from reverb_tpu.frontend import device_feats as jdf
 from reverb_tpu_torch.frontend import device_feats as tdf
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 CONF = {'dataset_conf': {
     'device_feats': True, 'spec_aug': True,
     'fbank_conf': {'num_mel_bins': 80, 'frame_length': 25,

@@ -34,6 +34,8 @@ from reverb_tpu_torch.diar import pyannet as tp
 from tests.pyannet_oracle import PyanNet as OraclePyanNet
 from tests.pyannet_oracle import ResNet34 as OracleResNet34
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 SR = 16000
 SEG_SMALL = dict(sinc_filters=16, lstm_hidden=16, lstm_layers=1,
                  linear_dim=16)                 # tests/test_diar.py SEG_CFG

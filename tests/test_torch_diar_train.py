@@ -22,6 +22,8 @@ from test_torch_diar import SEG_SMALL, _emb_pair, _np_tree, _seg_pair
 
 from tests.pyannet_oracle import PyanNet as OraclePyanNet
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 EMB_128 = dict(feat_dim=80, channels=128, embed_dim=16, layers=4)
 
 

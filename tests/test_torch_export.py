@@ -30,6 +30,8 @@ from reverb_tpu_torch.ops import layer_norm as ln
 
 from helpers import build_tiny_model_dir
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 ATOL = 1e-4
 
 

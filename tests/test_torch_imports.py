@@ -26,6 +26,8 @@ from reverb_tpu_torch.decode import align as talign
 from reverb_tpu_torch.decode import results as tresults
 from reverb_tpu_torch.text import tokenizer as ttok
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 ROOT = Path(__file__).resolve().parents[1]
 
 _PROBE = r'''
@@ -97,7 +99,11 @@ def test_port_imports_no_jax_and_no_reverb_tpu():
                  'reverb_tpu_torch.data.kaldi_io',
                  'reverb_tpu_torch.ops.quant',
                  'reverb_tpu_torch.export.aot',
-                 'reverb_tpu_torch.bin.export'):
+                 'reverb_tpu_torch.bin.export',
+                 'reverb_tpu_torch.parallel',
+                 'reverb_tpu_torch.parallel.mesh',
+                 'reverb_tpu_torch.parallel.collectives',
+                 'reverb_tpu_torch.parallel.sharding'):
         assert name in out['modules']
     assert out['bad'] == []
 

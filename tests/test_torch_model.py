@@ -34,6 +34,8 @@ from reverb_tpu_torch.ops.topk import topk_lastdim
 
 from test_fbank import _oracle_cases
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 ATOL = 1e-4
 CAT = np.array([0.7, 0.3], np.float32)
 

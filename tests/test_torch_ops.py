@@ -20,6 +20,8 @@ from reverb_tpu_torch.decode import prefix_beam as tpb
 from reverb_tpu_torch.models.attention import RelPositionMultiHeadedAttention
 from reverb_tpu_torch.ops import beam_scan, flash_attention
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 
 def _t(x):
     return torch.from_numpy(np.array(x))

@@ -23,6 +23,8 @@ from reverb_tpu_torch.train import trainer as ttr
 from reverb_tpu.models import presets as jpresets
 from test_torch_train import _jax_params, _port_flat, _port_model
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 OPTIMS = {
     'adam': {'optim': 'adam'},
     'adamw': {'optim': 'adamw', 'freeze_modules': ['encoder.embed'],

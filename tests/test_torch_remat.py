@@ -29,6 +29,8 @@ from test_torch_train import (_batch, _jax_params, _jb, _port_flat,
                               _port_model, _tb)
 from test_torch_optim import _conf
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 
 def _remat(conf, policy, dyn=False):
     conf = dict(conf)

@@ -21,6 +21,8 @@ from test_torch_optim import (OPTIMS, _assert_params, _conf, _grads,
                               _jax_update, _with_mu)
 from test_torch_train import _batch, _jax_params, _jb, _port_model, _tb
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 
 @pytest.fixture(scope='module')
 def setup():

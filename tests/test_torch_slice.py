@@ -22,6 +22,8 @@ import torch
 
 from helpers import build_tiny_model_dir, write_wav
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 MODES = ['ctc_prefix_beam_search', 'attention_rescoring']
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 

@@ -19,6 +19,8 @@ import yaml
 
 from helpers import build_tiny_model_dir
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 MODES = ['ctc_prefix_beam_search', 'attention_rescoring']
 STREAM_MODES = ['ctc_greedy_search', 'ctc_prefix_beam_search',
                 'attention_rescoring']

@@ -39,6 +39,8 @@ from reverb_tpu_torch.ops import beam_scan as bs
 from reverb_tpu_torch.ops import flash_attention as fa
 from reverb_tpu_torch.utils import common as tcommon
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 D = 128
 CAT = np.array([0.8, 0.2], np.float32)
 

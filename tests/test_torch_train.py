@@ -35,6 +35,8 @@ from reverb_tpu_torch.train import checkpoint as tckpt
 from reverb_tpu_torch.train import scheduler as tsched
 from reverb_tpu_torch.train import trainer as ttr
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 D = 128
 
 

@@ -46,6 +46,8 @@ from reverb_tpu_torch.train.executor import Executor
 from reverb_tpu_torch.utils import common as tcommon
 from reverb_tpu_torch.utils import tracking as ttracking
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 D = 128
 TEXTS = ['a b ab c', 'ab c a', 'c ab a b ab', 'b a c', 'a c c ab', 'ab b']
 
@@ -384,11 +386,13 @@ def test_entry_points_default_to_cuda(recipe, tmp_path):
 
 
 @pytest.mark.parametrize('extra,match', [
-    (['--num_devices_model', '2'], 'item 14'),
-    (['--zero3'], 'item 14'),
-    (['--coordinator', 'localhost:1'], 'item 14'),
-    (['--num_processes', '2'], 'item 14'),
-    (['--process_id', '1'], 'item 14'),
+    # the mesh axes the port does not split (ROADMAP item 14b), also
+    # with the multi-process flags, which raise before any group forms
+    (['--num_devices_seq', '2'], 'item 14'),
+    (['--num_devices_pipe', '2'], 'item 14'),
+    (['--coordinator', 'localhost:1', '--num_devices_seq', '2'], 'item 14'),
+    (['--num_processes', '2', '--num_devices_pipe', '2'], 'item 14'),
+    (['--process_id', '1', '--pipeline_microbatches', '2'], 'item 14'),
     (['--pipeline_microbatches', '4'], 'item 14'),
     (['--prng_impl', 'rbg'], "torch's generator"),
     (['--override_config', 'model=transducer'], 'item 15'),

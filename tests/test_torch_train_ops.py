@@ -22,6 +22,8 @@ from reverb_tpu_torch.models.attention import RelPositionMultiHeadedAttention
 from reverb_tpu_torch.ops import flash_attention as fa
 from reverb_tpu_torch.ops import layer_norm as ln
 
+torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
+
 
 @pytest.fixture(autouse=True)
 def _single_device_pallas():

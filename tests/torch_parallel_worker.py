@@ -1,0 +1,169 @@
+"""One rank of the process groups of tests/test_torch_parallel.py.
+
+Usage: python tests/torch_parallel_worker.py <rank> <world> <work_dir>
+
+The parent writes the configs, the initial parameters (the JAX package's
+init, flat) and the global batches into work_dir.  Each rank joins a gloo
+group through a file in work_dir, then runs every form of its world in
+turn, from the same initial parameters: two sharded steps on its rows of
+each global batch (parallel/mesh.py:local_rows), after which rank 0
+writes the metrics and the gathered parameters (<form>.json, <form>.npz),
+and for the ZeRO-3 and TP forms a checkpoint of the gathered state.
+World 2 also takes TP 2's two steps with dropout beside the unsplit
+step's on the same generator seed, draws dropout masks, checks that
+unequal row counts raise and resumes the ZeRO-3 checkpoint under TP for a
+third step.
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+# form: (mesh axes, Sharding options, config file)
+FORMS = {
+    2: [('ddp', {'data': 2}, {'zero': False}, 'conf.json'),
+        ('zero12', {'data': 2}, {'zero': True}, 'conf.json'),
+        ('zero3', {'data': 2}, {'zero3': True, 'zero3_min_size': 8192},
+         'conf.json'),
+        ('tp2', {'data': 1, 'model': 2}, {'zero': True}, 'conf.json'),
+        ('accum2', {'data': 2}, {'zero': False}, 'conf_accum.json')],
+    4: [('dp2tp2', {'data': 2, 'model': 2}, {'zero': True}, 'conf.json'),
+        # reverb_large's decoder (bitransformer: no language layers)
+        ('dp2tp2_bitr', {'data': 2, 'model': 2}, {'zero': True},
+         'conf_bitr.json'),
+        # NovoGrad's per-leaf norms summed over both split axes
+        ('dp2tp2_novograd', {'data': 2, 'model': 2}, {'zero': True},
+         'conf_novograd.json')],
+}
+
+
+def main(rank: int, world: int, work: str):
+    torch.set_num_threads(1)
+    import torch.distributed as dist
+    from reverb_tpu_torch import convert
+    from reverb_tpu_torch.models import asr_model as tam
+    from reverb_tpu_torch.models.modules import dropout, keep_mask
+    from reverb_tpu_torch.parallel import mesh as pm
+    from reverb_tpu_torch.parallel.sharding import Sharding
+    from reverb_tpu_torch.train import checkpoint as tckpt
+    from reverb_tpu_torch.train import trainer as ttr
+
+    pm.init_distributed(f'file://{work}/pg{world}', world, rank, 'cpu')
+    inits = {}
+
+    def init_of(conf_name):
+        """The initial parameters of a config: init_bitr.npz for
+        conf_bitr.json, else init.npz."""
+        name = 'init_bitr.npz' if conf_name == 'conf_bitr.json' \
+            else 'init.npz'
+        if name not in inits:
+            with np.load(f'{work}/{name}') as z:
+                inits[name] = {k: z[k] for k in z.files}
+        return inits[name]
+    with np.load(f'{work}/batches.npz') as z:
+        batches = [{k.split('/')[1]: z[k] for k in z.files
+                    if k.startswith(f'{i}/')} for i in range(3)]
+
+    def build(conf_name, state=None):
+        conf = json.load(open(f'{work}/{conf_name}'))
+        cfg = tam.ModelConfig.from_config(conf)
+        tc = ttr.TrainConfig.from_config(conf)
+        model = tam.build_model(cfg, 'cpu', convert.state_dict_from_jax(
+            init_of(conf_name) if state is None else state), train=True)
+        opt, _ = ttr.build_optimizer(tc, model)
+        return cfg, tc, model, opt
+
+    def run(form, axes, opts, conf_name, steps=(0, 1), ckpt=None,
+            seed=None):
+        """`seed`: dropout from a generator of that seed on every rank."""
+        mesh = pm.make_mesh(**axes)
+        cfg, tc, model, opt = build(conf_name)
+        if ckpt is not None:
+            tckpt.load_checkpoint(ckpt, model, opt)
+        gen = None if seed is None else torch.Generator().manual_seed(seed)
+        sh = Sharding(mesh, **opts).apply(model, opt)
+        split = {'tp': sum(lay.tp_axis is not None
+                           for lay in sh.layouts.values()),
+                 'zero3': sum(lay.zero3 for lay in sh.layouts.values()),
+                 'zero': sum(lay.zero_axis is not None
+                             for lay in sh.layouts.values())}
+        step = ttr.make_train_step(cfg, opt, tc.accum_grad, tc.grad_clip,
+                                   sharding=sh)
+        metrics = [step(model, pm.put_batch(batches[i], mesh, 'cpu'), gen)
+                   for i in steps]
+        with sh.gathered():
+            if rank == 0:
+                np.savez(f'{work}/{form}.npz', **convert.flat_from_state_dict(
+                    model.state_dict()))
+                with open(f'{work}/{form}.json', 'w') as f:
+                    json.dump({'metrics': metrics, 'split': split}, f)
+                if form in ('zero3', 'tp2'):
+                    tckpt.save_checkpoint(f'{work}/ckpt_{form}', 'step_2',
+                                          model, opt, {'step': 2})
+        dist.barrier()
+
+    for form, axes, opts, conf_name in FORMS[world]:
+        run(form, axes, opts, conf_name)
+
+    if world == 2:
+        # TP 2 with dropout, and on rank 0 the unsplit step, from one seed
+        run('tp2_dropout', {'data': 1, 'model': 2}, {'zero': True},
+            'conf.json', seed=3)
+        if rank == 0:
+            cfg, tc, model, opt = build('conf.json')
+            step = ttr.make_train_step(cfg, opt, tc.accum_grad, tc.grad_clip)
+            gen = torch.Generator().manual_seed(3)
+            metrics = [step(model, pm.put_batch(batches[i], None, 'cpu'),
+                            gen) for i in (0, 1)]
+            np.savez(f'{work}/unsplit_dropout.npz',
+                     **convert.flat_from_state_dict(model.state_dict()))
+            with open(f'{work}/unsplit_dropout.json', 'w') as f:
+                json.dump({'metrics': metrics}, f)
+
+        def same(m):
+            parts = [torch.empty_like(m) for _ in range(world)]
+            dist.all_gather(parts, m.contiguous())
+            return bool(torch.equal(parts[0], parts[1])), parts
+        # each data rank its own masks; in one 'model' group one mask of
+        # a replicated activation, and of a split one each rank's block
+        # of one unsplit mask
+        masks = {}
+        for name, axes in (('data', {'data': 2}), ('model', {'model': 2})):
+            gen = pm.dropout_generator(7, pm.make_mesh(**axes), 'cpu')
+            masks[name], _ = same(dropout(torch.ones(256), 0.5, gen))
+        gen = pm.dropout_generator(7, pm.make_mesh(model=2), 'cpu')
+        masks['model_split'], parts = same(
+            keep_mask((4, 256), 0.5, gen, 'cpu', (1, rank, 2)))
+        whole = keep_mask((4, 512), 0.5, torch.Generator().manual_seed(7),
+                          'cpu')
+        masks['split_blocks_unsplit'] = bool(torch.equal(
+            torch.cat(parts, 1), whole))
+        # unequal row counts raise on every rank
+        mesh = pm.make_mesh(data=2)
+        cfg, tc, model, opt = build('conf.json')
+        sh = Sharding(mesh).apply(model, opt)
+        step = ttr.make_train_step(cfg, opt, sharding=sh)
+        rows = 2 if rank == 0 else 1
+        try:
+            step(model, pm.put_batch({k: v[:rows] for k, v in
+                                      batches[0].items()}, None, 'cpu'))
+            unequal = 'no error'
+        except ValueError as e:
+            unequal = str(e)
+        if rank == 0:
+            with open(f'{work}/checks.json', 'w') as f:
+                json.dump({'same_mask': masks, 'unequal': unequal}, f)
+        # the ZeRO-3 checkpoint resumed under tensor parallelism
+        run('resume', {'data': 1, 'model': 2}, {'zero': True}, 'conf.json',
+            steps=(2,), ckpt=f'{work}/ckpt_zero3/step_2.npz')
+    dist.destroy_process_group()
+
+
+if __name__ == '__main__':
+    main(int(sys.argv[1]), int(sys.argv[2]), sys.argv[3])
