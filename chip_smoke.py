@@ -21,6 +21,9 @@
     python3 chip_smoke.py --phases parallel     # sharded training steps;
                                                 #   data-parallel serving
 
+    python3 chip_smoke.py --phases families     # MoE, the transducer, the
+                                                #   alternative encoders
+
     python3 chip_smoke.py --profile             # + one profiled train step
 
     python3 chip_smoke.py --ab-parent DIR       # + K1-K6 of the checkout
@@ -205,6 +208,31 @@ then parallelism (parallel/, the sharded step of train/trainer.py):
   `ReverbASR(data_parallel=device_count)` on the serving file, its CTM
   byte-identical to one replica's decoding the same row blocks.
 
+then the model families of the registry (models/registry.py), with
+seeded random weights at reverb_large width:
+
+- families: (b) the MoE conformer (`positionwise_layer_type: moe`, 8
+  experts, 2 a token; 2.4B parameters): the serve phase's f32 reference
+  on one chunk (K1/K5 against the plain versions, the decode tail
+  identical), then a warm-up and a timed bf16 `transcribe_modes(MODES,
+  format='ctm')` on the 164 s file (K1 18, K2 = K3 = 1 an encoder call,
+  K5 at every LayerNorm), whose CTM K2/K3 swapped for their plain
+  versions leave byte-equal; at 6 layers an f32 reference step (every
+  K1/K4/K5/K6 call held to its plain version, loss and gradient against
+  the plain versions' run) and a timed bf16 step at B = 8.  (a) The
+  transducer (the default RNN predictor and joint, a CTC head): one f32
+  chunk through the kernels (each K1/K5 call checked) and the plain
+  versions with equal greedy and TSD tokens; in bf16 the encoder over the
+  8 chunks (K1 18, K5 91), the batched greedy search and the device TSD
+  (beam 4) over all 8, and default / alsd / nsc / maes on one chunk each,
+  timed; the f32 reference step at B = 2 and 3 bf16 steps at B = 4 of
+  800-1000 frames, U ≤ 32 (ms, audio-s/s, peak); `rnnt_loss` alone on
+  that lattice; `bin.train` on a 2-layer transducer config with a
+  checkpoint written and resumed (launches asserted).  (c) Branchformer,
+  E-Branchformer, Squeezeformer and the Efficient Conformer at 6 layers
+  with the hybrid loss: each an f32 reference step and a timed bf16 step
+  at B = 8 (K1 = K4 = 6, 6, 0 and 2 a step: the rel-pos attention layers).
+
 Each path runs with the launch counters set to 0 just before it and read
 just after.  Every phase raises on failure; the exit code is 0 only when
 all of them pass.
@@ -244,7 +272,7 @@ LAYERS_ENC, LN_ENC, LN_DEC = 18, 91, 29   # reverb_large: per-step counts
 TRAIN_B, TRAIN_STEPS = 8, 4
 ALL_PHASES = ('kernels', 'serve', 'train', 'modes', 'stream', 'diar',
               'recipe', 'context', 'tools', 'remat', 'diartrain', 'int8',
-              'export', 'parallel')
+              'export', 'parallel', 'families')
 
 
 def log(msg):
@@ -832,15 +860,17 @@ def write_wav(path: Path, n_samples: int, seed: int, sr: int = 16000):
         w.writeframes(speech_like(n_samples, seed, sr).tobytes())
 
 
-def build_asr(dev, seed, workdir: Path):
+def build_asr(dev, seed, workdir: Path, enc_overrides=None):
     """reverb_large-width ReverbASR in bf16 with seeded random weights and a
-    char tokenizer over a generated 10000-entry symbol table."""
+    char tokenizer over a generated 10000-entry symbol table
+    (`enc_overrides`: keys over its encoder_conf)."""
     import torch
     from reverb_tpu_torch.text.tokenizer import init_tokenizer
     from reverb_tpu_torch.cli.reverb import ReverbASR
     from reverb_tpu_torch.models import presets
     from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
     configs = presets.reverb_large()
+    configs['encoder_conf'].update(enc_overrides or {})
     configs['tokenizer'] = 'char'
     configs['tokenizer_conf'] = {
         'symbol_table_path': str(workdir / 'units.txt')}
@@ -851,8 +881,9 @@ def build_asr(dev, seed, workdir: Path):
         device=dev).manual_seed(seed))
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in model.parameters())
-    log(f'model: reverb_large width, {n_params / 1e6:.1f}M params, bf16 '
-        f'compute, built in {time.perf_counter() - t0:.2f} s')
+    what = f' {enc_overrides}' if enc_overrides else ''
+    log(f'model: reverb_large width{what}, {n_params / 1e6:.1f}M params, '
+        f'bf16 compute, built in {time.perf_counter() - t0:.2f} s')
     asr = ReverbASR.from_model(configs, model, init_tokenizer(configs))
     return asr
 
@@ -878,13 +909,15 @@ def sharpen_ctc_head(asr, feats):
     return float(q)
 
 
-def reference_check(asr, feats, dev):
+def reference_check(asr, feats, dev, ulps: int = 0):
     """One chunk in f32 (TF32 off), kernels against the plain PyTorch
     versions: the encoder output within 1e-3, then the decode tail (CTC
     top-k → beam → rescoring) on the SAME encoder output with identical
     tokens, times and choices and scores within 1e-4.  (Decoded tokens of
     two encoder runs are not compared: with random weights and a ×8 head,
-    1e-6 encoder differences flip near-tied hypotheses.)"""
+    1e-6 encoder differences flip near-tied hypotheses.)  `ulps`: the
+    uncapped tail's scores may also differ by that many f32 spacings
+    (`compare_results`)."""
     import torch
     from reverb_tpu_torch.decode import api
     from reverb_tpu_torch.models.asr_model import build_model
@@ -938,7 +971,7 @@ def reference_check(asr, feats, dev):
                                     enc_k[0], enc_k[1], 10, 0.1, 0.0, 0.0,
                                     cat)
     res_k, res_p = run(True, uncapped), run(False, uncapped)
-    n_long = compare_results(res_k, res_p, 1e-4)
+    n_long = compare_results(res_k, res_p, 1e-4, ulps)
     log(f'reference: uncapped decode tail (L = T), kernels vs plain: tokens, '
         f'times and nbest identical, scores within 1e-4 ({n_long} tokens in '
         f'the rescored best hyp)')
@@ -974,8 +1007,10 @@ def compare_results(got, want, tol, ulps: int = 0):
                     and close(g.confidence, w.confidence)
                     and close(g.tokens_confidence, w.tokens_confidence)
                     and close(g.nbest_scores, w.nbest_scores)):
-                raise AssertionError(f'{mode}: scores differ by more than '
-                                     f'{tol}')
+                raise AssertionError(
+                    f'{mode}: scores differ by more than {tol} or {ulps} '
+                    f'f32 spacings (score {g.score!r} vs {w.score!r}, '
+                    f'nbest {g.nbest_scores!r} vs {w.nbest_scores!r})')
     if 'attention_rescoring' not in want:
         return 0
     return len(want['attention_rescoring'][0].tokens)
@@ -2600,16 +2635,17 @@ def checked_kernels(errs):
             (ln, 'layer_norm_bwd'): ln_bwd}
 
 
-def check_call_errs(errs, what: str):
+def check_call_errs(errs, what: str, kernels=tuple(RECIPE_CALL_TOL)):
     """Raise unless every kernel output in errs is within RECIPE_CALL_TOL
-    and each of K1, K4, K5 and K6 was seen."""
+    and exactly `kernels` (by default K1, K4, K5 and K6) were seen."""
     bad = {n: e for n, e in errs.items()
            if not e <= RECIPE_CALL_TOL[n.split()[0]]}
     seen = {n.split()[0] for n in errs}
-    if bad or seen != set(RECIPE_CALL_TOL):
+    if bad or seen != set(kernels):
         raise AssertionError(f'{what}: kernel calls against their plain '
                              f'versions {errs} (tolerances '
-                             f'{RECIPE_CALL_TOL}; kernels seen {seen})')
+                             f'{RECIPE_CALL_TOL}; kernels seen {seen}, '
+                             f'expected {set(kernels)})')
 
 
 def recipe_reference_check(dev, workdir: Path, seed: int) -> dict:
@@ -2632,8 +2668,7 @@ def recipe_reference_check(dev, workdir: Path, seed: int) -> dict:
     held as above) and through the plain versions, valid frames within
     1e-3; then recognize's decode (RECIPE_MODES at its defaults) twice on
     the SAME encoder output (K2, K3, K5 in the decoder): tokens, times and
-    nbest identical, scores within 1e-4 or one f32 step, as `modes` holds
-    its decodes."""
+    nbest identical, scores within 1e-4 or four f32 steps."""
     import gc
     import torch
     from reverb_tpu_torch.bin.recognize import (eval_dataset,
@@ -2719,7 +2754,10 @@ def recipe_reference_check(dev, workdir: Path, seed: int) -> dict:
                               beam_size=10, ctc_weight=0.1, cat_embs=cat)
     got, want = run(True), run(False)
     n_tok = {m: [len(r.tokens) for r in want[m]] for m in want}
-    compare_results(got, want, 1e-4, ulps=1)
+    # the rescoring score sums ~450 decoder log-probs near -2750 (one f32
+    # spacing 2.4e-4), every LayerNorm K5 in one run and plain in the
+    # other: 4 spacings, 3.6e-7 of the score (one run differed by 2)
+    compare_results(got, want, 1e-4, ulps=4)
     if not all(sum(n_tok[m]) for m in RECIPE_MODES):
         raise AssertionError(f'recipe reference: the decode emitted no '
                              f'tokens ({n_tok})')
@@ -4360,17 +4398,18 @@ def train_model(dev, seed, dtype, overrides=None):
     return model, opt, make_train_step(cfg, opt, tc.accum_grad, tc.grad_clip)
 
 
-def loss_and_grads(model, batch, dev, table=None):
-    """(loss, [gradient of each parameter]) of compute_loss + backward on
-    `batch`, with the module attributes of `table` swapped in and dropout
-    from a generator of seed 7 (two calls draw the same masks)."""
+def loss_and_grads(model, batch, dev, table=None, loss_fn=None):
+    """(loss, [gradient of each parameter]) of compute_loss (or a
+    registry bundle's `loss_fn`) + backward on `batch`, with the module
+    attributes of `table` swapped in and dropout from a generator of seed
+    7 (two calls draw the same masks)."""
     import torch
     from reverb_tpu_torch.models.asr_model import compute_loss
     with swapped(table or {}):
         for p in model.parameters():
             p.grad = None
-        out = compute_loss(model, batch,
-                           torch.Generator(device=dev).manual_seed(7))
+        out = (loss_fn or compute_loss)(
+            model, batch, torch.Generator(device=dev).manual_seed(7))
         out['loss'].backward()
         torch.cuda.synchronize()
         grads = [p.grad.detach().clone() if p.grad is not None
@@ -5840,14 +5879,699 @@ def run_parallel(dev, seed=SEED) -> dict:
     return res
 
 
+# ------------------------------ phase 20: the model families -------------
+
+FAM_LAYERS = 6                 # alternative encoders, MoE training
+FAM_B, FAM_STEPS = 4, 3        # transducer bf16 steps: B, count
+FAM_FRAMES = (800, 1000)       # transducer utterances' feature frames
+FAM_MAX_U = 32                 # and their most target tokens
+FAM_BEAM = 4
+FAM_HOST_SEARCHES = ('default', 'alsd', 'nsc', 'maes')
+FAM_MOE = {'positionwise_layer_type': 'moe', 'n_expert': 8,
+           'n_expert_per_token': 2}
+FAM_ALT = {'branchformer': {'cgmlp_linear_units': 4096},
+           'e_branchformer': {'cgmlp_linear_units': 4096,
+                              'ffn_units': 4096},
+           'squeezeformer': {'reduce_idx': 2, 'recover_idx': 5},
+           'efficient_conformer': {}}
+# rel-pos attention layers (K1/K4 a step) of each alternative encoder at
+# FAM_LAYERS: the Efficient Conformer's layers 0-3 are grouped (plain
+# matmuls), Squeezeformer's attention has its rel_shift (plain matmuls)
+FAM_ALT_K1 = {'branchformer': FAM_LAYERS, 'e_branchformer': FAM_LAYERS,
+              'squeezeformer': 0, 'efficient_conformer': FAM_LAYERS - 4}
+FAM_BIN_WAVS, FAM_BIN_CV = 8, 2          # bin.train's corpus, 6-10 s each
+
+
+def expect_launches(got: dict, want: dict, what: str):
+    """Raise unless the launches `got` are exactly `want`."""
+    log(f'{what}: launches {got}, expected {want}')
+    if got != want:
+        raise AssertionError(f'{what}: the path did not run every kernel '
+                             f'the expected number of times')
+
+
+def log_call_errs(errs: dict, what: str):
+    log(f'{what}: every kernel call against its plain version, worst '
+        f'share of scale ' + ', '.join(f'{n} {e:.2e}'
+                                      for n, e in sorted(errs.items())))
+
+
+def as_f64(model):
+    """A float64 copy of a registry model, its configs' compute dtype f64
+    (the yardstick of `family_reference`, run with `f64_versions`)."""
+    import copy
+    import dataclasses as dc
+    import torch
+    from reverb_tpu_torch.models.asr_model import ModelConfig
+    from reverb_tpu_torch.models.decoder import DecoderConfig
+    m = copy.deepcopy(model).double()
+    for mod in m.modules():
+        c = getattr(mod, 'cfg', None)
+        if isinstance(c, ModelConfig):
+            mod.cfg = c.with_compute_dtype(torch.float64)
+        elif isinstance(c, DecoderConfig):
+            mod.cfg = dc.replace(c, compute_dtype=torch.float64)
+    return m
+
+
+def family_reference(model, loss_fn, batch, dev, kernels, what,
+                     train_tol: bool = False) -> dict:
+    """One f32 loss + backward (TF32 off, dropout 0.1 from a seeded
+    generator) through the kernels, every kernel call held to its plain
+    version on the call's own inputs (`checked_kernels`), one through the
+    plain versions with the same draws, and one in f64 (`as_f64`,
+    `f64_versions`): the loss within 1e-5 relative of the plain one, and
+    the kernels' gradient no further from the f64 gradient than twice the
+    plain f32 gradient is (`recipe_reference_check`'s rule: at random
+    init a deep net's backward amplifies rounding, so the plain f32
+    gradient itself can sit 1e-4 from the f64 one); with `train_tol` also
+    the train phase's 1e-4 globally and 1e-3 per tensor against the plain
+    run.  Returns the kernel run's launches, the call errors and the
+    distances."""
+    import torch
+    names = [n for n, _ in model.named_parameters()]
+    errs = {}
+    diar_zero_launch_counts()
+    loss_k, g_k = loss_and_grads(model, batch, dev, checked_kernels(errs),
+                                 loss_fn)
+    launches = diar_launch_counts()
+    loss_p, g_p = loss_and_grads(model, batch, dev, plain_versions(),
+                                 loss_fn)
+    log_call_errs(errs, what)
+    check_call_errs(errs, what, kernels)
+    m64 = as_f64(model)
+    b64 = {k: v.double() if v.is_floating_point() else v
+           for k, v in batch.items()}
+    loss_d, g_d = loss_and_grads(m64, b64, dev, f64_versions(), loss_fn)
+    del m64, b64
+    worst, where, glob = grad_worst(g_k, g_p, names)
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    dist = {'kernels vs plain': glob, 'kernels vs f64': grad_dist(g_k, g_d),
+            'plain vs f64': grad_dist(g_p, g_d)}
+    log(f'{what}: f32 kernels vs plain: loss {loss_k:.6f} vs {loss_p:.6f} '
+        f'(rel {rel:.2e}), f64 {loss_d:.6f}; gradient distances '
+        + ', '.join(f'{n} {d:.2e}' for n, d in dist.items())
+        + f'; worst tensor against plain {worst:.2e} ({where})')
+    ok = (rel <= 1e-5
+          and dist['kernels vs f64'] <= 2 * dist['plain vs f64'])
+    if train_tol:
+        ok = ok and glob <= 1e-4 and worst <= 1e-3
+    if not ok:
+        raise AssertionError(f'{what}: kernels differ from the plain '
+                             f'versions')
+    del g_k, g_p, g_d
+    torch.cuda.empty_cache()
+    return {'launches': launches, 'call_errs': errs, 'loss_rel': rel,
+            'grad_worst': worst, **dist}
+
+
+def family_steps(model, loss_fn, batch, dev, seed, n, what) -> dict:
+    """n steps of make_train_step with the bundle's loss (Adam, warmuplr,
+    clip 50, dropout from a seeded generator): ms a step (mean of steps
+    2-n), audio-s/s, peak memory, the launches of every step (each the
+    same), finite losses."""
+    import torch
+    from reverb_tpu_torch.train.trainer import (TrainConfig,
+                                                build_optimizer,
+                                                make_train_step)
+    tc = TrainConfig.from_config(presets_large())
+    opt, _ = build_optimizer(tc, model)
+    step = make_train_step(model.cfg, opt, tc.accum_grad, tc.grad_clip,
+                           loss_fn=loss_fn)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    audio_s = float(batch['feats_lengths'].sum()) / 100.0
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    walls, metrics, launches, ln_seen = [], [], [], []
+    ln_calls, hooks = ln_call_counter(model)
+    try:
+        for _ in range(n):
+            diar_zero_launch_counts()
+            ln_calls[0] = 0
+            t0 = time.perf_counter()
+            metrics.append(step(model, batch, gen))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            launches.append(diar_launch_counts())
+            ln_seen.append(ln_calls[0])
+    finally:
+        for h in hooks:
+            h.remove()
+    peak = torch.cuda.max_memory_allocated()
+    for m in metrics:
+        if not (math.isfinite(m['loss']) and math.isfinite(m['grad_norm'])
+                and m['skipped'] == 0.0):
+            raise AssertionError(f'{what}: step {m}')
+    if any(lc != launches[0] for lc in launches) or \
+            any(c != ln_seen[0] for c in ln_seen):
+        raise AssertionError(f'{what}: launches differ by step {launches} '
+                             f'(LayerNorm calls {ln_seen})')
+    ms = (sum(walls[1:]) / (n - 1) if n > 1 else walls[0]) * 1e3
+    res = {'ms': ms, 'first_ms': walls[0] * 1e3, 'audio_s': audio_s,
+           'steps': n,
+           'audio_s_per_s': audio_s / ms * 1e3, 'peak_gib': peak / 2 ** 30,
+           'launches': launches[0], 'ln_calls': ln_seen[0],
+           'losses': [m['loss'] for m in metrics]}
+    log(f'{what}: {n} bf16 steps at B={batch["feats"].shape[0]} '
+        f'({audio_s:.2f} s of audio a step): {ms:.1f} ms a step (first '
+        f'{res["first_ms"]:.1f}), {res["audio_s_per_s"]:.1f} audio-s/s, '
+        f'peak {res["peak_gib"]:.2f} GiB; losses '
+        f'{[round(x, 3) for x in res["losses"]]}; launches a step '
+        f'{launches[0]}')
+    del opt, step
+    return res
+
+
+def presets_large() -> dict:
+    from reverb_tpu_torch.models import presets
+    return presets.reverb_large()
+
+
+# ---- (b) MoE ------------------------------------------------------------
+
+def family_moe(dev, seed, workdir: Path, wav, audio_s) -> dict:
+    """reverb_large with the MoE feed-forward (8 experts, 2 a token;
+    WeNet's U2++-MoE setting) in every FFN: the serving check of phase
+    serve (one f32 chunk: the encoder's K1/K5 against the plain versions,
+    the decode tail identical on its output), then a warm-up and a timed
+    bf16 transcribe_modes call on the 164 s file (K1 18, K2 = K3 = 1 an
+    encoder call, K5 at every LayerNorm), whose CTM the same call with
+    K2/K3 swapped for their plain versions reproduces byte for byte; the
+    same call on an f32 copy through the kernels and through every plain
+    version, its CTM byte-equal; then at FAM_LAYERS layers one f32
+    reference step and one timed bf16 step."""
+    import gc
+    import torch
+    from reverb_tpu_torch.cli import reverb as rv
+    from reverb_tpu_torch.cli.reverb import ReverbASR
+    from reverb_tpu_torch.models.asr_model import build_model
+    from reverb_tpu_torch.ops import beam_scan as bs
+    asr = build_asr(dev, seed, workdir, FAM_MOE)
+    feats = asr.compute_feats(str(wav))
+    q = sharpen_ctc_head(asr, feats)
+    n_params = sum(p.numel() for p in asr.model.parameters())
+    log(f'moe: {n_params / 1e9:.3f}B parameters; ctc head x8, blank bias '
+        f'+{q:.3f}')
+    # the uncapped tail's rescoring sums ~120 decoder log-probs in f32
+    # near -1000 (one f32 spacing is 6.1e-5), through LayerNorms that are
+    # K5 in one run and plain in the other: 16 spacings, 1e-6 of the score
+    reference_check(asr, feats, dev, ulps=16)
+    captured = []
+    decode_fn = rv.decode_modes_fn
+
+    def recording_decode(*args, **kwargs):
+        out = decode_fn(*args, **kwargs)
+        captured.append(out)
+        return out
+    ln_calls, hooks = ln_call_counter(asr.model)
+    walls, ctms = [], []
+    try:
+        for _ in range(2):
+            captured.clear()
+            ln_calls[0] = 0
+            diar_zero_launch_counts()
+            rv.decode_modes_fn = recording_decode
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ctms.append(asr.transcribe_modes(str(wav), MODES, format='ctm'))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            rv.decode_modes_fn = decode_fn
+        launches, n_enc = diar_launch_counts(), len(captured)
+        calls = ln_calls[0]
+        with swapped({(bs, 'beam_scan_forward'): bs.beam_scan_forward_plain,
+                      (bs, 'beam_backtrace'): bs.beam_backtrace_plain}):
+            plain_ctm = asr.transcribe_modes(str(wav), MODES, format='ctm')
+    finally:
+        rv.decode_modes_fn = decode_fn
+        for h in hooks:
+            h.remove()
+    expect_launches(launches, {'K1': LAYERS_ENC * n_enc, 'K2': n_enc,
+                               'K3': n_enc, 'K4': 0, 'K5': calls, 'K6': 0},
+                    f'moe serving ({n_enc} encoder calls)')
+    if calls < LN_ENC * n_enc:
+        raise AssertionError('moe serving: fewer LayerNorm calls than the '
+                             'encoder has')
+    for mode, ctm in zip(MODES, ctms[1]):
+        if not check_ctm_rows(ctm, wav.name, f'moe {mode}'):
+            raise AssertionError(f'moe serving: empty {mode} CTM')
+    if plain_ctm != ctms[1]:
+        raise AssertionError('moe serving: the CTM with K2/K3 plain differs')
+    # the whole call in f32, through the kernels and through every plain
+    # version (K1, K5, K2, K3): the CTM byte-equal
+    f32 = ReverbASR.from_model(asr.configs, build_model(
+        asr.model.cfg.with_compute_dtype(torch.float32), dev,
+        state_dict=asr.model.state_dict()), asr.tokenizer)
+    f32_ctm = f32.transcribe_modes(str(wav), MODES, format='ctm')
+    with swapped({(bs, 'beam_scan_forward'): bs.beam_scan_forward_plain,
+                  (bs, 'beam_backtrace'): bs.beam_backtrace_plain,
+                  **plain_versions()}):
+        f32_plain = f32.transcribe_modes(str(wav), MODES, format='ctm')
+    del f32
+    if f32_plain != f32_ctm:
+        rows = [sum(a != b for a, b in zip(x.splitlines(), y.splitlines()))
+                for x, y in zip(f32_ctm, f32_plain)]
+        raise AssertionError(f'moe serving, f32: the CTM through the plain '
+                             f'versions differs ({rows} rows by mode)')
+    log(f'moe serving: second call {walls[1]:.4f} s for {audio_s:.2f} s '
+        f'(xRT {audio_s / walls[1]:.1f}; first {walls[0]:.4f} s); CTM rows '
+        + ', '.join(f'{m} {len(c.splitlines())}'
+                    for m, c in zip(MODES, ctms[1]))
+        + '; byte-equal with K2/K3 plain; in f32 byte-equal with K1, K2, '
+        'K3 and K5 plain')
+    res = {'serve': {'walls': walls, 'launches': launches,
+                     'encoder_calls': n_enc, 'params': n_params,
+                     'ln_calls': calls}, 'feats': feats}
+    del asr, captured
+    gc.collect()
+    torch.cuda.empty_cache()
+    # training at FAM_LAYERS layers: f32 reference, then one bf16 step
+    configs = presets_large()
+    configs['encoder_conf'].update(num_blocks=FAM_LAYERS, **FAM_MOE)
+    res['train'] = family_train(
+        dev, seed, configs, 'moe', {'K1', 'K4', 'K5', 'K6'}, FAM_LAYERS,
+        lambda B, s, vocab: train_batch(dev, B, s, vocab), TRAIN_B)
+    return res
+
+
+def family_train(dev, seed, configs, what, kernels, k1, batch_fn, B,
+                 steps=2, train_tol=False) -> dict:
+    """A registry model of `configs`: the f32 reference at B = 2
+    (`family_reference`), then `steps` bf16 steps at B (the first a
+    warm-up) of the same weights (one generator seed), K1 = K4 = k1 and
+    K5 = K6 = the LayerNorm calls of a step."""
+    import gc
+    import torch
+    from reverb_tpu_torch.models.registry import init_model
+
+    def build(dtype):
+        return init_model(dict(configs, dtype=dtype), torch.Generator(
+            device=dev).manual_seed(seed), dev)
+    bundle = build('fp32')
+    n_params = sum(p.numel() for p in bundle.model.parameters())
+    vocab = bundle.model.cfg.vocab_size
+    ref = family_reference(bundle.model, bundle.loss_fn,
+                           batch_fn(2, seed + 1, vocab), dev, kernels,
+                           f'{what} reference', train_tol)
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    bundle = build('bf16')
+    res = family_steps(bundle.model, bundle.loss_fn,
+                       batch_fn(B, seed + 2, vocab), dev, seed + 3, steps,
+                       f'{what} ({n_params / 1e6:.1f}M params)')
+    expect_launches(res['launches'], {
+        'K1': k1, 'K2': 0, 'K3': 0, 'K4': k1, 'K5': res['ln_calls'],
+        'K6': res['ln_calls']}, f'{what} step')
+    res.update(reference=ref, params=n_params)
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+# ---- (a) the transducer -------------------------------------------------
+
+def transducer_configs() -> dict:
+    """presets.reverb_large() as a transducer: the default TransducerConfig
+    (RNN predictor 2 × 256, joint 512, tanh; WeNet's conformer_rnnt
+    predictor_conf/joint_conf), 0.75·rnnt + 0.25·ctc."""
+    configs = presets_large()
+    configs.update(model='transducer', predictor='rnn', model_conf={})
+    return configs
+
+
+def transducer_batch(dev, B, seed, vocab):
+    """B utterances of FAM_FRAMES feature frames (zero past each length),
+    16-FAM_MAX_U target tokens padded with -1, cat_embs [1, 0]."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lo, hi = FAM_FRAMES
+    lens = torch.randint(lo, hi + 1, (B,), device=dev, generator=gen)
+    lens[0] = hi
+    feats = torch.randn(B, hi, 80, device=dev, generator=gen)
+    feats *= (torch.arange(hi, device=dev)[None, :]
+              < lens[:, None])[..., None]
+    tlens = torch.randint(16, FAM_MAX_U + 1, (B,), device=dev,
+                          generator=gen)
+    target = torch.randint(1, vocab - 1, (B, FAM_MAX_U), device=dev,
+                           generator=gen)
+    target[torch.arange(FAM_MAX_U, device=dev)[None, :]
+           >= tlens[:, None]] = -1
+    return {'feats': feats, 'feats_lengths': lens, 'target': target,
+            'target_lengths': tlens,
+            'cat_embs': torch.tensor([[1.0, 0.0]] * B, device=dev)}
+
+
+def sharpen_joint(model, enc, mask) -> float:
+    """Shape the random joint like a trained one, as the CTC head of
+    bench.py: the output layer ×8, the blank bias raised to the 75th
+    percentile of (best non-blank − blank) over the valid frames with
+    the predictor's start output, so that blank wins ~75% of them."""
+    import torch
+    pred, joint = model.predictor, model.joint
+    blank = model.tcfg.blank_id
+    with torch.no_grad():
+        joint.ffn_out.weight.mul_(8.0)
+        p0, _ = pred.step(torch.full((1,), blank, device=enc.device),
+                          pred.init_state(1, enc.device))
+        logits = joint(enc[mask[:, 0]], p0).float()
+        b = logits[:, blank].clone()
+        logits[:, blank] = -math.inf
+        q = torch.quantile(logits.amax(-1) - b, 0.75)
+        joint.ffn_out.bias[blank] += q
+    return float(q)
+
+
+def family_transducer(dev, seed, workdir: Path, feats, audio_s) -> dict:
+    """(a) reverb_large + the default RNN predictor and joint + a CTC
+    head: one f32 chunk's encoder through the kernels (each K1/K5 call
+    held to its plain version) and the plain versions, greedy and device
+    TSD tokens equal on both; then in bf16 the 8 chunks of the 164 s file
+    (K1 18, K5 91 an encoder call), the batched greedy search and the
+    device TSD (beam 4) over all 8, the host searches of
+    FAM_HOST_SEARCHES (beam 4) on one chunk each, timed; the RNN-T loss
+    timed on the training lattice; `family_train` (f32 reference at B = 2,
+    FAM_STEPS bf16 steps at B = FAM_B); `bin.train` with a checkpoint
+    written and resumed."""
+    import gc
+    import torch
+    from reverb_tpu_torch.decode.transducer_device import tsd_device_host
+    from reverb_tpu_torch.decode.transducer_search import \
+        beam_search_transducer
+    from reverb_tpu_torch.models.registry import init_model
+    from reverb_tpu_torch.models.transducer import (rnnt_loss,
+                                                    transducer_greedy_device)
+    bundle = init_model(transducer_configs(), torch.Generator(
+        device=dev).manual_seed(seed), dev)
+    model = bundle.model.requires_grad_(False)
+    pred, joint = model.predictor, model.joint
+    x = feats.reshape(N_CHUNKS, CHUNK, -1)
+    lens = torch.full((N_CHUNKS,), CHUNK, device=dev)
+    cat = torch.tensor([1.0, 0.0], device=dev)
+    with torch.inference_mode():
+        enc, mask = model.forward_encoder(x[:4], lens[:4], cat)
+    q = sharpen_joint(model, enc, mask)
+    log(f'transducer: {sum(p.numel() for p in model.parameters()) / 1e6:.1f}'
+        f'M params; joint x8, blank bias +{q:.3f} (75th percentile)')
+    res = {}
+
+    # f32 reference on one chunk
+    errs = {}
+    outs = {}
+    for name, table in (('kernels', checked_kernels(errs)),
+                        ('plain', plain_versions())):
+        diar_zero_launch_counts()
+        with swapped(table), torch.inference_mode():
+            e, m = model.forward_encoder(x[:1], lens[:1], cat)
+            e_lens = m[:, 0].sum(-1)
+            outs[name] = (e, transducer_greedy_device(pred, joint, e,
+                                                      e_lens),
+                          tsd_device_host(pred, joint, e, e_lens,
+                                          beam_size=FAM_BEAM))
+        torch.cuda.synchronize()
+        if name == 'kernels':
+            ref_launches = diar_launch_counts()
+    log_call_errs(errs, 'transducer f32 chunk')
+    check_call_errs(errs, 'transducer f32 chunk', ('K1', 'K5'))
+    err = float((outs['kernels'][0] - outs['plain'][0]).abs().max())
+    same_greedy = torch.equal(outs['kernels'][1], outs['plain'][1])
+    same_tsd = [[y for y, _ in h] for h in outs['kernels'][2]] == \
+        [[y for y, _ in h] for h in outs['plain'][2]]
+    n_tok = int((outs['kernels'][1] != 0).sum())
+    log(f'transducer reference: f32 chunk, kernels vs plain: encoder max '
+        f'abs err {err:.3e}; greedy tokens equal {same_greedy} ({n_tok} '
+        f'tokens), TSD prefixes equal {same_tsd}')
+    if not (err <= 1e-3 and same_greedy and same_tsd and n_tok > 0):
+        raise AssertionError('transducer reference: kernels differ from the '
+                             'plain versions')
+    res['reference'] = {'enc_err': err, 'call_errs': errs,
+                        'launches': ref_launches, 'tokens': n_tok}
+    del outs
+
+    # bf16 serving of the 8 chunks
+    model.cfg = model.cfg.with_compute_dtype(torch.bfloat16)
+    ln_calls, hooks = ln_call_counter(model)
+    try:
+        diar_zero_launch_counts()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            enc, mask = model.forward_encoder(x, lens, cat)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+        launches = diar_launch_counts()
+    finally:
+        for h in hooks:
+            h.remove()
+    expect_launches(launches, {'K1': LAYERS_ENC, 'K2': 0, 'K3': 0, 'K4': 0,
+                               'K5': LN_ENC, 'K6': 0},
+                    'transducer encoder, 8 chunks')
+    if ln_calls[0] != LN_ENC:
+        raise AssertionError(f'transducer encoder: {ln_calls[0]} LayerNorm '
+                             f'calls')
+    e_lens = mask[:, 0].sum(-1)
+    times = {'encoder_s': enc_s}
+    with torch.inference_mode():
+        for rep in range(2):               # a warm-up, then the timed one
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            toks = transducer_greedy_device(pred, joint, enc, e_lens)
+            torch.cuda.synchronize()
+            times['greedy_s'] = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        tsd = tsd_device_host(pred, joint, enc, e_lens, beam_size=FAM_BEAM)
+        torch.cuda.synchronize()
+        times['tsd_s'] = time.perf_counter() - t0
+        found = {'greedy': int((toks != 0).sum()),
+                 'tsd': sum(len(h[0][0]) for h in tsd)}
+        for i, st in enumerate(FAM_HOST_SEARCHES):
+            j = i % enc.shape[0]
+            t0 = time.perf_counter()
+            hyps = beam_search_transducer(pred, joint, enc[j:j + 1],
+                                          e_lens[j:j + 1], st,
+                                          beam_size=FAM_BEAM)
+            times[f'{st}_s'] = time.perf_counter() - t0
+            found[st] = len(hyps[0][0].tokens)
+            if not math.isfinite(hyps[0][0].score):
+                raise AssertionError(f'transducer {st}: score '
+                                     f'{hyps[0][0].score}')
+    log(f'transducer serving, bf16: encoder {enc_s:.4f} s for {audio_s:.2f} '
+        f's; greedy (8 chunks) {times["greedy_s"]:.3f} s, device TSD (8 '
+        f'chunks, beam {FAM_BEAM}) {times["tsd_s"]:.3f} s; one chunk each: '
+        + ', '.join(f'{st} {times[st + "_s"]:.3f} s'
+                    for st in FAM_HOST_SEARCHES)
+        + f'; tokens of the best hypotheses {found}')
+    if min(found.values()) <= 0:
+        raise AssertionError(f'transducer searches emit nothing: {found}')
+    res['serve'] = {'launches': launches, 'times': times, 'tokens': found}
+    del enc, mask, toks, tsd, bundle, model, pred, joint
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # training: f32 reference and FAM_STEPS bf16 steps
+    res['train'] = family_train(
+        dev, seed, transducer_configs(), 'transducer',
+        {'K1', 'K4', 'K5', 'K6'}, LAYERS_ENC,
+        lambda B, s, vocab: transducer_batch(dev, B, s, vocab), FAM_B,
+        steps=FAM_STEPS, train_tol=True)
+    # the RNN-T loss alone on the training lattice (f32, every row at
+    # the longest lengths)
+    T1 = ((FAM_FRAMES[1] - 1) // 2 - 1) // 2
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    logits = torch.randn(FAM_B, T1, FAM_MAX_U + 1, VOCAB, device=dev,
+                         generator=g).requires_grad_(True)
+    labels = torch.randint(1, VOCAB, (FAM_B, FAM_MAX_U), device=dev,
+                           generator=g)
+    t_lens = torch.full((FAM_B,), T1, device=dev)
+    u_lens = torch.full((FAM_B,), FAM_MAX_U, device=dev)
+
+    def loss_step():
+        rnnt_loss(logits, t_lens, labels, u_lens).sum().backward()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    res['rnnt'] = {'ms': cuda_time_ms(loss_step, 3),
+                   'fwd_ms': cuda_time_ms(
+                       lambda: rnnt_loss(logits.detach(), t_lens, labels,
+                                         u_lens), 3),
+                   'lattice_gb': logits.numel() * 4 / 1e9,
+                   'extra_peak_gib': (torch.cuda.max_memory_allocated()
+                                      - base) / 2 ** 30}
+    log(f'rnnt_loss on ({FAM_B}, {T1}, {FAM_MAX_U + 1}, {VOCAB}) f32 '
+        f'({res["rnnt"]["lattice_gb"]:.2f} GB a copy): forward '
+        f'{res["rnnt"]["fwd_ms"]:.2f} ms, forward + backward '
+        f'{res["rnnt"]["ms"]:.2f} ms, {res["rnnt"]["extra_peak_gib"]:.2f} '
+        f'GiB above the lattice')
+    del logits
+    torch.cuda.empty_cache()
+    res['bin_train'] = family_bin_train(dev, seed, workdir)
+    return res
+
+
+def family_bin_train(dev, seed, workdir: Path) -> dict:
+    """`bin.train.main` on a transducer config (reverb_large width, 2
+    encoder layers, bf16; FAM_BIN_WAVS + FAM_BIN_CV WAVs of 6-10 s with
+    10-30 units each, B = 4): one epoch (2 steps and a CV), then the run
+    again from its epoch_0.npz with the optimizer state (2 more steps);
+    K1 = K4 = 2 and K5 = K6 = 11 a step, K1 2 and K5 11 a CV batch."""
+    import gc
+    import torch
+    from reverb_tpu_torch.bin import train as train_bin
+    from reverb_tpu_torch.train import trainer
+    rng = np.random.RandomState(seed)
+    write_units(workdir / 'units.txt')
+    units = [line.split()[0] for line in (workdir / 'units.txt').read_text(
+        encoding='utf8').splitlines()[2:-1]]
+    lists = {'train': [], 'cv': []}
+    for i in range(FAM_BIN_WAVS + FAM_BIN_CV):
+        part = 'train' if i < FAM_BIN_WAVS else 'cv'
+        wav = workdir / f'fam{i:02d}.wav'
+        write_wav(wav, int(rng.uniform(6.0, 10.0) * 16000), seed + 300 + i)
+        lists[part].append(json.dumps({
+            'key': f'job{i:02d}_fam{i:02d}', 'wav': str(wav),
+            'txt': ' '.join(rng.choice(units, rng.randint(10, 31))),
+            'style': 'verbatim'}))
+    for part, lines in lists.items():
+        (workdir / f'fam_{part}.list').write_text('\n'.join(lines) + '\n')
+    configs = transducer_configs()
+    configs['encoder_conf'] = dict(configs['encoder_conf'], num_blocks=2)
+    configs['decoder_conf'] = dict(configs['decoder_conf'], num_blocks=1,
+                                   r_num_blocks=1)
+    configs.update({'dtype': 'bf16', 'tokenizer': 'char',
+                    'tokenizer_conf': {
+                        'symbol_table_path': str(workdir / 'units.txt'),
+                        'split_with_space': True}})
+    configs['dataset_conf'].update({
+        'fbank_conf': {'num_mel_bins': 80, 'frame_length': 25,
+                       'frame_shift': 10, 'dither': 0.1},
+        'spec_aug': True, 'shuffle': True, 'sort': True,
+        'batch_conf': {'batch_type': 'static', 'batch_size': 4}})
+    cfg_path = workdir / 'fam_transducer.yaml'
+    cfg_path.write_text(json.dumps(configs))
+    model_dir = workdir / 'fam_exp'
+    n_eval = [0]
+
+    def counted_eval(orig):
+        def make(cfg, **kw):
+            fn = orig(cfg, **kw)
+
+            def eval_step(m, batch, generator=None):
+                n_eval[0] += 1
+                return fn(m, batch, generator)
+            return eval_step
+        return make
+    runs = []
+    for ckpt in (None, model_dir / 'epoch_0.npz'):
+        n_eval[0] = 0
+        diar_zero_launch_counts()
+        t0 = time.perf_counter()
+        with swapped({(trainer, 'make_eval_step'):
+                      counted_eval(trainer.make_eval_step)}):
+            ex = train_bin.main(
+                ['--config', str(cfg_path), '--train_data',
+                 str(workdir / 'fam_train.list'), '--cv_data',
+                 str(workdir / 'fam_cv.list'), '--model_dir',
+                 str(model_dir), '--max_epoch', '1', '--log_interval', '1',
+                 '--seed', str(seed), '--device', 'cuda']
+                + (['--checkpoint', str(ckpt)] if ckpt else []))
+        wall = time.perf_counter() - t0
+        runs.append({'step': ex.step, 'cv_batches': n_eval[0],
+                     'launches': diar_launch_counts(), 'wall_s': wall})
+        del ex
+        gc.collect()
+        torch.cuda.empty_cache()
+    info = json.loads((model_dir / 'epoch_0.yaml').read_text())
+    for i, r in enumerate(runs):
+        steps = r['step'] - (runs[0]['step'] if i else 0)
+        n_cv = r['cv_batches']
+        expect_launches(r['launches'], {
+            'K1': 2 * (steps + n_cv), 'K2': 0, 'K3': 0, 'K4': 2 * steps,
+            'K5': 11 * (steps + n_cv), 'K6': 11 * steps},
+            f'transducer bin.train run {i} ({steps} steps, {n_cv} CV '
+            f'batches, {r["wall_s"]:.1f} s)')
+    if not (runs[0]['step'] == 2 and runs[1]['step'] == 4
+            and info['step'] == 4 and math.isfinite(info['cv_loss'])):
+        raise AssertionError(f'transducer bin.train: runs {runs}, epoch_0 '
+                             f'{info}')
+    return {'runs': runs, 'cv_loss': info['cv_loss']}
+
+
+# ---- (c) the alternative encoders ---------------------------------------
+
+def family_alt(dev, seed) -> dict:
+    """(c) Each alternative encoder at reverb_large width (d 1024, 16
+    heads, 4096 units, FAM_LAYERS layers) with a transformer decoder and
+    the hybrid loss: `family_train` at the train phase's batches (K1/K4
+    at the rel-pos attention layers, FAM_ALT_K1)."""
+    res = {}
+    for kind, extra in FAM_ALT.items():
+        configs = presets_large()
+        configs['encoder'] = kind
+        configs['decoder'] = 'transformer'
+        configs['encoder_conf'] = dict(configs['encoder_conf'],
+                                       num_blocks=FAM_LAYERS, **extra)
+        k1 = FAM_ALT_K1[kind]
+        res[kind] = family_train(
+            dev, seed, configs, kind,
+            {'K1', 'K4', 'K5', 'K6'} if k1 else {'K5', 'K6'}, k1,
+            lambda B, s, vocab: train_batch(dev, B, s, vocab), TRAIN_B)
+    return res
+
+
+def run_families(dev, seed=SEED) -> dict:
+    """Phase families: (b) the MoE conformer, (a) the transducer, (c) the
+    alternative encoders.  Returns their results and `total`: every
+    launch the phase counted."""
+    import torch
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='reverb_families_') as tmp:
+        workdir = Path(tmp)
+        n_samples = 400 + 160 * (N_CHUNKS * CHUNK - 1)
+        wav = workdir / 'long.wav'
+        write_wav(wav, n_samples, seed)
+        audio_s = n_samples / 16000
+        res = {'moe': family_moe(dev, seed, workdir, wav, audio_s)}
+        feats = res['moe'].pop('feats')
+        walls = {'moe': time.perf_counter() - t0}
+        res['transducer'] = family_transducer(dev, seed, workdir, feats,
+                                              audio_s)
+        walls['transducer'] = time.perf_counter() - t0 - walls['moe']
+        del feats
+        torch.cuda.empty_cache()
+        res['alt'] = family_alt(dev, seed)
+        walls['alt'] = (time.perf_counter() - t0 - walls['moe']
+                        - walls['transducer'])
+    counted = [res['moe']['serve']['launches'],
+               res['transducer']['reference']['launches'],
+               res['transducer']['serve']['launches'],
+               *(r['launches'] for r in res['transducer']['bin_train'][
+                   'runs'])]
+    trains = [res['moe']['train'], res['transducer']['train'],
+              *res['alt'].values()]
+    total = {}
+    for d in counted + [t['reference']['launches'] for t in trains]:
+        for n, v in d.items():
+            total[n] = total.get(n, 0) + v
+    for t in trains:
+        for n, v in t['launches'].items():
+            total[n] = total.get(n, 0) + v * t['steps']
+    res['total'] = total
+    res['wall_s'] = time.perf_counter() - t0
+    res['walls'] = walls
+    log(f'families: {res["wall_s"]:.1f} s ('
+        + ', '.join(f'{n} {w:.1f} s' for n, w in walls.items())
+        + f'); launches {total}')
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default=','.join(ALL_PHASES),
                     help='comma list of kernels, serve, train, modes, '
                          'stream, diar, recipe, context, tools, remat, '
-                         'diartrain, int8, export, parallel (default all; '
-                         'the result lines need all fourteen), or beam: the '
-                         'K2/K3 and K2b checks alone')
+                         'diartrain, int8, export, parallel, families '
+                         '(default all; the result lines need all fifteen), '
+                         'or beam: the K2/K3 and K2b checks alone')
     ap.add_argument('--parallel-child', default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument('--profile', action='store_true',
@@ -5982,6 +6706,9 @@ def main():
     if 'parallel' in phases:
         # phase 19: the sharded training step (DDP, ZeRO-1/2, ZeRO-3, TP)
         par = run_parallel(dev, SEED)
+    if 'families' in phases:
+        # phase 20: MoE, the transducer, the alternative encoders
+        families = run_families(dev, SEED)
     spilled = [n for n, r in {**tc, **lnk, **beamk}.items() if r[1] or r[2]]
     if spilled:
         raise AssertionError(f'kernels spill registers: {spilled}')
@@ -5993,7 +6720,7 @@ def main():
     kernels = kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches,
                              len(walls), t_launch, fallback, modes, stream,
                              diar, recipe, context, tools, remat, diartrain,
-                             int8, export, par, par_serve)
+                             int8, export, par, par_serve, families)
     log(f'slice: second transcribe_modes call {walls[1]:.4f} s for '
         f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; six-mode '
         f'call {modes[2]:.3f} s; train {step_ms:.1f} ms/step at '
@@ -6042,7 +6769,12 @@ def main():
                     for n, r in par['gloo']['ranks'][0].items()
                     if n != 'total')
         + f'; data_parallel={par_serve["n"]} serving '
-        f'{par_serve["wall"]:.4f} s; on {smi}')
+        f'{par_serve["wall"]:.4f} s; families {families["wall_s"]:.1f} s: '
+        f'MoE serving {families["moe"]["serve"]["walls"][1]:.4f} s, '
+        f'transducer step {families["transducer"]["train"]["ms"]:.1f} ms, '
+        + ', '.join(f'{k} step {r["ms"]:.1f} ms'
+                    for k, r in families['alt'].items())
+        + f'; on {smi}')
     print(smi_line())
     print(json.dumps({'kernels': kernels}))
     print(json.dumps({'ok': True, 'device': {
@@ -6053,7 +6785,8 @@ def main():
 
 def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
                    t_launch, fallback, modes, stream, diar, recipe, context,
-                   tools, remat, diartrain, int8, export, par, par_serve):
+                   tools, remat, diartrain, int8, export, par, par_serve,
+                   families):
     """The {"kernels": [...]} entries: launches on the paths (in all, per
     serving call, per training step, per six-mode call, per streaming hop,
     per pool step, per diarization call of either route, and on the
@@ -6162,7 +6895,24 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
         for run, got in runs.items():
             per[n][run] = got.get(n, 0)
         per[n]['parallel_serve'] = par_serve['launches'].get(n, 0)
+    # phase families: a MoE serving call, the transducer's encoder over
+    # the 8 chunks, a bin.train run, and a step of each family's model
+    fam_runs = {
+        'families_moe_serve': families['moe']['serve']['launches'],
+        'families_transducer_encoder_8_chunks':
+            families['transducer']['serve']['launches'],
+        'families_transducer_bin_train_resumed':
+            families['transducer']['bin_train']['runs'][1]['launches'],
+        'families_moe_train_step': families['moe']['train']['launches'],
+        'families_transducer_train_step':
+            families['transducer']['train']['launches'],
+        **{f'families_{k}_train_step': r['launches']
+           for k, r in families['alt'].items()}}
+    for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6'):
+        for run, got in fam_runs.items():
+            per[n][run] = got.get(n, 0)
     other = {n: (par_total.get(n, 0) + int8['launches'].get(n, 0)
+                 + families['total'].get(n, 0)
                  + (export['k5_total'] if n == 'K5' else 0)
                  + c_serve.get(n, 0) + c_tail.get(n, 0) + c_train.get(n, 0)
                  + sum(got.get(n, 0) for got, _ in t_runs.values())

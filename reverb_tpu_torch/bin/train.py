@@ -26,11 +26,20 @@ over 'data' (ZeRO-1/2, as the JAX package always splits them) and, with
 `--zero3`, the large parameters too (parallel/sharding.py).  Each rank
 reads its data coordinate's partition of the training list and the whole
 CV list; rank 0 logs and writes the checkpoints, gathered to the
-single-process layout.  `--num_devices_seq` / `--num_devices_pipe` above 1
-and `--pipeline_microbatches` (ROADMAP item 14b), `--num_devices_expert`
-above 1 (the MoE feed-forward, item 15), `--prng_impl` other than auto,
-the registry's model families and teacher-student `ts_conf` (ROADMAP item
-15) raise NotImplementedError.
+single-process layout.
+
+A config of another family than the conformer asr_model — `model:
+transducer | bitransducer`, or an asr_model with `encoder: branchformer |
+e_branchformer | squeezeformer | efficient_conformer` — is built by
+`models/registry.py:init_model` and trained through its bundle's loss
+(one process: the parallel forms cover the conformer only).  The MoE
+feed-forward (`encoder_conf.positionwise_layer_type: moe`) is a conformer
+option and trains as any conformer.
+
+`--num_devices_seq` / `--num_devices_pipe` / `--num_devices_expert` above
+1 and `--pipeline_microbatches` (ROADMAP item 14b), `--prng_impl` other
+than auto, the registry's unported families and teacher-student
+`ts_conf` (ROADMAP item 15) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -58,7 +67,7 @@ def get_args(argv=None):
     p.add_argument('--num_devices_seq', type=int, default=1,
                    help='sequence-parallel size (only 1: ROADMAP item 14b)')
     p.add_argument('--num_devices_expert', type=int, default=1,
-                   help='expert-parallel size (only 1: ROADMAP item 15)')
+                   help='expert-parallel size (only 1: ROADMAP item 14b)')
     p.add_argument('--num_devices_pipe', type=int, default=1,
                    help='pipeline stages (only 1: ROADMAP item 14b)')
     p.add_argument('--pipeline_microbatches', type=int, default=None,
@@ -97,19 +106,16 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
-ALT_ENCODERS = ('branchformer', 'e_branchformer', 'squeezeformer',
-                'efficient_conformer')
-
-
 def check_supported(args, configs):
-    """Raise NotImplementedError for what the port does not train."""
-    for flag, item in (('num_devices_seq', '14b'), ('num_devices_pipe',
-                                                    '14b'),
-                       ('num_devices_expert', '15')):
+    """Raise NotImplementedError for what the port does not train (and
+    ValueError for an unknown model family)."""
+    from reverb_tpu_torch.models.registry import model_kind
+    for flag in ('num_devices_seq', 'num_devices_pipe',
+                 'num_devices_expert'):
         if getattr(args, flag) > 1:
             raise NotImplementedError(
                 f'--{flag} {getattr(args, flag)}: that mesh axis is not '
-                f'ported (ROADMAP item {item})')
+                f'ported (ROADMAP item 14b)')
     if args.pipeline_microbatches:
         raise NotImplementedError(
             '--pipeline_microbatches: pipelined training is not ported '
@@ -118,12 +124,12 @@ def check_supported(args, configs):
         raise NotImplementedError(
             f"--prng_impl {args.prng_impl}: the JAX package's PRNG choice; "
             f"the port's dropout draws from torch's generator")
-    if configs.get('model', 'asr_model') != 'asr_model' or \
-            configs.get('encoder') in ALT_ENCODERS:
+    kind = model_kind(configs)
+    world = max(args.num_processes, int(os.environ.get('WORLD_SIZE', '1')))
+    if kind != 'asr_model' and world > 1:
         raise NotImplementedError(
-            f"model {configs.get('model')!r} / encoder "
-            f"{configs.get('encoder')!r}: the registry's model families are "
-            f'not ported (ROADMAP item 15)')
+            f'model {kind!r} over {world} processes: the parallel forms '
+            f'cover the conformer asr_model only (ROADMAP item 15)')
     if configs.get('ts_conf'):
         raise NotImplementedError(
             'ts_conf: teacher-student distillation is not ported (ROADMAP '
@@ -144,6 +150,7 @@ def main(argv=None):
     from reverb_tpu_torch.frontend.cmvn import load_cmvn_from_configs
     from reverb_tpu_torch.frontend.device_feats import frontend_from_configs
     from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
+    from reverb_tpu_torch.models.registry import init_model, model_kind
     from reverb_tpu_torch.parallel.mesh import (axis_rank, axis_size,
                                                 dropout_generator,
                                                 init_distributed, make_mesh)
@@ -206,23 +213,41 @@ def main(argv=None):
         return Dataset(args.data_type, args.cv_data, tokenizer, cv_conf,
                        partition=False)
 
-    cfg = ModelConfig.from_config(configs)
     tc = TrainConfig.from_config(configs)
-    if args.checkpoint:
+    kind = model_kind(configs)
+    loss_fn = None
+    if kind != 'asr_model':
+        # a registry family: its bundle's model and loss; the
+        # checkpoint's parameters (CMVN stats or their absence included)
+        # replace the initial ones
+        bundle = init_model(
+            configs, torch.Generator(device=dev).manual_seed(args.seed), dev,
+            state_dict=(state_dict_from_jax(load_flat_checkpoint(
+                args.checkpoint)) if args.checkpoint else None))
+        model, loss_fn = bundle.model, bundle.loss_fn
+        if args.enc_init:
+            load_trained_modules(model, args.enc_init,
+                                 args.enc_init_mods.split(','))
+        logging.info('training registry model %r', bundle.kind)
+    elif args.checkpoint:
         # the checkpoint's parameters replace the initial ones, its CMVN
         # stats (or their absence) included, as in the JAX package
-        model = build_model(cfg, dev, state_dict_from_jax(
-            load_flat_checkpoint(args.checkpoint)), train=True)
+        model = build_model(
+            ModelConfig.from_config(configs), dev,
+            state_dict_from_jax(load_flat_checkpoint(args.checkpoint)),
+            train=True)
     else:
         # GlobalCMVN stats live IN the parameters from construction
         # (init_model.py:102-104), so a trained checkpoint normalizes with
         # the stats the serving CLI applies
-        model = build_model(cfg, dev, generator=torch.Generator(
-            device=dev).manual_seed(args.seed), train=True,
-            cmvn=load_cmvn_from_configs(configs))
+        model = build_model(
+            ModelConfig.from_config(configs), dev,
+            generator=torch.Generator(device=dev).manual_seed(args.seed),
+            train=True, cmvn=load_cmvn_from_configs(configs))
         if args.enc_init:
             load_trained_modules(model, args.enc_init,
                                  args.enc_init_mods.split(','))
+    cfg = model.cfg
     optimizer, schedule = build_optimizer(tc, model)
 
     start_epoch, start_step = 0, 0
@@ -233,7 +258,7 @@ def main(argv=None):
         logging.info('resumed from %s at epoch %d step %d', args.checkpoint,
                      start_epoch, start_step)
 
-    if mesh is not None:
+    if mesh is not None and loss_fn is None:
         # every rank holds the whole state here (one seed, one
         # checkpoint): split it over the mesh
         sharding = Sharding(mesh, zero=True, zero3=args.zero3).apply(
@@ -244,8 +269,8 @@ def main(argv=None):
     frontend = frontend_from_configs(configs)
     train_step = make_train_step(cfg, optimizer, tc.accum_grad,
                                  grad_clip=tc.grad_clip, frontend=frontend,
-                                 sharding=sharding)
-    eval_step = make_eval_step(cfg, frontend=frontend)
+                                 sharding=sharding, loss_fn=loss_fn)
+    eval_step = make_eval_step(cfg, frontend=frontend, loss_fn=loss_fn)
 
     # experiment tracking (wandb/tensorboard/jsonl; train_utils.py:495-533)
     tracker = None

@@ -12,6 +12,13 @@ and back (`flat_from_state_dict`), so a checkpoint the port writes loads
 into the JAX tree (`nest_state_dict`) and the other way round.  Every leaf
 crosses, the batch-norm running statistics and the CMVN stats included:
 both packages keep them as leaves of the trainable tree.
+
+A transducer's rnn predictor is the JAX tree's list of LSTM layers
+`predictor.rnn.{k}.{w_ih,w_hh,b}` (and `predictor_r`), and `nn.LSTM`'s
+`predictor.rnn.{weight_ih,weight_hh,bias_ih}_l{k}` in the port, whose
+second bias `bias_hh_l{k}` has no JAX leaf: it comes in as zeros and goes
+out summed into `b` (`lstm_second_bias` names it; the trainer keeps it
+frozen at zero).
 """
 
 from __future__ import annotations
@@ -28,11 +35,28 @@ _CONV_MODULE = re.compile(
     r'^(encoder\.encoders\.\d+\.)'
     r'(pointwise_conv1|depthwise_conv|pointwise_conv2|norm)\.')
 _PORT_CONV = re.compile(r'^(encoder\.encoders\.\d+\.)conv_module\.')
+_JAX_LSTM = re.compile(r'^(predictor(?:_r)?\.rnn)\.(\d+)\.(w_ih|w_hh|b)$')
+_PORT_LSTM = re.compile(
+    r'^(predictor(?:_r)?\.rnn)\.(weight_ih|weight_hh|bias_ih|bias_hh)_l(\d+)$')
+_TO_PORT_LSTM = {'w_ih': 'weight_ih', 'w_hh': 'weight_hh', 'b': 'bias_ih'}
+_TO_JAX_LSTM = {'weight_ih': 'w_ih', 'weight_hh': 'w_hh', 'bias_ih': 'b',
+                'bias_hh': 'b'}
+
+
+def lstm_second_bias(name: str) -> bool:
+    """Whether a port parameter is a predictor LSTM's `bias_hh`, which has
+    no JAX leaf."""
+    m = _PORT_LSTM.match(name)
+    return bool(m) and m.group(2) == 'bias_hh'
 
 
 def tree_key(name: str) -> str:
     """The JAX tree's flat key of a port parameter name (the conv-module
-    parameters sit flat in the layer there)."""
+    parameters sit flat in the layer there; a predictor LSTM's weights are
+    the JAX layer list's, both biases its `b`)."""
+    m = _PORT_LSTM.match(name)
+    if m:
+        return f'{m.group(1)}.{m.group(3)}.{_TO_JAX_LSTM[m.group(2)]}'
     return _PORT_CONV.sub(r'\1', name)
 
 
@@ -49,6 +73,12 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
         arr = np.asarray(val)
         if arr.dtype.kind == 'f' or arr.dtype.name == 'bfloat16':
             arr = arr.astype(np.float32)
+        m = _JAX_LSTM.match(key)
+        if m:
+            key = f'{m.group(1)}.{_TO_PORT_LSTM[m.group(3)]}_l{m.group(2)}'
+            if m.group(3) == 'b':
+                out[f'{m.group(1)}.bias_hh_l{m.group(2)}'] = torch.zeros(
+                    arr.shape)
         out[key] = torch.from_numpy(np.array(arr, copy=True))
     return out
 
@@ -58,9 +88,13 @@ def flat_from_state_dict(state_dict) -> Dict[str, np.ndarray]:
     `state_dict_from_jax` (feeds reverb_tpu's nest_state_dict): floating
     values as float32, the int8 weights of a quantized model
     (`weight_q8`) as int8."""
-    return {tree_key(k): (v.detach().to('cpu', torch.float32)
-                          if v.is_floating_point() else v.detach().cpu())
-            .numpy() for k, v in state_dict.items()}
+    out = {}
+    for k, v in state_dict.items():
+        arr = (v.detach().to('cpu', torch.float32) if v.is_floating_point()
+               else v.detach().cpu()).numpy()
+        key = tree_key(k)
+        out[key] = out[key] + arr if key in out else arr
+    return out
 
 
 def load_torch_state_dict(path: str) -> Dict[str, np.ndarray]:

@@ -39,21 +39,13 @@ from reverb_tpu_torch.utils.common import (IGNORE_ID, add_sos_eos,
 # handled by `_check_jax_only_keys`: refused where the port would build
 # another model, and accepted where it only tunes a refused feature.  Any
 # other unknown key is dropped, as the JAX package drops it.
-_JAX_ONLY_ENCODER_KEYS = ('positionwise_layer_type', 'n_expert',
-                          'n_expert_per_token', 'pipeline_stages',
-                          'pipeline_microbatches')
+_JAX_ONLY_ENCODER_KEYS = ('pipeline_stages', 'pipeline_microbatches')
 _JAX_ONLY_DECODER_KEYS = ('tie_word_embedding',)
 
 
 def _check_jax_only_keys(enc_conf: Dict):
-    """Raise for the encoder options the port cannot build: a MoE
-    feed-forward (ROADMAP item 15) or a GPipe pipeline (item 14b)."""
-    if (enc_conf.get('positionwise_layer_type',
-                     'position_wise_feed_forward') == 'moe'
-            or (enc_conf.get('n_expert') or 0) > 0):
-        raise NotImplementedError(
-            'encoder_conf positionwise_layer_type: moe / n_expert (a MoE '
-            'feed-forward) is not ported: ROADMAP item 15')
+    """Raise for the encoder option the port cannot build: a GPipe
+    pipeline (ROADMAP item 14b)."""
     if (enc_conf.get('pipeline_stages') or 0) > 1:
         raise NotImplementedError(
             f"encoder_conf pipeline_stages: {enc_conf['pipeline_stages']} "

@@ -139,10 +139,13 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
             self.pos_bias_v.uniform_(-a, a, generator=g)
 
     def forward(self, x, kv_lens, pos_emb, rate: float = 0.0,
-                generator=None):
+                generator=None, q_valid=None):
         """Self-attention over x (B, T, D) with the first kv_lens[b] keys of
         row b valid; pos_emb (1, T, D); attention dropout at `rate` when a
-        generator is given."""
+        generator is given.  With `q_valid` (B, T) bool the rows of padded
+        queries get a zero context, which is what a (B, T, T) mask
+        `valid ∧ validᵀ` gives them on the masked route (all keys masked,
+        every probability zeroed)."""
         q = _split_heads(self.linear_q(x), self.h)
         k = _split_heads(self.linear_k(x), self.h)
         v = _split_heads(self.linear_v(x), self.h)
@@ -154,6 +157,8 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
                              x.device, self.tp_split).to(torch.int8)
         ctx = fa.rel_pos_attention(q, k, v, pos, self.pos_bias_u,
                                    self.pos_bias_v, kv_lens, mask, rate)
+        if q_valid is not None:
+            ctx = ctx * q_valid[:, None, :, None].to(ctx.dtype)
         return self.linear_out(_merge_heads(ctx))
 
     def forward_masked(self, x, mask, pos_emb, cache=None, rate: float = 0.0,

@@ -1,7 +1,8 @@
 """(Bi)Transformer decoder with Language-Specific Layers.
 
 Counterpart of reverb_tpu/models/decoder.py (`DecoderConfig`,
-`decoder_layer` with `mem_kv`/`mem_group`, `decoder_forward`,
+`decoder_layer` with `mem_kv`/`mem_group`, `decoder_forward` of the
+'bitransformer' and of the unidirectional 'transformer' decoder_type,
 `decoder_forward_one_step`).  An LSL decoder layer uses LayerNorm eps
 1e-12, mixes the FFN input by `cat_embs`, and has no trailing `+ y`.  The
 forward is the batched teacher-forced pass: each consecutive group of
@@ -251,14 +252,34 @@ class BiTransformerDecoder(nn.Module):
         return l_x, r_x
 
 
+class UniTransformerDecoder(TransformerDecoder):
+    """decoder_type 'transformer': one left-to-right stack whose
+    parameters sit at the top of the decoder (`decoder.embed.0`,
+    `decoder.decoders.{i}`, ...), the bitransformer's left half; its
+    forward takes the bitransformer's arguments and returns (l_x, None)."""
+
+    def __init__(self, cfg: DecoderConfig):
+        super().__init__(cfg, cfg.num_blocks)
+
+    def forward(self, memory, memory_mask, ys_in, ys_lens, r_ys_in=None,
+                reverse_weight: float = 0.0, cat_embs=None,
+                mem_group: int = 1, generator=None):
+        return super().forward(ys_in, ys_lens, None, memory_mask, mem_group,
+                               cat_embs, generator, memory), None
+
+
 def build_decoder(cfg: DecoderConfig) -> nn.Module:
     check_remat_policy(cfg.remat_policy)
-    ported = {'decoder_type': 'bitransformer', 'input_layer': 'embed',
-              'use_output_layer': True, 'normalize_before': True,
-              'src_attention': True}
+    ported = {'input_layer': 'embed', 'use_output_layer': True,
+              'normalize_before': True, 'src_attention': True}
     for name, want in ported.items():
         if getattr(cfg, name) != want:
             raise NotImplementedError(
                 f'decoder {name}={getattr(cfg, name)!r} is not ported '
                 f'(only {want!r})')
+    if cfg.decoder_type == 'transformer':
+        return UniTransformerDecoder(cfg)
+    if cfg.decoder_type != 'bitransformer':
+        raise NotImplementedError(
+            f'decoder decoder_type={cfg.decoder_type!r} is not ported')
     return BiTransformerDecoder(cfg)

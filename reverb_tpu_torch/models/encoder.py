@@ -48,6 +48,7 @@ from reverb_tpu_torch.models.modules import (ACTIVATIONS, BatchNorm, Conv1d,
                                              Conv2d, LayerNorm, Linear,
                                              check_remat_policy,
                                              checkpoint_layer, dropout, glu)
+from reverb_tpu_torch.ops.topk import topk_lastdim
 from reverb_tpu_torch.utils.common import add_optional_chunk_mask
 
 # right context + 1 of each subsampling rate: the raw frames of a
@@ -86,6 +87,11 @@ class EncoderConfig:
     # 'dots_no_ln'
     gradient_checkpointing: bool = False
     remat_policy: str = 'dots'
+    # MoE feed-forward (positionwise_layer_type 'moe'): token-choice top-k
+    # over n_expert experts (`MoEFeedForward`)
+    positionwise_layer_type: str = 'position_wise_feed_forward'
+    n_expert: int = 8
+    n_expert_per_token: int = 3
 
     @property
     def head_dim(self):
@@ -171,6 +177,58 @@ class FeedForward(nn.Module):
                                 self.tp_split))
 
 
+class MoEFeedForward(nn.Module):
+    """Token-choice top-k mixture of experts (reverb_tpu/models/encoder.py:
+    moe_feed_forward): a gate linear without bias gives each token's
+    router logits over the experts, the top k (ties to the lower index,
+    ops/topk.py) are softmaxed in f32 and cast to the activation dtype,
+    and the output is the dense weighted sum of every expert's FFN over
+    all tokens, the experts not chosen for a token weighing 0 — the JAX
+    package's arithmetic.  The experts are `FeedForward`s under WeNet's
+    names (`experts.{e}.w_1`, `experts.{e}.w_2`); each runs as two plain
+    products.  (JAX's einsums over the stacked f32 expert weights promote
+    a bf16 activation to f32; here the weights take the activation's
+    dtype, as every other layer's do.)"""
+
+    def __init__(self, d: int, hidden: int, activation: str, rate: float,
+                 n_expert: int, n_expert_per_token: int):
+        super().__init__()
+        self.k = min(n_expert_per_token, n_expert)
+        self.gate = Linear(d, n_expert, bias=False)
+        self.experts = nn.ModuleList(
+            FeedForward(d, hidden, activation, rate)
+            for _ in range(n_expert))
+
+    def route(self, xs):
+        """xs (N, D) → (weights (N, k) in xs.dtype, expert indices
+        (N, k))."""
+        logits, idx = topk_lastdim(self.gate(xs), self.k)
+        return torch.softmax(logits.to(torch.float32), -1).to(xs.dtype), idx
+
+    def forward(self, x, generator=None):
+        B, L, D = x.shape
+        xs = x.reshape(-1, D)
+        w, idx = self.route(xs)
+        we = torch.zeros((xs.shape[0], len(self.experts)), dtype=w.dtype,
+                         device=w.device).scatter(1, idx, w)     # (N, E)
+        out = None
+        for e, expert in enumerate(self.experts):
+            y = we[:, e, None] * expert(xs, generator)
+            out = y if out is None else out + y
+        return out.reshape(B, L, D)
+
+
+def feed_forward_module(cfg: EncoderConfig) -> nn.Module:
+    """The encoder layers' FFN: `MoEFeedForward` when
+    positionwise_layer_type is 'moe', else `FeedForward`."""
+    if cfg.positionwise_layer_type == 'moe':
+        return MoEFeedForward(cfg.output_size, cfg.linear_units,
+                              cfg.activation_type, cfg.dropout_rate,
+                              cfg.n_expert, cfg.n_expert_per_token)
+    return FeedForward(cfg.output_size, cfg.linear_units,
+                       cfg.activation_type, cfg.dropout_rate)
+
+
 class ConvolutionModule(nn.Module):
     """pw(2C) → GLU → depthwise(k) → norm → swish → pw, in (B,T,C).  The
     norm is BatchNorm from running statistics or, with
@@ -233,13 +291,11 @@ class ConformerEncoderLayer(nn.Module):
         self.att_rate = cfg.attention_dropout_rate
         self.self_attn = RelPositionMultiHeadedAttention(
             cfg.attention_heads, d, cfg.key_bias)
-        self.feed_forward = FeedForward(d, cfg.linear_units,
-                                        cfg.activation_type, cfg.dropout_rate)
+        self.feed_forward = feed_forward_module(cfg)
         self.norm_ff = LayerNorm(d)
         self.norm_mha = LayerNorm(d)
         if cfg.macaron_style:
-            self.feed_forward_macaron = FeedForward(
-                d, cfg.linear_units, cfg.activation_type, cfg.dropout_rate)
+            self.feed_forward_macaron = feed_forward_module(cfg)
             self.norm_ff_macaron = LayerNorm(d)
         self.conv_module = None
         if cfg.use_cnn_module:

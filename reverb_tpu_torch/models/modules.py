@@ -246,11 +246,11 @@ class Conv1d(nn.Module):
         b = None if self.bias is None else self.bias.to(x.dtype)
         return F.linear(x, self.weight[:, :, 0].to(x.dtype), b)
 
-    def depthwise(self, x, padding: int):
+    def depthwise(self, x, padding: int, stride: int = 1):
         """Depthwise conv over time of x (B, T, C) → (B, T', C)."""
         b = None if self.bias is None else self.bias.to(x.dtype)
         y = F.conv1d(x.transpose(1, 2), self.weight.to(x.dtype), b,
-                     padding=padding, groups=self.groups)
+                     stride=stride, padding=padding, groups=self.groups)
         return y.transpose(1, 2)
 
 

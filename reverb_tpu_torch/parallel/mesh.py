@@ -7,7 +7,7 @@ devices: ('pipe', 'data', 'seq', 'expert', 'model'), rank r where JAX's
 device r stands (row-major), as a `torch.distributed.device_mesh.
 DeviceMesh`.  The port trains over 'data' (data parallelism, ZeRO) and
 'model' (tensor parallelism); 'seq' and 'pipe' are ROADMAP item 14b and
-'expert' waits for the MoE feed-forward of item 15.
+'expert' (the MoE feed-forward's experts over ranks) is item 14b too.
 
 `TP_RULES` and `param_pspec` are the JAX package's table over the JAX
 tree's dotted paths (`convert.tree_key` of a parameter's name), with one
@@ -34,7 +34,7 @@ import torch.distributed as dist
 AXES = ('pipe', 'data', 'seq', 'expert', 'model')
 # the axes the port does not split yet, and where they are queued
 UNPORTED_AXES = {'seq': 'ROADMAP item 14b', 'pipe': 'ROADMAP item 14b',
-                 'expert': "ROADMAP item 15 (the MoE feed-forward first)"}
+                 'expert': 'ROADMAP item 14b'}
 
 
 def init_distributed(coordinator: Optional[str] = None,

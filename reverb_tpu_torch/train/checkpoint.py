@@ -100,16 +100,18 @@ def load_optax_state(path, optimizer):
     with np.load(path, allow_pickle=False) as data:
         leaves = [data[f'leaf_{i}'] for i in range(len(data.files))]
     names = optimizer.names
-    keys = [convert.tree_key(n) for n in names]
-    order = sorted(range(len(names)), key=lambda i: _tree_order_key(keys[i]))
-    n = len(names)
+    # a predictor LSTM's second bias has no leaf (convert.py)
+    leafy = sorted(((convert.tree_key(nm), nm) for nm in names
+                    if not convert.lstm_second_bias(nm)),
+                   key=lambda kn: _tree_order_key(kn[0]))
+    n = len(leafy)
     if len(leaves) != 2 * n + 2:
         raise ValueError(
             f'{path}: {len(leaves)} optax leaves, expected {2 * n + 2} '
             f'(count, {n} mu, {n} nu, the schedule count) for the '
             f'{type(optimizer).__name__} of this model')
-    mu = {names[i]: leaves[1 + j] for j, i in enumerate(order)}
-    nu = {names[i]: leaves[1 + n + j] for j, i in enumerate(order)}
+    mu = {nm: leaves[1 + j] for j, (_, nm) in enumerate(leafy)}
+    nu = {nm: leaves[1 + n + j] for j, (_, nm) in enumerate(leafy)}
     state = {'count': int(leaves[0]), 'mu': {}, 'nu': {}}
     for i, m, v in zip(optimizer.train_idx, optimizer.mu, optimizer.nu):
         name = names[i]

@@ -28,7 +28,7 @@ from typing import Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from reverb_tpu_torch.convert import tree_key
+from reverb_tpu_torch.convert import lstm_second_bias, tree_key
 from reverb_tpu_torch.frontend.device_feats import (FrontendSpec,
                                                     apply_frontend)
 from reverb_tpu_torch.models.asr_model import ModelConfig, compute_loss
@@ -65,7 +65,8 @@ def trainable_mask(model: torch.nn.Module, tc: TrainConfig) -> Dict[str, bool]:
     parameter (the conv-module keys without `.conv_module.`): global_cmvn
     never trains, then `freeze_modules` prefixes, then the
     `restrict_learning` include/exclude regexes in order, first match
-    wins; the default is trainable."""
+    wins; the default is trainable.  A predictor LSTM's second bias
+    (`convert.lstm_second_bias`, no JAX leaf) never trains."""
     rules = []
     for item in (tc.restrict_learning or []):
         if 'include' in item:
@@ -83,7 +84,7 @@ def trainable_mask(model: torch.nn.Module, tc: TrainConfig) -> Dict[str, bool]:
                 return keep
         return True
 
-    return {name: decide(tree_key(name))
+    return {name: not lstm_second_bias(name) and decide(tree_key(name))
             for name, _ in model.named_parameters()}
 
 
@@ -339,10 +340,17 @@ def _global_norms(batch: Dict, accum: int, sharding) -> List[Dict]:
     return out
 
 
+def _detached(v):
+    """A loss term for the metric sums: None as 0, tensors detached."""
+    if v is None:
+        return 0.0
+    return v.detach() if torch.is_tensor(v) else float(v)
+
+
 def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
                     accum_grad: int = 1, grad_clip: float = 0.0,
                     frontend: Optional[FrontendSpec] = None,
-                    sharding=None):
+                    sharding=None, loss_fn: Optional[Callable] = None):
     """Returns train_step(model, batch, generator=None) → metrics {loss,
     loss_att, loss_ctc, th_accuracy, grad_norm, skipped} as floats, for a
     model of config `cfg` whose parameters `optimizer` updates.
@@ -356,6 +364,11 @@ def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
     from its `pcm` first, dithered and SpecAugmented from the generator
     (frontend/device_feats.py:apply_frontend).
 
+    `loss_fn(model, batch, generator)` → metrics with 'loss' replaces the
+    hybrid CTC/attention `compute_loss` (a registry family's bundle loss,
+    models/registry.py), as the JAX package's make_train_step takes one;
+    `cfg` is then the model's own `cfg`.
+
     With a `sharding` (parallel/sharding.py, applied to the model and the
     optimizer) the step is one rank's part of the JAX package's step over
     its mesh: the batch is this rank's rows, each micro-batch's losses are
@@ -365,6 +378,11 @@ def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
     are the global means, the same on every rank.  `generator` is this
     rank's own (seeded by its data coordinate: ranks of one 'model' group
     draw the same masks, as their activations are one)."""
+
+    if loss_fn is not None and sharding is not None:
+        raise NotImplementedError(
+            'a registry family under a sharding: the parallel forms cover '
+            'the conformer asr_model only (ROADMAP item 15)')
 
     def train_step(model, batch, generator=None) -> Dict[str, float]:
         if model.cfg != cfg:
@@ -380,11 +398,11 @@ def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
         for micro, norm in zip(_micro_batches(batch, accum_grad), norms):
             if frontend is not None:
                 micro = apply_frontend(micro, frontend, generator)
-            out = compute_loss(model, micro, generator, norm=norm)
+            out = (compute_loss(model, micro, generator, norm=norm)
+                   if loss_fn is None else loss_fn(model, micro, generator))
             out['loss'].backward()
             for k, v in out.items():
-                sums[k] = sums.get(k, 0.0) + (0.0 if v is None
-                                              else v.detach())
+                sums[k] = sums.get(k, 0.0) + _detached(v)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         if sharding is not None:
@@ -416,7 +434,8 @@ def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
 
 
 def make_eval_step(cfg: ModelConfig,
-                   frontend: Optional[FrontendSpec] = None):
+                   frontend: Optional[FrontendSpec] = None,
+                   loss_fn: Optional[Callable] = None):
     """Returns eval_step(model, batch, generator=None) → {loss, loss_att,
     loss_ctc, th_accuracy} as floats (0.0 where a weight switches a term
     off): the loss with no dropout, under torch.no_grad()
@@ -424,7 +443,8 @@ def make_eval_step(cfg: ModelConfig,
     model draws its chunk from `generator`, as WeNet's
     add_optional_chunk_mask draws it in evaluation too (the JAX package
     has no rng there and raises).  With a `frontend` the features come
-    from `pcm`, with neither dither nor SpecAugment."""
+    from `pcm`, with neither dither nor SpecAugment.  `loss_fn` as in
+    `make_train_step` (called with no generator)."""
 
     def eval_step(model, batch, generator=None) -> Dict[str, float]:
         if model.cfg != cfg:
@@ -432,7 +452,8 @@ def make_eval_step(cfg: ModelConfig,
         if frontend is not None:
             batch = apply_frontend(batch, frontend, None)
         with torch.no_grad():
-            out = compute_loss(model, batch, None, chunk_generator=generator)
-        return {k: 0.0 if v is None else float(v) for k, v in out.items()}
+            out = (compute_loss(model, batch, None, chunk_generator=generator)
+                   if loss_fn is None else loss_fn(model, batch, None))
+        return {k: float(_detached(v)) for k, v in out.items()}
 
     return eval_step

@@ -78,6 +78,11 @@ def test_port_imports_no_jax_and_no_reverb_tpu():
                  'reverb_tpu_torch.utils.config',
                  'reverb_tpu_torch.utils.tracking',
                  'reverb_tpu_torch.utils.profiling',
+                 'reverb_tpu_torch.models.registry',
+                 'reverb_tpu_torch.models.transducer',
+                 'reverb_tpu_torch.models.encoders_alt',
+                 'reverb_tpu_torch.decode.transducer_search',
+                 'reverb_tpu_torch.decode.transducer_device',
                  'reverb_tpu_torch.bin.train',
                  'reverb_tpu_torch.bin.recognize',
                  'reverb_tpu_torch.bin.get_loss',

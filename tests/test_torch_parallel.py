@@ -264,7 +264,7 @@ def test_unequal_rows_raise(runs):
 
 @pytest.mark.parametrize('axis,item', [('seq', 'item 14b'),
                                        ('pipe', 'item 14b'),
-                                       ('expert', 'item 15')])
+                                       ('expert', 'item 14b')])
 def test_unported_axes_raise(axis, item):
     from reverb_tpu_torch.parallel.mesh import make_mesh
     with pytest.raises(NotImplementedError, match=item):
@@ -356,7 +356,7 @@ def test_bin_train_two_processes_match_one(tmp_path, launch):
 
 
 @pytest.mark.parametrize('extra,error,match', [
-    (['--num_devices_expert', '2'], NotImplementedError, 'item 15'),
+    (['--num_devices_expert', '2'], NotImplementedError, 'item 14b'),
     (['--num_devices_model', '2'], ValueError, 'several processes'),
     (['--zero3'], ValueError, 'several processes')])
 def test_bin_train_refuses_what_one_process_cannot_split(tmp_path, extra,
