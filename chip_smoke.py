@@ -24,6 +24,9 @@
     python3 chip_smoke.py --phases families     # MoE, the transducer, the
                                                 #   alternative encoders
 
+    python3 chip_smoke.py --phases paraformer   # the Paraformer family,
+                                                #   the transformer encoder
+
     python3 chip_smoke.py --profile             # + one profiled train step
 
     python3 chip_smoke.py --ab-parent DIR       # + K1-K6 of the checkout
@@ -233,6 +236,27 @@ seeded random weights at reverb_large width:
   with the hybrid loss: each an f32 reference step and a timed bf16 step
   at B = 8 (K1 = K4 = 6, 6, 0 and 2 a step: the rel-pos attention layers).
 
+then the Paraformer family and the transformer encoder, with seeded random
+weights:
+
+- paraformer: the SANM Paraformer at SanmConfig()'s widths (LFR 7/6 →
+  560 → 512, 4 heads, 2048 units, 50 + 16 blocks, V 8404, the V3 CIF
+  predictor with its tp branch at upsample 3; f32; its CIF output bias set
+  so that α averages 0.25 a frame) written as a model directory
+  (config.yaml, 8404 units, final.pt); `cli/transcribe.main([wav, '-m',
+  dir, '--paraformer', '-t'])` on a 60 s WAV, a first call with every K5
+  call held to its plain version and a timed second call (the CLI's wall,
+  transcribe() alone, its encoder, CIF loop and decoder), K5 167 a call;
+  the same call through the plain versions: text, tokens and times equal,
+  confidences within 1e-5.  Its f32 reference step at full depth (B = 2;
+  every K5/K6 call against its plain version, the gradient against f64)
+  and `bin.train.main` in bf16 at B = 8 of 1600-2051 frames (K5 234 and
+  K6 167 a step: the sampler's frozen decoder pass adds 67 K5); then the
+  conformer-encoder Paraformer and a transformer-encoder asr_model
+  (abs_pos, plain MHA) at reverb_large width and 6 layers, each an f32
+  reference step and timed bf16 steps at B = 8 (K1 = K4 = 6 and 0 a
+  step), and the transformer's serving call on the 60 s WAV.
+
 Each path runs with the launch counters set to 0 just before it and read
 just after.  Every phase raises on failure; the exit code is 0 only when
 all of them pass.
@@ -272,7 +296,7 @@ LAYERS_ENC, LN_ENC, LN_DEC = 18, 91, 29   # reverb_large: per-step counts
 TRAIN_B, TRAIN_STEPS = 8, 4
 ALL_PHASES = ('kernels', 'serve', 'train', 'modes', 'stream', 'diar',
               'recipe', 'context', 'tools', 'remat', 'diartrain', 'int8',
-              'export', 'parallel', 'families')
+              'export', 'parallel', 'families', 'paraformer')
 
 
 def log(msg):
@@ -2268,6 +2292,53 @@ def recipe_config(workdir: Path, dynamic_chunk: bool = False,
     return configs
 
 
+def timed_bin_train(rec: dict) -> dict:
+    """Module attributes to swap in around `bin.train.main`: the
+    executor's epoch with its step and its dataset iterator timed (each
+    step's wall, ending in the step's host read, into rec['step'] with its
+    audio seconds in rec['audio']; each wait on the iterator into
+    rec['wait']), and the eval steps counted into rec['eval']."""
+    from reverb_tpu_torch.train import executor as exmod
+    from reverb_tpu_torch.train import trainer
+    orig_train, orig_eval = exmod.Executor.train, trainer.make_eval_step
+
+    def train(self, model, optimizer, dataset, *a, **k):
+        step_fn = self.train_step
+
+        def timed_step(m, batch, g):
+            t0 = time.perf_counter()
+            out = step_fn(m, batch, g)           # ends in a host read
+            rec['step'].append(time.perf_counter() - t0)
+            rec['audio'].append(float(batch['feats_lengths'].sum()) / 100.0)
+            return out
+
+        def timed_iter():
+            it = iter(dataset)
+            while True:
+                t0 = time.perf_counter()
+                try:
+                    batch = next(it)
+                except StopIteration:
+                    return
+                rec['wait'].append(time.perf_counter() - t0)
+                yield batch
+        self.train_step = timed_step
+        try:
+            return orig_train(self, model, optimizer, timed_iter(), *a, **k)
+        finally:
+            self.train_step = step_fn
+
+    def make_eval_step(cfg, **kw):
+        fn = orig_eval(cfg, **kw)
+
+        def eval_step(m, batch, generator=None):
+            rec['eval'] += 1
+            return fn(m, batch, generator)
+        return eval_step
+    return {(exmod.Executor, 'train'): train,
+            (trainer, 'make_eval_step'): make_eval_step}
+
+
 def recipe_train(dev, workdir: Path, seed: int,
                  device_feats: bool = False) -> dict:
     """`bin.train.main` in-process: 1 epoch of RECIPE_STEPS steps at B = 8,
@@ -2283,53 +2354,12 @@ def recipe_train(dev, workdir: Path, seed: int,
     from reverb_tpu_torch.models import asr_model
     from reverb_tpu_torch.ops import flash_attention as fa
     from reverb_tpu_torch.ops import layer_norm as ln
-    from reverb_tpu_torch.train import executor as exmod
-    from reverb_tpu_torch.train import trainer
     tag = '_device_feats' if device_feats else ''
     cfg_path = workdir / f'recipe{tag}.yaml'
     cfg_path.write_text(json.dumps(recipe_config(
         workdir, device_feats=device_feats)))
     model_dir = workdir / f'exp{tag}'
     rec = {'wait': [], 'step': [], 'audio': [], 'eval': 0, 'ln': [0]}
-
-    def timed_train(orig):
-        def train(self, model, optimizer, dataset, *a, **k):
-            step_fn = self.train_step
-
-            def timed_step(m, batch, g):
-                t0 = time.perf_counter()
-                out = step_fn(m, batch, g)       # ends in a host read
-                rec['step'].append(time.perf_counter() - t0)
-                rec['audio'].append(float(batch['feats_lengths'].sum())
-                                    / 100.0)
-                return out
-
-            def timed_iter():
-                it = iter(dataset)
-                while True:
-                    t0 = time.perf_counter()
-                    try:
-                        batch = next(it)
-                    except StopIteration:
-                        return
-                    rec['wait'].append(time.perf_counter() - t0)
-                    yield batch
-            self.train_step = timed_step
-            try:
-                return orig(self, model, optimizer, timed_iter(), *a, **k)
-            finally:
-                self.train_step = step_fn
-        return train
-
-    def counted_eval(orig):
-        def make(cfg, **kw):
-            fn = orig(cfg, **kw)
-
-            def eval_step(m, batch, generator=None):
-                rec['eval'] += 1
-                return fn(m, batch, generator)
-            return eval_step
-        return make
 
     def counted_build(orig):
         def build(*a, **k):
@@ -2343,10 +2373,7 @@ def recipe_train(dev, workdir: Path, seed: int,
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
-    with swapped({(exmod.Executor, 'train'):
-                  timed_train(exmod.Executor.train),
-                  (trainer, 'make_eval_step'):
-                  counted_eval(trainer.make_eval_step),
+    with swapped({**timed_bin_train(rec),
                   (asr_model, 'build_model'):
                   counted_build(asr_model.build_model)}):
         ex = train_bin.main([
@@ -5931,6 +5958,9 @@ def as_f64(model):
             mod.cfg = c.with_compute_dtype(torch.float64)
         elif isinstance(c, DecoderConfig):
             mod.cfg = dc.replace(c, compute_dtype=torch.float64)
+        tc = getattr(mod, 'train_cfg', None)     # the SANM Paraformer's
+        if tc is not None:
+            mod.train_cfg = dc.replace(tc, compute_dtype=torch.float64)
     return m
 
 
@@ -6417,7 +6447,6 @@ def family_bin_train(dev, seed, workdir: Path) -> dict:
     import gc
     import torch
     from reverb_tpu_torch.bin import train as train_bin
-    from reverb_tpu_torch.train import trainer
     rng = np.random.RandomState(seed)
     write_units(workdir / 'units.txt')
     units = [line.split()[0] for line in (workdir / 'units.txt').read_text(
@@ -6449,24 +6478,12 @@ def family_bin_train(dev, seed, workdir: Path) -> dict:
     cfg_path = workdir / 'fam_transducer.yaml'
     cfg_path.write_text(json.dumps(configs))
     model_dir = workdir / 'fam_exp'
-    n_eval = [0]
-
-    def counted_eval(orig):
-        def make(cfg, **kw):
-            fn = orig(cfg, **kw)
-
-            def eval_step(m, batch, generator=None):
-                n_eval[0] += 1
-                return fn(m, batch, generator)
-            return eval_step
-        return make
     runs = []
     for ckpt in (None, model_dir / 'epoch_0.npz'):
-        n_eval[0] = 0
+        rec = {'step': [], 'wait': [], 'audio': [], 'eval': 0}
         diar_zero_launch_counts()
         t0 = time.perf_counter()
-        with swapped({(trainer, 'make_eval_step'):
-                      counted_eval(trainer.make_eval_step)}):
+        with swapped(timed_bin_train(rec)):
             ex = train_bin.main(
                 ['--config', str(cfg_path), '--train_data',
                  str(workdir / 'fam_train.list'), '--cv_data',
@@ -6475,7 +6492,7 @@ def family_bin_train(dev, seed, workdir: Path) -> dict:
                  '--seed', str(seed), '--device', 'cuda']
                 + (['--checkpoint', str(ckpt)] if ckpt else []))
         wall = time.perf_counter() - t0
-        runs.append({'step': ex.step, 'cv_batches': n_eval[0],
+        runs.append({'step': ex.step, 'cv_batches': rec['eval'],
                      'launches': diar_launch_counts(), 'wall_s': wall})
         del ex
         gc.collect()
@@ -6561,6 +6578,504 @@ def run_families(dev, seed=SEED) -> dict:
     log(f'families: {res["wall_s"]:.1f} s ('
         + ', '.join(f'{n} {w:.1f} s' for n, w in walls.items())
         + f'); launches {total}')
+    return res
+
+
+# ------------------------------ phase 21: Paraformer and the transformer --
+
+PARA_VOCAB = 8404              # SanmConfig(): Ali-Paraformer-large
+PARA_AUDIO_S = 60.0            # the serving WAV
+PARA_ALPHA = 0.25              # the CIF head's mean α a frame (~4 tokens/s)
+# K5 a forward at SanmConfig(): encoders0's norm2 (its norm1 spans the
+# 560 LFR channels: plain) + 49 × 2 + after_norm; 16 decoder layers × 4
+# (norm1-3 and the FFN's norm over 2048) + decoders3's 2 + after_norm
+PARA_LN_ENC, PARA_LN_DEC = 100, 67
+# Paraformer-large V3's predictor (cif_conf of its WeNet-converted config)
+PARA_CIF = {'l_order': 1, 'r_order': 1, 'cnn_groups': 1, 'residual': False,
+            'threshold': 1.0, 'tail_threshold': 0.45, 'smooth_factor2': 0.25,
+            'noise_threshold2': 0.01, 'upsample_times': 3}
+# a training step scales α to sum to the target length, so the last fire
+# comes with the integrator at 1.0 give or take an ulp; the f32 reference
+# checks fire at 0.999, 1e-3 clear of that, so kernels and plain versions
+# fire alike (tests/test_torch_paraformer.py does the same)
+PARA_REF_THRESHOLD = 0.999
+PARA_BIN_WAVS, PARA_BIN_CV = 24, 2       # bin.train: 3 steps of B = 8
+PARA_LAYERS = 6                # the conformer Paraformer, the transformer
+
+
+def para_configs() -> dict:
+    """The SANM Paraformer at SanmConfig()'s widths (LFR 7/6 → 560 → 512,
+    4 heads, 2048 units, 50 + 16 blocks, kernel 11, V 8404), the V3 CIF
+    predictor, the glancing sampler on, f32."""
+    return {'model': 'paraformer', 'encoder': 'sanm_encoder',
+            'input_dim': 80, 'output_dim': PARA_VOCAB,
+            'encoder_conf': {'output_size': 512, 'attention_heads': 4,
+                             'linear_units': 2048, 'num_blocks': 50,
+                             'kernel_size': 11, 'sanm_shfit': 0,
+                             'dropout_rate': 0.1},
+            'decoder_conf': {'num_blocks': 16},
+            'lfr_conf': {'lfr_m': 7, 'lfr_n': 6},
+            'cif_conf': dict(PARA_CIF),
+            'model_conf': {'ctc_weight': 0.0, 'sampler': True,
+                           'sampling_ratio': 0.75, 'lsm_weight': 0.1},
+            'optim': 'adam', 'optim_conf': {'lr': 1e-3},
+            'scheduler': 'warmuplr', 'scheduler_conf': {'warmup_steps': 25000},
+            'grad_clip': 5.0, 'accum_grad': 1}
+
+
+def write_para_units(path: Path) -> list:
+    """An 8404-entry units.txt: 4 specials, 8000 CJK characters, 200
+    '@@' pieces and 200 word ends; returns the units."""
+    units = (['<blank>', '<s>', '</s>', '<unk>']
+             + [chr(0x4e00 + i) for i in range(8000)]
+             + [f'x{i}@@' for i in range(200)] + [f'x{i}' for i in range(200)])
+    path.write_text(''.join(f'{u} {i}\n' for i, u in enumerate(units)),
+                    encoding='utf8')
+    return units
+
+
+def set_cif_rate(model, feats, lens, alpha) -> float:
+    """Set the CIF output bias (by bisection) so that α averages `alpha` a
+    valid frame of (feats, lens): a random head may fire nothing.  Returns
+    the bias."""
+    import torch
+    from reverb_tpu_torch.models.paraformer import cif_alphas
+    bias = model.predictor.cif_output.bias
+    with torch.no_grad():
+        enc, mask = model.encoder(feats, lens)
+        lo, hi = -30.0, 30.0
+        for _ in range(40):
+            bias.fill_((lo + hi) / 2)
+            mean = float(cif_alphas(model.predictor, enc, mask)[
+                mask[:, 0]].mean())
+            lo, hi = ((lo + hi) / 2, hi) if mean < alpha else \
+                (lo, (lo + hi) / 2)
+    return float(bias.detach())
+
+
+def para_result_check(res: dict, what: str):
+    """A `transcribe --paraformer -t` result: text, tokens with finite,
+    ordered times and confidences in (0, 1]."""
+    toks = res.get('tokens') or []
+    ok = res['text'] and len(toks) >= 30 and 0 < res['confidence'] <= 1
+    for a, b in zip(toks, toks[1:] + [None]):
+        ok = ok and 0 <= a['start'] <= a['end'] and \
+            0 < a['confidence'] <= 1 and (b is None or a['start']
+                                          <= b['start'])
+    if not ok:
+        raise AssertionError(f'{what}: result {res}')
+
+
+def para_same(got: dict, want: dict) -> float:
+    """Raise unless two results have the same text and tokens, times
+    exactly, confidences within 1e-5; returns the worst confidence
+    difference."""
+    worst = abs(got['confidence'] - want['confidence'])
+    same = got['text'] == want['text'] and \
+        len(got['tokens']) == len(want['tokens'])
+    for g, w in zip(got['tokens'], want['tokens']):
+        same = same and (g['token'], g['start'], g['end']) == \
+            (w['token'], w['start'], w['end'])
+        worst = max(worst, abs(g['confidence'] - w['confidence']))
+    if not (same and worst <= 1e-5):
+        raise AssertionError(f'paraformer: the result through the plain '
+                             f'versions differs (confidence {worst:.2e})')
+    return worst
+
+
+def para_serve(dev, seed, workdir: Path) -> dict:
+    """The SANM Paraformer at full width with the tp branch, random weights
+    from `seed`, its CIF bias set for PARA_ALPHA on the WAV's features,
+    saved as a model directory (config.yaml, units.txt, final.pt); then
+    `cli/transcribe.main([wav, '-m', dir, '--paraformer', '-t'])` on a 60 s
+    WAV: a first call with every K5 call held to its plain version, a
+    second call timed (the CLI's wall with its model load, transcribe()
+    alone, and its encoder / CIF loop / decoder), each launching K5
+    PARA_LN_ENC + PARA_LN_DEC times and nothing else; then the same call
+    with the plain versions: text, tokens and times equal, confidences
+    within 1e-5."""
+    import contextlib
+    import gc
+    import io
+    import torch
+    from reverb_tpu_torch.cli import paraformer_model as pm
+    from reverb_tpu_torch.cli import transcribe
+    from reverb_tpu_torch.frontend.audio import load_for_asr
+    from reverb_tpu_torch.frontend.fbank import (FbankConfig, compute_fbank,
+                                                 num_frames)
+    from reverb_tpu_torch.models import registry
+    from reverb_tpu_torch.models.paraformer import SanmParaformer
+    configs = para_configs()
+    scfg, cif = registry.sanm_configs(configs)
+    t0 = time.perf_counter()
+    model = registry._materialise(
+        lambda: SanmParaformer(scfg, cif, with_tp=True), dev,
+        torch.Generator(device=dev).manual_seed(seed), None).eval()
+    n_params = sum(p.numel() for p in model.parameters())
+    wav = workdir / 'para60.wav'
+    write_wav(wav, int(PARA_AUDIO_S * 16000), seed + 400)
+    wave = load_for_asr(str(wav), 16000)
+    fb = FbankConfig()
+    T = num_frames(len(wave), fb)
+    feats = compute_fbank(torch.from_numpy(wave).to(dev), fb, n_frames=T)
+    bias = set_cif_rate(model, feats[None], torch.tensor([T], device=dev),
+                        PARA_ALPHA)
+    mdir = workdir / 'paraformer'
+    mdir.mkdir()
+    (mdir / 'config.yaml').write_text(json.dumps(configs))
+    write_para_units(mdir / 'units.txt')
+    torch.save(model.state_dict(), mdir / 'final.pt')
+    build_s = time.perf_counter() - t0
+    del model, feats
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f'paraformer: SANM {n_params / 1e6:.1f}M params (f32, tp branch), '
+        f'CIF bias {bias:.3f} for mean alpha {PARA_ALPHA}; model directory '
+        f'written in {build_s:.1f} s')
+    orig = pm.Paraformer.transcribe
+    inner = {}
+
+    def timed(self, *a, **k):
+        calls, hooks = ln_call_counter(self.model)
+        try:
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            out = orig(self, *a, **k)
+            torch.cuda.synchronize()
+            inner.update(s=time.perf_counter() - t1,
+                         phases=dict(self.last_phases), ln=calls[0])
+        finally:
+            for h in hooks:
+                h.remove()
+        return out
+    argv = [str(wav), '-m', str(mdir), '--paraformer', '-t', '--device',
+            'cuda']
+    runs, errs = [], {}
+    for name, table in (('checked', checked_kernels(errs)),
+                        ('timed', {}), ('plain', plain_versions())):
+        diar_zero_launch_counts()
+        t1 = time.perf_counter()
+        with swapped({(pm.Paraformer, 'transcribe'): timed, **table}), \
+                contextlib.redirect_stdout(io.StringIO()) as out:
+            res = transcribe.main(argv)
+        wall = time.perf_counter() - t1
+        if json.loads(out.getvalue().splitlines()[-1]) != json.loads(
+                json.dumps(res, ensure_ascii=False)):
+            raise AssertionError('paraformer: the CLI printed another result')
+        runs.append({'name': name, 'wall_s': wall, 'res': res,
+                     'launches': diar_launch_counts(), **inner})
+        gc.collect()
+        torch.cuda.empty_cache()
+    log_call_errs(errs, 'paraformer serving, every K5 call')
+    check_call_errs(errs, 'paraformer serving', ('K5',))
+    n_ln = PARA_LN_ENC + PARA_LN_DEC
+    for r in runs[:2]:
+        expect_launches(r['launches'], {'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0,
+                                        'K5': n_ln, 'K6': 0},
+                        f'paraformer serving, {r["name"]} call')
+        if r['ln'] != n_ln:
+            raise AssertionError(f'paraformer serving: {r["ln"]} LayerNorm '
+                                 f'calls K5 takes, expected {n_ln}')
+        para_result_check(r['res'], f'paraformer {r["name"]} call')
+    if runs[2]['launches']['K5'] != 0:
+        raise AssertionError('paraformer: the plain run launched K5')
+    worst = para_same(runs[1]['res'], runs[2]['res'])
+    para_same(runs[0]['res'], runs[1]['res'])
+    t = runs[1]
+    ph = t['phases']
+    n_tok = len(t['res']['tokens'])
+    log(f'paraformer serving ({PARA_AUDIO_S:.0f} s, {n_tok} tokens): '
+        f'second CLI call {t["wall_s"]:.3f} s with the model load, '
+        f'transcribe() {t["s"] * 1e3:.1f} ms (xRT '
+        f'{PARA_AUDIO_S / t["s"]:.1f}): encoder {ph["encoder"] * 1e3:.1f} ms, '
+        f'CIF loop {ph["cif"] * 1e3:.1f} ms, decoder and tp branch '
+        f'{ph["decoder"] * 1e3:.1f} ms, tp peaks loop and greedy search '
+        f'{ph["peaks_and_search"] * 1e3:.1f} ms; K5 '
+        f'{t["launches"]["K5"]} a call; '
+        f'the plain versions give the same text, tokens and times '
+        f'(confidences within {worst:.1e}); first call {runs[0]["s"]:.3f} s')
+    return {'params': n_params, 'tokens': n_tok, 'calls': runs[:2],
+            'walls': [r['wall_s'] for r in runs],
+            'transcribe_s': [r['s'] for r in runs],
+            'phases': ph, 'launches': t['launches'],
+            'total': {n: runs[0]['launches'][n] + runs[1]['launches'][n]
+                      for n in runs[1]['launches']}, 'conf_err': worst,
+            'call_errs': errs}
+
+
+def para_reference(dev, seed, configs, what, kernels) -> dict:
+    """`family_reference` of a registry model built from `configs` in
+    f32 at B = 2 of the train phase's batches."""
+    import gc
+    import torch
+    from reverb_tpu_torch.models.registry import init_model
+    bundle = init_model(dict(configs, dtype='fp32'), torch.Generator(
+        device=dev).manual_seed(seed), dev)
+    ref = family_reference(bundle.model, bundle.loss_fn,
+                           train_batch(dev, 2, seed + 1, PARA_VOCAB), dev,
+                           kernels, what)
+    del bundle
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ref
+
+
+def para_bin_train(dev, seed, workdir: Path) -> dict:
+    """`bin.train.main` on the SANM Paraformer at full depth in bf16 (f32
+    master weights): PARA_BIN_WAVS WAVs of 16-20.5 s (1600-2051 frames)
+    with 40-80 units each, static batches of 8, a CV of PARA_BIN_CV, one
+    epoch; the step and the dataset iterator timed (steps 2 on), peak
+    memory; K5 = PARA_LN_ENC + 2 · PARA_LN_DEC a step and a CV batch (the
+    sampler's frozen decoder pass, then the decoder), K6 = PARA_LN_ENC +
+    PARA_LN_DEC a step."""
+    import gc
+    import torch
+    from reverb_tpu_torch.bin import train as train_bin
+    rng = np.random.RandomState(seed)
+    units_path = workdir / 'para_units.txt'
+    cjk = write_para_units(units_path)[4:8004]
+    lists = {'train': [], 'cv': []}
+    for i in range(PARA_BIN_WAVS + PARA_BIN_CV):
+        part = 'train' if i < PARA_BIN_WAVS else 'cv'
+        wav = workdir / f'para{i:02d}.wav'
+        write_wav(wav, int(rng.uniform(16.0, 20.5) * 16000), seed + 500 + i)
+        lists[part].append(json.dumps({
+            'key': f'p{i:02d}', 'wav': str(wav),
+            'txt': ' '.join(rng.choice(cjk, rng.randint(40, 81)))}))
+    for part, lines in lists.items():
+        (workdir / f'para_{part}.list').write_text('\n'.join(lines) + '\n')
+    configs = para_configs()
+    configs.update({
+        'dtype': 'bf16', 'tokenizer': 'char',
+        'tokenizer_conf': {'symbol_table_path': str(units_path),
+                           'split_with_space': True},
+        'dataset_conf': {
+            'fbank_conf': {'num_mel_bins': 80, 'frame_length': 25,
+                           'frame_shift': 10, 'dither': 0.1},
+            'spec_aug': True, 'shuffle': True, 'sort': True,
+            'batch_conf': {'batch_type': 'static', 'batch_size': 8},
+            'num_workers': 4}})
+    configs.pop('output_dim')
+    cfg_path = workdir / 'para_train.yaml'
+    cfg_path.write_text(json.dumps(configs))
+    rec = {'step': [], 'wait': [], 'audio': [], 'eval': 0}
+    diar_zero_launch_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with swapped(timed_bin_train(rec)):
+        ex = train_bin.main([
+            '--config', str(cfg_path), '--train_data',
+            str(workdir / 'para_train.list'), '--cv_data',
+            str(workdir / 'para_cv.list'), '--model_dir',
+            str(workdir / 'para_exp'), '--max_epoch', '1',
+            '--log_interval', '1', '--seed', str(seed), '--device', 'cuda'])
+    wall = time.perf_counter() - t0
+    launches = diar_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps, n_eval = ex.step, rec['eval']
+    del ex
+    gc.collect()
+    torch.cuda.empty_cache()
+    per5 = PARA_LN_ENC + 2 * PARA_LN_DEC
+    expect_launches(launches, {
+        'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0, 'K5': per5 * (steps + n_eval),
+        'K6': (PARA_LN_ENC + PARA_LN_DEC) * steps},
+        f'paraformer bin.train ({steps} steps, {n_eval} CV batches)')
+    info = json.loads((workdir / 'para_exp' / 'epoch_0.yaml').read_text())
+    metrics = [json.loads(x) for x in (workdir / 'para_exp'
+                                       / 'metrics.jsonl').read_text()
+               .splitlines()]
+    if steps != PARA_BIN_WAVS // 8 or not math.isfinite(info['cv_loss']) \
+            or not all(math.isfinite(m['train/loss']) for m in metrics):
+        raise AssertionError(f'paraformer bin.train: {steps} steps, '
+                             f'epoch_0 {info}, metrics {metrics}')
+    n = len(rec['step'])
+    step_ms = sum(rec['step'][1:]) / (n - 1) * 1e3
+    wait_ms = sum(rec['wait'][1:n]) / (n - 1) * 1e3
+    audio = sum(rec['audio'][1:]) / (n - 1)
+    res = {'steps': steps, 'cv_batches': n_eval, 'launches': launches,
+           'step_ms': step_ms, 'wait_ms': wait_ms,
+           'first_step_ms': rec['step'][0] * 1e3, 'audio_s_per_step': audio,
+           'audio_s_per_s': audio / (step_ms + wait_ms) * 1e3,
+           'peak_gib': peak / 2 ** 30, 'wall_s': wall,
+           'cv_loss': info['cv_loss'],
+           'losses': [m['train/loss'] for m in metrics]}
+    log(f'paraformer bin.train (SANM, bf16, B = 8): {wall:.1f} s in all; '
+        f'steps 2-{n}: {step_ms:.1f} ms a step, {wait_ms:.2f} ms a step '
+        f'waiting on the dataset ({audio:.1f} s of audio a step: '
+        f'{res["audio_s_per_s"]:.1f} audio-s/s); first step '
+        f'{res["first_step_ms"]:.1f} ms; peak {res["peak_gib"]:.2f} GiB; '
+        f'losses {[round(x, 3) for x in res["losses"]]}, cv_loss '
+        f'{info["cv_loss"]:.4f}')
+    return res
+
+
+def para_conformer_configs() -> dict:
+    """reverb_large at PARA_LAYERS layers with the CIF head (no LSL: the
+    Paraformer loss passes no cat_embs), firing at PARA_REF_THRESHOLD."""
+    configs = presets_large()
+    configs['model'] = 'paraformer'
+    configs['encoder_conf'] = dict(configs['encoder_conf'],
+                                   num_blocks=PARA_LAYERS)
+    configs['dataset_conf'] = dict(configs['dataset_conf'],
+                                   pass_cat_emb=False)
+    configs['paraformer_conf'] = {'cif_conf': {
+        'threshold': PARA_REF_THRESHOLD}}
+    return configs
+
+
+def transformer_configs() -> dict:
+    """reverb_large with a transformer encoder (abs_pos, plain MHA) at
+    PARA_LAYERS layers."""
+    configs = presets_large()
+    configs['encoder'] = 'transformer'
+    configs['encoder_conf'] = dict(
+        configs['encoder_conf'], num_blocks=PARA_LAYERS,
+        pos_enc_layer_type='abs_pos', selfattention_layer_type='selfattn')
+    return configs
+
+
+def transformer_serve(dev, seed, workdir: Path) -> dict:
+    """The transformer-encoder asr_model (bf16, a sharpened CTC head) on
+    the 60 s WAV: a warm-up and a timed transcribe_modes(MODES, 'ctm')
+    call, K1 never, K2 = K3 = 1 an encoder call, K5 at every LayerNorm."""
+    import gc
+    import torch
+    from reverb_tpu_torch.cli import reverb as rv
+    from reverb_tpu_torch.cli.reverb import ReverbASR
+    from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
+    from reverb_tpu_torch.text.tokenizer import init_tokenizer
+    configs = transformer_configs()
+    configs['tokenizer'] = 'char'
+    configs['tokenizer_conf'] = {
+        'symbol_table_path': str(workdir / 'units.txt')}
+    write_units(workdir / 'units.txt')
+    cfg = ModelConfig.from_config(configs).with_compute_dtype(torch.bfloat16)
+    model = build_model(cfg, dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    asr = ReverbASR.from_model(configs, model, init_tokenizer(configs))
+    wav = workdir / 'para60.wav'
+    feats = asr.compute_feats(str(wav))
+    q = sharpen_ctc_head(asr, feats)
+    decode_fn = rv.decode_modes_fn
+    n_enc = [0]
+
+    def counted_decode(*args, **kwargs):
+        n_enc[0] += 1
+        return decode_fn(*args, **kwargs)
+    ln_calls, hooks = ln_call_counter(asr.model)
+    walls, ctms, per_call = [], [], []
+    try:
+        rv.decode_modes_fn = counted_decode
+        for i in range(2):
+            n_enc[0] = ln_calls[0] = 0
+            diar_zero_launch_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            ctms.append(asr.transcribe_modes(str(wav), MODES, format='ctm'))
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            per_call.append(diar_launch_counts())
+            expect_launches(per_call[-1], {
+                'K1': 0, 'K2': n_enc[0], 'K3': n_enc[0], 'K4': 0,
+                'K5': ln_calls[0], 'K6': 0},
+                f'transformer serving, call {i + 1} ({n_enc[0]} encoder '
+                f'calls)')
+    finally:
+        rv.decode_modes_fn = decode_fn
+        for h in hooks:
+            h.remove()
+    launches = per_call[1]
+    rows = [check_ctm_rows(c, wav.name, f'transformer {m}')
+            for m, c in zip(MODES, ctms[1])]
+    if min(rows) <= 0:
+        raise AssertionError(f'transformer serving: CTM rows {rows}')
+    log(f'transformer asr_model ({PARA_LAYERS} layers, bf16) serving '
+        f'{PARA_AUDIO_S:.0f} s: second call {walls[1]:.4f} s (first '
+        f'{walls[0]:.4f} s); ctc head blank bias +{q:.3f}; CTM rows '
+        f'{rows}; K5 {ln_calls[0]} a call')
+    del asr, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {'walls': walls, 'launches': launches, 'encoder_calls': n_enc[0],
+            'total': {n: sum(c[n] for c in per_call) for n in launches}}
+
+
+def cif_loop_times(dev, seed) -> dict:
+    """The CIF frame loop alone (`cif_fire`, f32 state) at the training
+    shapes: B = 8 rows of 343 SANM frames (d 512, U 80) and of 512
+    conformer frames (d 1024), bf16 frames; ms of the forward and of the
+    forward + backward (CUDA events around back-to-back calls, the host's
+    launches included)."""
+    import torch
+    from reverb_tpu_torch.models.paraformer import cif_fire
+    g = torch.Generator(device=dev).manual_seed(seed)
+    out = {}
+    for name, T, D in (('sanm', 343, 512), ('conformer', 512, 1024)):
+        h = torch.randn(8, T, D, device=dev, generator=g).to(
+            torch.bfloat16).requires_grad_(True)
+        a = (torch.rand(8, T, device=dev, generator=g) * 0.4).requires_grad_(
+            True)
+
+        def fwd():
+            with torch.no_grad():
+                cif_fire(h, a, 80)
+
+        def fwd_bwd():
+            emb, _ = cif_fire(h, a, 80)
+            emb.sum().backward()
+        out[name] = {'T': T, 'fwd_ms': cuda_time_ms(fwd, 3),
+                     'fwd_bwd_ms': cuda_time_ms(fwd_bwd, 3)}
+    log('CIF loop alone, B = 8, U = 80: ' + '; '.join(
+        f'{n} T={r["T"]}: forward {r["fwd_ms"]:.1f} ms, forward + backward '
+        f'{r["fwd_bwd_ms"]:.1f} ms' for n, r in out.items()))
+    return out
+
+
+def run_paraformer(dev, seed=SEED) -> dict:
+    """Phase paraformer: the SANM Paraformer's serving through
+    `transcribe --paraformer -t` and its f32 reference step at full depth
+    and bin.train in bf16; the conformer-encoder Paraformer and a
+    transformer-encoder asr_model at reverb_large width and PARA_LAYERS
+    layers (`family_train`: the f32 reference, then timed bf16 steps at
+    B = 8); the transformer's serving call.  Returns the results and
+    `total`: every launch the phase counted."""
+    import torch
+    t0 = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix='reverb_paraformer_') as tmp:
+        workdir = Path(tmp)
+        res['serve'] = para_serve(dev, seed, workdir)
+        sanm_ref = para_configs()
+        sanm_ref['cif_conf']['threshold'] = PARA_REF_THRESHOLD
+        res['sanm_reference'] = para_reference(
+            dev, seed, sanm_ref, 'paraformer SANM reference', ('K5', 'K6'))
+        res['bin_train'] = para_bin_train(dev, seed, workdir)
+        res['cif_loop'] = cif_loop_times(dev, seed)
+        res['conformer'] = family_train(
+            dev, seed, para_conformer_configs(), 'paraformer conformer',
+            {'K1', 'K4', 'K5', 'K6'}, PARA_LAYERS,
+            lambda B, s, vocab: train_batch(dev, B, s, vocab), TRAIN_B)
+        res['transformer'] = family_train(
+            dev, seed, transformer_configs(), 'transformer asr_model',
+            {'K5', 'K6'}, 0,
+            lambda B, s, vocab: train_batch(dev, B, s, vocab), TRAIN_B)
+        res['transformer_serve'] = transformer_serve(dev, seed, workdir)
+    total = {}
+    counted = [res['serve']['total'], res['sanm_reference']['launches'],
+               res['bin_train']['launches'],
+               res['transformer_serve']['total']]
+    for t in (res['conformer'], res['transformer']):
+        counted.append(t['reference']['launches'])
+        counted.append({n: v * t['steps'] for n, v in t['launches'].items()})
+    for d in counted:
+        for n, v in d.items():
+            total[n] = total.get(n, 0) + v
+    res['total'] = total
+    res['wall_s'] = time.perf_counter() - t0
+    log(f'paraformer phase: {res["wall_s"]:.1f} s; launches {total}')
+    torch.cuda.empty_cache()
     return res
 
 
@@ -6709,6 +7224,9 @@ def main():
     if 'families' in phases:
         # phase 20: MoE, the transducer, the alternative encoders
         families = run_families(dev, SEED)
+    if 'paraformer' in phases:
+        # phase 21: the Paraformer family, the transformer encoder
+        para = run_paraformer(dev, SEED)
     spilled = [n for n, r in {**tc, **lnk, **beamk}.items() if r[1] or r[2]]
     if spilled:
         raise AssertionError(f'kernels spill registers: {spilled}')
@@ -6720,7 +7238,7 @@ def main():
     kernels = kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches,
                              len(walls), t_launch, fallback, modes, stream,
                              diar, recipe, context, tools, remat, diartrain,
-                             int8, export, par, par_serve, families)
+                             int8, export, par, par_serve, families, para)
     log(f'slice: second transcribe_modes call {walls[1]:.4f} s for '
         f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; six-mode '
         f'call {modes[2]:.3f} s; train {step_ms:.1f} ms/step at '
@@ -6774,6 +7292,13 @@ def main():
         f'transducer step {families["transducer"]["train"]["ms"]:.1f} ms, '
         + ', '.join(f'{k} step {r["ms"]:.1f} ms'
                     for k, r in families['alt'].items())
+        + f'; paraformer {para["wall_s"]:.1f} s: transcribe --paraformer '
+        f'{para["serve"]["transcribe_s"][1]:.3f} s for {PARA_AUDIO_S:.0f} s '
+        f'(CIF loop {para["serve"]["phases"]["cif"] * 1e3:.1f} ms), SANM '
+        f'bin.train {para["bin_train"]["step_ms"]:.1f} ms/step, conformer '
+        f'Paraformer step {para["conformer"]["ms"]:.1f} ms, transformer step '
+        f'{para["transformer"]["ms"]:.1f} ms, transformer serving '
+        f'{para["transformer_serve"]["walls"][1]:.4f} s'
         + f'; on {smi}')
     print(smi_line())
     print(json.dumps({'kernels': kernels}))
@@ -6786,7 +7311,7 @@ def main():
 def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
                    t_launch, fallback, modes, stream, diar, recipe, context,
                    tools, remat, diartrain, int8, export, par, par_serve,
-                   families):
+                   families, para):
     """The {"kernels": [...]} entries: launches on the paths (in all, per
     serving call, per training step, per six-mode call, per streaming hop,
     per pool step, per diarization call of either route, and on the
@@ -6911,8 +7436,24 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
     for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6'):
         for run, got in fam_runs.items():
             per[n][run] = got.get(n, 0)
+    # phase paraformer: a transcribe --paraformer call, a SANM bin.train
+    # step (its CV batches beside), a step of the conformer Paraformer and
+    # of the transformer asr_model, a transformer serving call
+    bt_p = para['bin_train']
+    para_runs = {
+        'paraformer_transcribe': para['serve']['launches'],
+        'paraformer_sanm_f32_reference_step':
+            para['sanm_reference']['launches'],
+        'paraformer_conformer_train_step': para['conformer']['launches'],
+        'transformer_train_step': para['transformer']['launches'],
+        'transformer_serve': para['transformer_serve']['launches']}
+    for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6'):
+        for run, got in para_runs.items():
+            per[n][run] = got.get(n, 0)
+        per[n]['paraformer_sanm_bin_train_step_with_cv'] = (
+            bt_p['launches'].get(n, 0) / bt_p['steps'])
     other = {n: (par_total.get(n, 0) + int8['launches'].get(n, 0)
-                 + families['total'].get(n, 0)
+                 + families['total'].get(n, 0) + para['total'].get(n, 0)
                  + (export['k5_total'] if n == 'K5' else 0)
                  + c_serve.get(n, 0) + c_tail.get(n, 0) + c_train.get(n, 0)
                  + sum(got.get(n, 0) for got, _ in t_runs.values())

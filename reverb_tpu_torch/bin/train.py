@@ -129,7 +129,7 @@ def check_supported(args, configs):
     if kind != 'asr_model' and world > 1:
         raise NotImplementedError(
             f'model {kind!r} over {world} processes: the parallel forms '
-            f'cover the conformer asr_model only (ROADMAP item 15)')
+            f'cover the conformer asr_model only (ROADMAP item 15.8)')
     if configs.get('ts_conf'):
         raise NotImplementedError(
             'ts_conf: teacher-student distillation is not ported (ROADMAP '

@@ -7,8 +7,10 @@ model directory, `--align --label TEXT` runs CTC forced alignment
 (decode/ctc_utils.py) instead of decoding, `-t/--show_tokens_info` prints a
 CTM, `--context_path/--context_score` bias the beam with a context graph
 (decode/context_graph.py).  `--device` (default cuda; raises without a
-card unless `--device cpu`).  Without `--model_dir` it raises: the hub
-route downloads.  `--paraformer` raises: that family is not ported.
+card unless `--device cpu`).  `--paraformer` runs the NAR Ali-Paraformer
+runtime (cli/paraformer_model.py) on the model directory and prints its
+result dict as JSON.  Without `--model_dir` it raises: the hub route
+downloads.
 """
 
 from __future__ import annotations
@@ -33,7 +35,8 @@ def get_args(argv=None):
     p.add_argument('--context_score', type=float, default=6.0)
     p.add_argument('--mode', default='ctc_prefix_beam_search')
     p.add_argument('--paraformer', action='store_true',
-                   help='the NAR Paraformer runtime (not ported)')
+                   help='use the NAR Ali-Paraformer runtime '
+                        '(cli/paraformer_model.py)')
     p.add_argument('--device', default='cuda',
                    help='torch device (default cuda; raises without a card)')
     return p.parse_args(argv)
@@ -42,8 +45,13 @@ def get_args(argv=None):
 def main(argv=None):
     args = get_args(argv)
     if args.paraformer:
-        raise NotImplementedError('--paraformer (the Paraformer family) is '
-                                  'not ported: ROADMAP item 15')
+        from reverb_tpu_torch.cli.paraformer_model import \
+            load_model as load_paraformer
+        model = load_paraformer(args.model_dir, device=args.device)
+        result = model.transcribe(args.audio_file,
+                                  tokens_info=args.show_tokens_info)
+        print(json.dumps(result, ensure_ascii=False))
+        return result
     if not args.model_dir:
         raise ValueError('-m/--model_dir is required: the hub route '
                          '(--language) downloads, which is not supported')

@@ -18,7 +18,14 @@ A transducer's rnn predictor is the JAX tree's list of LSTM layers
 `predictor.rnn.{weight_ih,weight_hh,bias_ih}_l{k}` in the port, whose
 second bias `bias_hh_l{k}` has no JAX leaf: it comes in as zeros and goes
 out summed into `b` (`lstm_second_bias` names it; the trainer keeps it
-frozen at zero).
+frozen at zero).  A Paraformer's timestamp BiLSTM is the JAX tree's
+`predictor.tp_blstm.{fwd,bwd}.{w_ih,w_hh,b}` and `nn.LSTM`'s
+`predictor.tp_blstm.{weight_ih,weight_hh,bias_ih,bias_hh}_l0[_reverse]`
+here, the same way.  A WeNet-converted Paraformer `.pt` nests the CIF head
+under `predictor.predictor.*` and keeps both LSTM biases:
+`fixup_paraformer_flat` flattens the one and sums the other into
+`bias_ih`, as reverb_tpu/convert/torch_ckpt.py:fixup_paraformer_predictor
+does.
 """
 
 from __future__ import annotations
@@ -38,6 +45,9 @@ _PORT_CONV = re.compile(r'^(encoder\.encoders\.\d+\.)conv_module\.')
 _JAX_LSTM = re.compile(r'^(predictor(?:_r)?\.rnn)\.(\d+)\.(w_ih|w_hh|b)$')
 _PORT_LSTM = re.compile(
     r'^(predictor(?:_r)?\.rnn)\.(weight_ih|weight_hh|bias_ih|bias_hh)_l(\d+)$')
+_JAX_TP = re.compile(r'^(predictor\.tp_blstm)\.(fwd|bwd)\.(w_ih|w_hh|b)$')
+_PORT_TP = re.compile(r'^(predictor\.tp_blstm)\.'
+                      r'(weight_ih|weight_hh|bias_ih|bias_hh)_l0(_reverse)?$')
 _TO_PORT_LSTM = {'w_ih': 'weight_ih', 'w_hh': 'weight_hh', 'b': 'bias_ih'}
 _TO_JAX_LSTM = {'weight_ih': 'w_ih', 'weight_hh': 'w_hh', 'bias_ih': 'b',
                 'bias_hh': 'b'}
@@ -46,7 +56,7 @@ _TO_JAX_LSTM = {'weight_ih': 'w_ih', 'weight_hh': 'w_hh', 'bias_ih': 'b',
 def lstm_second_bias(name: str) -> bool:
     """Whether a port parameter is a predictor LSTM's `bias_hh`, which has
     no JAX leaf."""
-    m = _PORT_LSTM.match(name)
+    m = _PORT_LSTM.match(name) or _PORT_TP.match(name)
     return bool(m) and m.group(2) == 'bias_hh'
 
 
@@ -57,6 +67,10 @@ def tree_key(name: str) -> str:
     m = _PORT_LSTM.match(name)
     if m:
         return f'{m.group(1)}.{m.group(3)}.{_TO_JAX_LSTM[m.group(2)]}'
+    m = _PORT_TP.match(name)
+    if m:
+        side = 'bwd' if m.group(3) else 'fwd'
+        return f'{m.group(1)}.{side}.{_TO_JAX_LSTM[m.group(2)]}'
     return _PORT_CONV.sub(r'\1', name)
 
 
@@ -79,6 +93,12 @@ def state_dict_from_jax(flat: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
             if m.group(3) == 'b':
                 out[f'{m.group(1)}.bias_hh_l{m.group(2)}'] = torch.zeros(
                     arr.shape)
+        m = _JAX_TP.match(key)
+        if m:
+            rev = '_reverse' if m.group(2) == 'bwd' else ''
+            key = f'{m.group(1)}.{_TO_PORT_LSTM[m.group(3)]}_l0{rev}'
+            if m.group(3) == 'b':
+                out[f'{m.group(1)}.bias_hh_l0{rev}'] = torch.zeros(arr.shape)
         out[key] = torch.from_numpy(np.array(arr, copy=True))
     return out
 
@@ -127,6 +147,40 @@ def convert_torch_state_dict(ckpt) -> Dict[str, np.ndarray]:
         out[k] = v.detach().to(torch.float32).numpy() \
             if v.dtype.is_floating_point else v.detach().numpy()
     return out
+
+
+def fixup_paraformer_flat(flat: Dict[str, np.ndarray]
+                          ) -> Dict[str, np.ndarray]:
+    """A WeNet-converted Paraformer's flat keys → the JAX tree's (the
+    counterpart of reverb_tpu/convert/torch_ckpt.py:
+    fixup_paraformer_predictor): `predictor.predictor.*` (the CIF head)
+    → `predictor.*`, and the timestamp BiLSTM's torch keys
+    `predictor.tp_blstm.{weight_ih,weight_hh,bias_ih,bias_hh}_l0[_reverse]`
+    → `predictor.tp_blstm.{fwd,bwd}.{w_ih,w_hh,b}` with b = b_ih + b_hh.
+    Keys already in the JAX layout pass through."""
+    out = {}
+    tp = {}
+    for k, v in flat.items():
+        if k.startswith('predictor.predictor.'):
+            k = 'predictor.' + k[len('predictor.predictor.'):]
+        m = _PORT_TP.match(k)
+        if m:
+            side = 'bwd' if m.group(3) else 'fwd'
+            name = _TO_JAX_LSTM[m.group(2)]
+            key = f'{m.group(1)}.{side}.{name}'
+            tp[key] = tp[key] + v if key in tp else v
+            continue
+        out[k] = v
+    out.update(tp)
+    return out
+
+
+def load_paraformer_flat(path: str) -> Dict[str, np.ndarray]:
+    """A Paraformer checkpoint — a WeNet-converted `.pt` or a JAX `.npz` —
+    → flat {JAX key: array} (reverb_tpu/convert/torch_ckpt.py:
+    load_paraformer_checkpoint, and fixup_paraformer_predictor over
+    load_npz)."""
+    return fixup_paraformer_flat(load_flat_checkpoint(path))
 
 
 def load_flat_checkpoint(path: str) -> Dict[str, np.ndarray]:

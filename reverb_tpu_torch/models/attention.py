@@ -88,6 +88,26 @@ class MultiHeadedAttention(nn.Module):
             _masked_softmax_av(scores, m, v, rate, generator,
                                self.tp_split)))
 
+    def forward_cached(self, x, mask, cache=None, rate: float = 0.0,
+                       generator=None):
+        """Vanilla self-attention over x (B, T, D) with a streaming KV
+        cache (B, H, Tc, 2·dk) put before this chunk's keys and values
+        (none: S = T); mask bool (B, 1|T, S), True = keep.  Returns (out,
+        new cache (B, H, S, 2·dk))."""
+        q = _split_heads(self.linear_q(x), self.h)
+        k = _split_heads(self.linear_k(x), self.h)
+        v = _split_heads(self.linear_v(x), self.h)
+        if cache is not None:
+            kc, vc = cache.to(k.dtype).chunk(2, dim=-1)
+            k = torch.cat([kc, k], 2)
+            v = torch.cat([vc, v], 2)
+        scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
+        m = None if mask is None else mask[:, None, :, :scores.shape[-1]]
+        out = self.linear_out(_merge_heads(
+            _masked_softmax_av(scores, m, v, rate, generator,
+                               self.tp_split)))
+        return out, torch.cat([k, v], -1)
+
     def cross_kv(self, memory):
         """K/V heads of a memory shared by many query rows: (B,T,D) →
         ((B,H,T,dk), (B,H,T,dk))."""

@@ -3,8 +3,10 @@
 Counterpart of reverb_tpu/models/decoder.py (`DecoderConfig`,
 `decoder_layer` with `mem_kv`/`mem_group`, `decoder_forward` of the
 'bitransformer' and of the unidirectional 'transformer' decoder_type,
-`decoder_forward_one_step`).  An LSL decoder layer uses LayerNorm eps
-1e-12, mixes the FFN input by `cat_embs`, and has no trailing `+ y`.  The
+`decoder_forward_one_step`), with its options use_output_layer,
+normalize_before (False drops only after_norm) and src_attention.  An LSL
+decoder layer uses LayerNorm eps 1e-12, mixes the FFN input by
+`cat_embs`, and has no trailing `+ y`.  The
 forward is the batched teacher-forced pass: each consecutive group of
 `mem_group` hypothesis rows shares one utterance's precomputed
 cross-attention K/V (nbest rescoring); with group 1 it is plain
@@ -67,11 +69,16 @@ class DecoderConfig:
 
 
 class DecoderLayer(nn.Module):
+    """Self-attention, cross-attention (left out with src_attention False;
+    its parameters stay, as in the JAX tree) and the feed-forward, each
+    pre-norm with a residual."""
+
     def __init__(self, cfg: DecoderConfig, is_lsl: bool):
         super().__init__()
         d = cfg.encoder_output_size
         eps = 1e-12 if is_lsl else 1e-5
         self.is_lsl = is_lsl
+        self.src_attention = cfg.src_attention
         self.rate = cfg.dropout_rate
         self.self_rate = cfg.self_attention_dropout_rate
         self.src_rate = cfg.src_attention_dropout_rate
@@ -95,15 +102,15 @@ class DecoderLayer(nn.Module):
         def drop(v):
             return dropout(v, self.rate, generator)
 
-        if mem_kv is None:
-            mem_kv = self.src_attn.cross_kv(memory)
-
         xn = self.norm1(x)
         x = x + drop(self.self_attn(xn, xn, xn, tgt_mask, self.self_rate,
                                     generator))
-        x = x + drop(self.src_attn.forward_shared_kv_grouped(
-            self.norm2(x), mem_kv, memory_mask, mem_group, self.src_rate,
-            generator))
+        if self.src_attention:
+            if mem_kv is None:
+                mem_kv = self.src_attn.cross_kv(memory)
+            x = x + drop(self.src_attn.forward_shared_kv_grouped(
+                self.norm2(x), mem_kv, memory_mask, mem_group, self.src_rate,
+                generator))
         return self._ff_block(x, cat_embs, generator)
 
     def _ff_block(self, x, cat_embs, generator=None):
@@ -135,6 +142,11 @@ class DecoderLayer(nn.Module):
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
         x = x + sa.linear_out(_merge_heads(torch.matmul(
             _masked_softmax(scores, keep, v.dtype), v)))
+        if not self.src_attention:
+            if return_src_attn:
+                raise ValueError('cross-attention weights of a decoder '
+                                 'without src_attention')
+            return self._ff_block(x, cat_embs), None
         ca = self.src_attn.forward_shared_kv_grouped(
             self.norm2(x), mem_kv, memory_mask, mem_group,
             return_weights=return_src_attn)
@@ -144,7 +156,9 @@ class DecoderLayer(nn.Module):
 
 class TransformerDecoder(nn.Module):
     """One direction: embed.0 + abs-pos → layers → after_norm →
-    output_layer."""
+    output_layer; normalize_before False leaves out after_norm and
+    use_output_layer False the output layer (their parameters stay, as in
+    the JAX tree), as reverb_tpu/models/decoder.py does."""
 
     def __init__(self, cfg: DecoderConfig, n_blocks: int):
         super().__init__()
@@ -158,7 +172,15 @@ class TransformerDecoder(nn.Module):
         self.output_layer = Linear(d, cfg.vocab_size)
 
     def cross_kv(self, memory):
+        if not self.cfg.src_attention:
+            return [None] * len(self.decoders)
         return [layer.src_attn.cross_kv(memory) for layer in self.decoders]
+
+    def _head(self, x):
+        """after_norm and output_layer, each where the config keeps it."""
+        if self.cfg.normalize_before:
+            x = self.after_norm(x)
+        return self.output_layer(x) if self.cfg.use_output_layer else x
 
     def forward(self, ys_in, ys_lens, mem_kv, memory_mask, mem_group: int,
                 cat_embs=None, generator=None, memory=None):
@@ -185,7 +207,7 @@ class TransformerDecoder(nn.Module):
                     memory_mask, mem_group, cat_embs, generator, memory)
             x = (checkpoint_layer(layer, self.cfg.remat_policy, generator,
                                   *args) if remat else layer(*args))
-        return self.output_layer(self.after_norm(x))
+        return self._head(x)
 
     def init_cache(self, rows: int, length: int, dtype, device):
         """The zero k‖v cache of `forward_step`: (n_layers, rows, length,
@@ -223,7 +245,7 @@ class TransformerDecoder(nn.Module):
             if return_src_attn:
                 w = w.to(torch.float32).mean(1).reshape(R, -1)
                 attn_sum = w if attn_sum is None else attn_sum + w
-        y = self.output_layer(self.after_norm(x[:, 0]))
+        y = self._head(x[:, 0])
         logp = torch.log_softmax(y.to(torch.float32), -1)
         if return_src_attn:
             return logp, cache, attn_sum / len(self.decoders)
@@ -270,13 +292,10 @@ class UniTransformerDecoder(TransformerDecoder):
 
 def build_decoder(cfg: DecoderConfig) -> nn.Module:
     check_remat_policy(cfg.remat_policy)
-    ported = {'input_layer': 'embed', 'use_output_layer': True,
-              'normalize_before': True, 'src_attention': True}
-    for name, want in ported.items():
-        if getattr(cfg, name) != want:
-            raise NotImplementedError(
-                f'decoder {name}={getattr(cfg, name)!r} is not ported '
-                f'(only {want!r})')
+    if cfg.input_layer != 'embed':
+        raise NotImplementedError(
+            f'decoder input_layer={cfg.input_layer!r}: the JAX package '
+            f"builds only 'embed'")
     if cfg.decoder_type == 'transformer':
         return UniTransformerDecoder(cfg)
     if cfg.decoder_type != 'bitransformer':

@@ -3,6 +3,8 @@
 Counterpart of reverb_tpu/models/embedding.py; the table is built on the
 host in float32 exactly as there.  Positional dropout (rate, generator)
 applies to the scaled input and to the returned table, as there.
+`position_encoding` picks the encoder's kind: rel_pos, abs_pos (and
+abs_pos_whisper, the same table in the JAX package) or no_pos.
 `stream_position_rows` gives a streaming chunk its rows at absolute stream
 positions, one set per stream (reverb_tpu/models/encoder.py:
 encoder_forward_chunk).
@@ -17,6 +19,8 @@ import numpy as np
 import torch
 
 from reverb_tpu_torch.models.modules import dropout
+
+POS_ENC_TYPES = ('rel_pos', 'abs_pos', 'abs_pos_whisper', 'no_pos')
 
 
 @functools.lru_cache(maxsize=16)
@@ -58,6 +62,27 @@ def rel_position_encoding(x, rate: float = 0.0, generator=None):
     d = x.shape[-1]
     return (dropout(x * math.sqrt(d), rate, generator),
             dropout(_pe(d, x.shape[1], x), rate, generator))
+
+
+def no_position_encoding(x, rate: float = 0.0, generator=None):
+    """x (B, T, D) → (x through dropout, a zero pos_emb (1, T, D))."""
+    return (dropout(x, rate, generator),
+            torch.zeros((1,) + tuple(x.shape[1:]), dtype=x.dtype,
+                        device=x.device))
+
+
+def position_encoding(kind: str, x, rate: float = 0.0, generator=None):
+    """The encoder's `pos_enc_layer_type`: 'rel_pos' (x·√d and the table
+    apart), 'abs_pos' and 'abs_pos_whisper' (x·√d + the table; the JAX
+    package builds both from the one sinusoid table) or 'no_pos' (x, a
+    zero table)."""
+    if kind == 'rel_pos':
+        return rel_position_encoding(x, rate, generator)
+    if kind in ('abs_pos', 'abs_pos_whisper'):
+        return abs_position_encoding(x, rate, generator)
+    if kind == 'no_pos':
+        return no_position_encoding(x, rate, generator)
+    raise ValueError(f'unknown pos_enc_layer_type {kind!r}')
 
 
 def stream_position_rows(d_model: int, offset, cache_t: int, S: int, dtype):

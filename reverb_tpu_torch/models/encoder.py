@@ -1,19 +1,30 @@
-"""Conformer encoder with Language-Specific Layers (LSL), full context,
-chunk-masked and streaming.
+"""Conformer / transformer encoder with Language-Specific Layers (LSL),
+full context, chunk-masked and streaming.
 
 Counterpart of reverb_tpu/models/encoder.py (`EncoderConfig`,
-`subsampled_len`, `conv2d_subsampling4`, `conv_module`, `feed_forward`,
-`_lsl_mix`, `conformer_layer`, `encoder_forward`, `init_stream_caches`,
-`encoder_forward_chunk`, `encoder_forward_chunk_by_chunk`).  Module and
+`subsampled_len`, `conv2d_subsampling4`, `linear_input`, `_pos_enc`,
+`conv_module`, `feed_forward`, `_lsl_mix`, `conformer_layer`,
+`transformer_layer`, `encoder_forward`, `init_stream_caches`,
+`encoder_forward_chunk`, `encoder_forward_chunk_by_chunk`).  The options:
+input_layer 'conv2d' or 'linear' (linear → LayerNorm → dropout; the JAX
+package has no subsampling function for conv2d2/6/8, and neither has the
+port); pos_enc_layer_type 'rel_pos', 'abs_pos', 'abs_pos_whisper' or
+'no_pos'; selfattention_layer_type 'rel_selfattn' or 'selfattn' (plain
+MHA inside the conformer block); encoder_type 'conformer' or 'transformer'
+(a pre-norm MHA + relu FFN block, `norm1`/`norm2`); normalize_before False
+drops only the final `after_norm`, as in the JAX package (the blocks stay
+pre-norm).  Module and
 parameter names are WeNet's state-dict keys (encoder.embed.conv.0,
 encoder.encoders.3.conv_module.depthwise_conv, ...).  An LSL layer mixes
 per-language projections of the FFN input by `cat_embs` and adds the mix
 to its output after norm_final (the trailing `x + y`).
 
-Attention takes one of two routes, chosen by its arguments alone: with a
-key-length mask and no cache, kernel K1 (ops/flash_attention.py); with a
-chunk mask (B, T, T) or a KV cache, PyTorch matmuls and an f32 masked
-softmax, as the JAX package computes it in XLA there.
+Rel-pos attention takes one of two routes, chosen by its arguments alone:
+with a key-length mask and no cache, kernel K1 (ops/flash_attention.py);
+with a chunk mask (B, T, T) or a KV cache, PyTorch matmuls and an f32
+masked softmax, as the JAX package computes it in XLA there.  Plain MHA
+('selfattn', the transformer block) is that masked route always, as in
+JAX.
 
 Streaming: `init_stream_caches` and `encoder_forward_chunk` keep the JAX
 package's static-shape rings — att (L, B, H, cache_t, 2·dk) and cnn
@@ -43,7 +54,8 @@ import torch
 from torch import nn
 
 from reverb_tpu_torch.models import embedding as emb
-from reverb_tpu_torch.models.attention import RelPositionMultiHeadedAttention
+from reverb_tpu_torch.models.attention import (
+    MultiHeadedAttention, RelPositionMultiHeadedAttention)
 from reverb_tpu_torch.models.modules import (ACTIVATIONS, BatchNorm, Conv1d,
                                              Conv2d, LayerNorm, Linear,
                                              check_remat_policy,
@@ -54,6 +66,9 @@ from reverb_tpu_torch.utils.common import add_optional_chunk_mask
 # right context + 1 of each subsampling rate: the raw frames of a
 # one-frame window
 CONTEXT = {1: 1, 4: 7, 6: 11, 8: 15}
+# the input layers with a subsampling function (the JAX package's
+# SUBSAMPLE_FNS)
+INPUT_LAYERS = ('conv2d', 'linear')
 
 
 @dataclasses.dataclass(frozen=True)
@@ -103,19 +118,26 @@ class EncoderConfig:
                 'conv2d6': 6, 'conv2d8': 8}[self.input_layer]
 
     def check_supported(self):
-        """Raise for the configurations this port does not run yet."""
-        unsupported = {
-            'input_layer': (self.input_layer, 'conv2d'),
-            'pos_enc_layer_type': (self.pos_enc_layer_type, 'rel_pos'),
+        """Raise for the configurations neither package builds: a
+        subsampling without a function in the JAX package (conv2d2,
+        conv2d6, conv2d8), or an unknown option."""
+        if self.input_layer not in INPUT_LAYERS:
+            raise NotImplementedError(
+                f'encoder input_layer={self.input_layer!r}: the JAX package '
+                f'has no subsampling function for it either (it builds '
+                f'{INPUT_LAYERS})')
+        options = {
+            'pos_enc_layer_type': (self.pos_enc_layer_type,
+                                   emb.POS_ENC_TYPES),
             'selfattention_layer_type': (self.selfattention_layer_type,
-                                         'rel_selfattn'),
-            'encoder_type': (self.encoder_type, 'conformer'),
-            'normalize_before': (self.normalize_before, True),
+                                         ('rel_selfattn', 'selfattn')),
+            'encoder_type': (self.encoder_type,
+                             ('conformer', 'transformer')),
         }
-        for name, (got, want) in unsupported.items():
-            if got != want:
-                raise NotImplementedError(
-                    f'encoder {name}={got!r} is not ported (only {want!r})')
+        for name, (got, known) in options.items():
+            if got not in known:
+                raise ValueError(f'encoder {name}={got!r} is not one of '
+                                 f'{known}')
         if self.use_cnn_module and self.cnn_module_norm not in (
                 'batch_norm', 'layer_norm'):
             raise NotImplementedError(
@@ -137,11 +159,14 @@ def subsampled_len(cfg: EncoderConfig, T: int) -> int:
 
 
 class Conv2dSubsampling4(nn.Module):
-    """embed.conv.{0,2} (3×3, stride 2, ReLU) → embed.out.0 → rel-pos."""
+    """embed.conv.{0,2} (3×3, stride 2, ReLU) → embed.out.0 → the
+    positional encoding (`pos_type`, rel-pos by default)."""
 
-    def __init__(self, idim: int, odim: int, pos_rate: float = 0.0):
+    def __init__(self, idim: int, odim: int, pos_rate: float = 0.0,
+                 pos_type: str = 'rel_pos'):
         super().__init__()
         self.pos_rate = pos_rate
+        self.pos_type = pos_type
         self.conv = nn.ModuleDict({'0': Conv2d(1, odim, 3, 3, (2, 2)),
                                    '2': Conv2d(odim, odim, 3, 3, (2, 2))})
         self.out = nn.ModuleDict(
@@ -153,8 +178,41 @@ class Conv2dSubsampling4(nn.Module):
         x = torch.relu(self.conv['2'](x))
         B, C, T, F = x.shape
         x = self.out['0'](x.transpose(1, 2).reshape(B, T, C * F))
-        x, pos = emb.rel_position_encoding(x, self.pos_rate, generator)
+        x, pos = emb.position_encoding(self.pos_type, x, self.pos_rate,
+                                       generator)
         return x, pos, x_mask[:, :, 2::2][:, :, 2::2]
+
+
+class LinearInput(nn.Module):
+    """embed.out.0 (a linear layer) → embed.out.1 (LayerNorm) → dropout
+    at the block's dropout_rate → the positional encoding; no
+    subsampling."""
+
+    def __init__(self, idim: int, odim: int, rate: float = 0.0,
+                 pos_rate: float = 0.0, pos_type: str = 'rel_pos'):
+        super().__init__()
+        self.rate = rate
+        self.pos_rate = pos_rate
+        self.pos_type = pos_type
+        self.out = nn.ModuleDict({'0': Linear(idim, odim),
+                                  '1': LayerNorm(odim)})
+
+    def forward(self, x, x_mask, generator=None):
+        x = dropout(self.out['1'](self.out['0'](x)), self.rate, generator)
+        x, pos = emb.position_encoding(self.pos_type, x, self.pos_rate,
+                                       generator)
+        return x, pos, x_mask
+
+
+def input_layer(cfg: EncoderConfig) -> nn.Module:
+    """The encoder's `embed`: Conv2dSubsampling4 or LinearInput."""
+    if cfg.input_layer == 'linear':
+        return LinearInput(cfg.input_size, cfg.output_size,
+                           cfg.dropout_rate, cfg.positional_dropout_rate,
+                           cfg.pos_enc_layer_type)
+    return Conv2dSubsampling4(cfg.input_size, cfg.output_size,
+                              cfg.positional_dropout_rate,
+                              cfg.pos_enc_layer_type)
 
 
 class FeedForward(nn.Module):
@@ -218,15 +276,18 @@ class MoEFeedForward(nn.Module):
         return out.reshape(B, L, D)
 
 
-def feed_forward_module(cfg: EncoderConfig) -> nn.Module:
+def feed_forward_module(cfg: EncoderConfig, activation=None) -> nn.Module:
     """The encoder layers' FFN: `MoEFeedForward` when
-    positionwise_layer_type is 'moe', else `FeedForward`."""
+    positionwise_layer_type is 'moe', else `FeedForward`; its activation
+    is the config's unless `activation` names another (the transformer
+    block's relu)."""
+    act = activation or cfg.activation_type
     if cfg.positionwise_layer_type == 'moe':
-        return MoEFeedForward(cfg.output_size, cfg.linear_units,
-                              cfg.activation_type, cfg.dropout_rate,
-                              cfg.n_expert, cfg.n_expert_per_token)
-    return FeedForward(cfg.output_size, cfg.linear_units,
-                       cfg.activation_type, cfg.dropout_rate)
+        return MoEFeedForward(cfg.output_size, cfg.linear_units, act,
+                              cfg.dropout_rate, cfg.n_expert,
+                              cfg.n_expert_per_token)
+    return FeedForward(cfg.output_size, cfg.linear_units, act,
+                       cfg.dropout_rate)
 
 
 class ConvolutionModule(nn.Module):
@@ -289,7 +350,9 @@ class ConformerEncoderLayer(nn.Module):
         self.macaron = cfg.macaron_style
         self.rate = cfg.dropout_rate
         self.att_rate = cfg.attention_dropout_rate
-        self.self_attn = RelPositionMultiHeadedAttention(
+        self.rel = cfg.selfattention_layer_type == 'rel_selfattn'
+        self.self_attn = (RelPositionMultiHeadedAttention if self.rel
+                          else MultiHeadedAttention)(
             cfg.attention_heads, d, cfg.key_bias)
         self.feed_forward = feed_forward_module(cfg)
         self.norm_ff = LayerNorm(d)
@@ -332,7 +395,11 @@ class ConformerEncoderLayer(nn.Module):
                 self.norm_ff_macaron(x), generator))
         xn = self.norm_mha(x)
         new_att = None
-        if mask is None and att_cache is None:
+        if not self.rel:
+            x_att, new_att = self.self_attn.forward_cached(
+                xn, key_mask(kv_lens, xn, mask), att_cache, self.att_rate,
+                generator)
+        elif mask is None and att_cache is None:
             x_att = self.self_attn(xn, kv_lens, pos_emb, self.att_rate,
                                    generator)
         else:
@@ -360,6 +427,51 @@ class ConformerEncoderLayer(nn.Module):
         return x, new_att, new_cnn
 
 
+def key_mask(kv_lens, x, mask=None):
+    """`mask` when given, else the key-length mask (B, 1, T) of kv_lens."""
+    if mask is not None:
+        return mask
+    return (torch.arange(x.shape[1], device=x.device)[None, :]
+            < kv_lens[:, None])[:, None, :]
+
+
+class TransformerEncoderLayer(nn.Module):
+    """The plain transformer block (reverb_tpu/models/encoder.py:
+    transformer_layer): x + MHA(norm1(x)), then x + FFN(norm2(x)) with a
+    relu FFN whatever the config's activation; dropout at its sites with
+    a generator.  Attention is the masked route (plain MHA)."""
+
+    def __init__(self, cfg: EncoderConfig):
+        super().__init__()
+        d = cfg.output_size
+        self.rate = cfg.dropout_rate
+        self.att_rate = cfg.attention_dropout_rate
+        self.self_attn = MultiHeadedAttention(cfg.attention_heads, d,
+                                              cfg.key_bias)
+        self.feed_forward = feed_forward_module(cfg, 'relu')
+        self.norm1 = LayerNorm(d)
+        self.norm2 = LayerNorm(d)
+
+    def forward(self, x, kv_lens, pos_emb, mask_pad, cat_embs=None,
+                generator=None, mask=None):
+        return self.forward_chunk(x, kv_lens, pos_emb, mask_pad, cat_embs,
+                                  generator, mask)[0]
+
+    def forward_chunk(self, x, kv_lens, pos_emb, mask_pad, cat_embs=None,
+                      generator=None, mask=None, att_cache=None,
+                      cnn_cache=None):
+        """As ConformerEncoderLayer.forward_chunk; pos_emb, mask_pad,
+        cat_embs and cnn_cache are unused.  Returns (x, new_att_cache,
+        None)."""
+        x_att, new_att = self.self_attn.forward_cached(
+            self.norm1(x), key_mask(kv_lens, x, mask), att_cache,
+            self.att_rate, generator)
+        x = x + dropout(x_att, self.rate, generator)
+        x = x + dropout(self.feed_forward(self.norm2(x), generator),
+                        self.rate, generator)
+        return x, new_att, None
+
+
 class GlobalCMVN(nn.Module):
     """(x − mean)·istd.  As in the JAX package, mean and istd are leaves of
     the parameter tree: they take gradients (which count in the global
@@ -380,18 +492,28 @@ class GlobalCMVN(nn.Module):
 
 
 class ConformerEncoder(nn.Module):
+    """The encoder of an asr_model: conformer or transformer blocks
+    (`encoder_type`) over the configured input layer."""
+
     def __init__(self, cfg: EncoderConfig, with_cmvn: bool = False):
         super().__init__()
         cfg.check_supported()
         self.cfg = cfg
         self.global_cmvn = GlobalCMVN(cfg.input_size) if with_cmvn else None
-        self.embed = Conv2dSubsampling4(cfg.input_size, cfg.output_size,
-                                        cfg.positional_dropout_rate)
-        self.encoders = nn.ModuleList(
-            ConformerEncoderLayer(cfg, cfg.num_langs > 0 and
-                                  i in (0, cfg.num_blocks - 1))
-            for i in range(cfg.num_blocks))
+        self.embed = input_layer(cfg)
+        if cfg.encoder_type == 'transformer':
+            layers = (TransformerEncoderLayer(cfg)
+                      for _ in range(cfg.num_blocks))
+        else:
+            layers = (ConformerEncoderLayer(cfg, cfg.num_langs > 0 and
+                                            i in (0, cfg.num_blocks - 1))
+                      for i in range(cfg.num_blocks))
+        self.encoders = nn.ModuleList(layers)
         self.after_norm = LayerNorm(cfg.output_size)
+
+    def _final(self, xs):
+        """after_norm, which normalize_before False leaves out."""
+        return self.after_norm(xs) if self.cfg.normalize_before else xs
 
     def forward(self, xs, xs_lens, cat_embs=None, generator=None,
                 decoding_chunk_size: int = 0,
@@ -438,8 +560,8 @@ class ConformerEncoder(nn.Module):
                   if remat else layer(*args))
             layer_outs.append(xs)
         if return_layers:
-            return self.after_norm(xs), masks, layer_outs
-        return self.after_norm(xs), masks
+            return self._final(xs), masks, layer_outs
+        return self._final(xs), masks
 
     def forward_chunk(self, xs, offset, att_cache, cnn_cache, cat_embs=None):
         """One streaming chunk (reverb_tpu/models/encoder.py:
@@ -478,7 +600,7 @@ class ConformerEncoder(nn.Module):
             new_att.append(a[:, :, a.shape[2] - cache_t:])
             if c is not None:
                 new_cnn.append(c)
-        xs = self.after_norm(xs)
+        xs = self._final(xs)
         return (xs, torch.stack(new_att, 0),
                 torch.stack(new_cnn, 0) if new_cnn else cnn_cache)
 

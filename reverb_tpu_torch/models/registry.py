@@ -6,22 +6,30 @@ Counterpart of reverb_tpu/models/registry.py (`ModelBundle`,
 for `asr_model`, configs['encoder'], so a model family is reachable from
 a config alone:
 
-  model: asr_model (default) | transducer | bitransducer
-  encoder: conformer | branchformer | e_branchformer | squeezeformer |
-           efficient_conformer  (asr_model families)
+  model: asr_model (default) | transducer | bitransducer | paraformer
+  encoder: conformer | transformer | branchformer | e_branchformer |
+           squeezeformer | efficient_conformer  (asr_model families);
+           sanm_encoder | conformer  (paraformer)
 
 Each entry returns a `ModelBundle` — (kind, cfg, model, loss_fn) — with a
 uniform `loss_fn(model, batch, generator=None) → {'loss': ..., ...}`, so
 the trainer is model-agnostic; dropout draws from `generator` (none
 without one, as rng=None in JAX).  The JAX package's other families
-(k2_model, paraformer, ctl_model, bestrq, wav2vec2, w2vbert, whisper)
-raise NotImplementedError naming ROADMAP item 15; an unknown name raises
+(k2_model, ctl_model, bestrq, wav2vec2, w2vbert, whisper) raise
+NotImplementedError naming ROADMAP item 15; an unknown name raises
 ValueError, as there.
+
+A paraformer is the Ali-Paraformer SANM stack (`encoder: sanm_encoder`,
+models/sanm.py) or the conformer encoder with the CIF head
+(models/paraformer.py).  The SANM loss's glancing sampler draws its
+uniforms from the loss's generator (from seed 0 without one, as JAX's
+PRNGKey(0)).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Any, Callable, Dict, Optional
 
 import numpy as np
@@ -30,8 +38,8 @@ from torch import nn
 
 from reverb_tpu_torch.models import ctc as ctc_mod
 from reverb_tpu_torch.models import encoders_alt as alt
-from reverb_tpu_torch.models.asr_model import (ModelConfig, build_model,
-                                               compute_loss)
+from reverb_tpu_torch.models.asr_model import (ASRModel, ModelConfig,
+                                               build_model, compute_loss)
 from reverb_tpu_torch.models.ctc import CTC
 from reverb_tpu_torch.models.decoder import DecoderConfig, build_decoder
 from reverb_tpu_torch.models.modules import reset_parameters
@@ -41,9 +49,9 @@ from reverb_tpu_torch.models.transducer import (TransducerConfig,
 from reverb_tpu_torch.utils.common import (add_sos_eos, resolve_device,
                                            reverse_sequence, th_accuracy)
 
-PORTED = ('asr_model', 'transducer', 'bitransducer')
-UNPORTED = ('k2_model', 'paraformer', 'ctl_model', 'bestrq', 'wav2vec2',
-            'w2vbert', 'whisper')
+PORTED = ('asr_model', 'transducer', 'bitransducer', 'paraformer')
+UNPORTED = ('k2_model', 'ctl_model', 'bestrq', 'wav2vec2', 'w2vbert',
+            'whisper')
 ALT_ENCODERS = tuple(alt.ALT_ENCODERS)
 
 
@@ -58,6 +66,14 @@ class ModelBundle:
 def _dataclass_kwargs(cls, conf: Dict) -> Dict:
     fields = {f.name for f in dataclasses.fields(cls)}
     return {k: v for k, v in conf.items() if k in fields}
+
+
+def _compute_dtype(configs) -> torch.dtype:
+    """The activation dtype of the config's `dtype` (bf16 for the half
+    types, else f32)."""
+    dtype = str(configs.get('dtype', 'fp32')).lower()
+    return torch.bfloat16 if dtype in ('bf16', 'bfloat16', 'fp16',
+                                       'float16') else torch.float32
 
 
 def model_kind(configs: Dict) -> str:
@@ -167,9 +183,7 @@ def _alt_encoder_bundle(configs, device, generator, cmvn, state_dict,
     ecfg = cfg_cls(**kwargs)
     vocab = configs.get('output_dim') or configs['vocab_size']
     model_conf = configs.get('model_conf', {}) or {}
-    dtype = str(configs.get('dtype', 'fp32')).lower()
-    compute_dtype = torch.bfloat16 if dtype in (
-        'bf16', 'bfloat16', 'fp16', 'float16') else torch.float32
+    compute_dtype = _compute_dtype(configs)
     dcfg = DecoderConfig(
         vocab_size=vocab, encoder_output_size=ecfg.output_size,
         decoder_type=('bitransformer' if 'bitransformer' in configs.get(
@@ -270,6 +284,207 @@ def _transducer_bundle(configs, device, generator, cmvn,
                        model, transducer_loss_fn)
 
 
+# ------------------------------ paraformer ------------------------------
+
+def sanm_configs(configs):
+    """(SanmConfig, CifConfig) of a WeNet-converted paraformer config:
+    shared by the training bundle and the serving CLI
+    (reverb_tpu/models/registry.py:sanm_configs).  `sanm_shift` is read
+    from the reference's key `sanm_shfit` first."""
+    from reverb_tpu_torch.models.paraformer import CifConfig
+    from reverb_tpu_torch.models.sanm import SanmConfig
+    enc_conf = dict(configs.get('encoder_conf', {}) or {})
+    dec_conf = dict(configs.get('decoder_conf', {}) or {})
+    vocab = configs.get('output_dim') or configs['vocab_size']
+    lfr_conf = configs.get('lfr_conf', {}) or {}
+    m = int(lfr_conf.get('lfr_m', 7))
+    scfg = SanmConfig(
+        input_size=configs.get('input_dim', 80) * m,
+        output_size=enc_conf.get('output_size', 512),
+        attention_heads=enc_conf.get('attention_heads', 4),
+        linear_units=enc_conf.get('linear_units', 2048),
+        num_blocks=enc_conf.get('num_blocks', 50),
+        decoder_blocks=dec_conf.get('num_blocks', 16),
+        vocab_size=vocab,
+        kernel_size=enc_conf.get('kernel_size', 11),
+        sanm_shift=enc_conf.get('sanm_shfit', enc_conf.get('sanm_shift', 0)),
+        dropout_rate=enc_conf.get('dropout_rate', 0.1),
+        lfr_m=m, lfr_n=int(lfr_conf.get('lfr_n', 6)))
+    cif_kwargs = _dataclass_kwargs(
+        CifConfig, dict(configs.get('cif_conf',
+                                    configs.get('predictor_conf', {})) or {}))
+    cif_kwargs['idim'] = scfg.output_size
+    return scfg, CifConfig(**cif_kwargs)
+
+
+@dataclasses.dataclass(frozen=True)
+class SanmTrainConfig:
+    """What the SANM Paraformer's loss reads besides the model's shapes
+    (the config's model_conf, and its dtype)."""
+    ctc_weight: float = 0.0
+    sampling_ratio: float = 0.75
+    sampler: bool = True
+    lsm_weight: float = 0.1
+    length_normalized_loss: bool = False
+    compute_dtype: torch.dtype = torch.float32
+
+
+def glancing_replace(tgt_mask, target_num, generator, device):
+    """The glancing sampler's choice (reverb_tpu/models/registry.py:
+    _sanm_paraformer_bundle): uniforms drawn from `generator`, set to inf
+    on padding, ranked by argsort of argsort; a valid position is replaced
+    where its rank is below its row's target_num.  (B, U) bool."""
+    r = torch.rand(tgt_mask.shape, generator=generator, device=device)
+    r = torch.where(tgt_mask, r, math.inf)
+    ranks = torch.argsort(torch.argsort(r, dim=1, stable=True), dim=1,
+                          stable=True)
+    return (ranks < target_num[:, None]) & tgt_mask
+
+
+def sanm_paraformer_loss(model, batch: Dict, generator=None) -> Dict:
+    """LFR → SANM encoder → CIF (α scaled to the target length) →
+    glancing sampler → SANM decoder; loss = label-smoothed decoder loss +
+    the quantity L1 (+ ctc_weight · CTC)."""
+    from reverb_tpu_torch.models.paraformer import cif_alphas, cif_fire
+    tc = model.train_cfg
+    enc, mask = model.encoder(batch['feats'].to(tc.compute_dtype),
+                              batch['feats_lengths'], generator)
+    text, text_lens = batch['target'], batch['target_lengths']
+    dev = enc.device
+    labels = torch.where(text == -1, torch.zeros_like(text), text)
+    B, U = labels.shape
+    tgt_mask = torch.arange(U, device=dev)[None, :] < text_lens[:, None]
+    alphas = cif_alphas(model.predictor, enc, mask)
+    token_num = alphas.sum(1)
+    scale = text_lens.to(torch.float32) / torch.clamp(token_num, min=1e-4)
+    acoustic, _ = cif_fire(enc, alphas * scale[:, None], U,
+                           model.cif.threshold)
+    zero = torch.zeros((), dtype=acoustic.dtype, device=dev)
+    if tc.sampler:
+        # where the frozen decoder errs, mix in the ground-truth embeddings
+        with torch.no_grad():
+            dec0 = model.decoder(enc, mask, acoustic, text_lens)
+        same = ((dec0.argmax(-1) == labels) & tgt_mask).sum(1)
+        target_num = ((text_lens - same).to(torch.float32)
+                      * tc.sampling_ratio).to(torch.int32)
+        if generator is None:
+            generator = torch.Generator(device=dev).manual_seed(0)
+        replace = glancing_replace(tgt_mask, target_num, generator, dev)
+        gt_emb = model.decoder.embed['0'].weight[labels.to(torch.int64)]
+        sematic = torch.where(replace[:, :, None], gt_emb.to(acoustic.dtype),
+                              acoustic)
+        sematic = torch.where(tgt_mask[:, :, None], sematic, zero)
+    else:
+        sematic = torch.where(tgt_mask[:, :, None], acoustic, zero)
+    dec_out = model.decoder(enc, mask, sematic, text_lens, generator)
+    loss_att = ctc_mod.label_smoothing_loss(
+        dec_out, torch.where(tgt_mask, labels, torch.full_like(labels, -1)),
+        tc.lsm_weight, model.scfg.vocab_size, -1, tc.length_normalized_loss)
+    loss_quantity = ((token_num - text_lens.to(torch.float32)).abs().sum()
+                     / torch.clamp(text_lens.sum(), min=1))
+    out = {'loss_decoder': loss_att, 'loss_quantity': loss_quantity}
+    total = loss_att + loss_quantity
+    if tc.ctc_weight:
+        l_ctc = ctc_mod.ctc_loss(model.ctc, enc, mask[:, 0, :].sum(-1),
+                                 labels, text_lens)
+        total = total + tc.ctc_weight * l_ctc
+        out['loss_ctc'] = l_ctc
+    out['loss'] = total
+    return out
+
+
+def _sanm_paraformer_bundle(configs, device, generator, cmvn,
+                            state_dict) -> ModelBundle:
+    """Ali-Paraformer (reverb_tpu/models/registry.py:
+    _sanm_paraformer_bundle): the SANM encoder and decoder, the CIF head
+    (and the timestamp branch when the state dict holds it), a CTC head at
+    ctc_weight > 0.  The CMVN stats count where their dim is the post-LFR
+    one.  The features enter in the config's dtype (f32 by default, as
+    JAX's, which has no other)."""
+    from reverb_tpu_torch.models.paraformer import SanmParaformer
+    scfg, cif = sanm_configs(configs)
+    model_conf = configs.get('model_conf', {}) or {}
+    tc = SanmTrainConfig(
+        ctc_weight=model_conf.get('ctc_weight', 0.0),
+        sampling_ratio=model_conf.get('sampling_ratio', 0.75),
+        sampler=model_conf.get('sampler', True),
+        lsm_weight=model_conf.get('lsm_weight', 0.1),
+        length_normalized_loss=model_conf.get('length_normalized_loss',
+                                              False),
+        compute_dtype=_compute_dtype(configs))
+    with_tp = (state_dict is not None
+               and 'predictor.tp_output.weight' in state_dict)
+    model = _materialise(
+        lambda: SanmParaformer(scfg, cif, with_tp, bool(tc.ctc_weight)),
+        device, generator, state_dict)
+    model.train_cfg = tc
+    if cmvn is not None and np.asarray(cmvn[0]).shape[-1] == \
+            scfg.input_size:
+        model.encoder.set_cmvn(*cmvn)
+    _freeze_lstm_second_bias(model)
+    return ModelBundle('paraformer', scfg, model, sanm_paraformer_loss)
+
+
+class ConformerParaformer(ASRModel):
+    """The conformer ASRModel (encoder, decoder, CTC, as init_params
+    builds them) with a CIF head (`predictor.*`) and its own
+    `output_layer` (reverb_tpu/models/registry.py:_paraformer_bundle)."""
+
+    def __init__(self, cfg: ModelConfig, pcfg, with_cmvn: bool):
+        super().__init__(cfg, with_cmvn)
+        from reverb_tpu_torch.models.modules import Linear
+        from reverb_tpu_torch.models.paraformer import Predictor
+        self.pcfg = pcfg
+        self.predictor = Predictor(pcfg.cif)
+        self.output_layer = Linear(pcfg.encoder_output_size,
+                                   pcfg.vocab_size)
+
+
+def conformer_paraformer_loss(model: ConformerParaformer, batch: Dict,
+                              generator=None) -> Dict:
+    """`paraformer_loss` over the conformer encoder's output, the targets'
+    ignore_id turned to 0 first (so every position counts, as in JAX);
+    `pred_count` is reported as its batch mean."""
+    from reverb_tpu_torch.models.paraformer import paraformer_loss
+    cfg = model.cfg
+    enc, mask = model.forward_encoder(batch['feats'], batch['feats_lengths'],
+                                      None, generator)
+    text = batch['target']
+    out = paraformer_loss(
+        model.predictor, model.output_layer, enc, mask,
+        torch.where(text == cfg.ignore_id, torch.zeros_like(text), text),
+        batch['target_lengths'], cfg.ignore_id)
+    out['pred_count'] = out['pred_count'].mean()
+    return out
+
+
+def _paraformer_bundle(configs, device, generator, cmvn,
+                       state_dict) -> ModelBundle:
+    from reverb_tpu_torch.models.paraformer import CifConfig, ParaformerConfig
+    if configs.get('encoder') == 'sanm_encoder':
+        return _sanm_paraformer_bundle(configs, device, generator, cmvn,
+                                       state_dict)
+    acfg = ModelConfig.from_config(configs)
+    pconf = dict(configs.get('paraformer_conf', {}) or {})
+    cif_kwargs = _dataclass_kwargs(CifConfig, pconf.pop('cif_conf', {}) or {})
+    cif_kwargs['idim'] = acfg.encoder.output_size
+    pcfg = ParaformerConfig(
+        vocab_size=acfg.vocab_size, cif=CifConfig(**cif_kwargs),
+        **_dataclass_kwargs(ParaformerConfig, dict(
+            pconf, encoder_output_size=acfg.encoder.output_size)))
+    with_cmvn = ('encoder.global_cmvn.mean' in state_dict
+                 if state_dict is not None else cmvn is not None)
+    model = _materialise(lambda: ConformerParaformer(acfg, pcfg, with_cmvn),
+                         device, generator, state_dict)
+    if state_dict is None and cmvn is not None:
+        with torch.no_grad():
+            for t, v in zip((model.encoder.global_cmvn.mean,
+                             model.encoder.global_cmvn.istd), cmvn):
+                t.copy_(torch.as_tensor(np.asarray(v, np.float32)))
+    return ModelBundle('paraformer', (acfg, pcfg), model,
+                       conformer_paraformer_loss)
+
+
 def init_model(configs: Dict, generator: Optional[torch.Generator] = None,
                device='cuda', cmvn: Optional[tuple] = None,
                state_dict: Optional[Dict] = None) -> ModelBundle:
@@ -294,4 +509,6 @@ def init_model(configs: Dict, generator: Optional[torch.Generator] = None,
                                    kind)
     if kind == 'asr_model':
         return _asr_bundle(configs, dev, generator, cmvn, state_dict)
+    if kind == 'paraformer':
+        return _paraformer_bundle(configs, dev, generator, cmvn, state_dict)
     return _transducer_bundle(configs, dev, generator, cmvn, state_dict)

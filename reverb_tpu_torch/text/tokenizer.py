@@ -1,5 +1,6 @@
 """Tokenizer interfaces + char/bpe tokenizers + registry (the port's own
-copy of reverb_tpu/text/tokenizer.py, for char, bpe and rev_bpe).
+copy of reverb_tpu/text/tokenizer.py, for char, bpe, rev_bpe and
+paraformer).
 
 Parity targets:
   - BaseTokenizer (tokenize = text2tokens→tokens2ids; detokenize = inverse)
@@ -161,8 +162,13 @@ def init_tokenizer(configs) -> BaseTokenizer:
         return RevBpeTokenizer(
             conf['bpe_path'], conf['symbol_table_path'],
             conf.get('non_lang_syms_path'), full_config=conf)
-    if kind in ('whisper', 'hugging_face', 'paraformer'):
+    if kind == 'paraformer':
+        from reverb_tpu_torch.text.paraformer_tokenizer import \
+            ParaformerTokenizer
+        return ParaformerTokenizer(conf['symbol_table_path'],
+                                   conf.get('seg_dict_path'))
+    if kind in ('whisper', 'hugging_face'):
         raise NotImplementedError(
-            f'tokenizer {kind!r} is not ported yet (ROADMAP queue 1 item 15, '
-            f'alternative families)')
+            f'tokenizer {kind!r} is not ported yet (ROADMAP queue 1 item '
+            f'15.3, Whisper)')
     raise ValueError(f"unknown tokenizer type {kind!r}")

@@ -382,7 +382,7 @@ def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
     if loss_fn is not None and sharding is not None:
         raise NotImplementedError(
             'a registry family under a sharding: the parallel forms cover '
-            'the conformer asr_model only (ROADMAP item 15)')
+            'the conformer asr_model only (ROADMAP item 15.8)')
 
     def train_step(model, batch, generator=None) -> Dict[str, float]:
         if model.cfg != cfg:

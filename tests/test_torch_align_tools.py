@@ -116,8 +116,9 @@ def test_transcribe_equals_jax(tiny, extra):
 
 def test_transcribe_refuses_what_is_not_ported(tiny):
     from reverb_tpu_torch.cli import transcribe as ttr
-    with pytest.raises(NotImplementedError, match='item 15'):
-        ttr.main([str(tiny / 'a.wav'), '--paraformer'])
+    # --paraformer without a model directory is the hub route
+    with pytest.raises(ValueError, match='downloads'):
+        ttr.main([str(tiny / 'a.wav'), '--paraformer', '--device', 'cpu'])
     with pytest.raises(ValueError, match='downloads'):
         ttr.main([str(tiny / 'a.wav'), '-l', 'english'])
     if not torch.cuda.is_available():       # --device defaults to cuda

@@ -185,9 +185,25 @@ def test_bpe_tokenizer_matches_jax(tiny_dir):
 
 
 @pytest.mark.parametrize('kind', ['whisper', 'hugging_face', 'paraformer'])
-def test_unported_tokenizers_raise(kind):
-    with pytest.raises(NotImplementedError, match='item 15'):
-        ttok.init_tokenizer({'tokenizer': kind, 'tokenizer_conf': {}})
+def test_unported_tokenizers_raise(kind, tmp_path):
+    """Whisper's tokenizers raise naming item 15.3; the paraformer one is
+    ported: its branch builds the tokenizer JAX's builds
+    (tests/test_torch_paraformer.py holds its tokenization to JAX's)."""
+    if kind != 'paraformer':
+        with pytest.raises(NotImplementedError, match='item 15.3'):
+            ttok.init_tokenizer({'tokenizer': kind, 'tokenizer_conf': {}})
+        return
+    from reverb_tpu_torch.text.paraformer_tokenizer import \
+        ParaformerTokenizer
+    units = tmp_path / 'units.txt'
+    units.write_text('<blank> 0\n<unk> 1\na 2\n你 3\n')
+    conf = {'tokenizer': kind,
+            'tokenizer_conf': {'symbol_table_path': str(units)}}
+    got = ttok.init_tokenizer(conf)
+    want = jtok.init_tokenizer(conf)
+    assert isinstance(got, ParaformerTokenizer)
+    assert got.symbol_table == want.symbol_table
+    assert got.detokenize([3, 2]) == want.detokenize([3, 2])
 
 
 @pytest.mark.parametrize('wrap', ['raw', 'model0', 'state_dict'])

@@ -5,10 +5,11 @@ The same float weights go through both packages' `quantize_params_int8`
 (bitwise the same int8 weights and scales); the int8 products
 (`int8_matmul`, `int8_matmul_static`, `int8_conv2d`) give the same int32
 accumulators exactly and outputs within 1e-6 relative (f32) or one bf16
-ulp; the int8 encoder and CTC agree to 1e-4 in f32 where every site's
-int8 codes agree (dynamic rounding turns the packages' 1e-6 f32
-differences into one-code steps at a rounding boundary, which the tests
-check for first); calibration yields the same scale table by JAX path;
+ulp; the int8 encoder and CTC agree to 1e-4 in f32 with every site fed
+JAX's input (dynamic rounding turns the packages' 1e-6 f32 differences
+into one-code steps at a rounding boundary, so the tests feed each site
+the JAX input after holding it to the port's own, or check for flips
+first); calibration yields the same scale table by JAX path;
 `recognize_wav --quantize int8` writes the JAX CLI's CTM and TXT.  The
 model: 2 layers, d = 64, 4 heads, V = 23.
 """
@@ -271,16 +272,57 @@ def _flipped_sites(want, got):
     return [k for k in want if _code_rows(got[k]) != _code_rows(want[k])]
 
 
-def test_int8_encoder_and_ctc_match_jax(params, monkeypatch):
-    """The JAX-quantized tree loads strictly into the port's int8 model;
-    on an input where every int8 site quantizes its input to the same
-    codes in both packages (checked first), the encoder output and CTC
-    log-probs agree to 1e-4 in f32.
+def _forced_sites(monkeypatch, rec, fn):
+    """Run fn() with every int8 product of the port taking, in place of
+    its own float input, the input that `rec` (a `_site_inputs` recording
+    of the JAX package, by site and in call order) holds for that call.
+    Each substituted input must lie within 1e-5 of its row's scale (its
+    sample's, for the 4-D conv input) of the port's own, so the forcing
+    replaces only summation-order noise.  Returns (fn's output, the
+    largest such difference over the row scale, the number of calls)."""
+    used = {}
+    worst = [0.0]
 
-    Where the two packages' f32 inputs to a site (1e-6 apart: summation
-    order) straddle a rounding boundary, one code differs by 1 and the
-    outputs move apart by a quantization step; the input of
-    `test_int8_rounding_boundary_flip` shows such a case."""
+    def wrap(name):
+        orig = getattr(tq, name)
+
+        def call(x, w_q8, *args, **kwargs):
+            key = hashlib.sha1(np.asarray(w_q8).tobytes()).hexdigest()
+            i = used[key] = used.get(key, -1) + 1
+            want = torch.from_numpy(np.array(rec[key][i]))
+            own = x.to(torch.float32)
+            assert want.shape == own.shape, key
+            dims = tuple(range(1, own.dim())) if own.dim() == 4 else (-1,)
+            scale = torch.clamp(want.abs().amax(dims, keepdim=True),
+                                min=1e-8)
+            rel = float(((own - want).abs() / scale).max())
+            assert rel <= 1e-5, (key, rel)
+            worst[0] = max(worst[0], rel)
+            return orig(want.to(x.dtype), w_q8, *args, **kwargs)
+        monkeypatch.setattr(tq, name, call)
+    for name in ('int8_matmul', 'int8_matmul_static', 'int8_conv2d'):
+        wrap(name)
+    try:
+        out = fn()
+    finally:
+        monkeypatch.undo()
+    assert used == {k: len(v) - 1 for k, v in rec.items()}
+    return out, worst[0], sum(len(v) for v in rec.values())
+
+
+def test_int8_encoder_and_ctc_match_jax(params, monkeypatch):
+    """The JAX-quantized tree loads strictly into the port's int8 model,
+    and its encoder output and CTC log-probs agree with JAX's to 1e-4 in
+    f32 once every int8 site takes JAX's recorded input.
+
+    The packages' f32 inputs to a site differ by summation-order noise
+    (1e-6); where that straddles an int8 rounding boundary one code
+    differs by 1 and the outputs move apart by a quantization step
+    (`test_int8_rounding_boundary_flip` shows such a case), and whether
+    an input lands there depends on how the machine orders its f32 sums.
+    So the port's sites are fed JAX's inputs, each first held within
+    1e-5 of its row's scale of the port's own: the comparison is then
+    the same on every machine."""
     p, jcfg, tcfg = params
     qp = jq.quantize_params_int8(p)
     model = _port_model(tcfg, qp)
@@ -289,9 +331,10 @@ def test_int8_encoder_and_ctc_match_jax(params, monkeypatch):
     feats, lens = _feats(2)
     want, rec_j = _site_inputs(monkeypatch, jq,
                                lambda: _jax_forward(qp, jcfg, feats, lens))
-    got, rec_t = _site_inputs(monkeypatch, tq,
-                              lambda: _port_forward(model, feats, lens))
-    assert _flipped_sites(rec_j, rec_t) == []
+    assert len(rec_j) >= 24
+    got, worst, calls = _forced_sites(
+        monkeypatch, rec_j, lambda: _port_forward(model, feats, lens))
+    assert calls >= 24 and worst <= 1e-5
     np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
     for g, w in ((got[0], want[0]), (got[2], want[2])):
         np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=0,

@@ -395,8 +395,11 @@ def test_entry_points_default_to_cuda(recipe, tmp_path):
     (['--process_id', '1', '--pipeline_microbatches', '2'], 'item 14'),
     (['--pipeline_microbatches', '4'], 'item 14'),
     (['--prng_impl', 'rbg'], "torch's generator"),
-    # the registry's families still to port
-    (['--override_config', 'model=paraformer'], 'item 15'),
+    # the registry's families still to port, and a ported family over
+    # several processes (item 15.8)
+    (['--override_config', 'model=k2_model'], 'item 15'),
+    (['--override_config', 'model=paraformer', '--num_processes', '2'],
+     'item 15.8'),
     (['--override_config', 'ts_conf.teacher_yaml=t.yaml'], 'item 15'),
     (['--override_config', 'model=whisper'], 'item 15'),
     (['--override_config', 'model=ctl_model'], 'item 15'),
