@@ -27,6 +27,9 @@
     python3 chip_smoke.py --phases paraformer   # the Paraformer family,
                                                 #   the transformer encoder
 
+    python3 chip_smoke.py --phases whisper,objectives   # Whisper; SSL,
+                                                #   CTL, LF-MMI, TS, LoRA
+
     python3 chip_smoke.py --profile             # + one profiled train step
 
     python3 chip_smoke.py --ab-parent DIR       # + K1-K6 of the checkout
@@ -257,6 +260,34 @@ weights:
   reference step and timed bf16 steps at B = 8 (K1 = K4 = 6 and 0 a
   step), and the transformer's serving call on the 60 s WAV.
 
+then Whisper and the other training objectives, with seeded random
+weights:
+
+- whisper: `init_model` of a Whisper at openai/whisper-large-v3's widths
+  (128 mels, 1500 audio frames, d 1280, 20 heads, 32 + 32 layers, V
+  51866, 448 text positions; 1.55B parameters, f32); 4 WAVs of 30 s
+  through the port's `compute_log_mel_spectrogram` (128 bins), then
+  `whisper_greedy_decode` with the 4-token prompt and max_len 64: a call
+  with every K5 call held to its plain version, a timed call (wall, the
+  encoder alone, ms a position, peak; K5 65 + 97 a position, no other
+  kernel), and the decode through the plain LayerNorm, whose tokens are
+  equal up to the first logit gap under 1e-3; the bundle's loss in f32 at
+  B = 1 with every K5/K6 call held to its plain version, then two Adam
+  steps at B = 4 × 30 s, U ≤ 64 (B = 2 where B = 4 does not fit or peaks
+  above 70 GiB; ms, audio-s/s, peak);
+- objectives: at reverb_large width and 6 layers, BEST-RQ, wav2vec 2.0,
+  w2v-BERT, CTL (20 negatives, a dynamic chunk) and the LF-MMI k2_model
+  (the dense unigram denominator at V 10000, the bigram graph at V 64)
+  through their registry bundles: each an f32 reference step (every
+  K1/K4/K5/K6 call held to its plain version, the gradient against f64)
+  and timed bf16 steps at B = 8 (K1 = K4 = 6 a step); teacher-student
+  (teacher reverb_large, student at reverb_small's widths, top-8 KL):
+  the reference and steps (K1 12 + 18, K4 12); LoRA (rank 8, the base
+  frozen): steps (K1 = K4 = 6), then on an f32 copy `merge_lora` and a
+  timed serving call of the merged model on the 164 s file (K1 6, K2 =
+  K3 = 1), its CTM equal to the adapter model's; the LF-MMI denominators
+  alone at B = 8, T = 512.
+
 Each path runs with the launch counters set to 0 just before it and read
 just after.  Every phase raises on failure; the exit code is 0 only when
 all of them pass.
@@ -296,7 +327,8 @@ LAYERS_ENC, LN_ENC, LN_DEC = 18, 91, 29   # reverb_large: per-step counts
 TRAIN_B, TRAIN_STEPS = 8, 4
 ALL_PHASES = ('kernels', 'serve', 'train', 'modes', 'stream', 'diar',
               'recipe', 'context', 'tools', 'remat', 'diartrain', 'int8',
-              'export', 'parallel', 'families', 'paraformer')
+              'export', 'parallel', 'families', 'paraformer', 'whisper',
+              'objectives')
 
 
 def log(msg):
@@ -6062,7 +6094,9 @@ def family_steps(model, loss_fn, batch, dev, seed, n, what) -> dict:
            'audio_s_per_s': audio_s / ms * 1e3, 'peak_gib': peak / 2 ** 30,
            'launches': launches[0], 'ln_calls': ln_seen[0],
            'losses': [m['loss'] for m in metrics]}
-    log(f'{what}: {n} bf16 steps at B={batch["feats"].shape[0]} '
+    dtype = getattr(model.cfg, 'compute_dtype', torch.float32)
+    log(f'{what}: {n} {"bf16" if dtype == torch.bfloat16 else "f32"} '
+        f'steps at B={batch["feats"].shape[0]} '
         f'({audio_s:.2f} s of audio a step): {ms:.1f} ms a step (first '
         f'{res["first_ms"]:.1f}), {res["audio_s_per_s"]:.1f} audio-s/s, '
         f'peak {res["peak_gib"]:.2f} GiB; losses '
@@ -7079,14 +7113,588 @@ def run_paraformer(dev, seed=SEED) -> dict:
     return res
 
 
+# ------------------------------ phase 22: Whisper -------------------------
+
+# openai/whisper-large-v3's published widths (its config.json): 1.55B
+# parameters, f32 as the JAX package computes
+WHISPER_CONF = {'n_mels': 128, 'n_audio_ctx': 1500, 'n_audio_state': 1280,
+                'n_audio_head': 20, 'n_audio_layer': 32, 'n_vocab': 51866,
+                'n_text_ctx': 448, 'n_text_state': 1280, 'n_text_head': 20,
+                'n_text_layer': 32}
+# <|startoftranscript|> <|en|> <|transcribe|> <|notimestamps|>; and
+# <|endoftext|>, in large-v3's vocabulary
+WHISPER_SOT = (50258, 50259, 50360, 50364)
+WHISPER_EOT = 50257
+WHISPER_WAVS, WHISPER_AUDIO_S, WHISPER_MAX_LEN = 4, 30.0, 64
+WHISPER_TRAIN_B, WHISPER_TRAIN_U, WHISPER_STEPS = 4, 64, 2
+WHISPER_PEAK_GIB = 70.0      # above this peak the step runs at B = 2
+# K5 an encoder call (2 a block and ln_post) and a decoded position (3 a
+# block and ln)
+WHISPER_LN_ENC = 2 * 32 + 1
+WHISPER_LN_DEC = 3 * 32 + 1
+WHISPER_MARGIN = 1e-3        # logit gap under which two runs may differ
+
+
+def whisper_mels(workdir: Path, seed: int, dev):
+    """WHISPER_WAVS `speech_like` WAVs of 30 s, read back and turned into
+    128-bin log-mels by the port's data/processor.py
+    (`compute_log_mel_spectrogram`): (B, 3000, 128) on the card."""
+    import torch
+    from reverb_tpu_torch.data.processor import compute_log_mel_spectrogram
+    from reverb_tpu_torch.frontend.audio import load_for_asr
+    mels = []
+    n = int(WHISPER_AUDIO_S * 16000)
+    for i in range(WHISPER_WAVS):
+        path = workdir / f'whisper_{i}.wav'
+        write_wav(path, n, seed + 100 + i)
+        wave_ = load_for_asr(str(path)) / 32768.0      # [-1, 1], as Whisper
+        mels.append(compute_log_mel_spectrogram(
+            {'wav': wave_[None], 'sample_rate': 16000},
+            num_mel_bins=WHISPER_CONF['n_mels'])['feat'])
+    mel = torch.from_numpy(np.stack(mels)).to(dev)
+    if tuple(mel.shape) != (WHISPER_WAVS, 3000, WHISPER_CONF['n_mels']) \
+            or not torch.isfinite(mel).all():
+        raise AssertionError(f'log-mel: shape {tuple(mel.shape)}')
+    return mel
+
+
+def greedy_with_margins(model, mel, sot, eot, max_len):
+    """`whisper_greedy_decode`'s loop, also returning each row's logit gap
+    between its best and second token at every step: (tokens after the
+    prompt (B, L), gaps (B, L), inf after a row ended; numpy)."""
+    import torch
+    with torch.no_grad():
+        feats = model.encoder(mel)
+        B = mel.shape[0]
+        L0 = len(sot)
+        total = min(L0 + max_len, model.cfg.n_text_ctx)
+        tokens = torch.full((B, total), eot, dtype=torch.int64,
+                            device=mel.device)
+        tokens[:, :L0] = torch.as_tensor(list(sot), device=mel.device)
+        gaps = torch.full((B, total), math.inf, device=mel.device)
+        finished = torch.zeros((B,), dtype=torch.bool, device=mel.device)
+        for cur in range(L0, total):
+            logits = model.decoder.head(
+                model.decoder.hidden(tokens[:, :cur], feats)[:, -1])
+            top2 = logits.topk(2, -1).values
+            gaps[:, cur] = torch.where(finished, math.inf,
+                                       top2[:, 0] - top2[:, 1])
+            nxt = torch.where(finished, eot, logits.argmax(-1))
+            tokens[:, cur] = nxt
+            finished |= nxt == eot
+            if bool(finished.all()):
+                break
+    return tokens[:, L0:].cpu().numpy(), gaps[:, L0:].cpu().numpy()
+
+
+def same_until_near_tie(got, want, gaps, what) -> int:
+    """Raise unless each row's tokens are equal up to its first step whose
+    gap is under WHISPER_MARGIN (after which either run may go its way).
+    Returns the number of tokens compared."""
+    n = 0
+    for b in range(got.shape[0]):
+        near = np.nonzero(gaps[b] < WHISPER_MARGIN)[0]
+        upto = int(near[0]) + 1 if len(near) else got.shape[1]
+        if not np.array_equal(got[b, :upto], want[b, :upto]):
+            raise AssertionError(f'{what}: row {b} tokens differ before a '
+                                 f'near-tie: {got[b, :upto]} vs '
+                                 f'{want[b, :upto]}')
+        n += upto
+    return n
+
+
+def decoded_steps(tokens) -> int:
+    """Decoded positions of a greedy call: until every row has its eot (or
+    the buffer is full)."""
+    steps = 0
+    for row in tokens:
+        hit = np.nonzero(row == WHISPER_EOT)[0]
+        steps = max(steps, int(hit[0]) + 1 if len(hit) else len(row))
+    return steps
+
+
+def whisper_serve(dev, model, mel) -> dict:
+    """Greedy decoding of the 4 × 30 s batch: a warm-up call with every K5
+    call held to its plain version, then a timed call (wall, the encoder
+    alone, ms a token, peak; launches K5 = 65 + 97 a decoded position),
+    and the same decode through the plain LayerNorm: tokens equal up to
+    the first near-tie."""
+    import torch
+    from reverb_tpu_torch.models.whisper import whisper_greedy_decode
+    errs = {}
+    with swapped(checked_kernels(errs)):
+        first = whisper_greedy_decode(model, mel, WHISPER_SOT, WHISPER_EOT,
+                                      WHISPER_MAX_LEN)
+    log_call_errs(errs, 'whisper serving')
+    check_call_errs(errs, 'whisper serving', ('K5',))
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        model.encoder(mel)
+        torch.cuda.synchronize()
+        enc_s = time.perf_counter() - t0
+    diar_zero_launch_counts()
+    t0 = time.perf_counter()
+    tokens = whisper_greedy_decode(model, mel, WHISPER_SOT, WHISPER_EOT,
+                                   WHISPER_MAX_LEN)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = diar_launch_counts()
+    peak = torch.cuda.max_memory_allocated()
+    steps = decoded_steps(tokens)
+    expect_launches(launches, {'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0,
+                               'K5': WHISPER_LN_ENC + WHISPER_LN_DEC * steps,
+                               'K6': 0}, 'whisper serving, timed call')
+    if not np.array_equal(tokens, first):
+        raise AssertionError('whisper serving: two calls decode differently')
+    with swapped(plain_versions()):
+        plain, gaps = greedy_with_margins(model, mel, WHISPER_SOT,
+                                          WHISPER_EOT, WHISPER_MAX_LEN)
+    compared = same_until_near_tie(tokens, plain, gaps, 'whisper serving')
+    res = {'wall_s': wall, 'encoder_ms': enc_s * 1e3, 'steps': steps,
+           'ms_per_token': (wall - enc_s) * 1e3 / max(steps, 1),
+           'peak_gib': peak / 2 ** 30, 'launches': launches,
+           'call_errs': errs, 'tokens_compared': compared,
+           'min_gap': float(np.min(gaps)),
+           'distinct_tokens': int(len(np.unique(tokens)))}
+    log(f'whisper serving ({WHISPER_WAVS} x {WHISPER_AUDIO_S:.0f} s, sot '
+        f'prefix {len(WHISPER_SOT)}, max_len {WHISPER_MAX_LEN}): '
+        f'{wall:.3f} s a call, encoder {res["encoder_ms"]:.1f} ms, {steps} '
+        f'positions at {res["ms_per_token"]:.2f} ms each, peak '
+        f'{res["peak_gib"]:.2f} GiB; {res["distinct_tokens"]} distinct '
+        f'tokens; {compared} tokens equal through the plain LayerNorm '
+        f'(smallest logit gap {res["min_gap"]:.3g})')
+    return res
+
+
+def whisper_batch(dev, B, seed, mel):
+    """B of the log-mels and targets of the prompt, 40-64 random text
+    tokens and eot, padded with -1 (the bundle's `target` route)."""
+    import torch
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    U = WHISPER_TRAIN_U
+    lens = torch.randint(U * 5 // 8, U + 1, (B,), device=dev, generator=gen)
+    lens[0] = U
+    body = torch.randint(0, WHISPER_EOT, (B, U), device=dev, generator=gen)
+    target = torch.cat([torch.tensor(WHISPER_SOT, device=dev)[None].expand(
+        B, -1), body], 1)
+    L = len(WHISPER_SOT) + lens
+    target[torch.arange(target.shape[1], device=dev)[None, :]
+           >= L[:, None]] = -1
+    target[torch.arange(B, device=dev), L - 1] = WHISPER_EOT
+    return {'feats': mel[:B].contiguous(),
+            'feats_lengths': torch.full((B,), mel.shape[1], device=dev),
+            'target': target, 'target_lengths': L}
+
+
+def whisper_train(dev, seed, model, mel) -> dict:
+    """The bundle's loss (the `target` route): one f32 loss + backward at
+    B = 1 with every K5/K6 call held to its plain version, against the
+    plain versions' loss and gradient; then WHISPER_STEPS timed Adam
+    steps at B = 4 (B = 2 where B = 4 runs out of memory or peaks above
+    WHISPER_PEAK_GIB), K5 = K6 = the LayerNorm calls a step."""
+    import torch
+    from reverb_tpu_torch.models.registry import whisper_loss
+    model.train().requires_grad_(True)
+    ref = whisper_batch(dev, 1, seed + 1, mel)
+    errs = {}
+    diar_zero_launch_counts()
+    loss_k, g_k = loss_and_grads(model, ref, dev, checked_kernels(errs),
+                                 whisper_loss)
+    ref_launches = diar_launch_counts()
+    loss_p, g_p = loss_and_grads(model, ref, dev, plain_versions(),
+                                 whisper_loss)
+    log_call_errs(errs, 'whisper reference')
+    check_call_errs(errs, 'whisper reference', ('K5', 'K6'))
+    rel = abs(loss_k - loss_p) / abs(loss_p)
+    dist = grad_dist(g_k, g_p)
+    del g_k, g_p
+    log(f'whisper reference (f32, B = 1): loss {loss_k:.6f} vs plain '
+        f'{loss_p:.6f} (rel {rel:.2e}); gradient distance {dist:.2e}')
+    if rel > 1e-5 or dist > 1e-3:
+        raise AssertionError('whisper reference: kernels differ from the '
+                             'plain versions')
+    gc.collect()
+    torch.cuda.empty_cache()
+    res, notes = None, []
+    for B in (WHISPER_TRAIN_B, 2):
+        try:
+            res = family_steps(model, whisper_loss,
+                               whisper_batch(dev, B, seed + 2, mel), dev,
+                               seed + 3, WHISPER_STEPS,
+                               f'whisper-large-v3 step at B={B}')
+        except torch.cuda.OutOfMemoryError:
+            notes.append(f'B={B} ran out of memory')
+            res = None
+        gc.collect()
+        torch.cuda.empty_cache()
+        if res is not None and res['peak_gib'] <= WHISPER_PEAK_GIB:
+            break
+        if res is not None:
+            notes.append(f'B={B} peaked at {res["peak_gib"]:.2f} GiB')
+    if res is None:
+        raise AssertionError(f'whisper step: {notes}')
+    expect_launches(res['launches'], {
+        'K1': 0, 'K2': 0, 'K3': 0, 'K4': 0, 'K5': res['ln_calls'],
+        'K6': res['ln_calls']}, 'whisper step')
+    res.update(B=B, notes=notes, reference={'launches': ref_launches,
+                                             'call_errs': errs,
+                                             'loss_rel': rel,
+                                             'grad_dist': dist})
+    log(f'whisper step: B = {B} ({"; ".join(notes) or "as planned"})')
+    model.eval().requires_grad_(False)
+    return res
+
+
+def run_whisper(dev, seed=SEED) -> dict:
+    """Phase whisper: whisper-large-v3's widths with seeded random weights
+    (f32): greedy serving of 4 × 30 s and the bundle's training step.
+    Returns the results and `total`: every launch the phase counted."""
+    import torch
+    from reverb_tpu_torch.models.registry import init_model
+    t0 = time.perf_counter()
+    with tempfile.TemporaryDirectory(prefix='reverb_whisper_') as tmp:
+        bundle = init_model({'model': 'whisper',
+                             'whisper_conf': WHISPER_CONF},
+                            torch.Generator(device=dev).manual_seed(seed),
+                            dev)
+        model = bundle.model.eval().requires_grad_(False)
+        n_params = sum(p.numel() for p in model.parameters())
+        log(f'whisper: large-v3 widths, {n_params / 1e9:.3f}B params (f32), '
+            f'built in {time.perf_counter() - t0:.1f} s')
+        mel = whisper_mels(Path(tmp), seed, dev)
+        res = {'params': n_params, 'serve': whisper_serve(dev, model, mel)}
+        res['train'] = whisper_train(dev, seed, model, mel)
+    del bundle, model
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = {}
+    for d in (res['serve']['launches'],
+              res['train']['reference']['launches'],
+              {n: v * res['train']['steps']
+               for n, v in res['train']['launches'].items()}):
+        for n, v in d.items():
+            total[n] = total.get(n, 0) + v
+    res['total'] = total
+    res['wall_s'] = time.perf_counter() - t0
+    log(f'whisper phase: {res["wall_s"]:.1f} s; launches {total}')
+    return res
+
+
+# ------------------------------ phase 23: the other objectives ------------
+
+OBJ_LAYERS = FAM_LAYERS        # encoder layers of every objective's model
+OBJ_CTL_NEGATIVES = 20         # CTL's negatives a frame
+OBJ_BIGRAM_V = 64              # the bigram LF-MMI model's token set
+OBJ_LORA_RANK = 8
+OBJ_TS_STUDENT = {'output_size': 256, 'attention_heads': 4,
+                  'linear_units': 1024, 'num_blocks': 6, 'dec_blocks': 3,
+                  'r_blocks': 1}           # presets.reverb_small's widths
+OBJ_FSA_T = 512                # the LF-MMI frame loop timed alone
+
+
+def objective_configs(kind: str, workdir: Path) -> dict:
+    """presets.reverb_large() at OBJ_LAYERS layers as `kind`: the SSL
+    objectives without LSL layers (their encoder calls take no category
+    embedding, as in the JAX package) at their configs' defaults (BEST-RQ
+    8192 codes of 16 dims, mask_prob 0.01 × 10 frames; wav2vec2 320 codes,
+    100 negatives, mask_prob 0.065; w2v-BERT split 3 + 3); CTL with a
+    dynamic chunk and OBJ_CTL_NEGATIVES negatives; the k2_model with a
+    lfmmi_dir of the 10000 tokens (the dense unigram denominator) or, as
+    `k2_bigram`, of OBJ_BIGRAM_V tokens with a random bigram.txt."""
+    configs = presets_large()
+    configs['encoder_conf'] = dict(configs['encoder_conf'],
+                                   num_blocks=OBJ_LAYERS)
+    if kind in ('bestrq', 'wav2vec2', 'w2vbert'):
+        configs['dataset_conf'] = dict(configs['dataset_conf'],
+                                       pass_cat_emb=False)
+        configs['model'] = kind
+    elif kind == 'ctl_model':
+        configs['model'] = kind
+        configs['encoder_conf'].update(use_dynamic_chunk=True,
+                                       use_dynamic_left_chunk=True)
+        configs['model_conf'] = dict(configs['model_conf'],
+                                     n_negatives=OBJ_CTL_NEGATIVES,
+                                     ctl_weight=1.0, logit_temp=0.1)
+    else:
+        vocab = VOCAB if kind == 'k2_model' else OBJ_BIGRAM_V
+        d = workdir / f'lfmmi_{vocab}'
+        d.mkdir(exist_ok=True)
+        (d / 'tokens.txt').write_text(
+            '<blank> 0\n' + ''.join(f't{i} {i}\n' for i in range(1, vocab - 1))
+            + f'<sos/eos> {vocab - 1}\n')
+        if kind == 'k2_bigram':
+            rng = np.random.RandomState(SEED)
+            K = vocab - 2
+            p = rng.dirichlet(np.ones(K), size=K)
+            (d / 'bigram.txt').write_text(''.join(
+                f'{u + 1} {v + 1} {np.log(p[u, v]):.6f}\n'
+                for u in range(K) for v in range(K)))
+        configs.update(model='k2_model', output_dim=vocab)
+        configs['model_conf'] = dict(configs['model_conf'],
+                                     lfmmi_dir=str(d))
+    return configs
+
+
+def ts_run(dev, seed) -> dict:
+    """Teacher-student: the teacher reverb_large (18 layers, frozen), the
+    student at reverb_small's widths with the teacher's vocabulary;
+    `ts_loss` with top-8 symmetric KL.  The f32 reference (every kernel
+    call against its plain version, the student's gradient against f64),
+    then timed bf16 steps at B = 8: K1 = 2 × 6 + 18 (the student's two
+    forwards, the teacher's), K4 = 2 × 6, K5 = the student's LayerNorm
+    calls + the teacher's, K6 = the student's."""
+    import gc
+    import torch
+    from reverb_tpu_torch.models import presets
+    from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
+    from reverb_tpu_torch.train.teacher_student import TSConfig, ts_loss
+    tsc = TSConfig(ts_weight=0.5, top_k_entries=8)
+    s_conf = presets.reverb_config(vocab_size=VOCAB, **OBJ_TS_STUDENT)
+
+    def build(conf, dtype, s, train):
+        cfg = ModelConfig.from_config(conf).with_compute_dtype(dtype)
+        return build_model(cfg, dev, generator=torch.Generator(
+            device=dev).manual_seed(s), train=train)
+
+    teacher = build(presets_large(), torch.float32, seed, False)
+    student = build(s_conf, torch.float32, seed + 1, True)
+
+    def loss_fn(model, batch, generator=None):
+        return ts_loss(model, teacher, batch, tsc, generator)
+    ref = family_reference(student, loss_fn, train_batch(dev, 2, seed + 2,
+                                                         VOCAB), dev,
+                           {'K1', 'K4', 'K5', 'K6'}, 'ts reference')
+    del teacher, student
+    gc.collect()
+    torch.cuda.empty_cache()
+    teacher = build(presets_large(), torch.bfloat16, seed, False)
+    student = build(s_conf, torch.bfloat16, seed + 1, True)
+    t_ln, hooks = ln_call_counter(teacher)
+    try:
+        res = family_steps(student, loss_fn,
+                           train_batch(dev, TRAIN_B, seed + 3, VOCAB), dev,
+                           seed + 4, 2, 'ts (teacher reverb_large, student '
+                           'reverb_small widths)')
+    finally:
+        for h in hooks:
+            h.remove()
+    t_per = t_ln[0] // res['steps']
+    s_layers = OBJ_TS_STUDENT['num_blocks']
+    expect_launches(res['launches'], {
+        'K1': 2 * s_layers + LAYERS_ENC, 'K2': 0, 'K3': 0,
+        'K4': 2 * s_layers, 'K5': res['ln_calls'] + t_per,
+        'K6': res['ln_calls']}, 'ts step')
+    res.update(reference=ref, teacher_ln=t_per)
+    del teacher, student
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def lora_run(dev, seed, workdir: Path) -> dict:
+    """LoRA: reverb_large at OBJ_LAYERS layers, rank-8 adapters on every
+    attention projection, the base frozen (`lora_trainable_mask`); timed
+    bf16 steps at B = 8 (K1 = K4 = 6; K6 only where a LayerNorm's input
+    carries a gradient); then on an f32 copy (TF32 off) a serving call
+    of the adapter model (B drawn N(0, 0.05²)) and, after `merge_lora`, a
+    warm-up and a timed call of the merged model on the 164 s file (K1 6,
+    K2 = K3 = 1): its CTM equals the adapter model's."""
+    import gc
+    import torch
+    from reverb_tpu_torch.cli.reverb import ReverbASR
+    from reverb_tpu_torch.models.asr_model import (ASRModel, ModelConfig,
+                                                   build_model, compute_loss)
+    from reverb_tpu_torch.models.modules import LayerNorm
+    from reverb_tpu_torch.ops import layer_norm as ln
+    from reverb_tpu_torch.text.tokenizer import init_tokenizer
+    from reverb_tpu_torch.train import lora
+    configs = presets_large()
+    configs['encoder_conf'] = dict(configs['encoder_conf'],
+                                   num_blocks=OBJ_LAYERS)
+    cfg = ModelConfig.from_config(configs)
+    model = build_model(cfg.with_compute_dtype(torch.bfloat16), dev,
+                        generator=torch.Generator(device=dev).manual_seed(
+                            seed), train=True)
+    lora.inject_lora(model, torch.Generator(device=dev).manual_seed(seed + 1),
+                     rank=OBJ_LORA_RANK, alpha=OBJ_LORA_RANK)
+    mask = lora.lora_trainable_mask(model)
+    n_train = sum(p.numel() for n, p in model.named_parameters() if mask[n])
+    grad_ln = [0]
+
+    def hook(mod, args, out):
+        if args[0].is_cuda and ln.eligible(args[0]) and args[0].requires_grad:
+            grad_ln[0] += 1
+    hooks = [m.register_forward_hook(hook) for m in model.modules()
+             if isinstance(m, LayerNorm)]
+    try:
+        res = family_steps(
+            model, lambda m, b, g=None: compute_loss(m, b, g),
+            train_batch(dev, TRAIN_B, seed + 2, VOCAB), dev, seed + 3, 2,
+            f'lora (rank {OBJ_LORA_RANK}, {n_train / 1e6:.2f}M trainable)')
+    finally:
+        for h in hooks:
+            h.remove()
+    expect_launches(res['launches'], {
+        'K1': OBJ_LAYERS, 'K2': 0, 'K3': 0, 'K4': OBJ_LAYERS,
+        'K5': res['ln_calls'], 'K6': grad_ln[0] // res['steps']},
+        'lora step')
+    # serving, f32: the adapter model, then the merged one
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    with torch.device('meta'):
+        f32 = ASRModel(cfg)
+    lora.lora_modules(f32, sd)
+    f32 = f32.to_empty(device=dev)
+    f32.load_state_dict(sd, strict=True)
+    f32.eval().requires_grad_(False)
+    # two steps at the warm-up's learning rate leave B near zero: give the
+    # adapters B ~ N(0, 0.05²), as a trained adapter's, so merging moves
+    # every adapted weight
+    g = torch.Generator(device=dev).manual_seed(seed + 4)
+    with torch.no_grad():
+        for m in f32.modules():
+            if getattr(m, 'lora_B', None) is not None:
+                m.lora_B.normal_(generator=g).mul_(0.05)
+    configs['tokenizer'] = 'char'
+    configs['tokenizer_conf'] = {'symbol_table_path': str(workdir /
+                                                          'units.txt')}
+    write_units(workdir / 'units.txt')
+    asr = ReverbASR.from_model(configs, f32, init_tokenizer(configs))
+    n_samples = 400 + 160 * (N_CHUNKS * CHUNK - 1)
+    wav = workdir / 'long.wav'
+    write_wav(wav, n_samples, seed)
+    sharpen_ctc_head(asr, asr.compute_feats(str(wav)))
+    adapter_ctm = asr.transcribe_modes(str(wav), MODES, format='ctm')
+    lora.merge_lora(f32)
+    if any('lora_' in n for n, _ in f32.named_parameters()):
+        raise AssertionError('merge_lora left an adapter')
+    asr.transcribe_modes(str(wav), MODES, format='ctm')
+    torch.cuda.synchronize()
+    diar_zero_launch_counts()
+    t0 = time.perf_counter()
+    merged_ctm = asr.transcribe_modes(str(wav), MODES, format='ctm')
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    serve = diar_launch_counts()
+    if serve['K1'] != OBJ_LAYERS or serve['K2'] != 1 or serve['K3'] != 1 \
+            or serve['K4'] or serve['K6'] or not serve['K5']:
+        raise AssertionError(f'lora serving launches {serve}')
+    if merged_ctm != adapter_ctm:
+        raise AssertionError('lora: the merged model decodes differently '
+                             'from the adapter model')
+    rows = sum(len(v.splitlines()) for v in merged_ctm)
+    if not rows:
+        raise AssertionError('lora serving: empty CTM')
+    log(f'lora serving (f32, merged, {n_samples / 16000:.1f} s): '
+        f'{wall:.4f} s a call, launches {serve}; {rows} CTM rows equal to '
+        f'the adapter model\'s')
+    res.update(serve_launches=serve, serve_wall=wall, ctm_rows=rows,
+               trainable=n_train)
+    del asr, f32
+    gc.collect()
+    torch.cuda.empty_cache()
+    return res
+
+
+def fsa_loop_times(dev, seed) -> dict:
+    """The LF-MMI denominators alone at B = 8, T = OBJ_FSA_T: the dense
+    unigram recursion over V = 10000 and the bigram graph over
+    OBJ_BIGRAM_V tokens, forward and forward + backward (ms)."""
+    import torch
+    from reverb_tpu_torch.ops import fsa
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    lens = torch.full((TRAIN_B,), OBJ_FSA_T, device=dev)
+    lens[1:] -= 37
+    out = {}
+    K = OBJ_BIGRAM_V - 2
+    rng = np.random.RandomState(seed)
+    arcs = fsa.bigram_den_arcs(
+        np.log(rng.dirichlet(np.ones(K), size=K)).astype(np.float32), 0,
+        tokens=np.arange(1, K + 1, dtype=np.int32))
+    src, dst, lab = (torch.as_tensor(a, dtype=torch.int64, device=dev)
+                     for a in arcs[:3])
+    wgt, fin = (torch.as_tensor(a, device=dev) for a in (arcs[3], arcs[5]))
+    for name, V in (('unigram', VOCAB), ('bigram', OBJ_BIGRAM_V)):
+        x = torch.randn(TRAIN_B, OBJ_FSA_T, V, device=dev, generator=gen)
+        uni = torch.full((V,), -math.log(V - 2), device=dev)
+
+        def score(logp):
+            if name == 'unigram':
+                return fsa.dense_unigram_den_score(logp, lens, uni, 0)
+            return fsa.fsa_forward_score(logp, lens, src, dst, lab, wgt,
+                                         arcs[4], fin)
+        for grad in (False, True):
+            xs = x.clone().requires_grad_(grad)
+            times = []
+            for _ in range(2):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                with torch.set_grad_enabled(grad):
+                    s = score(torch.log_softmax(xs, -1))
+                    if grad:
+                        s.sum().backward()
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+            if not torch.isfinite(s).all() or (grad and not torch.isfinite(
+                    xs.grad).all()):
+                raise AssertionError(f'lfmmi {name}: non-finite')
+            out[f'{name}_{"fwd_bwd" if grad else "fwd"}_ms'] = times[1] * 1e3
+    log(f'lfmmi frame loop alone (B = {TRAIN_B}, T = {OBJ_FSA_T}): '
+        + ', '.join(f'{k} {v:.1f}' for k, v in out.items()))
+    return out
+
+
+def run_objectives(dev, seed=SEED) -> dict:
+    """Phase objectives: BEST-RQ, wav2vec2, w2v-BERT, CTL and the LF-MMI
+    k2_model (unigram at V 10000, bigram at V 64) through their registry
+    bundles (`family_train`: the f32 reference, then timed bf16 steps at
+    B = 8; K1 = K4 = 6 a step), the teacher-student step, the LoRA step
+    and its merged serving call, and the LF-MMI frame loop alone.
+    Returns the results and `total`: every launch the phase counted."""
+    import torch
+    t0 = time.perf_counter()
+    res = {}
+    with tempfile.TemporaryDirectory(prefix='reverb_objectives_') as tmp:
+        workdir = Path(tmp)
+        for kind in ('bestrq', 'wav2vec2', 'w2vbert', 'ctl_model',
+                     'k2_model', 'k2_bigram'):
+            res[kind] = family_train(
+                dev, seed, objective_configs(kind, workdir), kind,
+                {'K1', 'K4', 'K5', 'K6'}, OBJ_LAYERS,
+                lambda B, s, vocab: train_batch(dev, B, s, vocab), TRAIN_B)
+        res['ts'] = ts_run(dev, seed)
+        res['lora'] = lora_run(dev, seed, workdir)
+    res['fsa'] = fsa_loop_times(dev, seed)
+    total = {}
+    for k, r in res.items():
+        if k == 'fsa':
+            continue
+        parts = [r['reference']['launches'] if 'reference' in r else {},
+                 {n: v * r['steps'] for n, v in r['launches'].items()},
+                 r.get('serve_launches', {})]
+        for d in parts:
+            for n, v in d.items():
+                total[n] = total.get(n, 0) + v
+    res['total'] = total
+    res['wall_s'] = time.perf_counter() - t0
+    log(f'objectives phase: {res["wall_s"]:.1f} s; launches {total}')
+    torch.cuda.empty_cache()
+    return res
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split('\n')[0])
     ap.add_argument('--phases', default=','.join(ALL_PHASES),
                     help='comma list of kernels, serve, train, modes, '
                          'stream, diar, recipe, context, tools, remat, '
-                         'diartrain, int8, export, parallel, families '
-                         '(default all; the result lines need all fifteen), '
-                         'or beam: the K2/K3 and K2b checks alone')
+                         'diartrain, int8, export, parallel, families, '
+                         'paraformer, whisper, objectives (default all; the '
+                         'result lines need all eighteen), or beam: the '
+                         'K2/K3 and K2b checks alone')
     ap.add_argument('--parallel-child', default=None,
                     help=argparse.SUPPRESS)
     ap.add_argument('--profile', action='store_true',
@@ -7163,6 +7771,15 @@ def main():
     if 'beam' in phases and 'kernels' not in phases:
         check_beam(dev, SEED)       # a quick first check of K2/K3 alone
         check_beam_biased(dev, SEED)
+    # wall seconds of each phase (the build's included in the first)
+    phase_s, t_mark = {}, [time.perf_counter()]
+
+    def mark(name):
+        now = time.perf_counter()
+        phase_s[name] = now - t_mark[0]
+        t_mark[0] = now
+        log(f'phase {name}: {phase_s[name]:.1f} s')
+
     if 'kernels' in phases:
         # phases 3-4, 6-7: kernels against their plain versions
         k1 = check_k1(dev)
@@ -7170,34 +7787,44 @@ def main():
         fwd_err, bt = check_beam(dev, SEED)
         k4 = check_k1_mask_k4(dev)[torch.bfloat16]
         lnr = check_ln(dev)[torch.bfloat16]
+        mark('kernels')
     if phases & {'serve', 'modes', 'stream', 'context', 'tools', 'int8',
                   'export', 'parallel'}:
         with tempfile.TemporaryDirectory(prefix='reverb_smoke_') as tmp:
             served = serving_setup(dev, SEED, Path(tmp))
+            mark('serving setup')
             if 'serve' in phases:
                 # phase 5: the serving path
                 launches, walls, audio_s, fallback = run_slice(dev, *served)
+                mark('serve')
             if 'modes' in phases:
                 # phase 9: the six CLI modes
                 modes = run_modes(dev, *served)
+                mark('modes')
             if 'stream' in phases:
                 # phase 10: streaming
                 stream = run_stream(dev, *served)
+                mark('stream')
             if 'context' in phases:
                 # phase 13: context biasing (K2b; serving and training)
                 context = run_context(dev, *served)
+                mark('context')
             if 'tools' in phases:
                 # phase 14: alignment, transcribe, the app
                 tools = run_tools(dev, *served, Path(tmp))
+                mark('tools')
             if 'int8' in phases:
                 # phase 17: --quantize int8 serving (and static scales)
                 int8 = run_int8(dev, *served)
+                mark('int8')
             if 'export' in phases:
                 # phase 18: bin.export (pt2 programs, the aot kernel dir)
                 export = run_export(dev, *served, Path(tmp))
+                mark('export')
             if 'parallel' in phases:
                 # phase 19, serving: data_parallel over the cards
                 par_serve = parallel_serve(served[0], served[1])
+                mark('parallel serving')
             del served
     if 'train' in phases:
         # phase 8: the training path
@@ -7205,28 +7832,44 @@ def main():
         t_launch, step_ms, peak = run_train(dev, SEED)
         if args.profile:
             profile_train(dev, SEED)
+        mark('train')
     if 'diar' in phases:
         # phase 11: diarization, both routes
         diar = run_diar(dev, SEED)
+        mark('diar')
     if 'recipe' in phases:
         # phase 12: the dataset path (train, recognize, get_loss, average)
         recipe = run_recipe(dev, SEED)
+        mark('recipe')
     if 'remat' in phases:
         # phase 15: gradient checkpointing, the new training options,
         # device_feats through bin.train
         remat = run_remat(dev, SEED)
+        mark('remat')
     if 'diartrain' in phases:
         # phase 16: diarization training (K6 on the TDNN)
         diartrain = run_diartrain(dev, SEED)
+        mark('diartrain')
     if 'parallel' in phases:
         # phase 19: the sharded training step (DDP, ZeRO-1/2, ZeRO-3, TP)
         par = run_parallel(dev, SEED)
+        mark('parallel')
     if 'families' in phases:
         # phase 20: MoE, the transducer, the alternative encoders
         families = run_families(dev, SEED)
+        mark('families')
     if 'paraformer' in phases:
         # phase 21: the Paraformer family, the transformer encoder
         para = run_paraformer(dev, SEED)
+        mark('paraformer')
+    if 'whisper' in phases:
+        # phase 22: Whisper at large-v3's widths, serving and a step
+        whisper = run_whisper(dev, SEED)
+        mark('whisper')
+    if 'objectives' in phases:
+        # phase 23: SSL, CTL, LF-MMI, teacher-student, LoRA
+        objectives = run_objectives(dev, SEED)
+        mark('objectives')
     spilled = [n for n, r in {**tc, **lnk, **beamk}.items() if r[1] or r[2]]
     if spilled:
         raise AssertionError(f'kernels spill registers: {spilled}')
@@ -7238,7 +7881,8 @@ def main():
     kernels = kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches,
                              len(walls), t_launch, fallback, modes, stream,
                              diar, recipe, context, tools, remat, diartrain,
-                             int8, export, par, par_serve, families, para)
+                             int8, export, par, par_serve, families, para,
+                             whisper, objectives)
     log(f'slice: second transcribe_modes call {walls[1]:.4f} s for '
         f'{audio_s:.2f} s of audio, xRT {audio_s / walls[1]:.2f}; six-mode '
         f'call {modes[2]:.3f} s; train {step_ms:.1f} ms/step at '
@@ -7299,6 +7943,17 @@ def main():
         f'Paraformer step {para["conformer"]["ms"]:.1f} ms, transformer step '
         f'{para["transformer"]["ms"]:.1f} ms, transformer serving '
         f'{para["transformer_serve"]["walls"][1]:.4f} s'
+        f'; whisper {whisper["wall_s"]:.1f} s: greedy serving '
+        f'{whisper["serve"]["wall_s"]:.3f} s ({whisper["serve"]["steps"]} '
+        f'positions, {whisper["serve"]["ms_per_token"]:.2f} ms each), step '
+        f'{whisper["train"]["ms"]:.1f} ms at B={whisper["train"]["B"]}; '
+        f'objectives {objectives["wall_s"]:.1f} s: '
+        + ', '.join(f'{k} step {objectives[k]["ms"]:.1f} ms'
+                    for k in ('bestrq', 'wav2vec2', 'w2vbert', 'ctl_model',
+                              'k2_model', 'k2_bigram', 'ts', 'lora'))
+        + f', LoRA merged serving {objectives["lora"]["serve_wall"]:.4f} s'
+        + '; phase walls ' + ', '.join(f'{n} {s:.1f} s'
+                                       for n, s in phase_s.items())
         + f'; on {smi}')
     print(smi_line())
     print(json.dumps({'kernels': kernels}))
@@ -7311,7 +7966,7 @@ def main():
 def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
                    t_launch, fallback, modes, stream, diar, recipe, context,
                    tools, remat, diartrain, int8, export, par, par_serve,
-                   families, para):
+                   families, para, whisper, objectives):
     """The {"kernels": [...]} entries: launches on the paths (in all, per
     serving call, per training step, per six-mode call, per streaming hop,
     per pool step, per diarization call of either route, and on the
@@ -7452,8 +8107,22 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
             per[n][run] = got.get(n, 0)
         per[n]['paraformer_sanm_bin_train_step_with_cv'] = (
             bt_p['launches'].get(n, 0) / bt_p['steps'])
+    # phases whisper and objectives: a Whisper greedy serving call and
+    # step, a step of each objective, the LoRA model's merged serving call
+    new_runs = {'whisper_serve': whisper['serve']['launches'],
+                'whisper_train_step': whisper['train']['launches'],
+                'objectives_lora_merged_serve':
+                    objectives['lora']['serve_launches'],
+                **{f'objectives_{k}_train_step': objectives[k]['launches']
+                   for k in ('bestrq', 'wav2vec2', 'w2vbert', 'ctl_model',
+                             'k2_model', 'k2_bigram', 'ts', 'lora')}}
+    for n in ('K1', 'K2', 'K3', 'K4', 'K5', 'K6'):
+        for run, got in new_runs.items():
+            per[n][run] = got.get(n, 0)
     other = {n: (par_total.get(n, 0) + int8['launches'].get(n, 0)
                  + families['total'].get(n, 0) + para['total'].get(n, 0)
+                 + whisper['total'].get(n, 0)
+                 + objectives['total'].get(n, 0)
                  + (export['k5_total'] if n == 'K5' else 0)
                  + c_serve.get(n, 0) + c_tail.get(n, 0) + c_train.get(n, 0)
                  + sum(got.get(n, 0) for got, _ in t_runs.values())

@@ -29,17 +29,21 @@ CV list; rank 0 logs and writes the checkpoints, gathered to the
 single-process layout.
 
 A config of another family than the conformer asr_model — `model:
-transducer | bitransducer`, or an asr_model with `encoder: branchformer |
-e_branchformer | squeezeformer | efficient_conformer` — is built by
-`models/registry.py:init_model` and trained through its bundle's loss
-(one process: the parallel forms cover the conformer only).  The MoE
-feed-forward (`encoder_conf.positionwise_layer_type: moe`) is a conformer
-option and trains as any conformer.
+k2_model | transducer | bitransducer | paraformer | ctl_model | bestrq |
+wav2vec2 | w2vbert | whisper`, or an asr_model with `encoder:
+branchformer | e_branchformer | squeezeformer | efficient_conformer` — is
+built by `models/registry.py:init_model` and trained through its bundle's
+loss.  A `ts_conf` (teacher-student distillation) builds its teacher from
+`teacher_yaml` and `teacher_checkpoint`, frozen, and trains the student on
+`train/teacher_student.py:ts_loss`.  Both run in one process: the
+parallel forms cover the conformer asr_model only (ROADMAP item 15.8).
+The MoE feed-forward (`encoder_conf.positionwise_layer_type: moe`) is a
+conformer option and trains as any conformer.
 
 `--num_devices_seq` / `--num_devices_pipe` / `--num_devices_expert` above
 1 and `--pipeline_microbatches` (ROADMAP item 14b), `--prng_impl` other
-than auto, the registry's unported families and teacher-student
-`ts_conf` (ROADMAP item 15) raise NotImplementedError.
+than auto, and a registry family or a ts_conf over several processes
+(item 15.8) raise NotImplementedError.
 """
 
 from __future__ import annotations
@@ -126,14 +130,38 @@ def check_supported(args, configs):
             f"the port's dropout draws from torch's generator")
     kind = model_kind(configs)
     world = max(args.num_processes, int(os.environ.get('WORLD_SIZE', '1')))
-    if kind != 'asr_model' and world > 1:
+    if world > 1 and (kind != 'asr_model' or configs.get('ts_conf')):
+        what = (f'model {kind!r}' if kind != 'asr_model'
+                else 'ts_conf (teacher-student)')
         raise NotImplementedError(
-            f'model {kind!r} over {world} processes: the parallel forms '
-            f'cover the conformer asr_model only (ROADMAP item 15.8)')
-    if configs.get('ts_conf'):
-        raise NotImplementedError(
-            'ts_conf: teacher-student distillation is not ported (ROADMAP '
-            'item 15)')
+            f'{what} over {world} processes: the parallel forms cover the '
+            f'conformer asr_model only (ROADMAP item 15.8)')
+
+
+def teacher_student_loss(ts_conf, dev):
+    """The distillation loss of a `ts_conf` (train/teacher_student.py):
+    the teacher from its config (`teacher_yaml`) and checkpoint
+    (`teacher_checkpoint`, a `.npz` or a reverb `.pt`), frozen in eval
+    mode on `dev`; the loss replaces the student's."""
+    import dataclasses
+
+    from reverb_tpu_torch.convert import (load_flat_checkpoint,
+                                          state_dict_from_jax)
+    from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
+    from reverb_tpu_torch.train.teacher_student import TSConfig, ts_loss
+    from reverb_tpu_torch.utils.config import load_config
+    teacher = build_model(
+        ModelConfig.from_config(load_config(ts_conf['teacher_yaml'])), dev,
+        state_dict_from_jax(load_flat_checkpoint(
+            ts_conf['teacher_checkpoint'])))
+    fields = {f.name for f in dataclasses.fields(TSConfig)}
+    tsc = TSConfig(**{k: v for k, v in ts_conf.items() if k in fields})
+    logging.info('teacher-student distillation (teacher %s)',
+                 ts_conf['teacher_checkpoint'])
+
+    def loss_fn(model, batch, generator=None):
+        return ts_loss(model, teacher, batch, tsc, generator)
+    return loss_fn
 
 
 def main(argv=None):
@@ -247,6 +275,8 @@ def main(argv=None):
         if args.enc_init:
             load_trained_modules(model, args.enc_init,
                                  args.enc_init_mods.split(','))
+    if configs.get('ts_conf'):
+        loss_fn = teacher_student_loss(configs['ts_conf'], dev)
     cfg = model.cfg
     optimizer, schedule = build_optimizer(tc, model)
 

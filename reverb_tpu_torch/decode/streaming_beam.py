@@ -38,6 +38,7 @@ from reverb_tpu_torch.decode.prefix_beam import (EMIT_KEYS, STATE_KEYS,
                                                  _pack_results)
 from reverb_tpu_torch.decode.results import DecodeResult
 from reverb_tpu_torch.ops.topk import topk_lastdim
+from reverb_tpu_torch.utils.common import resolve_device
 
 
 def _fold_indices(em, K: int, L: int):
@@ -76,15 +77,16 @@ def _apply_emit(pfx, banks, parent, src, pfx_pos, ns_pos, tok, wval):
 
 
 class BeamBank:
-    """B hop-resumable CTC prefix beams of width K on one device."""
+    """B hop-resumable CTC prefix beams of width K on one device (default
+    cuda; raises without a card)."""
 
     def __init__(self, n_streams: int, beam_size: int, blank_id: int = 0,
-                 init_len: int = 512, device='cpu'):
+                 init_len: int = 512, device='cuda'):
         self.B = int(n_streams)
         self.K = int(beam_size)
         self.blank_id = int(blank_id)
         self.init_len = int(init_len)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
         self.reset()
 
     def reset(self):
@@ -192,10 +194,11 @@ class IncrementalBeam:
     """Hop-resumable CTC prefix beam over one stream.
 
     accept(ctc_probs_chunk): O(hop) — one K2 launch, the beam carried.
-    finalize(): O(K·L) — the current nbest as a DecodeResult."""
+    finalize(): O(K·L) — the current nbest as a DecodeResult.
+    The bank lives on `device` (default cuda; raises without a card)."""
 
     def __init__(self, beam_size: int, blank_id: int = 0,
-                 init_len: int = 512, device='cpu'):
+                 init_len: int = 512, device='cuda'):
         self.bank = BeamBank(1, beam_size, blank_id, init_len, device)
         self.K = self.bank.K
         self.blank_id = self.bank.blank_id

@@ -243,7 +243,8 @@ def forward_attention_decoder(model: ASRModel, hyps_pad, hyps_lens,
 
 
 def compute_loss(model: ASRModel, batch: Dict, generator=None,
-                 chunk_generator=None, norm: Optional[Dict] = None) -> Dict:
+                 chunk_generator=None, norm: Optional[Dict] = None,
+                 ctc_loss_fn=None) -> Dict:
     """Training loss (reverb_tpu/models/asr_model.py:compute_loss).
 
     batch: feats (B,T,F), feats_lengths (B,), target (B,L) padded with
@@ -257,7 +258,10 @@ def compute_loss(model: ASRModel, batch: Dict, generator=None,
     switches a term off).  `norm` {'rows', 'tokens'} replaces this batch's
     own denominators (its rows; its target tokens, eos included, for a
     length-normalised loss and the accuracy) by a larger batch's, of
-    which this one is a part (train/trainer.py:_global_norms)."""
+    which this one is a part (train/trainer.py:_global_norms).
+    `ctc_loss_fn(ctc, encoder_out, encoder_out_lens, text, text_lens)`
+    replaces the CTC term (the k2_model's LF-MMI loss,
+    models/k2_model.py), as the JAX package's compute_loss takes one."""
     use_adaptor = model.context_adaptor is not None and 'cv_list' in batch
     out = model.forward_encoder(
         batch['feats'], batch['feats_lengths'], batch.get('cat_embs'),
@@ -269,22 +273,28 @@ def compute_loss(model: ASRModel, batch: Dict, generator=None,
         cv_emb = ca.encode_cv(batch['cv_list'], batch['cv_list_lengths'])
         encoder_out = encoder_out + ca(out[2], cv_emb)
     return loss_from_encoder(model, encoder_out, encoder_mask, batch,
-                             generator, norm)
+                             generator, norm, ctc_loss_fn)
 
 
 def loss_from_encoder(model: ASRModel, encoder_out, encoder_mask,
                       batch: Dict, generator=None,
-                      norm: Optional[Dict] = None) -> Dict:
+                      norm: Optional[Dict] = None, ctc_loss_fn=None) -> Dict:
     """The post-encoder half of `compute_loss`: CTC and the label-smoothed
     attention loss of both decoder directions, mixed by ctc_weight and
     reverse_weight; with apply_non_blank_embedding the decoders see only
-    the frames whose CTC argmax is not blank."""
+    the frames whose CTC argmax is not blank; `ctc_loss_fn` as in
+    `compute_loss`."""
     cfg = model.cfg
     cat_embs = batch.get('cat_embs')
     encoder_out_lens = encoder_mask[:, 0, :].sum(-1)
     text, text_lens = batch['target'], batch['target_lengths']
     loss_ctc = None
-    if cfg.ctc_weight != 0.0:
+    if ctc_loss_fn is not None and cfg.ctc_weight != 0.0:
+        loss_ctc = ctc_loss_fn(
+            model.ctc, encoder_out, encoder_out_lens,
+            torch.where(text == cfg.ignore_id, torch.zeros_like(text), text),
+            text_lens)
+    elif cfg.ctc_weight != 0.0:
         loss_ctc = ctc_mod.ctc_loss(
             model.ctc, encoder_out, encoder_out_lens,
             torch.where(text == cfg.ignore_id, torch.zeros_like(text), text),

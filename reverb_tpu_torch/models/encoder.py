@@ -518,7 +518,8 @@ class ConformerEncoder(nn.Module):
     def forward(self, xs, xs_lens, cat_embs=None, generator=None,
                 decoding_chunk_size: int = 0,
                 num_decoding_left_chunks: int = -1, chunk_generator=None,
-                return_layers: bool = False):
+                return_layers: bool = False, apply_cmvn: bool = True,
+                chunk_mask: bool = True, enable_full_context: bool = True):
         """xs (B, T, F) features, xs_lens (B,) → (out (B, T', D), mask
         (B, 1, T')); dropout when a generator is given.  The chunk mask
         follows reverb_tpu/models/encoder.py:encoder_forward
@@ -529,12 +530,16 @@ class ConformerEncoder(nn.Module):
         `chunk_generator`, else from `generator` (an evaluation draws its
         chunk, as WeNet's add_optional_chunk_mask does, without dropout).
         `return_layers` adds the list of every layer's output, before the
-        final norm (the context adaptor's input)."""
+        final norm (the context adaptor's input).  `apply_cmvn` False skips
+        the global CMVN (features normalised by the caller, as the SSL
+        objectives do); `chunk_mask` False leaves every chunk mask out (the
+        CTL model's full view); `enable_full_context` False keeps a drawn
+        dynamic chunk from taking the whole context (its chunk view)."""
         cfg = self.cfg
         T = xs.shape[1]
         masks = (torch.arange(T, device=xs.device)[None, :]
                  < xs_lens.to(xs.device)[:, None])[:, None, :]
-        if self.global_cmvn is not None:
+        if self.global_cmvn is not None and apply_cmvn:
             xs = self.global_cmvn(xs)
         xs, pos_emb, masks = self.embed(xs, masks, generator)
         kv_lens = masks[:, 0, :].sum(-1).to(torch.int32)
@@ -543,13 +548,15 @@ class ConformerEncoder(nn.Module):
         # gets masks & ones(T, T): every row keeps the same first kv_lens
         # keys, which is the key-length mask K1 takes — the same function,
         # so K1 computes it
-        if (cfg.use_dynamic_chunk and decoding_chunk_size >= 0) or (
-                not cfg.use_dynamic_chunk and cfg.static_chunk_size > 0):
+        if chunk_mask and ((cfg.use_dynamic_chunk
+                            and decoding_chunk_size >= 0) or (
+                not cfg.use_dynamic_chunk and cfg.static_chunk_size > 0)):
             chunk_masks = add_optional_chunk_mask(
                 masks, cfg.use_dynamic_chunk, cfg.use_dynamic_left_chunk,
                 decoding_chunk_size, cfg.static_chunk_size,
                 num_decoding_left_chunks,
-                generator if chunk_generator is None else chunk_generator)
+                generator if chunk_generator is None else chunk_generator,
+                enable_full_context)
         layer_outs = []
         remat = (cfg.gradient_checkpointing and generator is not None
                  and torch.is_grad_enabled())

@@ -15,7 +15,9 @@ flattens into the layer as for the conformer).
 Attention: where the JAX package calls `rel_pos_mha` — the Branchformer
 layers and the Efficient Conformer's ungrouped layers — the port calls
 `RelPositionMultiHeadedAttention.forward`, kernel K1 forward and K4
-backward on the card, as the conformer's.  The Efficient Conformer
+backward on the card, as the conformer's.  A Branchformer whose
+pos_enc_layer_type is not rel_pos takes that encoding after its
+subsampling and plain MHA over the key-padding mask, as JAX's `att.mha`.  The Efficient Conformer
 passes a (B, T, T) mask `valid ∧ validᵀ`, which the JAX package takes
 through XLA; its rows of valid queries keep the key-length mask K1
 takes, and its padded query rows get a zero context (`q_valid`), so K1
@@ -38,7 +40,8 @@ import torch.nn.functional as F
 from torch import nn
 
 from reverb_tpu_torch.models import embedding as emb
-from reverb_tpu_torch.models.attention import (RelPositionMultiHeadedAttention,
+from reverb_tpu_torch.models.attention import (MultiHeadedAttention,
+                                               RelPositionMultiHeadedAttention,
                                                _masked_softmax_av,
                                                _merge_heads, _split_heads)
 from reverb_tpu_torch.models.encoder import (ConformerEncoderLayer,
@@ -139,8 +142,9 @@ class BranchformerLayer(nn.Module):
         self.norm_mha = LayerNorm(d)
         self.norm_mlp = LayerNorm(d)
         self.norm_final = LayerNorm(d)
-        self.attn = RelPositionMultiHeadedAttention(cfg.attention_heads, d,
-                                                    True)
+        self.rel = cfg.pos_enc_layer_type == 'rel_pos'
+        self.attn = (RelPositionMultiHeadedAttention if self.rel
+                     else MultiHeadedAttention)(cfg.attention_heads, d, True)
         # the plain Branchformer never hands its `causal` to the cgMLP
         # (branchformer/encoder.py:83-90): its CSGU is causal
         self.cgmlp = ConvolutionalGatingMLP(
@@ -174,7 +178,9 @@ class BranchformerLayer(nn.Module):
         if cfg.e_branchformer:
             x = x + 0.5 * drop(self.feed_forward_macaron(
                 self.norm_ff_macaron(x), generator))
-        x1 = drop(self.attn(self.norm_mha(x), kv_lens, pos_emb))
+        xn = self.norm_mha(x)
+        x1 = drop(self.attn(xn, kv_lens, pos_emb) if self.rel
+                  else self.attn(xn, xn, xn, mask_pad))
         x2 = drop(self.cgmlp(self.norm_mlp(x), generator))
         if cfg.e_branchformer:
             cat = torch.cat([x1, x2], -1)
@@ -219,12 +225,13 @@ class BranchformerEncoder(_AltEncoder):
 
     def __init__(self, cfg: BranchformerConfig):
         super().__init__()
-        if cfg.pos_enc_layer_type != 'rel_pos':
-            raise NotImplementedError(
-                f'branchformer pos_enc_layer_type={cfg.pos_enc_layer_type!r}'
-                f' is not ported (only rel_pos): ROADMAP item 15')
+        if cfg.pos_enc_layer_type not in emb.POS_ENC_TYPES:
+            raise ValueError(f'branchformer pos_enc_layer_type='
+                             f'{cfg.pos_enc_layer_type!r} is not one of '
+                             f'{emb.POS_ENC_TYPES}')
         self.cfg = cfg
-        self.embed = Conv2dSubsampling4(cfg.input_size, cfg.output_size, 0.1)
+        self.embed = Conv2dSubsampling4(cfg.input_size, cfg.output_size, 0.1,
+                                        cfg.pos_enc_layer_type)
         self.encoders = nn.ModuleList(BranchformerLayer(cfg)
                                       for _ in range(cfg.num_blocks))
         self.after_norm = LayerNorm(cfg.output_size)

@@ -177,7 +177,8 @@ class Linear(_Int8Form, nn.Module):
     """y = x Wᵀ + b with W (out, in) cast to x.dtype; in the int8 form
     (reverb_tpu/models/modules.py:linear with `weight_q8`) the int8
     product rescaled to x.dtype, static when `a_scale` is set, plus the
-    bias in that dtype."""
+    bias in that dtype.  With a LoRA adapter (`add_lora`, train/lora.py)
+    y = x Wᵀ + s·(x Aᵀ) Bᵀ + b, the JAX linear's order of sums."""
 
     def __init__(self, in_features: int, out_features: int,
                  bias: bool = True):
@@ -186,6 +187,22 @@ class Linear(_Int8Form, nn.Module):
         self.bias = nn.Parameter(torch.empty(out_features)) if bias else None
         self._init_int8()
         self.tp = None
+        self.lora_A = self.lora_B = None
+        self.register_buffer('lora_scale', None)
+
+    def add_lora(self, rank: int):
+        """Empty adapter tensors: lora_A (rank, in), lora_B (out, rank)
+        and the 0-d scale (a buffer: it does not train)."""
+        out_f, in_f = self.weight.shape
+        dev = self.weight.device
+        self.lora_A = nn.Parameter(torch.empty(rank, in_f, device=dev))
+        self.lora_B = nn.Parameter(torch.empty(out_f, rank, device=dev))
+        self.lora_scale = torch.empty((), device=dev)
+        return self
+
+    def drop_lora(self):
+        self.lora_A = self.lora_B = None
+        self.lora_scale = None
 
     def reset_parameters(self, g):
         bound = math.sqrt(1.0 / self.weight.shape[1])
@@ -205,6 +222,12 @@ class Linear(_Int8Form, nn.Module):
         if self.tp is not None:
             return _tp_linear(self.tp, x, self.weight, self.bias)
         b = None if self.bias is None else self.bias.to(x.dtype)
+        if self.lora_A is not None:
+            y = F.linear(x, self.weight.to(x.dtype))
+            y = y + self.lora_scale.to(x.dtype) * F.linear(
+                F.linear(x, self.lora_A.to(x.dtype)),
+                self.lora_B.to(x.dtype))
+            return y if b is None else y + b
         return F.linear(x, self.weight.to(x.dtype), b)
 
 

@@ -6,7 +6,8 @@ Counterpart of reverb_tpu/models/registry.py (`ModelBundle`,
 for `asr_model`, configs['encoder'], so a model family is reachable from
 a config alone:
 
-  model: asr_model (default) | transducer | bitransducer | paraformer
+  model: asr_model (default) | k2_model | transducer | bitransducer |
+         paraformer | ctl_model | bestrq | wav2vec2 | w2vbert | whisper
   encoder: conformer | transformer | branchformer | e_branchformer |
            squeezeformer | efficient_conformer  (asr_model families);
            sanm_encoder | conformer  (paraformer)
@@ -14,10 +15,12 @@ a config alone:
 Each entry returns a `ModelBundle` — (kind, cfg, model, loss_fn) — with a
 uniform `loss_fn(model, batch, generator=None) → {'loss': ..., ...}`, so
 the trainer is model-agnostic; dropout draws from `generator` (none
-without one, as rng=None in JAX).  The JAX package's other families
-(k2_model, ctl_model, bestrq, wav2vec2, w2vbert, whisper) raise
-NotImplementedError naming ROADMAP item 15; an unknown name raises
-ValueError, as there.
+without one, as rng=None in JAX).  An unknown name raises ValueError, as
+there.  The SSL objectives and the CTL model also draw their masks,
+noise, gumbels and negatives from `generator` (from seed 0 without one,
+as the JAX bundles' PRNGKey(0)); the SSL losses read `batch['steps']`
+(0 when absent, as the JAX package never sets it: the gumbel temperature
+stays at its maximum and w2v-BERT's MLM weight at 0.1).
 
 A paraformer is the Ali-Paraformer SANM stack (`encoder: sanm_encoder`,
 models/sanm.py) or the conformer encoder with the CIF head
@@ -49,9 +52,10 @@ from reverb_tpu_torch.models.transducer import (TransducerConfig,
 from reverb_tpu_torch.utils.common import (add_sos_eos, resolve_device,
                                            reverse_sequence, th_accuracy)
 
-PORTED = ('asr_model', 'transducer', 'bitransducer', 'paraformer')
-UNPORTED = ('k2_model', 'ctl_model', 'bestrq', 'wav2vec2', 'w2vbert',
-            'whisper')
+PORTED = ('asr_model', 'k2_model', 'transducer', 'bitransducer',
+          'paraformer', 'ctl_model', 'bestrq', 'wav2vec2', 'w2vbert',
+          'whisper')
+UNPORTED = ()
 ALT_ENCODERS = tuple(alt.ALT_ENCODERS)
 
 
@@ -79,18 +83,13 @@ def _compute_dtype(configs) -> torch.dtype:
 def model_kind(configs: Dict) -> str:
     """The family `init_model` builds for `configs`: an alternative
     encoder's name for an asr_model with one, else configs['model'].
-    Raises NotImplementedError for a family the port lacks, ValueError for
-    an unknown one."""
+    Raises ValueError for an unknown one."""
     kind = configs.get('model', 'asr_model')
     if kind == 'asr_model' and configs.get('encoder') in ALT_ENCODERS:
         return configs['encoder']
-    if kind in UNPORTED:
-        raise NotImplementedError(
-            f'model {kind!r} is not ported yet (ROADMAP item 15); the port '
-            f'builds {PORTED} and the asr_model encoders {ALT_ENCODERS}')
     if kind not in PORTED:
         raise ValueError(f'unknown model type {kind!r}; choose from '
-                         f'{sorted(PORTED + UNPORTED)}')
+                         f'{sorted(PORTED)}')
     return kind
 
 
@@ -105,6 +104,31 @@ def _materialise(make, device, generator, state_dict):
     else:
         reset_parameters(model, generator)
     return model.train().requires_grad_(True)
+
+
+def _has_cmvn(state_dict, cmvn) -> bool:
+    """Whether the encoder holds global CMVN stats: as the state dict
+    decides, else when stats are given."""
+    if state_dict is not None:
+        return 'encoder.global_cmvn.mean' in state_dict
+    return cmvn is not None
+
+
+def _fill_cmvn(model, state_dict, cmvn):
+    """Copy the CMVN stats into a model built from a generator."""
+    if state_dict is None and cmvn is not None:
+        with torch.no_grad():
+            for t, v in zip((model.encoder.global_cmvn.mean,
+                             model.encoder.global_cmvn.istd), cmvn):
+                t.copy_(torch.as_tensor(np.asarray(v, np.float32)))
+
+
+def _seeded(generator, device):
+    """`generator`, or one seeded 0 on `device` (the JAX bundles'
+    PRNGKey(0) where no rng is given)."""
+    if generator is not None:
+        return generator
+    return torch.Generator(device=device).manual_seed(0)
 
 
 def _freeze_lstm_second_bias(model: nn.Module):
@@ -266,19 +290,14 @@ def _transducer_bundle(configs, device, generator, cmvn,
     model_conf = configs.get('model_conf', {}) or {}
     bi = (configs.get('model') == 'bitransducer'
           or bool(model_conf.get('use_bitransducer')))
-    with_cmvn = ('encoder.global_cmvn.mean' in state_dict
-                 if state_dict is not None else cmvn is not None)
+    with_cmvn = _has_cmvn(state_dict, cmvn)
     weights = {'t': model_conf.get('transducer_weight', 0.75),
                'ctc': model_conf.get('ctc_weight', 0.25),
                'r': model_conf.get('bitransducer_r_weight', 0.3)}
     model = _materialise(
         lambda: TransducerModel(acfg, tcfg, bi, with_cmvn, weights), device,
         generator, state_dict)
-    if state_dict is None and cmvn is not None:
-        with torch.no_grad():
-            for t, v in zip((model.encoder.global_cmvn.mean,
-                             model.encoder.global_cmvn.istd), cmvn):
-                t.copy_(torch.as_tensor(np.asarray(v, np.float32)))
+    _fill_cmvn(model, state_dict, cmvn)
     _freeze_lstm_second_bias(model)
     return ModelBundle('bitransducer' if bi else 'transducer', (acfg, tcfg),
                        model, transducer_loss_fn)
@@ -472,17 +491,187 @@ def _paraformer_bundle(configs, device, generator, cmvn,
         vocab_size=acfg.vocab_size, cif=CifConfig(**cif_kwargs),
         **_dataclass_kwargs(ParaformerConfig, dict(
             pconf, encoder_output_size=acfg.encoder.output_size)))
-    with_cmvn = ('encoder.global_cmvn.mean' in state_dict
-                 if state_dict is not None else cmvn is not None)
-    model = _materialise(lambda: ConformerParaformer(acfg, pcfg, with_cmvn),
-                         device, generator, state_dict)
-    if state_dict is None and cmvn is not None:
-        with torch.no_grad():
-            for t, v in zip((model.encoder.global_cmvn.mean,
-                             model.encoder.global_cmvn.istd), cmvn):
-                t.copy_(torch.as_tensor(np.asarray(v, np.float32)))
+    model = _materialise(
+        lambda: ConformerParaformer(acfg, pcfg, _has_cmvn(state_dict, cmvn)),
+        device, generator, state_dict)
+    _fill_cmvn(model, state_dict, cmvn)
     return ModelBundle('paraformer', (acfg, pcfg), model,
                        conformer_paraformer_loss)
+
+
+# ------------------- k2_model, ctl_model, SSL, whisper -------------------
+
+def _k2_bundle(configs, device, generator, cmvn, state_dict) -> ModelBundle:
+    """The asr_model with its CTC term replaced by the LF-MMI loss of
+    model_conf.lfmmi_dir (models/k2_model.py); without a lfmmi_dir it is
+    the asr_model's loss, as in the JAX package."""
+    from reverb_tpu_torch.models.k2_model import (LfmmiResources,
+                                                  lfmmi_ctc_loss_fn)
+    cfg = ModelConfig.from_config(configs)
+    model = build_model(cfg, device, state_dict, generator, train=True,
+                        cmvn=cmvn)
+    lfmmi_dir = (configs.get('model_conf', {}) or {}).get('lfmmi_dir', '')
+    override = (lfmmi_ctc_loss_fn(LfmmiResources(lfmmi_dir, cfg.vocab_size,
+                                                 cfg.blank_id))
+                if lfmmi_dir else None)
+
+    def loss(model, batch, generator=None):
+        return compute_loss(model, batch, generator, ctc_loss_fn=override)
+
+    return ModelBundle('k2_model', cfg, model, loss)
+
+
+def _ctl_bundle(configs, device, generator, cmvn, state_dict) -> ModelBundle:
+    from reverb_tpu_torch.models.ctl import ctl_compute_loss
+    cfg = ModelConfig.from_config(configs)
+    model = build_model(cfg, device, state_dict, generator, train=True,
+                        cmvn=cmvn)
+    mc = configs.get('model_conf', {}) or {}
+    kwargs = {'ctl_weight': mc.get('ctl_weight', 1.0),
+              'temperature': mc.get('logit_temp', mc.get('temperature', 0.1)),
+              'n_negatives': mc.get('n_negatives', 0)}
+
+    def loss(model, batch, generator=None):
+        return ctl_compute_loss(model, batch, generator, **kwargs)
+
+    return ModelBundle('ctl_model', cfg, model, loss)
+
+
+def _bestrq_bundle(configs, device, generator, cmvn,
+                   state_dict) -> ModelBundle:
+    """BEST-RQ over the asr_model's encoder: the features are normalised
+    by the encoder's CMVN stats (whose gradient flows through the
+    normalisation, as in the JAX package), then encoded without them."""
+    from reverb_tpu_torch.models import ssl
+    acfg = ModelConfig.from_config(configs)
+    stack, stride = ssl.quantizer_window(acfg.encoder.subsampling_rate)
+    bcfg = ssl.BestRQConfig(**_dataclass_kwargs(ssl.BestRQConfig, dict(
+        {'stack_frames': stack, 'stride': stride},
+        **(configs.get('bestrq_conf', {}) or {}),
+        input_dim=configs.get('input_dim', 80),
+        encoder_output_size=acfg.encoder.output_size)))
+    model = _materialise(
+        lambda: ssl.BestRQModel(acfg, bcfg, _has_cmvn(state_dict, cmvn)),
+        device, generator, state_dict)
+    _fill_cmvn(model, state_dict, cmvn)
+
+    def loss(model, batch, generator=None):
+        feats = batch['feats']
+        if model.encoder.global_cmvn is not None:
+            feats = model.encoder.global_cmvn(feats)
+        return ssl.bestrq_loss(model, feats, batch['feats_lengths'], bcfg,
+                               _seeded(generator, feats.device))
+
+    return ModelBundle('bestrq', (acfg, bcfg), model, loss)
+
+
+def _wav2vec2_config(configs, acfg, extra=None):
+    from reverb_tpu_torch.models import ssl
+    wconf = dict(configs.get('wav2vec2_conf', {}) or {}, **(extra or {}))
+    wconf.setdefault('codebook_size', wconf.pop('num_embeddings',
+                                                wconf.get('codebook_size',
+                                                          320)))
+    wconf.setdefault('embedding_dim', acfg.encoder.output_size)
+    return wconf, ssl.Wav2vec2Config(**_dataclass_kwargs(
+        ssl.Wav2vec2Config,
+        dict(wconf, encoder_output_size=acfg.encoder.output_size)))
+
+
+def _wav2vec2_bundle(configs, device, generator, cmvn,
+                     state_dict) -> ModelBundle:
+    from reverb_tpu_torch.models import ssl
+    acfg = ModelConfig.from_config(configs)
+    _, wcfg = _wav2vec2_config(configs, acfg)
+    model = _materialise(
+        lambda: ssl.Wav2vec2Model(acfg, wcfg, None,
+                                  _has_cmvn(state_dict, cmvn)),
+        device, generator, state_dict)
+    _fill_cmvn(model, state_dict, cmvn)
+
+    def loss(model, batch, generator=None):
+        feats = batch['feats']
+        return ssl.wav2vec2_loss(model, feats, batch['feats_lengths'], wcfg,
+                                 batch.get('steps', 0),
+                                 _seeded(generator, feats.device))
+
+    return ModelBundle('wav2vec2', (acfg, wcfg), model, loss)
+
+
+def _w2vbert_bundle(configs, device, generator, cmvn,
+                    state_dict) -> ModelBundle:
+    from reverb_tpu_torch.models import ssl
+    acfg = ModelConfig.from_config(configs)
+    wconf, wcfg = _wav2vec2_config(configs,
+                                   acfg, configs.get('w2vbert_conf'))
+    nb = acfg.encoder.num_blocks
+    bcfg = ssl.W2VBertConfig(**_dataclass_kwargs(ssl.W2VBertConfig, dict(
+        {'contrastive_blocks': nb // 2, 'masked_blocks': nb - nb // 2},
+        **wconf)))
+    if bcfg.contrastive_blocks + bcfg.masked_blocks != nb:
+        raise ValueError(f'w2vbert_conf: contrastive_blocks '
+                         f'{bcfg.contrastive_blocks} + masked_blocks '
+                         f'{bcfg.masked_blocks} != num_blocks {nb}')
+    model = _materialise(
+        lambda: ssl.Wav2vec2Model(acfg, wcfg, bcfg,
+                                  _has_cmvn(state_dict, cmvn)),
+        device, generator, state_dict)
+    _fill_cmvn(model, state_dict, cmvn)
+
+    def loss(model, batch, generator=None):
+        feats = batch['feats']
+        return ssl.w2vbert_loss(model, feats, batch['feats_lengths'], wcfg,
+                                bcfg, batch.get('steps', 0),
+                                _seeded(generator, feats.device))
+
+    return ModelBundle('w2vbert', (acfg, wcfg, bcfg), model, loss)
+
+
+def whisper_loss(model, batch: Dict, generator=None) -> Dict:
+    """Whisper's mean token NLL (reverb_tpu/models/registry.py:
+    _whisper_bundle): over prebuilt `ys_in`/`ys_out` (the multitask
+    prompt of utils/common.py:add_whisper_tokens; -1 pads ys_out), or over
+    `target` as its own prompt (tokens[:-1] in, tokens[1:] out, the first
+    target_lengths − 1 positions counted).  No dropout."""
+    from reverb_tpu_torch.models.whisper import whisper_decode
+    feats = model.encoder(batch['feats'])
+    if 'ys_in' in batch:
+        ys_in, ys_out = batch['ys_in'], batch['ys_out']
+        valid = ys_out != -1
+    else:
+        text, text_lens = batch['target'], batch['target_lengths']
+        tokens = torch.where(text == -1, torch.zeros_like(text), text)
+        ys_in, ys_out = tokens[:, :-1], tokens[:, 1:]
+        valid = (torch.arange(ys_out.shape[1], device=text.device)[None, :]
+                 < (text_lens - 1)[:, None])
+    logits = whisper_decode(model, ys_in, feats)
+    logp = torch.log_softmax(logits.to(torch.float32), -1)
+    tgt = torch.where(valid, ys_out, torch.zeros_like(ys_out))
+    nll = -torch.gather(logp, -1, tgt[..., None].to(torch.int64))[..., 0]
+    total = (torch.where(valid, nll, torch.zeros_like(nll)).sum()
+             / torch.clamp(valid.sum(), min=1))
+    return {'loss': total}
+
+
+def _whisper_bundle(configs, device, generator, cmvn,
+                    state_dict) -> ModelBundle:
+    """Whisper on log-mel features without CMVN (models/whisper.py); the
+    config's encoder_conf and whisper_conf give WhisperConfig's fields."""
+    from reverb_tpu_torch.models.whisper import (Whisper, WhisperConfig,
+                                                 whisper_layout)
+    wcfg = WhisperConfig(**_dataclass_kwargs(
+        WhisperConfig, dict(configs.get('encoder_conf', {}) or {},
+                            **(configs.get('whisper_conf', {}) or {}))))
+    model = _materialise(lambda: Whisper(wcfg, **whisper_layout(state_dict)),
+                         device, generator, state_dict)
+    return ModelBundle('whisper', wcfg, model, whisper_loss)
+
+
+_BUNDLES = {'asr_model': _asr_bundle, 'k2_model': _k2_bundle,
+            'transducer': _transducer_bundle,
+            'bitransducer': _transducer_bundle,
+            'paraformer': _paraformer_bundle, 'ctl_model': _ctl_bundle,
+            'bestrq': _bestrq_bundle, 'wav2vec2': _wav2vec2_bundle,
+            'w2vbert': _w2vbert_bundle, 'whisper': _whisper_bundle}
 
 
 def init_model(configs: Dict, generator: Optional[torch.Generator] = None,
@@ -494,9 +683,10 @@ def init_model(configs: Dict, generator: Optional[torch.Generator] = None,
     training mode — from `state_dict` (strict) when given, else randomly
     initialized from `generator` (default: seed 777 on the device, as the
     JAX package's PRNGKey(777)).  `cmvn` = (mean, istd) defaults to the
-    config's global CMVN stats: inside the parameters of an asr_model or
-    a transducer (unless a state dict decides), a constant of an
-    alternative encoder, as in the JAX package."""
+    config's global CMVN stats: inside the parameters of an asr_model, a
+    transducer or the other families over its encoder (unless a state
+    dict decides), a constant of an alternative encoder, unused by
+    Whisper, as in the JAX package."""
     kind = model_kind(configs)
     dev = resolve_device(device)
     if generator is None and state_dict is None:
@@ -507,8 +697,4 @@ def init_model(configs: Dict, generator: Optional[torch.Generator] = None,
     if kind in ALT_ENCODERS:
         return _alt_encoder_bundle(configs, dev, generator, cmvn, state_dict,
                                    kind)
-    if kind == 'asr_model':
-        return _asr_bundle(configs, dev, generator, cmvn, state_dict)
-    if kind == 'paraformer':
-        return _paraformer_bundle(configs, dev, generator, cmvn, state_dict)
-    return _transducer_bundle(configs, dev, generator, cmvn, state_dict)
+    return _BUNDLES[kind](configs, dev, generator, cmvn, state_dict)

@@ -1,6 +1,6 @@
 """Tokenizer interfaces + char/bpe tokenizers + registry (the port's own
-copy of reverb_tpu/text/tokenizer.py, for char, bpe, rev_bpe and
-paraformer).
+copy of reverb_tpu/text/tokenizer.py, for char, bpe, rev_bpe, paraformer,
+and whisper and hugging_face through text/whisper_tokenizer.py).
 
 Parity targets:
   - BaseTokenizer (tokenize = text2tokens→tokens2ids; detokenize = inverse)
@@ -167,8 +167,13 @@ def init_tokenizer(configs) -> BaseTokenizer:
             ParaformerTokenizer
         return ParaformerTokenizer(conf['symbol_table_path'],
                                    conf.get('seg_dict_path'))
-    if kind in ('whisper', 'hugging_face'):
-        raise NotImplementedError(
-            f'tokenizer {kind!r} is not ported yet (ROADMAP queue 1 item '
-            f'15.3, Whisper)')
+    if kind == 'whisper':
+        from reverb_tpu_torch.text.whisper_tokenizer import WhisperTokenizer
+        return WhisperTokenizer(
+            multilingual=conf.get('is_multilingual', False),
+            num_languages=conf.get('num_languages', 99))
+    if kind == 'hugging_face':
+        from reverb_tpu_torch.text.whisper_tokenizer import \
+            HuggingFaceTokenizer
+        return HuggingFaceTokenizer(conf['model'])
     raise ValueError(f"unknown tokenizer type {kind!r}")

@@ -66,7 +66,9 @@ def trainable_mask(model: torch.nn.Module, tc: TrainConfig) -> Dict[str, bool]:
     never trains, then `freeze_modules` prefixes, then the
     `restrict_learning` include/exclude regexes in order, first match
     wins; the default is trainable.  A predictor LSTM's second bias
-    (`convert.lstm_second_bias`, no JAX leaf) never trains."""
+    (`convert.lstm_second_bias`, no JAX leaf) never trains, nor does a
+    parameter whose requires_grad is off (the frozen base of a LoRA
+    model, train/lora.py:lora_trainable_mask)."""
     rules = []
     for item in (tc.restrict_learning or []):
         if 'include' in item:
@@ -84,8 +86,9 @@ def trainable_mask(model: torch.nn.Module, tc: TrainConfig) -> Dict[str, bool]:
                 return keep
         return True
 
-    return {name: not lstm_second_bias(name) and decide(tree_key(name))
-            for name, _ in model.named_parameters()}
+    return {name: (p.requires_grad and not lstm_second_bias(name)
+                   and decide(tree_key(name)))
+            for name, p in model.named_parameters()}
 
 
 def _f32_pow_complement(decay: float, n: int) -> float:

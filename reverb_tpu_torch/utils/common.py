@@ -1,10 +1,12 @@
 """Sequence and mask utilities (counterpart of reverb_tpu/utils/common.py:
 `subsequent_chunk_mask`, `add_optional_chunk_mask` with its training draw,
-`add_sos_eos`, `th_accuracy` and the sequence reversal), and the entry
-points' device rule `resolve_device`."""
+`add_sos_eos`, `th_accuracy`, the sequence reversal and the Whisper
+prompt `add_whisper_tokens`), and the entry points' device rule
+`resolve_device`."""
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 IGNORE_ID = -1
@@ -154,3 +156,56 @@ def add_optional_chunk_mask(masks, use_dynamic_chunk: bool,
             size, static_chunk_size, num_decoding_left_chunks,
             masks.device)[None]
     return masks
+
+
+# Whisper's language order (openai/whisper languages.py); a language's
+# token id is sot + 1 + its index here
+WHISPER_LANGS = (
+    'en', 'zh', 'de', 'es', 'ru', 'ko', 'fr', 'ja', 'pt', 'tr', 'pl', 'ca',
+    'nl', 'ar', 'sv', 'it', 'id', 'hi', 'fi', 'vi', 'he', 'uk', 'el', 'ms',
+    'cs', 'ro', 'da', 'hu', 'ta', 'no', 'th', 'ur', 'hr', 'bg', 'lt', 'la',
+    'mi', 'ml', 'cy', 'sk', 'te', 'fa', 'lv', 'bn', 'sr', 'az', 'sl', 'kn',
+    'et', 'mk', 'br', 'eu', 'is', 'hy', 'ne', 'mn', 'bs', 'kk', 'sq', 'sw',
+    'gl', 'mr', 'pa', 'si', 'km', 'sn', 'yo', 'so', 'af', 'oc', 'ka', 'be',
+    'tg', 'sd', 'gu', 'am', 'yi', 'lo', 'uz', 'fo', 'ht', 'ps', 'tk', 'nn',
+    'mt', 'sa', 'lb', 'my', 'bo', 'tl', 'mg', 'as', 'tt', 'haw', 'ln', 'ha',
+    'ba', 'jw', 'su')
+
+
+def add_whisper_tokens(special_tokens, ys_pad, ignore_id: int, tasks, langs,
+                       no_timestamp: bool = True):
+    """Whisper's multitask prompt on the host (reverb_tpu/utils/common.py:
+    add_whisper_tokens): each row's tokens (ignore_id padding dropped)
+    after [sot, language, task, no_timestamps (transcribe and translate)]
+    and before eot.  Returns (ys_in, ys_out) int32 numpy arrays padded with
+    eot and ignore_id.  tasks in {transcribe, translate, vad}; timestamped
+    targets raise NotImplementedError, as there."""
+    ys_pad = np.asarray(ys_pad)
+    B = ys_pad.shape[0]
+    assert len(tasks) == B and len(langs) == B
+    ins, outs = [], []
+    for b in range(B):
+        task = tasks[b]
+        if task in ('transcribe', 'translate'):
+            task_id = special_tokens[task]
+        elif task == 'vad':
+            task_id = special_tokens['no_speech']
+        else:
+            raise NotImplementedError(f'unsupported task {task}')
+        prefix = [special_tokens['sot'],
+                  special_tokens['sot'] + 1 + WHISPER_LANGS.index(langs[b]),
+                  task_id]
+        if task in ('transcribe', 'translate'):
+            if not no_timestamp:
+                raise NotImplementedError('timestamped whisper targets')
+            prefix.append(special_tokens['no_timestamps'])
+        y = ys_pad[b][ys_pad[b] != ignore_id]
+        ins.append(np.concatenate([prefix, y]))
+        outs.append(np.concatenate([prefix[1:], y, [special_tokens['eot']]]))
+    L = max(len(y) for y in ins)
+    ys_in = np.full((B, L), special_tokens['eot'], np.int32)
+    ys_out = np.full((B, L), ignore_id, np.int32)
+    for b in range(B):
+        ys_in[b, :len(ins[b])] = ins[b]
+        ys_out[b, :len(outs[b])] = outs[b]
+    return ys_in, ys_out

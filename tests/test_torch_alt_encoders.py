@@ -2,8 +2,9 @@
 the CPU: Branchformer, E-Branchformer, Squeezeformer (through its time
 reduction and recovery) and the Efficient Conformer (a grouped-attention
 layer, a stride layer, a layer at the reduced rate), each at width 128 so
-that every LayerNorm of the width takes the K5/K6 functions; the
-encoder's forward on the valid frames and the hybrid loss's gradient."""
+that every LayerNorm of the width takes the K5/K6 functions, and the
+E-Branchformer with abs_pos (plain MHA); the encoder's forward on the
+valid frames and the hybrid loss's gradient."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -24,7 +25,20 @@ _JAX_FORWARD = {'branchformer': jalt.branchformer_forward,
 
 @pytest.mark.parametrize('enc', ALT)
 def test_alt_encoder_forward_and_gradients_match_jax(enc):
-    jb, tb = both_bundles(alt_conf(enc, width=128))
+    _forward_and_gradients_match(enc, alt_conf(enc, width=128))
+
+
+def test_e_branchformer_abs_pos_matches_jax():
+    """pos_enc_layer_type abs_pos: the scaled input plus the sinusoid
+    table after the subsampling, and plain MHA over the key-padding mask
+    in every layer (no K1), as JAX's `att.mha`."""
+    conf = alt_conf('e_branchformer', width=128)
+    conf['encoder_conf']['pos_enc_layer_type'] = 'abs_pos'
+    _forward_and_gradients_match('e_branchformer', conf)
+
+
+def _forward_and_gradients_match(enc, conf):
+    jb, tb = both_bundles(conf)
     ecfg = jb.cfg[0]
     b = batch(T=70, U=4)
     want, wmask = _JAX_FORWARD[enc](jb.params['encoder'],

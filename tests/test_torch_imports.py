@@ -42,8 +42,8 @@ spec = importlib.util.spec_from_file_location(
     'chip_smoke', sys.argv[1] + '/chip_smoke.py')
 spec.loader.exec_module(importlib.util.module_from_spec(spec))
 bad = sorted(m for m in sys.modules
-             if m in ('jax', 'reverb_tpu') or m.startswith(('jax.',
-                                                            'reverb_tpu.')))
+             if m in ('jax', 'reverb_tpu', 'transformers')
+             or m.startswith(('jax.', 'reverb_tpu.', 'transformers.')))
 print(json.dumps({'modules': names, 'bad': bad}))
 '''
 
@@ -108,7 +108,15 @@ def test_port_imports_no_jax_and_no_reverb_tpu():
                  'reverb_tpu_torch.parallel',
                  'reverb_tpu_torch.parallel.mesh',
                  'reverb_tpu_torch.parallel.collectives',
-                 'reverb_tpu_torch.parallel.sharding'):
+                 'reverb_tpu_torch.parallel.sharding',
+                 'reverb_tpu_torch.models.whisper',
+                 'reverb_tpu_torch.text.whisper_tokenizer',
+                 'reverb_tpu_torch.models.ssl',
+                 'reverb_tpu_torch.models.ctl',
+                 'reverb_tpu_torch.models.k2_model',
+                 'reverb_tpu_torch.ops.fsa',
+                 'reverb_tpu_torch.train.lora',
+                 'reverb_tpu_torch.train.teacher_student'):
         assert name in out['modules']
     assert out['bad'] == []
 
@@ -184,14 +192,63 @@ def test_bpe_tokenizer_matches_jax(tiny_dir):
         assert got.tokenize(line) == want.tokenize(line)
 
 
+_LAZY_PROBE = r'''
+import json, sys
+sys.path.insert(0, sys.argv[1])
+from reverb_tpu_torch.text import tokenizer
+t = tokenizer.init_tokenizer({'tokenizer': sys.argv[2],
+                              'tokenizer_conf': {'model': 'm'}})
+print(json.dumps({'type': type(t).__name__,
+                  'transformers': 'transformers' in sys.modules}))
+'''
+
+
+class _FakeHF:
+    """A stand-in for a transformers tokenizer (nothing is downloaded)."""
+    made = []
+
+    @classmethod
+    def from_pretrained(cls, name, **kw):
+        cls.made.append((name, kw))
+        return cls()
+
+    def tokenize(self, line):
+        return line.split()
+
+    def convert_tokens_to_ids(self, toks):
+        return [len(t) for t in toks]
+
+
 @pytest.mark.parametrize('kind', ['whisper', 'hugging_face', 'paraformer'])
-def test_unported_tokenizers_raise(kind, tmp_path):
-    """Whisper's tokenizers raise naming item 15.3; the paraformer one is
-    ported: its branch builds the tokenizer JAX's builds
-    (tests/test_torch_paraformer.py holds its tokenization to JAX's)."""
+def test_unported_tokenizers_raise(kind, tmp_path, monkeypatch):
+    """No tokenizer raises any more.  Whisper's two route to the port's
+    gated wrappers (text/whisper_tokenizer.py): building one imports no
+    transformers (a fresh process), its first use imports it and builds
+    the named tokenizer (a stand-in module here); the paraformer branch
+    builds the tokenizer JAX's builds (tests/test_torch_paraformer.py
+    holds its tokenization to JAX's)."""
     if kind != 'paraformer':
-        with pytest.raises(NotImplementedError, match='item 15.3'):
-            ttok.init_tokenizer({'tokenizer': kind, 'tokenizer_conf': {}})
+        import types
+        env = {k: v for k, v in os.environ.items() if k != 'PYTHONPATH'}
+        res = subprocess.run([sys.executable, '-c', _LAZY_PROBE, str(ROOT),
+                              kind], capture_output=True, text=True,
+                             env=env, cwd=str(ROOT / 'tests'), timeout=300)
+        assert res.returncode == 0, res.stderr
+        out = json.loads(res.stdout.strip().splitlines()[-1])
+        assert out == {'type': {'whisper': 'WhisperTokenizer',
+                                'hugging_face': 'HuggingFaceTokenizer'}[kind],
+                       'transformers': False}
+        fake = types.ModuleType('transformers')
+        fake.WhisperTokenizer = fake.AutoTokenizer = _FakeHF
+        monkeypatch.setitem(sys.modules, 'transformers', fake)
+        _FakeHF.made.clear()
+        tok = ttok.init_tokenizer({'tokenizer': kind, 'tokenizer_conf': {
+            'model': 'some/model', 'is_multilingual': True}})
+        assert tok.tokenize('ab c') == (['ab', 'c'], [2, 1])
+        assert _FakeHF.made == ([('openai/whisper-tiny',
+                                  {'language': 'en', 'task': 'transcribe'})]
+                                if kind == 'whisper'
+                                else [('some/model', {})])
         return
     from reverb_tpu_torch.text.paraformer_tokenizer import \
         ParaformerTokenizer

@@ -1,9 +1,10 @@
 """The port's model registry against the JAX package's, f32 on the CPU:
-`init_model` dispatch for asr_model, transducer, bitransducer and the four
-alternative encoders (each bundle's loss against the JAX bundle's
-`loss_fn` on the same weights and batch), the families still to port
-raising NotImplementedError naming ROADMAP item 15, an unknown name
-raising ValueError, and `.npz` checkpoints crossing both ways."""
+`init_model` dispatch for asr_model, transducer, bitransducer, the four
+alternative encoders and the six families ported last (k2_model,
+ctl_model, bestrq, wav2vec2, w2vbert, whisper): each bundle's loss
+against the JAX bundle's `loss_fn` on the same weights and batch; an
+unknown name raising ValueError, and `.npz` checkpoints crossing both
+ways."""
 
 import jax
 import numpy as np
@@ -57,10 +58,48 @@ def test_init_model_dispatch_and_loss_match_jax(kind):
         set(flatten_params(jb.params))
 
 
-@pytest.mark.parametrize('kind', treg.UNPORTED)
+# the families that raised until they were ported; at mask_prob 0 the SSL
+# losses draw nothing that reaches their value, so the bundles' own losses
+# compare (tests/test_torch_ssl.py feeds both packages the same draws)
+FORMER_UNPORTED = ('k2_model', 'ctl_model', 'bestrq', 'wav2vec2', 'w2vbert',
+                   'whisper')
+
+
+def _family_conf(kind):
+    if kind == 'whisper':
+        return {'model': 'whisper', 'whisper_conf': {
+            'n_mels': 80, 'n_audio_state': 32, 'n_audio_head': 2,
+            'n_audio_layer': 1, 'n_text_state': 32, 'n_text_head': 2,
+            'n_text_layer': 1, 'n_vocab': V, 'n_audio_ctx': 40,
+            'n_text_ctx': 20}}
+    conf = dict(ASR, model=kind)
+    if kind in ('wav2vec2', 'w2vbert'):
+        conf['wav2vec2_conf'] = {'codebook_size': 8, 'mask_prob': 0.0,
+                                 'num_negatives': 3}
+    if kind == 'bestrq':
+        conf['bestrq_conf'] = {'codebook_size': 16, 'mask_prob': 0.0}
+    return conf
+
+
+@pytest.mark.parametrize('kind', FORMER_UNPORTED)
 def test_unported_families_raise(kind):
-    with pytest.raises(NotImplementedError, match='item 15'):
-        tinit({'model': kind, 'output_dim': V}, device='cpu')
+    """No family raises any more: `init_model` builds each of the six the
+    port once lacked, and its bundle's loss equals the JAX bundle's."""
+    assert treg.UNPORTED == () and kind in treg.PORTED
+    jb, tb = both_bundles(_family_conf(kind))
+    assert tb.kind == jb.kind == kind
+    b = batch(T=70, U=3)
+    want = jb.loss_fn(jb.params, to_jax(b), jax.random.PRNGKey(0))
+    got = tb.loss_fn(tb.model, to_torch(b), torch.Generator().manual_seed(0))
+    assert set(got) == set(want)
+    for k, v in want.items():
+        if v is not None:
+            np.testing.assert_allclose(float(got[k]), float(v), rtol=1e-5,
+                                       atol=1e-6, err_msg=k)
+    fresh = tinit(_family_conf(kind), torch.Generator().manual_seed(0),
+                  'cpu')
+    assert set(convert.flat_from_state_dict(fresh.model.state_dict())) == \
+        set(flatten_params(jb.params))
 
 
 def test_unknown_model_raises():

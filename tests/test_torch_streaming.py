@@ -377,7 +377,7 @@ def test_incremental_beam_and_greedy_match_jax(hops, init_len):
     lp, _, _ = _topk_inputs(1, sum(hops), K, seed=len(hops))
     lp = lp[0]
     jb, tb = jsb.IncrementalBeam(K, 0, init_len), \
-        tsb.IncrementalBeam(K, 0, init_len)
+        tsb.IncrementalBeam(K, 0, init_len, device='cpu')
     jg, tg = jsb.IncrementalGreedy(0), tsb.IncrementalGreedy(0)
     s = 0
     for h in hops:
@@ -403,13 +403,26 @@ def test_incremental_beam_and_greedy_match_jax(hops, init_len):
     assert tb.L >= max(len(h) for h in tb.finalize().nbest)
 
 
+def test_beams_default_to_the_card():
+    """BeamBank and IncrementalBeam run on the card unless the caller asks
+    for the CPU: without a card the default raises."""
+    if torch.cuda.is_available():
+        pytest.skip('a card is present')
+    with pytest.raises(RuntimeError, match='cuda'):
+        tsb.BeamBank(2, 3)
+    with pytest.raises(RuntimeError, match='cuda'):
+        tsb.IncrementalBeam(3)
+    assert tsb.IncrementalBeam(3, device='cpu').bank.device.type == 'cpu'
+
+
 def test_beam_bank_holds_streams_that_are_not_ready():
     """A BeamBank hop with a stream not ready leaves that stream's beam and
     offset as they were: the same as hopping the ready streams alone."""
     K = 3
     lp, _, _ = _topk_inputs(2, 12, K, seed=9)
-    bank = tsb.BeamBank(2, K, 0, init_len=4)
-    solo = [tsb.IncrementalBeam(K, 0, init_len=4) for _ in range(2)]
+    bank = tsb.BeamBank(2, K, 0, init_len=4, device='cpu')
+    solo = [tsb.IncrementalBeam(K, 0, init_len=4, device='cpu')
+            for _ in range(2)]
     for h, ready in ((4, [True, False]), (4, [True, True]),
                      (4, [False, True])):
         lo = int(bank.offsets.max())

@@ -395,14 +395,12 @@ def test_entry_points_default_to_cuda(recipe, tmp_path):
     (['--process_id', '1', '--pipeline_microbatches', '2'], 'item 14'),
     (['--pipeline_microbatches', '4'], 'item 14'),
     (['--prng_impl', 'rbg'], "torch's generator"),
-    # the registry's families still to port, and a ported family over
-    # several processes (item 15.8)
-    (['--override_config', 'model=k2_model'], 'item 15'),
+    # a registry family, or distillation, over several processes (item
+    # 15.8)
     (['--override_config', 'model=paraformer', '--num_processes', '2'],
      'item 15.8'),
-    (['--override_config', 'ts_conf.teacher_yaml=t.yaml'], 'item 15'),
-    (['--override_config', 'model=whisper'], 'item 15'),
-    (['--override_config', 'model=ctl_model'], 'item 15'),
+    (['--override_config', 'ts_conf.teacher_yaml=t.yaml',
+      '--num_processes', '2'], 'item 15.8'),
     # an encoder key the JAX package reads and the port does not build
     (['--override_config', 'encoder_conf.pipeline_stages=2'], 'item 14'),
 ])
@@ -411,6 +409,24 @@ def test_train_unported_options_raise(recipe, tmp_path, extra, match):
     with pytest.raises(NotImplementedError, match=match):
         ttrain.main(_train_argv(d, cfg_path, tmp_path / 'x', '--device',
                                 'cpu', *extra))
+
+
+@pytest.mark.parametrize('extra', [
+    ['--override_config', 'model=k2_model'],
+    ['--override_config', 'ts_conf.teacher_yaml=t.yaml'],
+    ['--override_config', 'model=whisper'],
+    ['--override_config', 'model=ctl_model'],
+])
+def test_train_ported_options_accepted(recipe, tmp_path, extra):
+    """The families and the distillation that raised until they were
+    ported: bin.train's check accepts them in one process
+    (tests/test_torch_lora_ts.py trains the ts_conf route end to end)."""
+    from reverb_tpu_torch.utils.config import load_config, override_config
+    d, cfg_path = recipe
+    args = ttrain.get_args(_train_argv(d, cfg_path, tmp_path / 'x',
+                                       '--device', 'cpu', *extra))
+    configs = override_config(load_config(args.config), args.override_config)
+    ttrain.check_supported(args, configs)
 
 
 def test_dynamic_chunk_cv_raises_as_in_jax(recipe, tmp_path, monkeypatch):

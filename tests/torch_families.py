@@ -121,3 +121,74 @@ def assert_grads_close(jg, tg, atol=1e-4):
     for k, v in tg.items():
         np.testing.assert_allclose(v, np.asarray(jg[k]), rtol=1e-4,
                                    atol=atol, err_msg=k)
+
+
+def jax_loss_and_grads(fn, params):
+    """(metrics, flat gradient) of fn(params) → metrics with 'loss'."""
+    def loss(p):
+        out = fn(p)
+        return out['loss'], out
+    (_, out), g = jax.jit(jax.value_and_grad(loss, has_aux=True))(params)
+    return out, flatten_params(g)
+
+
+def port_loss_and_grads(model, fn):
+    """(metrics, flat gradient under the JAX keys; zeros where none) of
+    fn(model) → metrics with 'loss'."""
+    for p in model.parameters():
+        p.grad = None
+    out = fn(model)
+    out['loss'].backward()
+    g = convert.flat_from_state_dict(
+        {n: (p.grad if p.grad is not None else torch.zeros_like(p))
+         for n, p in model.named_parameters()})
+    for p in model.parameters():
+        p.grad = None
+    return out, g
+
+
+def assert_metrics_close(got, want, keys=None, rtol=1e-4, atol=1e-5):
+    for k in keys or want:
+        if want[k] is not None:
+            np.testing.assert_allclose(float(got[k]), float(want[k]),
+                                       rtol=rtol, atol=atol, err_msg=k)
+
+
+def grads_close(jg, tg, rel=1e-4):
+    """Each gradient within `rel` of the largest gradient magnitude."""
+    assert set(jg) == set(tg), set(jg) ^ set(tg)
+    scale = max(float(np.abs(np.asarray(v)).max()) for v in jg.values())
+    for k, v in tg.items():
+        np.testing.assert_allclose(v, np.asarray(jg[k]), rtol=0,
+                                   atol=rel * scale, err_msg=k)
+
+
+def adam_step_both(conf, jparams, jg, model, tg):
+    """One update of the JAX package's optimizer (optax, the config's
+    optim / optim_conf, its freeze rules) on jg, and of the port's on tg:
+    (new JAX params flat, new port params flat)."""
+    import optax
+    from reverb_tpu.train import trainer as jtrainer
+    from reverb_tpu_torch.train import trainer as ttrainer
+    tx, _ = jtrainer.build_optimizer(
+        jtrainer.TrainConfig.from_config(conf), jparams)
+    state = tx.init(jparams)
+
+    def fill(tree, prefix=''):
+        if isinstance(tree, dict):
+            return {k: fill(v, f'{prefix}{k}.') for k, v in tree.items()}
+        if isinstance(tree, (list, tuple)):
+            return [fill(v, f'{prefix}{i}.') for i, v in enumerate(tree)]
+        return jnp.asarray(jg[prefix[:-1]])
+    assert set(flatten_params(jparams)) == set(jg)
+    upd, _ = tx.update(fill(jparams), state, jparams)
+    new_j = flatten_params(optax.apply_updates(jparams, upd))
+    opt, _ = ttrainer.build_optimizer(
+        ttrainer.TrainConfig.from_config(conf), model)
+    sd = convert.state_dict_from_jax(tg)
+    names = [n for n, _ in model.named_parameters()]
+    opt.step([sd[n] if n in sd else torch.zeros_like(p)
+              for n, p in zip(names, model.parameters())])
+    new_t = convert.flat_from_state_dict(
+        {n: p for n, p in model.named_parameters()})
+    return new_j, new_t
