@@ -190,27 +190,33 @@ the serving model:
 
 then parallelism (parallel/, the sharded step of train/trainer.py):
 
-- parallel: at world size 1 over NCCL, the sharded step (ZeRO and TP
-  split nothing at one rank) against the unwrapped step in f32 at B = 2
-  with dropout (loss and grad norm within 1e-5 relative, parameters
-  within 1e-5 after an Adam step at lr 1e-3), every K1/K4/K5/K6 call held
-  to its plain version and counted, and its bf16 step at B = 8 (ms, peak
-  memory); then two ranks on the one card over gloo with CUDA tensors
-  (processes of this script, `--parallel-child`, joined by
-  parallel/mesh.py:init_distributed): DDP, ZeRO-1/2, ZeRO-3 and TP 2,
-  each an f32 step held to the unwrapped one on loss, grad norm and
-  every parameter — within 1e-3 of the whole batch at once (TP with
-  dropout: the split layers draw the unwrapped masks; at world 1 the
-  row split alone is measured by loss term, the floor under that bound)
-  and, for the data-parallel forms, within 1e-5 of the batch as
-  micro-batches of a rank's rows — rank 0's kernel calls held to their
-  plain versions, and
-  a bf16 step held to the
-  unwrapped bf16 step (PAR_BF16_TOL) with ms a step and peak memory per
-  rank, every step of every rank launching PAR_STEP_LAUNCHES; a form
-  whose collective gloo does not carry for CUDA tensors reported on its
-  own line; the same over NCCL where there are two cards, and DP 2 × TP
-  2 over NCCL where there are four; and
+- parallel (reverb_large's widths at PAR_LAYERS = 6 encoder layers): at
+  world size 1 over NCCL, the sharded step (ZeRO and TP split nothing at
+  one rank) against the unwrapped step in f32 at B = 2 with dropout
+  (loss and grad norm within 1e-5 relative, parameters within 1e-5 after
+  an Adam step at lr 1e-3), every K1/K4/K5/K6 call held to its plain
+  version and counted, and its bf16 step at B = 8 (ms, peak memory); then
+  two ranks on the one card over gloo with CUDA tensors (processes of
+  this script, `--parallel-child`, joined by
+  parallel/mesh.py:init_distributed): DDP, ZeRO-1/2, ZeRO-3, TP 2, 'seq'
+  2, 'expert' 2 (8 experts, 2 a token), 'pipe' 2 (4 microbatches,
+  layer_norm conv modules), TP 2 over layer_norm, wav2vec 2.0 and
+  teacher-student under DDP 2 (PAR_FORMS_N), each an f32 step held to the
+  unwrapped one of its model on loss, grad norm and every parameter —
+  within 1e-3 of the whole batch at once (the forms whose data axis is 1
+  with dropout, but 'pipe': the split layers draw the unwrapped masks; at
+  world 1 the row split alone is measured by loss term, the floor under
+  that bound) and, for the data-parallel reverb_large forms, within 1e-5
+  of the batch as micro-batches of a rank's rows — rank 0's kernel calls
+  held to their plain versions ('seq': K1 with Tq ≠ Tk, every step
+  split), and a bf16 step (reverb_large's held to the unwrapped bf16
+  step, PAR_BF16_TOL) with ms a step and peak memory per rank, every step
+  of every rank launching what rank 0's unwrapped step launched ('pipe':
+  each stage's region layers once a microbatch; its bubble share
+  reported); a form that raises in a collective reported on its own
+  line, and the phase failed; the same over NCCL where there are
+  two cards, and DP 2 × TP 2, 'pipe' 2 × TP 2 and 'seq' 2 × TP 2 over
+  NCCL where there are four; and
   `ReverbASR(data_parallel=device_count)` on the serving file, its CTM
   byte-identical to one replica's decoding the same row blocks.
 
@@ -2640,12 +2646,13 @@ def recipe_scripts(dev, workdir: Path) -> dict:
 RECIPE_CALL_TOL = {'K1': 1e-3, 'K4': 1e-3, 'K5': 1e-4, 'K6': 1e-4}
 
 
-def checked_kernels(errs):
+def checked_kernels(errs, shapes=None):
     """K1, K4, K5 and K6 as module attributes to swap in: each call runs
     the kernel, then its plain version on the call's own inputs (K4 and K6
     with the call's own upstream gradient), and keeps each output's worst
     error relative to the output's largest value in errs.  K1's output is
-    compared on valid query rows only (a padded row is read by no one)."""
+    compared on valid query rows only (a padded row is read by no one).
+    With `shapes` (a set) each K1 call adds its (Tq, Tk)."""
     import torch
     from reverb_tpu_torch.ops import flash_attention as fa
     from reverb_tpu_torch.ops import layer_norm as ln
@@ -2660,6 +2667,8 @@ def checked_kernels(errs):
                                           mask, rate)
 
     def fwd(q, k, v, p, u, vb, lens, mask, rate, want_lse):
+        if shapes is not None:
+            shapes.add((q.shape[2], k.shape[2]))
         out, lse = k1(q, k, v, p, u, vb, lens, mask, rate, want_lse)
         with torch.no_grad():
             want = plain_attn(q, k, v, p, u, vb, lens, mask, rate)
@@ -5421,19 +5430,45 @@ def run_export(dev, asr, wav, feats, audio_s, workdir: Path):
 
 # ------------------------------ phase 19: parallelism ------------------------------
 
-# (name, mesh axes, Sharding options): the forms of two ranks (gloo on one
-# card; NCCL on two cards) and of four (NCCL on four cards).  At one rank
+# reverb_large's widths at PAR_LAYERS encoder layers (LSL first and last
+# around four middle ones), for every form (the all-phase run's time)
+PAR_LAYERS = 6
+# (name, mesh axes, Sharding options, model kind): the forms of two ranks
+# (gloo on one card; NCCL on two cards) and of four (NCCL on four cards).
+# Kinds (`par_configs`): 'base' reverb_large; 'moe' with the MoE
+# feed-forward, 8 experts, 2 a token; 'ln' with layer_norm conv modules and
+# a GPipe config of 2 stages in 4 microbatches (in order without a 'pipe'
+# axis); 'wav2vec2' the SSL family (its global code perplexity); 'ts' a
+# reverb_small-width student of a reverb_large teacher.  At one rank
 # ZeRO and TP split nothing, so world 1 runs the sharded step once
-PAR_FORMS_N = {2: (('ddp', {'data': 2}, {'zero': False}),
-                   ('zero12', {'data': 2}, {'zero': True}),
-                   ('zero3', {'data': 2}, {'zero3': True}),
-                   ('tp2', {'model': 2}, {'zero': True})),
-               4: (('dp2tp2', {'data': 2, 'model': 2}, {'zero': True}),)}
+PAR_FORMS_N = {2: (('ddp', {'data': 2}, {'zero': False}, 'base'),
+                   ('zero12', {'data': 2}, {'zero': True}, 'base'),
+                   ('zero3', {'data': 2}, {'zero3': True}, 'base'),
+                   ('tp2', {'model': 2}, {'zero': True}, 'base'),
+                   ('seq2', {'seq': 2}, {'zero': True}, 'base'),
+                   ('expert2', {'expert': 2}, {'zero': True}, 'moe'),
+                   ('pipe2', {'pipe': 2}, {'zero': True}, 'ln'),
+                   ('tp2_ln', {'model': 2}, {'zero': True}, 'ln'),
+                   ('ddp2_wav2vec2', {'data': 2}, {'zero': False},
+                    'wav2vec2'),
+                   ('ddp2_ts', {'data': 2}, {'zero': False}, 'ts')),
+               4: (('dp2tp2', {'data': 2, 'model': 2}, {'zero': True},
+                    'base'),
+                   ('pipe2tp2', {'pipe': 2, 'model': 2}, {'zero': True},
+                    'ln'),
+                   ('seq2tp2', {'seq': 2, 'model': 2}, {'zero': True},
+                    'base'))}
 PAR_STEPS = 2                     # a step, then the timed one
-# the K1/K4/K5/K6 launches of every reverb_large step, whatever the form
-# (K1/K4 on a TP rank's H/tp heads, K5/K6 on the replicated rows)
-PAR_STEP_LAUNCHES = {'K1': LAYERS_ENC, 'K4': LAYERS_ENC,
-                     'K5': LN_ENC + LN_DEC, 'K6': LN_ENC + LN_DEC}
+PAR_PIPE = {'stages': 2, 'microbatches': 4, 'region': 4}
+# the 'seq' forms' batches are padded to a frame count their two ranks
+# split: 2052 input frames, 512 subsampled (2051 gives 511)
+PAR_SEQ_FRAMES = 2052
+# the K1/K4/K5/K6 launches of a 'base' step, whatever the form (K1/K4 on
+# a TP rank's H/tp heads or a 'seq' rank's queries, K5/K6 on the
+# replicated rows): 5 LayerNorms a layer and after_norm, the decoder's 29
+PAR_STEP_LAUNCHES = {'K1': PAR_LAYERS, 'K4': PAR_LAYERS,
+                     'K5': 5 * PAR_LAYERS + 1 + LN_DEC,
+                     'K6': 5 * PAR_LAYERS + 1 + LN_DEC}
 # the f32 checks' optimizer: Adam's first step at lr 1e-3 (warm-up 1)
 # with eps 1e-3, so a parameter moves by up to 1e-3, in proportion to its
 # gradient below 1e-3, and agrees within PAR_F32_TOL only where its
@@ -5456,6 +5491,108 @@ PAR_F32_B = 2
 # batch: the two ranks' bf16 GEMMs run at other shapes (TP: the
 # row-parallel outputs are sums of two bf16 partial products)
 PAR_BF16_TOL = {'loss': 5e-3, 'grad_norm': 5e-2}
+
+
+def par_configs(kind: str) -> dict:
+    """The config of a PAR_FORMS_N model kind (the forms' comment)."""
+    from reverb_tpu_torch.models import presets
+    if kind == 'ts':
+        configs = presets.reverb_config(vocab_size=VOCAB, **OBJ_TS_STUDENT)
+    elif kind == 'wav2vec2':
+        configs = objective_configs('wav2vec2', Path(tempfile.gettempdir()))
+    else:
+        configs = presets_large()
+    enc = dict(configs['encoder_conf'])
+    if kind != 'ts':
+        enc['num_blocks'] = PAR_LAYERS
+    if kind == 'moe':
+        enc.update(positionwise_layer_type='moe', n_expert=8,
+                   n_expert_per_token=2)
+    if kind == 'ln':
+        enc.update(cnn_module_norm='layer_norm',
+                   pipeline_stages=PAR_PIPE['stages'],
+                   pipeline_microbatches=PAR_PIPE['microbatches'])
+    return dict(configs, encoder_conf=enc)
+
+
+def par_model(dev, kind: str, dtype, check: bool = False):
+    """(model, optimizer, the family's loss or None) of a kind from seed
+    SEED (the teacher of 'ts' from SEED + 1, frozen), with
+    PAR_CHECK_CONF's optimizer for an f32 check."""
+    import torch
+    from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
+    from reverb_tpu_torch.models.registry import init_model
+    from reverb_tpu_torch.train.teacher_student import TSConfig, ts_loss
+    from reverb_tpu_torch.train.trainer import TrainConfig, build_optimizer
+    configs = par_configs(kind)
+    if check:
+        configs = {**configs, **PAR_CHECK_CONF}
+    loss_fn = None
+    if kind == 'wav2vec2':
+        bundle = init_model(dict(configs, dtype='bf16' if dtype ==
+                                 torch.bfloat16 else 'fp32'),
+                            torch.Generator(device=dev).manual_seed(SEED),
+                            dev)
+        model, loss_fn = bundle.model, bundle.loss_fn
+    else:
+        cfg = ModelConfig.from_config(configs).with_compute_dtype(dtype)
+        model = build_model(cfg, dev, generator=torch.Generator(
+            device=dev).manual_seed(SEED), train=True)
+    if kind == 'ts':
+        tconf = dict(presets_large(), encoder_conf=dict(
+            presets_large()['encoder_conf'], num_blocks=PAR_LAYERS))
+        teacher = build_model(
+            ModelConfig.from_config(tconf).with_compute_dtype(dtype), dev,
+            generator=torch.Generator(device=dev).manual_seed(SEED + 1))
+        tsc = TSConfig(ts_weight=0.5, top_k_entries=8)
+
+        def loss_fn(model, batch, generator=None):
+            return ts_loss(model, teacher, batch, tsc, generator)
+    opt, _ = build_optimizer(TrainConfig.from_config(configs), model)
+    return model, opt, loss_fn
+
+
+def par_batch(dev, kind: str, B: int, seed: int, seq: bool = False):
+    """`train_batch` for a kind: a 'seq' form's padded to PAR_SEQ_FRAMES
+    frames; wav2vec2's with its per-row draws (span masks, 100 negatives
+    a frame, gumbels), so that a data rank takes its rows' draws."""
+    import torch
+    batch = train_batch(dev, B, seed, VOCAB)
+    if seq:
+        feats = batch['feats']
+        batch['feats'] = torch.cat([feats, feats.new_zeros(
+            (B, PAR_SEQ_FRAMES - feats.shape[1], feats.shape[2]))], 1)
+    if kind == 'wav2vec2':
+        cfg = par_configs(kind)
+        w = cfg.get('wav2vec2_conf', {}) or {}
+        n_neg = w.get('num_negatives', 100)
+        G, C = w.get('num_codebooks', 1), w.get('codebook_size', 320)
+        gen = torch.Generator(device=dev).manual_seed(seed + 1)
+        T = ((batch['feats'].shape[1] - 1) // 2 - 1) // 2
+        lens = ((batch['feats_lengths'] - 1) // 2 - 1) // 2
+        valid = torch.arange(T, device=dev)[None, :] < lens[:, None]
+        span = (torch.rand((B, T), generator=gen, device=dev) < 0.3) & valid
+        span[:, 0] = True
+        u = torch.rand((B, T, G, C), generator=gen, device=dev)
+        u = torch.finfo(torch.float32).tiny + (1 - 1e-7) * u
+        batch.update(
+            span_mask=span,
+            neg_pos=torch.randint(0, T, (B, T, n_neg), generator=gen,
+                                  device=dev),
+            gumbels=-torch.log(-torch.log(u)))
+    return batch
+
+
+def pipe_launches(whole: dict) -> dict:
+    """A 'pipe' rank's launches a step from the unwrapped step's: each
+    stage runs its region/S layers on each of M microbatches (6 LayerNorms
+    a layer with a layer_norm conv module) and the layers around the
+    region whole."""
+    n, S, M = PAR_PIPE['region'], PAR_PIPE['stages'], \
+        PAR_PIPE['microbatches']
+    per = {'K1': 1, 'K4': 1, 'K5': 6, 'K6': 6}
+    return {k: v - n * per[k] + n // S * M * per[k]
+            for k, v in whole.items()}
 
 
 def train_launches() -> dict:
@@ -5482,15 +5619,16 @@ def counted_step(step, model, batch, gen, total) -> tuple:
     return metrics, got
 
 
-def sharded(model, opt, axes, opts):
+def sharded(model, opt, axes, opts, loss_fn=None):
     """The model and optimizer split over make_mesh(**axes) (the
-    `Sharding`), and their sharded step (reverb_large's accum 1 and clip
-    50)."""
+    `Sharding`), and their sharded step (accum 1 and clip 50; a family's
+    `loss_fn`)."""
     from reverb_tpu_torch.parallel import mesh as pm
     from reverb_tpu_torch.parallel.sharding import Sharding
     from reverb_tpu_torch.train.trainer import make_train_step
     sh = Sharding(pm.make_mesh(**axes), **opts).apply(model, opt)
-    return sh, make_train_step(model.cfg, opt, 1, 50.0, sharding=sh)
+    return sh, make_train_step(model.cfg, opt, 1, 50.0, sharding=sh,
+                               loss_fn=loss_fn)
 
 
 def timed_steps(step, model, batch, gen, total) -> tuple:
@@ -5531,7 +5669,7 @@ def row_split(dev, seed, batch, total) -> dict:
     whole batch (PAR_RANKS_F32_TOL)."""
     import torch
     from reverb_tpu_torch.models.asr_model import compute_loss
-    model = train_model(dev, seed, torch.float32)[0]
+    model = par_model(dev, 'base', torch.float32)[0]
     params = list(model.parameters())
 
     def grads(term, parts):
@@ -5578,23 +5716,24 @@ def parallel_world1(dev, seed) -> dict:
     version on its own inputs (`checked_kernels`, RECIPE_CALL_TOL) and
     counted.  Then bf16 at B = 8: its ms a step and peak memory, and the
     unwrapped step without dropout, which the multi-rank forms are held
-    to.  Every step's launches are counted into 'total'."""
+    to.  Every step's launches are counted into 'total'.  reverb_large at
+    PAR_LAYERS layers throughout."""
     import torch
     import torch.distributed as dist
     from reverb_tpu_torch.parallel import mesh as pm
+    from reverb_tpu_torch.train.trainer import make_train_step
     pm.init_distributed(f'file://{tempfile.mkdtemp()}/pg', 1, 0, dev)
     total = {}
     out = {'total': total}
     try:
         batch = train_batch(dev, PAR_F32_B, seed + 1, VOCAB)
-        model, opt, step = train_model(dev, seed, torch.float32,
-                                       PAR_CHECK_CONF)
+        model, opt, _ = par_model(dev, 'base', torch.float32, check=True)
+        step = make_train_step(model.cfg, opt, 1, 50.0)
         want, _ = counted_step(step, model, batch, torch.Generator(
             device=dev).manual_seed(7), total)
         want_p = [p.detach().clone() for p in model.parameters()]
         del model, opt, step
-        model, opt = train_model(dev, seed, torch.float32,
-                                 PAR_CHECK_CONF)[:2]
+        model, opt, _ = par_model(dev, 'base', torch.float32, check=True)
         sh, step = sharded(model, opt, {}, {'zero3': True})
         errs = {}
         with swapped(checked_kernels(errs)):
@@ -5624,14 +5763,15 @@ def parallel_world1(dev, seed) -> dict:
         torch.cuda.empty_cache()
         out['row_split'] = row_split(dev, seed, batch, total)
         batch = train_batch(dev, TRAIN_B, seed + 2, VOCAB)
-        model, opt, step = train_model(dev, seed, torch.bfloat16)
+        model, opt, _ = par_model(dev, 'base', torch.bfloat16)
+        step = make_train_step(model.cfg, opt, 1, 50.0)
         out['unwrapped_bf16'], _ = counted_step(step, model, batch, None,
                                                 total)
         del model, opt, step
         gc.collect()
         torch.cuda.empty_cache()
         torch.cuda.reset_peak_memory_stats()
-        model, opt = train_model(dev, seed, torch.bfloat16)[:2]
+        model, opt, _ = par_model(dev, 'base', torch.bfloat16)
         sh, step = sharded(model, opt, {}, {'zero3': True})
         gen = torch.Generator(device=dev).manual_seed(seed + 3)
         _, ms, launches = timed_steps(step, model, batch, gen, total)
@@ -5651,6 +5791,20 @@ def parallel_world1(dev, seed) -> dict:
     return out
 
 
+def par_f32_rows(pipe: bool) -> int:
+    """The f32 check's rows: PAR_F32_B, or one a microbatch for a 'pipe'
+    form (so that its GPipe region runs)."""
+    return PAR_PIPE['microbatches'] if pipe else PAR_F32_B
+
+
+def form_dropout(axes) -> bool:
+    """Whether a form's f32 check draws dropout: where the data axis is 1
+    every rank draws the unwrapped step's masks (a split layer its block
+    of them), except under 'pipe', whose stages draw per (layer,
+    microbatch) generators."""
+    return axes.get('data', 1) == 1 and 'pipe' not in axes
+
+
 def parallel_child(spec: str) -> int:
     """One rank of a multi-rank run (`--parallel-child rank,world,backend,
     dir`), through `parallel.mesh.init_distributed`.  Rank 0 first takes
@@ -5658,19 +5812,22 @@ def parallel_child(spec: str) -> int:
     every form of PAR_FORMS_N[world] in turn:
 
     - f32 (TF32 off) at B = PAR_F32_B, PAR_CHECK_CONF's optimizer, the
-      rank's rows; dropout from `dropout_generator(7, ...)` where the data
-      axis is 1 (TP: every rank draws the unwrapped step's masks), none
+      rank's rows; dropout from `dropout_generator(7, ...)` where
+      `form_dropout` (every rank draws the unwrapped step's masks), none
       where data ranks draw their own.  Rank 0's K1/K4/K5/K6 calls are
-      held to their plain versions (`checked_kernels`), and its metrics
-      and gathered parameters compared with each reference of the form;
-    - bf16 reverb_large at B = 8 (the rank's rows), no dropout: the first
-      step's metrics, ms of the last, peak GiB.
+      held to their plain versions (`checked_kernels`, with the (Tq, Tk)
+      of every K1 call), and its metrics and gathered parameters compared
+      with each reference of the form;
+    - bf16 at B = 8 (the rank's rows), no dropout: the first step's
+      metrics, ms of the last, peak GiB.
 
-    Every step's launches are read.  Writes {form: results} or {form:
-    error, whether it came from a collective}, and the rank's launches in
-    all ('total'), to dir/rank<r>_<backend>.json.  A form that raises
-    inside torch.distributed is recorded (gloo carries some collectives
-    for CUDA tensors only); any other error fails the rank."""
+    Every step's launches are read, and 'seq' forms' split steps counted.
+    Writes {form: results} or {form: error, whether it came from a
+    collective}, the launches each form's steps must take ('expect') and
+    the rank's launches in all ('total'), to dir/rank<r>_<backend>.json.
+    A form that raises inside torch.distributed is recorded (gloo carries
+    some collectives for CUDA tensors only); any other error fails the
+    rank."""
     import traceback
     import torch
     import torch.distributed as dist
@@ -5683,52 +5840,61 @@ def parallel_child(spec: str) -> int:
         f'file://{workdir}/pg_{backend}', world, rank,
         f'cuda:{rank if backend == "nccl" else 0}', backend=backend)
     total = {}
-    f32_batch = train_batch(dev, PAR_F32_B, SEED + 1, VOCAB)
-    batch = train_batch(dev, TRAIN_B, SEED + 2, VOCAB)
-    refs = par_refs(dev, world, f32_batch, total) if rank == 0 else {}
-    out = {}
-    for name, axes, opts in PAR_FORMS_N[world]:
+    refs = par_refs(dev, world, total) if rank == 0 else {}
+    out = {'expect': {}}
+    for name, axes, opts, kind in PAR_FORMS_N[world]:
         gc.collect()
         torch.cuda.empty_cache()
         model = opt = step = sh = None
+        seq, pipe = 'seq' in axes, 'pipe' in axes
+        ref = refs.get((kind, seq, pipe), {})
         res = out[name] = {}
         try:
-            model, opt = train_model(dev, SEED, torch.float32,
-                                     PAR_CHECK_CONF)[:2]
-            sh, step = sharded(model, opt, axes, opts)
-            drop = pm.axis_size(sh.mesh, 'data') == 1
+            f32_batch = par_batch(dev, kind, par_f32_rows(pipe), SEED + 1,
+                                  seq)
+            model, opt, loss_fn = par_model(dev, kind, torch.float32,
+                                            check=True)
+            sh, step = sharded(model, opt, axes, opts, loss_fn)
+            drop = form_dropout(axes)
             gen = pm.dropout_generator(7, sh.mesh, dev) if drop else None
-            errs = {}
-            with swapped(checked_kernels(errs) if rank == 0 else {}):
+            errs, shapes = {}, set()
+            with swapped(checked_kernels(errs, shapes) if rank == 0 else {}):
                 m32, got = counted_step(step, model,
                                         pm.local_rows(f32_batch, sh.mesh),
                                         gen, total)
             res['f32'] = {'metrics': m32, 'launches': got, 'dropout': drop,
-                          'call_errs': errs, 'against': {}}
+                          'call_errs': errs, 'against': {},
+                          'k1_tq_tk': sorted(shapes)}
             keys = (('dropout', PAR_RANKS_F32_TOL),) if drop else (
                 ('whole', PAR_RANKS_F32_TOL),)
-            if 'model' not in axes:
+            if kind == 'base' and set(axes) == {'data'}:
                 keys += (('rows', PAR_F32_TOL),)
             with sh.gathered():
                 for key, tol in keys if rank == 0 else ():
-                    want, want_p = refs[key]
+                    want, want_p = ref[key]
                     res['f32']['against'][key] = {
                         'tol': tol,
                         'rel': {k: abs(m32[k] - want[k]) / abs(want[k])
                                 for k in ('loss', 'grad_norm')},
                         'param_err': param_err(model.parameters(), want_p),
                         'worst': worst_params(model, want_p)}
+            if rank == 0:
+                whole = ref['launches']
+                out['expect'][name] = (pipe_launches(whole)
+                                       if 'pipe' in axes else whole)
             del model, opt, step, sh
             gc.collect()
             torch.cuda.empty_cache()
             torch.cuda.reset_peak_memory_stats(dev)
-            model, opt = train_model(dev, SEED, torch.bfloat16)[:2]
-            sh, step = sharded(model, opt, axes, opts)
+            model, opt, loss_fn = par_model(dev, kind, torch.bfloat16)
+            sh, step = sharded(model, opt, axes, opts, loss_fn)
             metrics, ms, launches = timed_steps(
-                step, model, pm.local_rows(batch, sh.mesh), None, total)
+                step, model, pm.local_rows(par_batch(
+                    dev, kind, TRAIN_B, SEED + 2, seq), sh.mesh), None, total)
             res.update(metrics=metrics, ms=ms, launches=launches,
                        peak_gib=torch.cuda.max_memory_allocated(dev)
-                       / 2**30)
+                       / 2**30,
+                       seq_steps=dict(model.encoder.seq_steps))
         except Exception as e:              # noqa: BLE001 (recorded)
             frames = traceback.extract_tb(e.__traceback__)
             if not any('torch/distributed' in f.filename for f in frames):
@@ -5742,30 +5908,50 @@ def parallel_child(spec: str) -> int:
     return 0
 
 
-def par_refs(dev, world, batch, total) -> dict:
+def par_refs(dev, world, total) -> dict:
     """The unwrapped f32 steps (PAR_CHECK_CONF) on the whole f32 batch
-    that the multi-rank forms are held to, {key: (metrics, parameters in
-    host memory, so the bf16 peaks stay the forms' own)}: 'whole' without
-    dropout, 'dropout' with a generator of seed 7, and where a form of
-    `world` is data-parallel alone, 'rows': the batch as one micro-batch
-    (accum_grad) for each data rank, no dropout — the row split's own
-    arithmetic, which that form's sums repeat."""
+    that the multi-rank forms of `world` are held to, by model kind and
+    whether the batch is a 'seq' form's (padded: the dropout masks' shapes
+    follow the frames), {(kind, seq): {key: (metrics, parameters in host
+    memory, so the bf16 peaks stay the forms' own), 'launches': the
+    'whole' step's}} (and by whether it is a 'pipe' form's, of
+    `par_f32_rows` rows): 'whole' without dropout, 'dropout' with a generator
+    of seed 7 where a form draws dropout, and for the 'base' data-parallel
+    forms 'rows': the batch as one micro-batch (accum_grad) for each data
+    rank, no dropout — the row split's own arithmetic, which that form's
+    sums repeat."""
     import torch
     from reverb_tpu_torch.train.trainer import make_train_step
     refs = {}
-    runs = [('whole', 1, None), ('dropout', 1, 7)] + [
-        ('rows', n, None) for n in {axes['data'] for _, axes, _ in
-                                    PAR_FORMS_N[world] if 'model' not in axes}]
-    for key, accum, seed in runs:
-        model, opt = train_model(dev, SEED, torch.float32,
-                                 PAR_CHECK_CONF)[:2]
-        step = make_train_step(model.cfg, opt, accum, 50.0)
-        gen = None if seed is None else torch.Generator(
-            device=dev).manual_seed(seed)
-        metrics, _ = counted_step(step, model, batch, gen, total)
-        refs[key] = (metrics, [p.detach().cpu()
-                               for p in model.parameters()])
-        del model, opt, step
+    for kind, seq, pipe in dict.fromkeys(
+            (k, 'seq' in axes, 'pipe' in axes)
+            for _, axes, _, k in PAR_FORMS_N[world]):
+        forms = [axes for _, axes, _, k in PAR_FORMS_N[world]
+                 if k == kind and ('seq' in axes) == seq
+                 and ('pipe' in axes) == pipe]
+        runs = [('whole', 1, None)]
+        if any(form_dropout(axes) for axes in forms):
+            runs.append(('dropout', 1, 7))
+        runs += [('rows', n, None) for n in {
+            axes['data'] for axes in forms
+            if kind == 'base' and set(axes) == {'data'}}]
+        refs[kind, seq, pipe] = {}
+        batch = par_batch(dev, kind, par_f32_rows(pipe), SEED + 1, seq)
+        for key, accum, seed in runs:
+            model, opt, loss_fn = par_model(dev, kind, torch.float32,
+                                            check=True)
+            step = make_train_step(model.cfg, opt, accum, 50.0,
+                                   loss_fn=loss_fn)
+            gen = None if seed is None else torch.Generator(
+                device=dev).manual_seed(seed)
+            metrics, got = counted_step(step, model, batch, gen, total)
+            refs[kind, seq, pipe][key] = (
+                metrics, [p.detach().cpu() for p in model.parameters()])
+            if key == 'whole':
+                refs[kind, seq, pipe]['launches'] = got
+            del model, opt, step
+            gc.collect()
+            torch.cuda.empty_cache()
     return refs
 
 
@@ -5790,12 +5976,17 @@ def wait_all(procs, timeout: float) -> list:
 def parallel_ranks(backend: str, want: dict, world: int = 2) -> dict:
     """The run of `world` ranks over `backend`: processes of this script
     (all on cuda:0 under gloo; cuda:r under NCCL).  Each form's f32 step
-    is held to the unwrapped f32 step (PAR_F32_TOL on loss, grad norm and
-    every parameter; rank 0's kernel calls to RECIPE_CALL_TOL), its bf16
-    step to the unwrapped bf16 step (PAR_BF16_TOL), every rank's every
-    step to PAR_STEP_LAUNCHES, and the ranks to one another.  Under gloo a
-    form whose collective gloo does not carry for CUDA tensors is reported
-    on its own line; DDP must run; under NCCL every form must."""
+    is held to the unwrapped f32 step of its kind (PAR_F32_TOL or
+    PAR_RANKS_F32_TOL on loss, grad norm and every parameter; rank 0's
+    kernel calls to RECIPE_CALL_TOL), a 'base' form's bf16 step to the
+    unwrapped bf16 step (PAR_BF16_TOL; the other kinds' bf16 steps are
+    timed, finite and equal across ranks), every rank's every step to the
+    launches rank 0 expects of the form, 'seq' forms' K1 calls to Tq ≠ Tk
+    and their steps to split, and the ranks to one another.  A 'pipe'
+    form reports its bubble share, (S − 1)/(M + S − 1).  A form that
+    raises in a collective is reported on its own line: every form must
+    run, under gloo (which carries CUDA tensors through the port's host
+    copies where it lacks a collective) as under NCCL."""
     workdir = tempfile.mkdtemp(prefix='reverb_par_')
     procs = [subprocess.Popen([sys.executable, str(ROOT / 'chip_smoke.py'),
                                '--parallel-child',
@@ -5808,14 +5999,13 @@ def parallel_ranks(backend: str, want: dict, world: int = 2) -> dict:
     ranks = [json.loads((Path(workdir) / f'rank{r}_{backend}.json')
                         .read_text()) for r in range(world)]
     where = 'one card' if backend == 'gloo' else f'{world} cards'
-    for name, _, _ in PAR_FORMS_N[world]:
+    for name, axes, _, kind in PAR_FORMS_N[world]:
         rs = [r[name] for r in ranks]
         errors = [r['error'] for r in rs if 'error' in r]
         if errors:
             log(f'{what} on {where}: {name} cannot run: {errors[0]}')
-            if backend != 'gloo' or name == 'ddp':
-                raise AssertionError(f'{what}: {name} failed')
-            continue
+            raise AssertionError(f'{what}: {name} failed')
+        expect = ranks[0]['expect'][name]
         f32 = rs[0]['f32']
         check_call_errs(f32['call_errs'], f'{what}: {name}, rank 0\'s f32 '
                                           f'step')
@@ -5823,7 +6013,21 @@ def parallel_ranks(backend: str, want: dict, world: int = 2) -> dict:
         rel = {k: abs(m[k] - want[k]) / abs(want[k]) for k in PAR_BF16_TOL}
         steps = [r['f32']['launches'] for r in rs] + [
             got for r in rs for got in r['launches']]
-        log(f'{what} on {where}: {name}: f32 B={PAR_F32_B} '
+        extra = ''
+        if 'pipe' in axes:
+            S, M = PAR_PIPE['stages'], PAR_PIPE['microbatches']
+            extra = (f'; bubbles {S - 1} of {M + S - 1} ticks '
+                     f'({(S - 1) / (M + S - 1):.1%})')
+        if 'seq' in axes:
+            extra = (f'; K1 (Tq, Tk) {f32["k1_tq_tk"]}, split steps '
+                     f'{rs[0]["seq_steps"]}')
+            if not f32['k1_tq_tk'] or any(tq == tk for tq, tk in
+                                          f32['k1_tq_tk']) or \
+                    any(r['seq_steps']['whole'] for r in rs):
+                raise AssertionError(f'{what}: {name} did not split its '
+                                     f'time axis{extra}')
+        log(f'{what} on {where}: {name} ({kind}): f32 B='
+            f'{par_f32_rows("pipe" in axes)} '
             f'({"with" if f32["dropout"] else "without"} dropout) against '
             f'the unwrapped step '
             + '; '.join(f'({key}, tolerance {a["tol"]:.0e}): loss rel '
@@ -5837,16 +6041,18 @@ def parallel_ranks(backend: str, want: dict, world: int = 2) -> dict:
             'share of scale '
             + ', '.join(f'{n} {e:.2e}' for n, e in
                         sorted(f32['call_errs'].items()))
-            + f'; bf16 B={TRAIN_B}: loss {m["loss"]:.5f} vs unwrapped '
-            f'{want["loss"]:.5f} (rel {rel["loss"]:.2e}), grad norm '
-            f'{m["grad_norm"]:.4f} vs {want["grad_norm"]:.4f} (rel '
-            f'{rel["grad_norm"]:.2e}); ms a step by rank '
+            + f'; bf16 B={TRAIN_B}: loss {m["loss"]:.5f}'
+            + (f' vs unwrapped {want["loss"]:.5f} (rel {rel["loss"]:.2e}), '
+               f'grad norm {m["grad_norm"]:.4f} vs {want["grad_norm"]:.4f} '
+               f'(rel {rel["grad_norm"]:.2e})' if kind == 'base' else
+               f', grad norm {m["grad_norm"]:.4f}')
+            + '; ms a step by rank '
             + ' / '.join(f'{r["ms"]:.1f}' for r in rs) + ', peak GiB by rank '
             + ' / '.join(f'{r["peak_gib"]:.2f}' for r in rs)
-            + f'; rank 0\'s launches a step {rs[0]["launches"][0]}')
-        if any(s != PAR_STEP_LAUNCHES for s in steps):
+            + f'; rank 0\'s launches a step {rs[0]["launches"][0]}{extra}')
+        if any(s != expect for s in steps):
             raise AssertionError(f'{what}: {name}: launches a step {steps} '
-                                 f'!= {PAR_STEP_LAUNCHES}')
+                                 f'!= {expect}')
         if any(max(a['rel'].values()) > a['tol'] or a['param_err'] > a['tol']
                for a in f32['against'].values()) or \
                 not f32['against'] or \
@@ -5854,8 +6060,9 @@ def parallel_ranks(backend: str, want: dict, world: int = 2) -> dict:
             raise AssertionError(f'{what}: {name}: the f32 step differs '
                                  f'from the unwrapped one, or between '
                                  f'ranks')
-        if any(rel[k] > PAR_BF16_TOL[k] for k in rel) or \
-                any(r['metrics'] != m for r in rs) or m['skipped'] != 0.0:
+        if (kind == 'base' and any(rel[k] > PAR_BF16_TOL[k] for k in rel)) \
+                or any(r['metrics'] != m for r in rs) or \
+                m['skipped'] != 0.0 or not math.isfinite(m['loss']):
             raise AssertionError(f'{what}: {name} differs from the '
                                  f'unwrapped step (tolerances '
                                  f'{PAR_BF16_TOL}) or between ranks')
@@ -7929,7 +8136,7 @@ def main():
         + ', '.join(f'{n} ' + (f'{r["ms"]:.1f} ms {r["peak_gib"]:.2f} GiB'
                                if 'ms' in r else 'cannot run')
                     for n, r in par['gloo']['ranks'][0].items()
-                    if n != 'total')
+                    if n not in ('total', 'expect'))
         + f'; data_parallel={par_serve["n"]} serving '
         f'{par_serve["wall"]:.4f} s; families {families["wall_s"]:.1f} s: '
         f'MoE serving {families["moe"]["serve"]["walls"][1]:.4f} s, '

@@ -21,12 +21,16 @@ drives one device (`cuda:<local rank>`, NCCL; gloo with `--device cpu`),
 joined by `--coordinator host:port --num_processes N --process_id r` or by
 torchrun's environment.  The processes form the mesh
 (parallel/mesh.py:make_mesh) with `--num_devices_model` ranks of tensor
-parallelism and the rest data-parallel; the optimizer's moments are split
-over 'data' (ZeRO-1/2, as the JAX package always splits them) and, with
-`--zero3`, the large parameters too (parallel/sharding.py).  Each rank
-reads its data coordinate's partition of the training list and the whole
-CV list; rank 0 logs and writes the checkpoints, gathered to the
-single-process layout.
+parallelism, `--num_devices_seq` of the encoder's time axis,
+`--num_devices_expert` of the MoE experts and `--num_devices_pipe` GPipe
+stages (in `--pipeline_microbatches` microbatches; `encoder_conf.
+pipeline_stages` defaults to the stage count, as in the JAX package), and
+the rest data-parallel; the optimizer's moments are split over 'data'
+(ZeRO-1/2, as the JAX package always splits them) and, with `--zero3`,
+the large parameters too (parallel/sharding.py).  Each rank reads its
+data coordinate's partition of the training list and the whole CV list;
+rank 0 logs and writes the checkpoints, gathered to the single-process
+layout.
 
 A config of another family than the conformer asr_model — `model:
 k2_model | transducer | bitransducer | paraformer | ctl_model | bestrq |
@@ -35,15 +39,15 @@ branchformer | e_branchformer | squeezeformer | efficient_conformer` — is
 built by `models/registry.py:init_model` and trained through its bundle's
 loss.  A `ts_conf` (teacher-student distillation) builds its teacher from
 `teacher_yaml` and `teacher_checkpoint`, frozen, and trains the student on
-`train/teacher_student.py:ts_loss`.  Both run in one process: the
-parallel forms cover the conformer asr_model only (ROADMAP item 15.8).
-The MoE feed-forward (`encoder_conf.positionwise_layer_type: moe`) is a
-conformer option and trains as any conformer.
-
-`--num_devices_seq` / `--num_devices_pipe` / `--num_devices_expert` above
-1 and `--pipeline_microbatches` (ROADMAP item 14b), `--prng_impl` other
-than auto, and a registry family or a ts_conf over several processes
-(item 15.8) raise NotImplementedError.
+`train/teacher_student.py:ts_loss` (the teacher whole and frozen on
+every rank, outside the sharding).  Both train over 'data' (DDP, ZeRO-1/2
+and ZeRO-3: each loss is the rank's share of the global batch's,
+parallel/global_batch.py); under 'model', 'seq', 'expert' or 'pipe', or
+with accum_grad above 1 over several processes, they raise
+NotImplementedError (ROADMAP item 15.8b).  The MoE feed-forward
+(`encoder_conf.positionwise_layer_type: moe`) is a conformer option and
+trains as any conformer.  `--prng_impl` other than auto raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -69,13 +73,19 @@ def get_args(argv=None):
     p.add_argument('--num_devices_model', type=int, default=1,
                    help="tensor-parallel size (the mesh's 'model' axis)")
     p.add_argument('--num_devices_seq', type=int, default=1,
-                   help='sequence-parallel size (only 1: ROADMAP item 14b)')
+                   help="sequence-parallel size (the mesh's 'seq' axis: "
+                        "the encoder's time axis split)")
     p.add_argument('--num_devices_expert', type=int, default=1,
-                   help='expert-parallel size (only 1: ROADMAP item 14b)')
+                   help="expert-parallel size (the mesh's 'expert' axis: "
+                        'the MoE feed-forward\'s experts split)')
     p.add_argument('--num_devices_pipe', type=int, default=1,
-                   help='pipeline stages (only 1: ROADMAP item 14b)')
+                   help="GPipe stages (the mesh's 'pipe' axis): the "
+                        'homogeneous middle conformer stack runs as N '
+                        'stages (sets encoder_conf.pipeline_stages unless '
+                        'the config pins it)')
     p.add_argument('--pipeline_microbatches', type=int, default=None,
-                   help='pipeline microbatches (ROADMAP item 14b)')
+                   help='GPipe microbatches (default '
+                        'encoder_conf.pipeline_microbatches or 2)')
     p.add_argument('--zero3', action='store_true',
                    help='ZeRO-3: split the large parameters over the data '
                         'ranks too')
@@ -110,32 +120,28 @@ def get_args(argv=None):
     return p.parse_args(argv)
 
 
+SPLIT_FLAGS = ('num_devices_model', 'num_devices_seq', 'num_devices_expert',
+               'num_devices_pipe')
+
+
 def check_supported(args, configs):
     """Raise NotImplementedError for what the port does not train (and
     ValueError for an unknown model family)."""
     from reverb_tpu_torch.models.registry import model_kind
-    for flag in ('num_devices_seq', 'num_devices_pipe',
-                 'num_devices_expert'):
-        if getattr(args, flag) > 1:
-            raise NotImplementedError(
-                f'--{flag} {getattr(args, flag)}: that mesh axis is not '
-                f'ported (ROADMAP item 14b)')
-    if args.pipeline_microbatches:
-        raise NotImplementedError(
-            '--pipeline_microbatches: pipelined training is not ported '
-            '(ROADMAP item 14b)')
     if args.prng_impl != 'auto':
         raise NotImplementedError(
             f"--prng_impl {args.prng_impl}: the JAX package's PRNG choice; "
             f"the port's dropout draws from torch's generator")
     kind = model_kind(configs)
-    world = max(args.num_processes, int(os.environ.get('WORLD_SIZE', '1')))
-    if world > 1 and (kind != 'asr_model' or configs.get('ts_conf')):
+    split = [f'--{f} {getattr(args, f)}' for f in SPLIT_FLAGS
+             if getattr(args, f) > 1]
+    if split and (kind != 'asr_model' or configs.get('ts_conf')):
         what = (f'model {kind!r}' if kind != 'asr_model'
                 else 'ts_conf (teacher-student)')
         raise NotImplementedError(
-            f'{what} over {world} processes: the parallel forms cover the '
-            f'conformer asr_model only (ROADMAP item 15.8)')
+            f'{what} under {", ".join(split)}: a registry family and a '
+            f"ts_conf train over 'data' only; their layers' split forms "
+            f'are ROADMAP item 15.8b')
 
 
 def teacher_student_loss(ts_conf, dev):
@@ -199,6 +205,14 @@ def main(argv=None):
 
     configs = override_config(load_config(args.config), args.override_config)
     check_supported(args, configs)
+    if args.num_devices_pipe > 1:
+        # the GPipe region runs when encoder_conf.pipeline_stages is the
+        # mesh's 'pipe' size (models/encoder.py), as in the JAX package
+        enc_conf = dict(configs.get('encoder_conf', {}) or {})
+        enc_conf.setdefault('pipeline_stages', args.num_devices_pipe)
+        if args.pipeline_microbatches:
+            enc_conf['pipeline_microbatches'] = args.pipeline_microbatches
+        configs['encoder_conf'] = enc_conf
     mesh = sharding = None
     if args.coordinator or args.num_processes > 1 or \
             int(os.environ.get('WORLD_SIZE', '1')) > 1:
@@ -206,11 +220,14 @@ def main(argv=None):
                                args.num_processes > 1 else None,
                                args.num_processes, args.process_id,
                                args.device)
-        mesh = make_mesh(model=args.num_devices_model)
-    elif args.num_devices_model > 1 or args.zero3:
-        raise ValueError('--num_devices_model / --zero3 need several '
-                         'processes (--coordinator / --num_processes, or '
-                         'torchrun)')
+        mesh = make_mesh(model=args.num_devices_model,
+                         seq=args.num_devices_seq,
+                         expert=args.num_devices_expert,
+                         pipe=args.num_devices_pipe)
+    elif any(getattr(args, f) > 1 for f in SPLIT_FLAGS) or args.zero3:
+        raise ValueError('--num_devices_model / _seq / _expert / _pipe and '
+                         '--zero3 need several processes (--coordinator / '
+                         '--num_processes, or torchrun)')
     else:
         dev = resolve_device(args.device)
     first = torch.distributed.get_rank() == 0 if mesh is not None else True
@@ -288,7 +305,7 @@ def main(argv=None):
         logging.info('resumed from %s at epoch %d step %d', args.checkpoint,
                      start_epoch, start_step)
 
-    if mesh is not None and loss_fn is None:
+    if mesh is not None:
         # every rank holds the whole state here (one seed, one
         # checkpoint): split it over the mesh
         sharding = Sharding(mesh, zero=True, zero3=args.zero3).apply(
@@ -353,6 +370,11 @@ def main(argv=None):
     finally:
         if ex.watchdog is not None:
             ex.watchdog.stop()
+    enc = getattr(model, 'encoder', None)
+    if getattr(enc, 'seq_split', None) is not None:
+        logging.info("'seq': %d training forwards ran split, %d whole (the "
+                     'frames did not divide)', enc.seq_steps['split'],
+                     enc.seq_steps['whole'])
     if tracker is not None:
         tracker.finish()
     logging.info('dataset statistics: %s', dict(mystats))

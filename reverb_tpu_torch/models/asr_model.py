@@ -35,21 +35,10 @@ from reverb_tpu_torch.utils.common import (IGNORE_ID, add_sos_eos,
 
 
 # Keys the JAX package's EncoderConfig / DecoderConfig read that the port's
-# configs do not hold (reverb_tpu/models/{encoder,decoder}.py).  Each one is
-# handled by `_check_jax_only_keys`: refused where the port would build
-# another model, and accepted where it only tunes a refused feature.  Any
-# other unknown key is dropped, as the JAX package drops it.
-_JAX_ONLY_ENCODER_KEYS = ('pipeline_stages', 'pipeline_microbatches')
+# configs do not hold (reverb_tpu/models/{encoder,decoder}.py); like any
+# other unknown key they are dropped, as the JAX package drops them.
+_JAX_ONLY_ENCODER_KEYS = ()
 _JAX_ONLY_DECODER_KEYS = ('tie_word_embedding',)
-
-
-def _check_jax_only_keys(enc_conf: Dict):
-    """Raise for the encoder option the port cannot build: a GPipe
-    pipeline (ROADMAP item 14b)."""
-    if (enc_conf.get('pipeline_stages') or 0) > 1:
-        raise NotImplementedError(
-            f"encoder_conf pipeline_stages: {enc_conf['pipeline_stages']} "
-            f"(GPipe) is not ported: ROADMAP item 14b")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,7 +86,6 @@ class ModelConfig:
         if enc_type in ('lsl_conformer', 'language_specific_conformer') \
                 and not num_langs:
             num_langs = int(enc_conf.get('num_langs', 3) or 3)
-        _check_jax_only_keys(enc_conf)
         enc_fields = {f.name for f in dataclasses.fields(EncoderConfig)}
         encoder = EncoderConfig(
             input_size=input_dim,

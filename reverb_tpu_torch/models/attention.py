@@ -23,7 +23,8 @@ import math
 import torch
 from torch import nn
 
-from reverb_tpu_torch.models.modules import Linear, dropout, keep_mask
+from reverb_tpu_torch.models.modules import (Linear, dropout, join_splits,
+                                             keep_mask)
 from reverb_tpu_torch.ops import flash_attention as fa
 
 _MASK_VALUE = -1e9
@@ -159,22 +160,35 @@ class RelPositionMultiHeadedAttention(MultiHeadedAttention):
             self.pos_bias_v.uniform_(-a, a, generator=g)
 
     def forward(self, x, kv_lens, pos_emb, rate: float = 0.0,
-                generator=None, q_valid=None):
+                generator=None, q_valid=None, seq=None):
         """Self-attention over x (B, T, D) with the first kv_lens[b] keys of
         row b valid; pos_emb (1, T, D); attention dropout at `rate` when a
         generator is given.  With `q_valid` (B, T) bool the rows of padded
         queries get a zero context, which is what a (B, T, T) mask
         `valid ∧ validᵀ` gives them on the masked route (all keys masked,
-        every probability zeroed)."""
+        every probability zeroed).  Under 'seq' (`seq`, parallel/
+        collectives.py:TimeSplit) x is this rank's block of queries and the
+        keys and values are every rank's, gathered (pos_emb then holds the
+        whole padded axis): K1 runs with Tq = the block, Tk = the axis, and
+        the dropout mask is this rank's rows of the unsplit one."""
         q = _split_heads(self.linear_q(x), self.h)
-        k = _split_heads(self.linear_k(x), self.h)
-        v = _split_heads(self.linear_v(x), self.h)
+        if seq is None:
+            k = _split_heads(self.linear_k(x), self.h)
+            v = _split_heads(self.linear_v(x), self.h)
+        else:
+            kv = seq.gather(torch.cat([self.linear_k(x), self.linear_v(x)],
+                                      -1))
+            k, v = (_split_heads(t, self.h) for t in kv.chunk(2, -1))
         pos = _split_heads(self.linear_pos(pos_emb), self.h)
         mask = None
         if generator is not None and rate > 0.0:
             B, H, T, _ = q.shape
+            split = self.tp_split
+            if seq is not None:
+                split = join_splits(split, seq.entry(2),
+                                    (3, 0, 1, seq.length))
             mask = keep_mask((B, H, T, k.shape[2]), rate, generator,
-                             x.device, self.tp_split).to(torch.int8)
+                             x.device, split).to(torch.int8)
         ctx = fa.rel_pos_attention(q, k, v, pos, self.pos_bias_u,
                                    self.pos_bias_v, kv_lens, mask, rate)
         if q_valid is not None:

@@ -27,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from reverb_tpu_torch.models.asr_model import ASRModel, loss_from_encoder
+from reverb_tpu_torch.parallel import global_batch as gb
 
 
 def sample_negatives(y, n_negatives: int, lengths, generator=None,
@@ -66,7 +67,7 @@ def ctl_contrastive_loss(x, y, negs, mask, temperature: float = 0.1):
     ce = -torch.log_softmax(logits, 0)[0]
     valid = mask[:, 0, :]
     return (torch.where(valid, ce, torch.zeros_like(ce)).sum()
-            / torch.clamp(valid.sum(), min=1))
+            / torch.clamp(gb.total(valid.sum()), min=1))
 
 
 def ctl_compute_loss(model: ASRModel, batch, generator=None,
@@ -82,14 +83,17 @@ def ctl_compute_loss(model: ASRModel, batch, generator=None,
     x = feats.to(model.cfg.compute_dtype)
     full_out, full_mask = model.encoder(x, lens, cat, generator, -1,
                                         chunk_mask=False)
-    full = loss_from_encoder(model, full_out, full_mask, batch, generator)
+    norm = gb.norms(batch)
+    full = loss_from_encoder(model, full_out, full_mask, batch, generator,
+                             norm)
     chunk_gen = generator
     if chunk_gen is None:
         chunk_gen = torch.Generator(device=feats.device).manual_seed(0)
     chunk_out, chunk_mask = model.encoder(
         x, lens, cat, generator, 0, chunk_generator=chunk_gen,
         enable_full_context=False)
-    chunk = loss_from_encoder(model, chunk_out, chunk_mask, batch, generator)
+    chunk = loss_from_encoder(model, chunk_out, chunk_mask, batch, generator,
+                              norm)
     ctl = torch.zeros((), dtype=torch.float32, device=feats.device)
     if ctl_weight > 0 and n_negatives > 0:
         negs, _ = sample_negatives(full_out, n_negatives,

@@ -57,11 +57,20 @@ def abs_position_encoding(x, rate: float = 0.0, generator=None):
             dropout(pe, rate, generator))
 
 
-def rel_position_encoding(x, rate: float = 0.0, generator=None):
-    """x (B, T, D) → (x·√d, pos_emb (1, T, D)), both through dropout."""
+def rel_position_encoding(x, rate: float = 0.0, generator=None, seq=None):
+    """x (B, T, D) → (x·√d, pos_emb (1, T, D)), both through dropout.
+    Under 'seq' (`seq`, parallel/collectives.py:TimeSplit) x is this
+    rank's block of the time axis, its dropout the block of the unsplit
+    mask, and pos_emb the whole axis's rows (the keys' positions), zero
+    past its end."""
     d = x.shape[-1]
-    return (dropout(x * math.sqrt(d), rate, generator),
-            dropout(_pe(d, x.shape[1], x), rate, generator))
+    if seq is None:
+        return (dropout(x * math.sqrt(d), rate, generator),
+                dropout(_pe(d, x.shape[1], x), rate, generator))
+    x = dropout(x * math.sqrt(d), rate, generator, seq.entry(1))
+    pos = dropout(_pe(d, seq.length, x), rate, generator)
+    return x, torch.cat(
+        [pos, pos.new_zeros((1, seq.padded - seq.length, d))], 1)
 
 
 def no_position_encoding(x, rate: float = 0.0, generator=None):
@@ -71,13 +80,15 @@ def no_position_encoding(x, rate: float = 0.0, generator=None):
                         device=x.device))
 
 
-def position_encoding(kind: str, x, rate: float = 0.0, generator=None):
+def position_encoding(kind: str, x, rate: float = 0.0, generator=None,
+                      seq=None):
     """The encoder's `pos_enc_layer_type`: 'rel_pos' (x·√d and the table
     apart), 'abs_pos' and 'abs_pos_whisper' (x·√d + the table; the JAX
     package builds both from the one sinusoid table) or 'no_pos' (x, a
-    zero table)."""
+    zero table).  `seq` (rel_pos only): x is a 'seq' rank's time block
+    (`rel_position_encoding`)."""
     if kind == 'rel_pos':
-        return rel_position_encoding(x, rate, generator)
+        return rel_position_encoding(x, rate, generator, seq)
     if kind in ('abs_pos', 'abs_pos_whisper'):
         return abs_position_encoding(x, rate, generator)
     if kind == 'no_pos':

@@ -59,7 +59,9 @@ from reverb_tpu_torch.models.attention import (
 from reverb_tpu_torch.models.modules import (ACTIVATIONS, BatchNorm, Conv1d,
                                              Conv2d, LayerNorm, Linear,
                                              check_remat_policy,
-                                             checkpoint_layer, dropout, glu)
+                                             checkpoint_layer, dropout, glu,
+                                             join_splits, keep_mask)
+from reverb_tpu_torch.parallel import collectives as tpc
 from reverb_tpu_torch.ops.topk import topk_lastdim
 from reverb_tpu_torch.utils.common import add_optional_chunk_mask
 
@@ -107,6 +109,11 @@ class EncoderConfig:
     positionwise_layer_type: str = 'position_wise_feed_forward'
     n_expert: int = 8
     n_expert_per_token: int = 3
+    # GPipe over a 'pipe' mesh axis of this many stages (the homogeneous
+    # middle stack, `ConformerEncoder.pipe_region`), in this many
+    # microbatches; sequential without a matching axis
+    pipeline_stages: int = 1
+    pipeline_microbatches: int = 2
 
     @property
     def head_dim(self):
@@ -172,15 +179,33 @@ class Conv2dSubsampling4(nn.Module):
         self.out = nn.ModuleDict(
             {'0': Linear(odim * (((idim - 1) // 2 - 1) // 2), odim)})
 
-    def forward(self, x, x_mask, generator=None):
-        """x (B,T,F), x_mask (B,1,T) → (x (B,T',D), pos_emb, mask (B,1,T'))."""
+    def forward(self, x, x_mask, generator=None, seq=None):
+        """x (B,T,F), x_mask (B,1,T) → (x (B,T',D), pos_emb, mask (B,1,T')).
+        Under 'seq' (`seq`, a TimeSplit of the T' frames) x is this rank's
+        block of the T' frames, computed from the input frames
+        [4·start, 4·(start + b) + 3) that its two stride-2 3×3 convs read
+        (every rank holds the whole feature rows, so the halo is read in
+        place), zeros past T'; pos_emb and the mask stay whole."""
+        mask = x_mask[:, :, 2::2][:, :, 2::2]
+        if seq is None:
+            x = self._convs(x)
+        else:
+            lo = 4 * seq.start
+            n_out = min(seq.block, seq.length - seq.start)
+            D = self.out['0'].weight.shape[0]
+            y = self._convs(x[:, lo:lo + 4 * seq.block + 3]) if n_out > 0 \
+                else x.new_zeros((x.shape[0], 0, D))
+            x = torch.cat([y, y.new_zeros((x.shape[0], seq.block - n_out,
+                                           D))], 1)
+        x, pos = emb.position_encoding(self.pos_type, x, self.pos_rate,
+                                       generator, seq)
+        return x, pos, mask
+
+    def _convs(self, x):
         x = torch.relu(self.conv['0'](x[:, None]))
         x = torch.relu(self.conv['2'](x))
         B, C, T, F = x.shape
-        x = self.out['0'](x.transpose(1, 2).reshape(B, T, C * F))
-        x, pos = emb.position_encoding(self.pos_type, x, self.pos_rate,
-                                       generator)
-        return x, pos, x_mask[:, :, 2::2][:, :, 2::2]
+        return self.out['0'](x.transpose(1, 2).reshape(B, T, C * F))
 
 
 class LinearInput(nn.Module):
@@ -224,15 +249,29 @@ class FeedForward(nn.Module):
         super().__init__()
         self.act = ACTIVATIONS[activation]
         self.rate = rate
+        self.hidden = hidden
         self.w_1 = Linear(d, hidden)
         self.w_2 = Linear(hidden, d)
         # (-1, rank, n) when the hidden units are split over a 'model'
         # group of n (parallel/sharding.py)
         self.tp_split = None
 
-    def forward(self, x, generator=None):
+    def _split(self, seq):
+        return join_splits(self.tp_split, None if seq is None
+                           else seq.entry(1))
+
+    def forward(self, x, generator=None, seq=None):
+        """x (B, T, D); under 'seq' this rank's time block, its dropout the
+        block of the unsplit mask."""
         return self.w_2(dropout(self.act(self.w_1(x)), self.rate, generator,
-                                self.tp_split))
+                                self._split(seq)))
+
+    def skip(self, x, generator=None, seq=None):
+        """Draw the dropout mask `forward(x)` would draw, and nothing
+        else: an expert another 'expert' rank computes."""
+        if generator is not None and self.rate > 0.0:
+            keep_mask(tuple(x.shape[:-1]) + (self.hidden,), self.rate,
+                      generator, x.device, self._split(seq))
 
 
 class MoEFeedForward(nn.Module):
@@ -246,7 +285,17 @@ class MoEFeedForward(nn.Module):
     names (`experts.{e}.w_1`, `experts.{e}.w_2`); each runs as two plain
     products.  (JAX's einsums over the stacked f32 expert weights promote
     a bf16 activation to f32; here the weights take the activation's
-    dtype, as every other layer's do.)"""
+    dtype, as every other layer's do.)
+
+    Under 'expert' (`expert_split` = (group, rank, n), parallel/
+    sharding.py) a rank holds experts [rE/n, (r+1)E/n) and sums their
+    weighted outputs; the ranks' partial sums meet in `reduce_out`, the
+    experts' input goes through `copy_in`, and so do the routing weights
+    (a rank differentiates only its experts' weights, and every rank's
+    gate must take the whole gradient, as a replicated parameter does).
+    Routing runs on every rank.  A rank draws the dropout masks of the
+    other ranks' experts too, in order, so its experts drop what they
+    drop in the unsplit layer."""
 
     def __init__(self, d: int, hidden: int, activation: str, rate: float,
                  n_expert: int, n_expert_per_token: int):
@@ -256,6 +305,7 @@ class MoEFeedForward(nn.Module):
         self.experts = nn.ModuleList(
             FeedForward(d, hidden, activation, rate)
             for _ in range(n_expert))
+        self.expert_split = None
 
     def route(self, xs):
         """xs (N, D) → (weights (N, k) in xs.dtype, expert indices
@@ -263,17 +313,27 @@ class MoEFeedForward(nn.Module):
         logits, idx = topk_lastdim(self.gate(xs), self.k)
         return torch.softmax(logits.to(torch.float32), -1).to(xs.dtype), idx
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, seq=None):
         B, L, D = x.shape
-        xs = x.reshape(-1, D)
-        w, idx = self.route(xs)
-        we = torch.zeros((xs.shape[0], len(self.experts)), dtype=w.dtype,
-                         device=w.device).scatter(1, idx, w)     # (N, E)
+        E = len(self.experts)
+        w, idx = self.route(x.reshape(-1, D))
+        we = torch.zeros((B * L, E), dtype=w.dtype, device=w.device) \
+            .scatter(1, idx, w).reshape(B, L, E)
+        own, xe = range(E), x
+        if self.expert_split is not None:
+            group, rank, n = self.expert_split
+            own = range(rank * (E // n), (rank + 1) * (E // n))
+            we, xe = tpc.copy_in(we, group), tpc.copy_in(x, group)
         out = None
         for e, expert in enumerate(self.experts):
-            y = we[:, e, None] * expert(xs, generator)
+            if e not in own:
+                expert.skip(x, generator, seq)
+                continue
+            y = we[..., e, None] * expert(xe, generator, seq)
             out = y if out is None else out + y
-        return out.reshape(B, L, D)
+        if self.expert_split is not None:
+            out = tpc.reduce_out(out, self.expert_split[0])
+        return out
 
 
 def feed_forward_module(cfg: EncoderConfig, activation=None) -> nn.Module:
@@ -295,7 +355,13 @@ class ConvolutionModule(nn.Module):
     norm is BatchNorm from running statistics or, with
     cnn_module_norm='layer_norm', a LayerNorm (kernel K5).  A causal module
     pads k−1 frames on the left, or takes them from `cnn_cache` (B, C, k−1),
-    and returns the last k−1 frames of its input as the next cache."""
+    and returns the last k−1 frames of its input as the next cache.
+
+    Under 'seq' (`seq`, a TimeSplit) x is this rank's time block: after the
+    GLU its frames past the axis are zeroed (the unsplit conv pads zeros
+    there) and the depthwise conv reads (k−1)/2 frames of each
+    neighbour's block (k−1 of the previous one's when causal; rank 0's
+    are the pointwise conv of zero frames, as the unsplit left pad)."""
 
     def __init__(self, d: int, kernel: int, activation: str,
                  causal: bool = False, norm: str = 'batch_norm'):
@@ -308,7 +374,7 @@ class ConvolutionModule(nn.Module):
         self.norm = LayerNorm(d) if norm == 'layer_norm' else BatchNorm(d)
         self.pointwise_conv2 = Conv1d(d, d, 1)
 
-    def forward(self, x, mask_pad, cnn_cache=None):
+    def forward(self, x, mask_pad, cnn_cache=None, seq=None):
         """x (B, T, C); mask_pad (B, 1, T) or None.  Returns (out, the new
         cache (B, C, k−1), or None when the module is not causal)."""
         zero = torch.zeros((), dtype=x.dtype, device=x.device)
@@ -316,19 +382,37 @@ class ConvolutionModule(nn.Module):
             keep = mask_pad.transpose(1, 2)               # (B, T, 1)
             x = torch.where(keep, x, zero)
         new_cache = None
-        if self.lorder:
+        if self.lorder and seq is None:
             if cnn_cache is None:
                 x = torch.nn.functional.pad(x, (0, 0, self.lorder, 0))
             else:
                 x = torch.cat([cnn_cache.transpose(1, 2).to(x.dtype), x], 1)
             new_cache = x[:, -self.lorder:].transpose(1, 2)
         x = glu(self.pointwise_conv1.pointwise(x), dim=-1)
-        x = self.depthwise_conv.depthwise(x, self.pad)
+        if seq is None:
+            x = self.depthwise_conv.depthwise(x, self.pad)
+        else:
+            x = self.depthwise_conv.depthwise(self._halo(x, seq), 0)
         x = self.act(self.norm(x))
         x = self.pointwise_conv2.pointwise(x)
         if mask_pad is not None:
             x = torch.where(keep, x, zero)
         return x, new_cache
+
+    def _halo(self, x, seq):
+        """A 'seq' rank's GLU output with its frames past the axis zeroed
+        and the depthwise conv's halo put around it."""
+        x = torch.where(seq.valid(x.device)[None, :, None], x,
+                        torch.zeros((), dtype=x.dtype, device=x.device))
+        if not self.lorder:
+            return seq.halo(x, self.pad, self.pad)
+        x = seq.halo(x, self.lorder, 0)
+        if seq.rank == 0:
+            edge = glu(self.pointwise_conv1.pointwise(x.new_zeros(
+                (x.shape[0], self.lorder,
+                 self.pointwise_conv1.weight.shape[1]))), dim=-1)
+            x = torch.cat([edge, x[:, self.lorder:]], 1)
+        return x
 
 
 def lsl_mix(language_layers, x, cat_embs):
@@ -372,27 +456,31 @@ class ConformerEncoderLayer(nn.Module):
                 Linear(d, d) for _ in range(cfg.num_langs))
 
     def forward(self, x, kv_lens, pos_emb, mask_pad, cat_embs=None,
-                generator=None, mask=None):
+                generator=None, mask=None, seq=None):
         """reverb_tpu/models/encoder.py:conformer_layer, its dropout sites
         included (active when a generator is given).  Attention sees the
         first kv_lens[b] keys of row b (kernel K1), or, when `mask` (B, T,
-        T) is given, the keys that mask keeps."""
+        T) is given, the keys that mask keeps.  Under 'seq' (`seq`, a
+        TimeSplit; the K1 route) x and mask_pad are this rank's time
+        block, kv_lens and pos_emb the whole axis's."""
         return self.forward_chunk(x, kv_lens, pos_emb, mask_pad, cat_embs,
-                                  generator, mask)[0]
+                                  generator, mask, seq=seq)[0]
 
     def forward_chunk(self, x, kv_lens, pos_emb, mask_pad, cat_embs=None,
                       generator=None, mask=None, att_cache=None,
-                      cnn_cache=None):
+                      cnn_cache=None, seq=None):
         """`forward` with the streaming caches: att_cache (B, H, Tc, 2·dk)
         is put before this chunk's keys and values, cnn_cache (B, C, k−1)
         before its conv input.  Returns (x, new_att_cache (B, H, Tc+T,
         2·dk) or None, new_cnn_cache or None)."""
+        split = None if seq is None else seq.entry(1)
+
         def drop(v):
-            return dropout(v, self.rate, generator)
+            return dropout(v, self.rate, generator, split)
 
         if self.macaron:
             x = x + 0.5 * drop(self.feed_forward_macaron(
-                self.norm_ff_macaron(x), generator))
+                self.norm_ff_macaron(x), generator, seq))
         xn = self.norm_mha(x)
         new_att = None
         if not self.rel:
@@ -401,7 +489,7 @@ class ConformerEncoderLayer(nn.Module):
                 generator)
         elif mask is None and att_cache is None:
             x_att = self.self_attn(xn, kv_lens, pos_emb, self.att_rate,
-                                   generator)
+                                   generator, seq=seq)
         else:
             x_att, new_att = self.self_attn.forward_masked(
                 xn, mask, pos_emb, att_cache, self.att_rate, generator)
@@ -409,7 +497,7 @@ class ConformerEncoderLayer(nn.Module):
         new_cnn = None
         if self.conv_module is not None:
             xc, new_cnn = self.conv_module(self.norm_conv(x), mask_pad,
-                                           cnn_cache)
+                                           cnn_cache, seq)
             x = x + drop(xc)
         ff_scale = 0.5 if self.macaron else 1.0
         xn = self.norm_ff(x)
@@ -417,11 +505,11 @@ class ConformerEncoderLayer(nn.Module):
             if cat_embs is None:
                 raise ValueError('an LSL layer requires cat_embs')
             y = lsl_mix(self.language_layers, xn, cat_embs)
-            x = x + ff_scale * drop(self.feed_forward(y, generator))
+            x = x + ff_scale * drop(self.feed_forward(y, generator, seq))
             if self.conv_module is not None:
                 x = self.norm_final(x)
             return x + y, new_att, new_cnn
-        x = x + ff_scale * drop(self.feed_forward(xn, generator))
+        x = x + ff_scale * drop(self.feed_forward(xn, generator, seq))
         if self.conv_module is not None:
             x = self.norm_final(x)
         return x, new_att, new_cnn
@@ -460,7 +548,7 @@ class TransformerEncoderLayer(nn.Module):
     def forward_chunk(self, x, kv_lens, pos_emb, mask_pad, cat_embs=None,
                       generator=None, mask=None, att_cache=None,
                       cnn_cache=None):
-        """As ConformerEncoderLayer.forward_chunk; pos_emb, mask_pad,
+        """As ConformerEncoderLayer.forward_chunk (no 'seq' split); pos_emb, mask_pad,
         cat_embs and cnn_cache are unused.  Returns (x, new_att_cache,
         None)."""
         x_att, new_att = self.self_attn.forward_cached(
@@ -493,12 +581,30 @@ class GlobalCMVN(nn.Module):
 
 class ConformerEncoder(nn.Module):
     """The encoder of an asr_model: conformer or transformer blocks
-    (`encoder_type`) over the configured input layer."""
+    (`encoder_type`) over the configured input layer.
+
+    Parallel forms (set by parallel/sharding.py):
+    - 'seq' (`seq_split` = (group, rank, n)): a training forward whose
+      input frames divide by n (JAX's `constrain` drops its hint
+      otherwise) runs each layer on this rank's block of the subsampled
+      frames (parallel/collectives.py:TimeSplit) and gathers the output
+      before the losses, which run whole on every rank.  The split needs
+      the K1 route (rel-pos self-attention of a conformer over the conv2d
+      input, no chunk mask) and blocks at least as long as the conv
+      module's halo; other forwards run whole.  `seq_steps` counts the
+      forwards that ran split and whole.
+    - 'pipe' (`pipe`, a parallel/pipeline.py:PipeStage): `pipe_region`'s
+      layers run as GPipe stages when the batch divides into the
+      microbatches, else in order (the stage's layers gathered first,
+      parallel/sharding.py:gather_params)."""
 
     def __init__(self, cfg: EncoderConfig, with_cmvn: bool = False):
         super().__init__()
         cfg.check_supported()
         self.cfg = cfg
+        self.seq_split = None
+        self.pipe = None
+        self.seq_steps = {'split': 0, 'whole': 0}
         self.global_cmvn = GlobalCMVN(cfg.input_size) if with_cmvn else None
         self.embed = input_layer(cfg)
         if cfg.encoder_type == 'transformer':
@@ -514,6 +620,78 @@ class ConformerEncoder(nn.Module):
     def _final(self, xs):
         """after_norm, which normalize_before False leaves out."""
         return self.after_norm(xs) if self.cfg.normalize_before else xs
+
+    def pipe_region(self, stages: int):
+        """(lo, hi): the encoder layers that run as `stages` GPipe stages
+        (reverb_tpu/models/encoder.py:encoder_forward): the longest run of
+        the homogeneous (non-LSL) middle stack whose length is a multiple
+        of `stages`; None when the config asks for no pipeline of that
+        many stages or the run is shorter."""
+        cfg = self.cfg
+        if cfg.pipeline_stages <= 1 or cfg.pipeline_stages != stages:
+            return None
+        lo = 1 if cfg.num_langs > 0 else 0
+        hi = cfg.num_blocks - 1 if cfg.num_langs > 0 else cfg.num_blocks
+        n = ((hi - lo) // stages) * stages
+        return (lo, lo + n) if n >= stages else None
+
+    def pipe_engages(self, rows: int) -> bool:
+        """Whether a batch of `rows` runs the GPipe region."""
+        return self.pipe is not None and \
+            rows % self.cfg.pipeline_microbatches == 0
+
+    def _time_split(self, T: int, chunked: bool, return_layers: bool):
+        """The TimeSplit of this forward's subsampled frames, or None
+        when it runs whole (counted in `seq_steps` in training)."""
+        if self.seq_split is None:
+            return None
+        cfg = self.cfg
+        group, rank, n = self.seq_split
+        length = subsampled_len(cfg, T)
+        block = -(-length // n)
+        halo = (cfg.cnn_module_kernel - 1 if cfg.causal
+                else (cfg.cnn_module_kernel - 1) // 2) \
+            if cfg.use_cnn_module else 0
+        ok = (T % n == 0 and cfg.input_layer == 'conv2d'
+              and cfg.pos_enc_layer_type == 'rel_pos'
+              and cfg.encoder_type == 'conformer'
+              and cfg.selfattention_layer_type == 'rel_selfattn'
+              and not chunked and not return_layers
+              and block >= max(halo, 1))
+        if torch.is_grad_enabled():
+            self.seq_steps['split' if ok else 'whole'] += 1
+        return tpc.TimeSplit(group, rank, n, length) if ok else None
+
+    def _run_region(self, xs, lo, hi, kv_lens, pos_emb, masks, generator,
+                    chunk_masks):
+        """Layers [lo, hi) as GPipe stages over 'pipe'
+        (parallel/pipeline.py:gpipe).  With a generator one seed is drawn
+        for each region layer on every stage (so the main stream stays one
+        for the layers and the decoder after), and a layer's dropout on
+        microbatch m draws from a generator seeded by (its seed, m), as
+        JAX folds the microbatch index into each layer's key; a stage's
+        recomputation (gradient_checkpointing) draws the same masks."""
+        from reverb_tpu_torch.parallel.pipeline import gpipe, mb_generator
+        st = self.pipe
+        per = (hi - lo) // st.size
+        first = lo + st.rank * per
+        layers = list(self.encoders[first:first + per])
+        seeds = None
+        if generator is not None:
+            seeds = torch.randint(0, 2 ** 62, (hi - lo,),
+                                  generator=generator,
+                                  device=generator.device).tolist()
+            seeds = seeds[first - lo:first - lo + per]
+
+        def stage_fn(h, m, kv, mp, cm):
+            for j, layer in enumerate(layers):
+                g = None if seeds is None else mb_generator(
+                    seeds[j], m, h.device)
+                h = layer(h, kv, pos_emb, mp, None, g, cm)
+            return h
+        return gpipe(stage_fn, xs, st, (kv_lens, masks, chunk_masks),
+                     self.cfg.gradient_checkpointing,
+                     [p for layer in layers for p in layer.parameters()])
 
     def forward(self, xs, xs_lens, cat_embs=None, generator=None,
                 decoding_chunk_size: int = 0,
@@ -541,16 +719,21 @@ class ConformerEncoder(nn.Module):
                  < xs_lens.to(xs.device)[:, None])[:, None, :]
         if self.global_cmvn is not None and apply_cmvn:
             xs = self.global_cmvn(xs)
-        xs, pos_emb, masks = self.embed(xs, masks, generator)
-        kv_lens = masks[:, 0, :].sum(-1).to(torch.int32)
-        chunk_masks = None
         # a use_dynamic_chunk model decoding with decoding_chunk_size < 0
         # gets masks & ones(T, T): every row keeps the same first kv_lens
         # keys, which is the key-length mask K1 takes — the same function,
         # so K1 computes it
-        if chunk_mask and ((cfg.use_dynamic_chunk
-                            and decoding_chunk_size >= 0) or (
-                not cfg.use_dynamic_chunk and cfg.static_chunk_size > 0)):
+        chunked = chunk_mask and (
+            (cfg.use_dynamic_chunk and decoding_chunk_size >= 0)
+            or (not cfg.use_dynamic_chunk and cfg.static_chunk_size > 0))
+        seq = self._time_split(T, chunked, return_layers)
+        if seq is None:
+            xs, pos_emb, masks = self.embed(xs, masks, generator)
+        else:
+            xs, pos_emb, masks = self.embed(xs, masks, generator, seq)
+        kv_lens = masks[:, 0, :].sum(-1).to(torch.int32)
+        chunk_masks = None
+        if chunked:
             chunk_masks = add_optional_chunk_mask(
                 masks, cfg.use_dynamic_chunk, cfg.use_dynamic_left_chunk,
                 decoding_chunk_size, cfg.static_chunk_size,
@@ -560,15 +743,27 @@ class ConformerEncoder(nn.Module):
         layer_outs = []
         remat = (cfg.gradient_checkpointing and generator is not None
                  and torch.is_grad_enabled())
-        for layer in self.encoders:
-            args = (xs, kv_lens, pos_emb, masks, cat_embs, generator,
-                    chunk_masks)
+        region = None
+        if not return_layers and self.pipe_engages(xs.shape[0]):
+            region = self.pipe_region(self.pipe.size)
+        mask_pad = masks if seq is None else seq.take(masks, 2)
+        for i, layer in enumerate(self.encoders):
+            if region is not None and region[0] <= i < region[1]:
+                if i == region[0]:
+                    xs = self._run_region(xs, *region, kv_lens, pos_emb,
+                                          masks, generator, chunk_masks)
+                continue
+            args = (xs, kv_lens, pos_emb, mask_pad, cat_embs, generator,
+                    chunk_masks) + (() if seq is None else (seq,))
             xs = (checkpoint_layer(layer, cfg.remat_policy, generator, *args)
                   if remat else layer(*args))
             layer_outs.append(xs)
         if return_layers:
             return self._final(xs), masks, layer_outs
-        return self._final(xs), masks
+        xs = self._final(xs)
+        if seq is not None:
+            xs = seq.gather(xs)[:, :seq.length]
+        return xs, masks
 
     def forward_chunk(self, xs, offset, att_cache, cnn_cache, cat_embs=None):
         """One streaming chunk (reverb_tpu/models/encoder.py:

@@ -27,6 +27,7 @@ import torch
 
 from reverb_tpu_torch.models.ctc import ctc_per_seq
 from reverb_tpu_torch.ops import fsa
+from reverb_tpu_torch.parallel import global_batch as gb
 
 # above this many modelled tokens the O(K²)-arc bigram graph is refused
 MAX_BIGRAM_TOKENS = 1024
@@ -135,6 +136,6 @@ def lfmmi_ctc_loss_fn(resources: LfmmiResources):
         num_nll = ctc_per_seq(logp, encoder_out_lens, labels, text_lens,
                               resources.blank_id)
         den = scorers[dev](logp, encoder_out_lens)
-        return (den + num_nll).sum() / B
+        return (den + num_nll).sum() / gb.total(B)
 
     return loss_fn

@@ -106,20 +106,43 @@ def checkpoint_layer(layer, policy: str, generator, *args):
 
 def keep_mask(shape, rate: float, generator, device, split=None):
     """Dropout's keep-mask over `shape`: True with probability 1 − rate,
-    drawn from `generator`.  `split` = (axis, rank, n) marks an activation
-    split over a 'model' group of n ranks (attention heads, FFN hidden
-    units), `shape` being rank's block along `axis`: the unsplit mask is
-    drawn and the rank's block kept, so a tensor-parallel layer drops the
-    units the unsplit layer drops, and the generator, shared by the
-    group, moves on as in the unsplit model."""
+    drawn from `generator`.  `split` marks an activation split over ranks
+    that share the generator: one entry (axis, rank, n) or a list of them,
+    `shape` being rank's block of an axis n times as long (a 'model'
+    group's attention heads or FFN hidden units), or (axis, rank, n,
+    length) for an axis of `length` padded to n blocks of shape[axis] (a
+    'seq' group's time blocks; n = 1 pads only, as the gathered keys of an
+    attention under 'seq').  The unsplit mask is drawn and the rank's block
+    kept, so a split layer drops the units the unsplit layer drops, and
+    the generator moves on as in the unsplit model."""
     if split is None:
         return torch.rand(shape, generator=generator,
                           device=device) < 1.0 - rate
-    axis, rank, n = split
+    splits = [split] if isinstance(split[0], int) else list(split)
     full = list(shape)
-    full[axis] *= n
+    cuts = []
+    for entry in splits:
+        axis, rank, n = entry[:3]
+        axis %= len(shape)
+        full[axis] = entry[3] if len(entry) > 3 else shape[axis] * n
+        cuts.append((axis, rank, n))
     u = torch.rand(full, generator=generator, device=device)
-    return u.narrow(axis, rank * shape[axis], shape[axis]) < 1.0 - rate
+    for axis, rank, n in cuts:
+        blk = shape[axis]
+        pad = blk * n - u.shape[axis]
+        if pad:
+            size = list(u.shape)
+            size[axis] = pad
+            u = torch.cat([u, u.new_ones(size)], axis)
+        u = u.narrow(axis, rank * blk, blk)
+    return u < 1.0 - rate
+
+
+def join_splits(*entries):
+    """The non-None split entries as one `keep_mask` split (None when
+    there are none)."""
+    got = [e for e in entries if e is not None]
+    return got or None
 
 
 def dropout(x, rate: float, generator=None, split=None):
@@ -317,6 +340,9 @@ class LayerNorm(nn.Module):
         self.eps = eps
         self.weight = nn.Parameter(torch.empty(dim))
         self.bias = nn.Parameter(torch.empty(dim))
+        # (group, rank, n) when the normalised channels are split over a
+        # 'model' group (parallel/sharding.py)
+        self.tp = None
 
     def reset_parameters(self, g):
         with torch.no_grad():
@@ -324,7 +350,25 @@ class LayerNorm(nn.Module):
             self.bias.zero_()
 
     def forward(self, x):
+        if self.tp is not None:
+            return _tp_layer_norm(self, x)
         return ln_ops.layer_norm(x, self.weight, self.bias, self.eps)
+
+
+def _tp_layer_norm(norm, x):
+    """A LayerNorm over channels split over a 'model' group (the conv
+    module's, under tensor parallelism; norm.tp = (group, rank, n)): the
+    ranks' channels gathered (backward: the sum of the ranks' gradients,
+    this rank's block), normalised whole (K5) with gamma and beta through
+    `copy_in` (backward: their gradient summed over the group, the whole
+    of it on every rank, as for any replicated parameter), and this rank's
+    channels kept."""
+    group, rank, n = norm.tp
+    c = x.shape[-1]
+    whole = tpc.gather_last_sum(x, group, rank)
+    y = ln_ops.layer_norm(whole, tpc.copy_in(norm.weight, group),
+                          tpc.copy_in(norm.bias, group), norm.eps)
+    return y[..., rank * c:(rank + 1) * c]
 
 
 class BatchNorm(nn.Module):

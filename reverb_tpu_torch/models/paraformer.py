@@ -36,6 +36,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from reverb_tpu_torch.models.modules import Conv1d, Linear
+from reverb_tpu_torch.parallel import global_batch as gb
 
 
 @dataclasses.dataclass(frozen=True)
@@ -239,8 +240,8 @@ def paraformer_loss(pred: Predictor, output_layer: Linear, encoder_out,
     tok_lp = torch.gather(logp, -1, tgt[..., None].to(torch.int64))[..., 0]
     mask = labels != ignore_id
     ce = -torch.where(mask, tok_lp, torch.zeros_like(tok_lp)).sum() \
-        / torch.clamp(mask.sum(), min=1)
-    mae = (token_count - target_count).abs().mean()
+        / torch.clamp(gb.total(mask.sum()), min=1)
+    mae = gb.mean((token_count - target_count).abs())
     return {'loss': ce + mae, 'loss_ce': ce, 'loss_quantity': mae,
             'pred_count': token_count}
 

@@ -49,6 +49,7 @@ from reverb_tpu_torch.models.modules import reset_parameters
 from reverb_tpu_torch.models.transducer import (TransducerConfig,
                                                 TransducerModel,
                                                 transducer_loss)
+from reverb_tpu_torch.parallel import global_batch as gb
 from reverb_tpu_torch.utils.common import (add_sos_eos, resolve_device,
                                            reverse_sequence, th_accuracy)
 
@@ -167,12 +168,13 @@ def hybrid_loss(model: AltEncoderModel, batch: Dict, generator=None) -> Dict:
                               batch['feats_lengths'], generator)
     enc_lens = mask[:, 0, :].sum(-1)
     text, text_lens = batch['target'], batch['target_lengths']
+    norm = gb.norms(batch) or {'rows': None, 'tokens': None}
     loss_ctc = loss_att = acc = None
     if mcfg.ctc_weight != 0.0:
         loss_ctc = ctc_mod.ctc_loss(
             model.ctc, enc, enc_lens,
             torch.where(text == mcfg.ignore_id, torch.zeros_like(text),
-                        text), text_lens, mcfg.blank_id)
+                        text), text_lens, mcfg.blank_id, denom=norm['rows'])
     if mcfg.ctc_weight != 1.0:
         ys_in, ys_out = add_sos_eos(text, text_lens, mcfg.sos, mcfg.eos,
                                     mcfg.ignore_id)
@@ -181,8 +183,9 @@ def hybrid_loss(model: AltEncoderModel, batch: Dict, generator=None) -> Dict:
                                generator=generator)
         loss_att = ctc_mod.label_smoothing_loss(
             l_x, ys_out, mcfg.lsm_weight, mcfg.vocab_size, mcfg.ignore_id,
-            mcfg.length_normalized_loss)
-        acc = th_accuracy(l_x, ys_out, mcfg.ignore_id)
+            mcfg.length_normalized_loss,
+            norm['tokens' if mcfg.length_normalized_loss else 'rows'])
+        acc = th_accuracy(l_x, ys_out, mcfg.ignore_id, norm['tokens'])
     if loss_ctc is None:
         total = loss_att
     elif loss_att is None:
@@ -236,7 +239,7 @@ def _asr_bundle(configs, device, generator, cmvn, state_dict) -> ModelBundle:
                         cmvn=cmvn)
 
     def loss(model, batch, generator=None):
-        return compute_loss(model, batch, generator)
+        return compute_loss(model, batch, generator, norm=gb.norms(batch))
 
     return ModelBundle('asr_model', cfg, model, loss)
 
@@ -278,7 +281,8 @@ def transducer_loss_fn(model: TransducerModel, batch: Dict,
             tcfg.blank_id)
         l_rnnt = (1.0 - w['r']) * l_rnnt + w['r'] * l_r
     l_ctc = (ctc_mod.ctc_loss(model.ctc, enc, enc_lens, labels, text_lens,
-                              acfg.blank_id) if w['ctc'] else 0.0)
+                              acfg.blank_id, denom=gb.total(labels.shape[0]))
+             if w['ctc'] else 0.0)
     return {'loss': w['t'] * l_rnnt + w['ctc'] * l_ctc, 'loss_rnnt': l_rnnt,
             'loss_ctc': l_ctc}
 
@@ -348,12 +352,15 @@ class SanmTrainConfig:
     compute_dtype: torch.dtype = torch.float32
 
 
-def glancing_replace(tgt_mask, target_num, generator, device):
+def glancing_replace(tgt_mask, target_num, generator, device, u=None):
     """The glancing sampler's choice (reverb_tpu/models/registry.py:
-    _sanm_paraformer_bundle): uniforms drawn from `generator`, set to inf
-    on padding, ranked by argsort of argsort; a valid position is replaced
-    where its rank is below its row's target_num.  (B, U) bool."""
-    r = torch.rand(tgt_mask.shape, generator=generator, device=device)
+    _sanm_paraformer_bundle): uniforms drawn from `generator` (or `u`,
+    (B, U), given), set to inf on padding, ranked by argsort of argsort;
+    a valid position is replaced where its rank is below its row's
+    target_num.  (B, U) bool."""
+    r = u if u is not None else torch.rand(tgt_mask.shape,
+                                           generator=generator,
+                                           device=device)
     r = torch.where(tgt_mask, r, math.inf)
     ranks = torch.argsort(torch.argsort(r, dim=1, stable=True), dim=1,
                           stable=True)
@@ -362,7 +369,8 @@ def glancing_replace(tgt_mask, target_num, generator, device):
 
 def sanm_paraformer_loss(model, batch: Dict, generator=None) -> Dict:
     """LFR → SANM encoder → CIF (α scaled to the target length) →
-    glancing sampler → SANM decoder; loss = label-smoothed decoder loss +
+    glancing sampler (its uniforms from the batch's `glance_u` when it
+    carries them) → SANM decoder; loss = label-smoothed decoder loss +
     the quantity L1 (+ ctc_weight · CTC)."""
     from reverb_tpu_torch.models.paraformer import cif_alphas, cif_fire
     tc = model.train_cfg
@@ -388,7 +396,9 @@ def sanm_paraformer_loss(model, batch: Dict, generator=None) -> Dict:
                       * tc.sampling_ratio).to(torch.int32)
         if generator is None:
             generator = torch.Generator(device=dev).manual_seed(0)
-        replace = glancing_replace(tgt_mask, target_num, generator, dev)
+        given = {'u': batch['glance_u']} if 'glance_u' in batch else {}
+        replace = glancing_replace(tgt_mask, target_num, generator, dev,
+                                   **given)
         gt_emb = model.decoder.embed['0'].weight[labels.to(torch.int64)]
         sematic = torch.where(replace[:, :, None], gt_emb.to(acoustic.dtype),
                               acoustic)
@@ -396,16 +406,18 @@ def sanm_paraformer_loss(model, batch: Dict, generator=None) -> Dict:
     else:
         sematic = torch.where(tgt_mask[:, :, None], acoustic, zero)
     dec_out = model.decoder(enc, mask, sematic, text_lens, generator)
+    denom = gb.total(tgt_mask.sum() if tc.length_normalized_loss else B)
     loss_att = ctc_mod.label_smoothing_loss(
         dec_out, torch.where(tgt_mask, labels, torch.full_like(labels, -1)),
-        tc.lsm_weight, model.scfg.vocab_size, -1, tc.length_normalized_loss)
+        tc.lsm_weight, model.scfg.vocab_size, -1, tc.length_normalized_loss,
+        denom)
     loss_quantity = ((token_num - text_lens.to(torch.float32)).abs().sum()
-                     / torch.clamp(text_lens.sum(), min=1))
+                     / torch.clamp(gb.total(text_lens.sum()), min=1))
     out = {'loss_decoder': loss_att, 'loss_quantity': loss_quantity}
     total = loss_att + loss_quantity
     if tc.ctc_weight:
         l_ctc = ctc_mod.ctc_loss(model.ctc, enc, mask[:, 0, :].sum(-1),
-                                 labels, text_lens)
+                                 labels, text_lens, denom=gb.total(B))
         total = total + tc.ctc_weight * l_ctc
         out['loss_ctc'] = l_ctc
     out['loss'] = total
@@ -473,7 +485,7 @@ def conformer_paraformer_loss(model: ConformerParaformer, batch: Dict,
         model.predictor, model.output_layer, enc, mask,
         torch.where(text == cfg.ignore_id, torch.zeros_like(text), text),
         batch['target_lengths'], cfg.ignore_id)
-    out['pred_count'] = out['pred_count'].mean()
+    out['pred_count'] = gb.mean(out['pred_count'])
     return out
 
 
@@ -516,7 +528,8 @@ def _k2_bundle(configs, device, generator, cmvn, state_dict) -> ModelBundle:
                 if lfmmi_dir else None)
 
     def loss(model, batch, generator=None):
-        return compute_loss(model, batch, generator, ctc_loss_fn=override)
+        return compute_loss(model, batch, generator, norm=gb.norms(batch),
+                            ctc_loss_fn=override)
 
     return ModelBundle('k2_model', cfg, model, loss)
 
@@ -560,9 +573,17 @@ def _bestrq_bundle(configs, device, generator, cmvn,
         if model.encoder.global_cmvn is not None:
             feats = model.encoder.global_cmvn(feats)
         return ssl.bestrq_loss(model, feats, batch['feats_lengths'], bcfg,
-                               _seeded(generator, feats.device))
+                               _seeded(generator, feats.device),
+                               **_draws(batch, ssl.BESTRQ_DRAWS))
 
     return ModelBundle('bestrq', (acfg, bcfg), model, loss)
+
+
+def _draws(batch, names) -> Dict:
+    """The draws a batch carries in place of the generator's (the SSL
+    losses' `mask`, `noise`, `span_mask`, ...; a test's injected draws,
+    cut to a data rank's rows with the rest of the batch)."""
+    return {k: batch[k] for k in names if k in batch}
 
 
 def _wav2vec2_config(configs, acfg, extra=None):
@@ -592,7 +613,8 @@ def _wav2vec2_bundle(configs, device, generator, cmvn,
         feats = batch['feats']
         return ssl.wav2vec2_loss(model, feats, batch['feats_lengths'], wcfg,
                                  batch.get('steps', 0),
-                                 _seeded(generator, feats.device))
+                                 _seeded(generator, feats.device),
+                                 **_draws(batch, ssl.WAV2VEC2_DRAWS))
 
     return ModelBundle('wav2vec2', (acfg, wcfg), model, loss)
 
@@ -621,7 +643,8 @@ def _w2vbert_bundle(configs, device, generator, cmvn,
         feats = batch['feats']
         return ssl.w2vbert_loss(model, feats, batch['feats_lengths'], wcfg,
                                 bcfg, batch.get('steps', 0),
-                                _seeded(generator, feats.device))
+                                _seeded(generator, feats.device),
+                                **_draws(batch, ssl.W2VBERT_DRAWS))
 
     return ModelBundle('w2vbert', (acfg, wcfg, bcfg), model, loss)
 
@@ -648,7 +671,7 @@ def whisper_loss(model, batch: Dict, generator=None) -> Dict:
     tgt = torch.where(valid, ys_out, torch.zeros_like(ys_out))
     nll = -torch.gather(logp, -1, tgt[..., None].to(torch.int64))[..., 0]
     total = (torch.where(valid, nll, torch.zeros_like(nll)).sum()
-             / torch.clamp(valid.sum(), min=1))
+             / torch.clamp(gb.total(valid.sum()), min=1))
     return {'loss': total}
 
 

@@ -32,6 +32,7 @@ from torch import nn
 
 from reverb_tpu_torch.models.asr_model import ASRModel, ModelConfig
 from reverb_tpu_torch.models.modules import Linear
+from reverb_tpu_torch.parallel import global_batch as gb
 
 
 @dataclasses.dataclass(frozen=True)
@@ -205,7 +206,7 @@ def bestrq_ce(logits, targets, valid, num_codebooks: int):
     (loss, log-probs)."""
     logp = torch.log_softmax(logits.to(torch.float32), -1)
     tok = torch.gather(logp, -1, targets[..., None].to(torch.int64))[..., 0]
-    denom = (valid.sum() + 1e-5) * num_codebooks
+    denom = (gb.total(valid.sum()) + 1e-5) * num_codebooks
     loss = -torch.where(valid[..., None], tok, torch.zeros_like(tok)).sum() \
         / denom
     return loss, logp
@@ -226,8 +227,8 @@ def bestrq_loss(model, feats, feats_lens, cfg: BestRQConfig, generator=None,
         mask = make_mask(B, T, cfg.mask_prob, cfg.mask_length, generator,
                          feats.device)
     if noise is None:
-        noise = torch.randn((1, 1, F), generator=generator,
-                            device=feats.device) * 0.1
+        noise = gb.draw(torch.randn((1, 1, F), generator=generator,
+                                    device=feats.device) * 0.1)
     masked = torch.where(mask[..., None], noise.to(feats.dtype), feats)
     enc_out, enc_mask = model.encoder(
         masked.to(model.cfg.compute_dtype), feats_lens, None, None, -1,
@@ -241,13 +242,19 @@ def bestrq_loss(model, feats, feats_lens, cfg: BestRQConfig, generator=None,
     loss, logp = bestrq_ce(logits, tgt, valid, cfg.num_codebooks)
     if cfg.features_regularization_weight:
         loss = loss + (cfg.features_regularization_weight
-                       * (feats.to(torch.float32) ** 2).mean())
+                       * gb.mean(feats.to(torch.float32) ** 2))
     n_valid = valid.sum()
-    num_codes = torch.clamp(n_valid * cfg.num_codebooks, min=1)
+    num_codes = torch.clamp(gb.total(n_valid) * cfg.num_codebooks, min=1)
     hit = (logp.argmax(-1) == tgt) & valid[..., None]
     return {'loss': loss, 'code_accuracy': hit.sum() / num_codes,
             'num_masked': n_valid}
 
+
+# the draws each loss takes in place of the generator's (models/registry.py
+# passes those a batch carries)
+BESTRQ_DRAWS = ('mask', 'noise')
+WAV2VEC2_DRAWS = ('span_mask', 'neg_pos', 'gumbels')
+W2VBERT_DRAWS = WAV2VEC2_DRAWS + ('mask_noise',)
 
 # ------------------------------ wav2vec 2.0 ------------------------------
 
@@ -301,8 +308,9 @@ def gumbel_quantize(model, x, valid_mask, temperature, cfg: Wav2vec2Config,
     probs = torch.softmax((logits + gumbels) / temperature, -1)
     soft = torch.softmax(logits, -1)
     vm = valid_mask[..., None, None]
-    marginal = (torch.where(vm, soft, torch.zeros_like(soft)).sum((0, 1))
-                / torch.clamp(valid_mask.sum(), min=1))
+    marginal = (gb.shared(torch.where(vm, soft,
+                                      torch.zeros_like(soft)).sum((0, 1)))
+                / torch.clamp(gb.total(valid_mask.sum()), min=1))
     perplexity = torch.exp(-(marginal * torch.log(marginal + 1e-7)).sum(-1)
                            ).sum()
     targets = probs.argmax(-1)
@@ -383,19 +391,20 @@ def _contrastive_terms(model, unmasked, out_c, valid, span_mask, cfg,
                                       generator, neg_pos)
     closs = contrastive_loss(quantized, out_c, neg_pos, span_mask,
                              cfg.contrastive_temperature)
-    sample_size = torch.clamp(span_mask.sum(), min=1)
+    sample_size = torch.clamp(gb.total(span_mask.sum()), min=1)
     G, C = cfg.num_codebooks, cfg.codebook_size
-    diversity = (G * C - perplexity) / (C * G)
+    # a data rank's share of the global perplexity's term
+    diversity = gb.share((G * C - perplexity) / (C * G))
     loss = closs
     if cfg.diversity_weight != 0.0:
         loss = loss + cfg.diversity_weight * diversity * sample_size
     loss = loss / sample_size
-    features_pen = (unmasked.to(torch.float32) ** 2).mean()
+    features_pen = gb.mean(unmasked.to(torch.float32) ** 2)
     if cfg.features_regularization_weight != 0.0:
         loss = loss + cfg.features_regularization_weight * features_pen
     parts = {'loss_contrastive': closs / sample_size,
              'loss_diversity': diversity * sample_size,
-             'code_ppl': perplexity, 'features_l2': features_pen,
+             'code_ppl': gb.share(perplexity), 'features_l2': features_pen,
              'num_masked': span_mask.sum()}
     return loss, parts, targets
 
@@ -457,8 +466,8 @@ def w2vbert_loss(model, feats, feats_lens, cfg: Wav2vec2Config,
     tok = torch.gather(logp, -1, targets[..., None])[..., 0]
     mlm_mask = (valid & span_mask).to(torch.float32)
     loss_mlm = (-(tok * mlm_mask[..., None]).sum()
-                / ((mlm_mask.sum() + 1e-5) * G))
-    num_codes = torch.clamp(span_mask.sum() * G, min=1)
+                / ((gb.total(mlm_mask.sum()) + 1e-5) * G))
+    num_codes = torch.clamp(gb.total(span_mask.sum()) * G, min=1)
     pred = logits.argmax(-1).permute(0, 2, 1)
     codes_acc = ((pred == targets) & span_mask[..., None]).sum() / num_codes
     s = float(steps)

@@ -39,6 +39,7 @@ from reverb_tpu_torch.diar.models import LSTM
 from reverb_tpu_torch.models.asr_model import ASRModel
 from reverb_tpu_torch.models.modules import (ACTIVATIONS, Conv1d, Embedding,
                                              LayerNorm, Linear)
+from reverb_tpu_torch.parallel import global_batch as gb
 
 NEG_INF = -1e30
 
@@ -195,15 +196,16 @@ def transducer_loss(predictor: Predictor, joint: Joint, encoder_out,
                     encoder_lens, labels, label_lens, blank_id: int = 0):
     """The joint over the full (T, U+1) lattice and its exact loss, the
     mean over the batch (reverb_tpu/models/transducer.py:
-    transducer_loss)."""
+    transducer_loss), the global batch's under a data shard
+    (parallel/global_batch.py)."""
     B = labels.shape[0]
     blank_col = torch.full((B, 1), blank_id, dtype=labels.dtype,
                            device=labels.device)
     ys_in = torch.cat([blank_col, labels.clamp(min=0)], 1)
     pred = predictor(ys_in)                                   # (B, U+1, E)
     logits = joint(encoder_out[:, :, None, :], pred[:, None, :, :])
-    return rnnt_loss(logits, encoder_lens, labels.clamp(min=0), label_lens,
-                     blank_id).mean()
+    return gb.mean(rnnt_loss(logits, encoder_lens, labels.clamp(min=0),
+                             label_lens, blank_id))
 
 
 class TransducerModel(ASRModel):

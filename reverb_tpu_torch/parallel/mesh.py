@@ -5,9 +5,12 @@ Counterpart of reverb_tpu/parallel/mesh.py.  One process drives one device
 `make_mesh` lays the world's ranks out as the JAX package lays out its
 devices: ('pipe', 'data', 'seq', 'expert', 'model'), rank r where JAX's
 device r stands (row-major), as a `torch.distributed.device_mesh.
-DeviceMesh`.  The port trains over 'data' (data parallelism, ZeRO) and
-'model' (tensor parallelism); 'seq' and 'pipe' are ROADMAP item 14b and
-'expert' (the MoE feed-forward's experts over ranks) is item 14b too.
+DeviceMesh`.  The port trains over every axis: 'data' (data
+parallelism, ZeRO), 'model' (tensor parallelism), 'seq' (the encoder's
+time axis), 'expert' (the MoE feed-forward's experts) and 'pipe' (GPipe
+stages of the encoder's middle stack, parallel/pipeline.py).
+`axis_group` gives a process group over several axes at once (the ranks
+that differ only there), for the gradient sums of parallel/sharding.py.
 
 `TP_RULES` and `param_pspec` are the JAX package's table over the JAX
 tree's dotted paths (`convert.tree_key` of a parameter's name), with one
@@ -32,9 +35,6 @@ import torch
 import torch.distributed as dist
 
 AXES = ('pipe', 'data', 'seq', 'expert', 'model')
-# the axes the port does not split yet, and where they are queued
-UNPORTED_AXES = {'seq': 'ROADMAP item 14b', 'pipe': 'ROADMAP item 14b',
-                 'expert': 'ROADMAP item 14b'}
 
 
 def init_distributed(coordinator: Optional[str] = None,
@@ -85,22 +85,18 @@ def init_distributed(coordinator: Optional[str] = None,
 def make_mesh(data: int = -1, model: int = 1, seq: int = 1, expert: int = 1,
               pipe: int = 1):
     """The ('pipe','data','seq','expert','model') mesh over the world's
-    ranks; data=-1 takes the ranks the other axes leave.  'seq', 'expert'
-    and 'pipe' above 1 raise NotImplementedError.  The process group must
-    be initialised (`init_distributed`)."""
+    ranks, rank r where JAX's device r stands (row-major); data=-1 takes
+    the ranks the other axes leave.  The process group must be
+    initialised (`init_distributed`)."""
     from torch.distributed.device_mesh import DeviceMesh
-    for name, size in (('seq', seq), ('expert', expert), ('pipe', pipe)):
-        if size > 1:
-            raise NotImplementedError(
-                f"the '{name}' axis ({size}) is not ported: "
-                f'{UNPORTED_AXES[name]}')
     if not dist.is_initialized():
         raise ValueError('make_mesh needs an initialised process group '
                          '(parallel.mesh.init_distributed)')
     n = dist.get_world_size()
     if data == -1:
         if n % (model * seq * expert * pipe):
-            raise ValueError(f'{n} ranks do not split into model={model}')
+            raise ValueError(f'{n} ranks do not split into model={model} '
+                             f'seq={seq} expert={expert} pipe={pipe}')
         data = n // (model * seq * expert * pipe)
     if data * model * seq * expert * pipe != n:
         raise ValueError(f'mesh pipe={pipe} data={data} seq={seq} '
@@ -114,10 +110,11 @@ def dropout_generator(seed: int, mesh, device) -> torch.Generator:
     """This rank's dropout generator: seeded by (seed, data coordinate),
     so data-parallel ranks draw different masks (identical masks on every
     rank would drop the same units of every shard of the batch).  The
-    ranks of one 'model' group share it: their replicated activations
-    take one mask, and their split ones each the rank's block of one
-    unsplit mask (models/modules.py:keep_mask).  Data rank 0 takes `seed`
-    itself, the single-process generator."""
+    ranks of one data coordinate ('model', 'seq', 'expert' and 'pipe'
+    groups) share it: their replicated activations take one mask, and
+    their split ones (heads, hidden units, time blocks, experts) each the
+    rank's block of one unsplit mask (models/modules.py:keep_mask).  Data
+    rank 0 takes `seed` itself, the single-process generator."""
     r = axis_rank(mesh, 'data')
     s = seed if r == 0 else int(
         np.random.SeedSequence([seed, r]).generate_state(1)[0])
@@ -130,6 +127,34 @@ def axis_size(mesh, name: str) -> int:
 
 def axis_rank(mesh, name: str) -> int:
     return 0 if mesh is None else mesh.get_local_rank(name)
+
+
+def axis_ranks(mesh, name: str) -> list:
+    """The global ranks of this rank's group along `name`, in the
+    axis's order."""
+    return dist.get_process_group_ranks(mesh.get_group(name))
+
+
+def axis_group(mesh, names: Sequence[str]):
+    """The process group of the ranks that differ from this one only
+    along `names` (None when they are this rank alone).  Collective: every
+    rank of the world calls it with the same names, since each group of
+    the partition is created on every rank."""
+    names = tuple(a for a in AXES if a in names and axis_size(mesh, a) > 1)
+    if not names:
+        return None
+    if len(names) == 1:
+        return mesh.get_group(names[0])
+    ranks = mesh.mesh
+    order = [AXES.index(a) for a in AXES if a not in names] + \
+        [AXES.index(a) for a in names]
+    n = int(np.prod([ranks.shape[AXES.index(a)] for a in names]))
+    mine = None
+    for block in ranks.permute(*order).reshape(-1, n).tolist():
+        g = dist.new_group(block)
+        if dist.get_rank() in block:
+            mine = g
+    return mine
 
 
 # (regex over the JAX tree's dotted path) → layout.  First match wins.  A
@@ -155,7 +180,9 @@ TP_RULES = [
     (r'.*depthwise_conv\.weight$', ('model', None, None)),
     (r'.*depthwise_conv\.bias$', ('model',)),
     (r'.*pointwise_conv2\.weight$', (None, 'model', None)),
-    # the port's row: the conv module's BatchNorm with its channels
+    # the port's row: the conv module's BatchNorm with its channels (a
+    # LayerNorm there stays replicated, as JAX's table leaves it:
+    # parallel/sharding.py passes its paths as `replicated`)
     (r'.*\.norm\.(weight|bias|running_mean|running_var)$', ('model',)),
     # vocab projections: column-parallel over vocab
     (r'.*output_layer\.weight$', ('model', None)),
@@ -175,8 +202,8 @@ def param_pspec(path: str, ndim: int) -> Tuple:
     return ()
 
 
-def _full_spec(path, shape):
-    spec = list(param_pspec(path, len(shape)))
+def _full_spec(path, shape, replicated=()):
+    spec = [] if path in replicated else list(param_pspec(path, len(shape)))
     return spec + [None] * (len(shape) - len(spec))
 
 
@@ -188,16 +215,18 @@ def _free_data_axis(spec, shape, data_size: int) -> Optional[int]:
 
 
 def param_shardings(shapes: Dict[str, Sequence[int]], mesh,
-                    zero3: bool = False, zero3_min_size: int = 65536
-                    ) -> Dict[str, Tuple]:
+                    zero3: bool = False, zero3_min_size: int = 65536,
+                    replicated=()) -> Dict[str, Tuple]:
     """{JAX path: layout} of the parameters {JAX path: global shape}: the
     rule's 'model' axis, and with `zero3` 'data' on the first free
     divisible axis of every parameter of at least `zero3_min_size`
-    elements (reverb_tpu/parallel/mesh.py:param_shardings)."""
+    elements (reverb_tpu/parallel/mesh.py:param_shardings).  The paths in
+    `replicated` take no rule (a conv module's LayerNorm, which the
+    port's BatchNorm row would otherwise match)."""
     data_size = axis_size(mesh, 'data')
     out = {}
     for path, shape in shapes.items():
-        spec = _full_spec(path, shape)
+        spec = _full_spec(path, shape, replicated)
         if zero3 and int(np.prod(shape)) >= zero3_min_size:
             ax = _free_data_axis(spec, shape, data_size)
             if ax is not None:
@@ -207,7 +236,7 @@ def param_shardings(shapes: Dict[str, Sequence[int]], mesh,
 
 
 def opt_state_shardings(shapes: Dict[str, Sequence[int]], mesh,
-                        zero: bool = True) -> Dict[str, Tuple]:
+                        zero: bool = True, replicated=()) -> Dict[str, Tuple]:
     """{JAX path: layout} of each parameter's moments: the rule's 'model'
     axis, and with `zero` (ZeRO-1/2) 'data' on the first free divisible
     axis; 0-d leaves are replicated
@@ -218,7 +247,7 @@ def opt_state_shardings(shapes: Dict[str, Sequence[int]], mesh,
         if len(shape) == 0:
             out[path] = ()
             continue
-        spec = _full_spec(path, shape)
+        spec = _full_spec(path, shape, replicated)
         if zero:
             ax = _free_data_axis(spec, shape, data_size)
             if ax is not None:
@@ -230,7 +259,8 @@ def opt_state_shardings(shapes: Dict[str, Sequence[int]], mesh,
 def local_rows(batch: Dict, mesh) -> Dict:
     """This rank's rows of a global batch: the block of its 'data'
     coordinate, as JAX's 'data'-sharded placement gives device r its
-    block (ranks that differ only in 'model' get the same rows).  Leaves
+    block (ranks that differ only in 'model', 'seq', 'expert' or 'pipe'
+    get the same rows).  Leaves
     whose leading axis the data size does not divide (a batch-level
     vector) go whole to every rank, as JAX replicates them."""
     n, r = axis_size(mesh, 'data'), axis_rank(mesh, 'data')

@@ -25,6 +25,7 @@ import torch
 from reverb_tpu_torch.models import ctc as ctc_mod
 from reverb_tpu_torch.models.asr_model import ASRModel, compute_loss
 from reverb_tpu_torch.ops.topk import topk_lastdim
+from reverb_tpu_torch.parallel import global_batch as gb
 from reverb_tpu_torch.utils.common import add_sos_eos
 
 
@@ -87,10 +88,10 @@ def ts_loss(student: ASRModel, teacher: ASRModel, batch: Dict, ts: TSConfig,
     with torch.no_grad():
         t_ctc, t_dec, _ = _posteriors(teacher, batch, ys_in, text_lens)
     s_ctc, s_dec, s_mask = _posteriors(student, batch, ys_in, text_lens)
-    denom = s_mask.sum()
+    denom = gb.total(s_mask.sum())
     kl_enc = _topk_sym_kl(s_ctc, t_ctc, ts.top_k_entries) / denom
     kl_dec = _topk_sym_kl(s_dec, t_dec, ts.top_k_entries) / denom
-    own = compute_loss(student, batch, generator)
+    own = compute_loss(student, batch, generator, norm=gb.norms(batch))
     w = ts.ts_weight if ts_weight is None else ts_weight
     ctc_w = student.cfg.ctc_weight
     dist = kl_enc * ctc_w + (1 - ctc_w) * kl_dec

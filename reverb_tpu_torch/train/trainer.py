@@ -21,6 +21,7 @@ The skip decision reads the norm on the host once per step.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import re
 from typing import Callable, Dict, List, Optional
@@ -32,6 +33,7 @@ from reverb_tpu_torch.convert import lstm_second_bias, tree_key
 from reverb_tpu_torch.frontend.device_feats import (FrontendSpec,
                                                     apply_frontend)
 from reverb_tpu_torch.models.asr_model import ModelConfig, compute_loss
+from reverb_tpu_torch.parallel import global_batch as gb
 from reverb_tpu_torch.train.scheduler import build_scheduler
 
 
@@ -379,20 +381,31 @@ def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
     (`_global_norms`), the gradients are summed over 'data' once, after
     the last micro-batch, the norm is the whole model's, and the metrics
     are the global means, the same on every rank.  `generator` is this
-    rank's own (seeded by its data coordinate: ranks of one 'model' group
-    draw the same masks, as their activations are one)."""
+    rank's own (seeded by its data coordinate: ranks of one data
+    coordinate draw the same masks, as their activations are one).  Each
+    micro-batch's loss is scaled by `sharding.loss_scale` for the
+    backward ('seq' and 'pipe' ranks each compute it whole).  A family's
+    `loss_fn` runs inside `global_batch.data_shard`, which gives it the
+    global batch's denominators and statistics (data parallelism only:
+    its layers have no split forms, ROADMAP item 15.8b); so does the
+    asr_model's loss, for its batch-level draws."""
 
     if loss_fn is not None and sharding is not None:
-        raise NotImplementedError(
-            'a registry family under a sharding: the parallel forms cover '
-            'the conformer asr_model only (ROADMAP item 15.8)')
+        split = [a for a in ('model', 'seq', 'expert', 'pipe')
+                 if sharding.sizes[a] > 1]
+        if split or accum_grad > 1:
+            raise NotImplementedError(
+                f"a registry family or a ts_conf under "
+                f"{split or 'accum_grad > 1'}: its global-batch "
+                f"denominators are summed over 'data' for one micro-batch "
+                f"(ROADMAP item 15.8b)")
 
     def train_step(model, batch, generator=None) -> Dict[str, float]:
         if model.cfg != cfg:
             raise ValueError('train_step: the model has another config')
         norms = [None] * accum_grad
         if sharding is not None:
-            sharding.gather_params()
+            sharding.gather_params(batch['feats'].shape[0] // accum_grad)
             norms = _global_norms(batch, accum_grad, sharding)
         params = optimizer.params
         for p in params:
@@ -401,9 +414,15 @@ def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
         for micro, norm in zip(_micro_batches(batch, accum_grad), norms):
             if frontend is not None:
                 micro = apply_frontend(micro, frontend, generator)
-            out = (compute_loss(model, micro, generator, norm=norm)
-                   if loss_fn is None else loss_fn(model, micro, generator))
-            out['loss'].backward()
+            with (contextlib.nullcontext() if sharding is None else
+                  gb.data_shard(sharding.data_group, sharding.data_size)):
+                out = (compute_loss(model, micro, generator, norm=norm)
+                       if loss_fn is None
+                       else loss_fn(model, micro, generator))
+            loss = out['loss']
+            if sharding is not None and sharding.loss_scale != 1.0:
+                loss = loss * sharding.loss_scale
+            loss.backward()
             for k, v in out.items():
                 sums[k] = sums.get(k, 0.0) + _detached(v)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)

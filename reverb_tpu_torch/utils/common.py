@@ -114,11 +114,15 @@ def draw_dynamic_chunk(size: int, generator: torch.Generator,
     """The training draw of a dynamic chunk: two raw draws from
     `generator` (on its device, no host read), then
     `dynamic_chunk_from_draws`.  Returns (chunk, num_left) as 0-dim int64
-    tensors."""
+    tensors.  In a sharded step every data rank takes data rank 0's draw,
+    as JAX draws one chunk for the global batch."""
+    from reverb_tpu_torch.parallel import global_batch as gb
     dev = generator.device
     raw_chunk = torch.randint(1, max(size, 2), (), generator=generator,
                               device=dev)
     raw_left = torch.randint(0, 2 ** 30, (), generator=generator, device=dev)
+    # one draw for the global batch (data rank 0's) in a sharded step
+    raw_chunk, raw_left = gb.draw(torch.stack([raw_chunk, raw_left]))
     return dynamic_chunk_from_draws(size, raw_chunk, raw_left,
                                     use_dynamic_left_chunk,
                                     enable_full_context)

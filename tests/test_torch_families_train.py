@@ -7,7 +7,7 @@ where the path draws no dropout), write `epoch_0.npz` that the JAX
 package loads, and resume from it with the optimizer state.  The recipe
 is tests/test_torch_train_bin.py's (4 WAVs, the rev_bpe tokenizer, CMVN
 stats, width 128), with the family's keys over its config.  A family
-over several processes raises."""
+over processes split along another axis than 'data' raises."""
 
 import json
 
@@ -138,11 +138,16 @@ def test_bin_train_trains_and_resumes(base, tmp_path, monkeypatch, family):
     assert np.isfinite(info['cv_loss'])
 
 
-@pytest.mark.parametrize('family', ['transducer', 'squeezeformer'])
+@pytest.mark.parametrize('family,split', [
+    ('transducer', '--num_devices_model'),
+    ('squeezeformer', '--num_devices_seq')])
 def test_bin_train_refuses_a_family_over_several_processes(base, tmp_path,
-                                                           family):
-    """The parallel forms cover the conformer asr_model: a registry family
-    over more than one process raises before any process group forms."""
+                                                           family, split):
+    """A registry family trains over 'data' only (its layers have no split
+    forms: ROADMAP item 15.8b): over processes split along 'model' or
+    'seq' it raises before any process group forms
+    (tests/test_torch_families_parallel.py trains the families under
+    DDP and ZeRO)."""
     d, conf = base
     conf = json.loads(json.dumps(conf))
     extra = json.loads(json.dumps(FAMILIES[family]))
@@ -150,6 +155,7 @@ def test_bin_train_refuses_a_family_over_several_processes(base, tmp_path,
     conf.update(extra)
     cfg_path = tmp_path / 'train.yaml'
     cfg_path.write_text(yaml.safe_dump(conf))
-    with pytest.raises(NotImplementedError, match='item 15'):
+    with pytest.raises(NotImplementedError, match='item 15.8b'):
         ttrain.main(_argv(d, cfg_path, tmp_path / 'exp', d / 'init.npz', 1)
-                    + ['--num_processes', '2', '--process_id', '1'])
+                    + ['--num_processes', '2', '--process_id', '1', split,
+                       '2'])

@@ -1,6 +1,7 @@
-"""Data parallelism, ZeRO-1/2, ZeRO-3 and tensor parallelism of the port's
-training step (reverb_tpu_torch/parallel/, train/trainer.py) against the
-JAX package's single-device step, f32 on the CPU over gloo.
+"""Data parallelism, ZeRO-1/2, ZeRO-3, tensor parallelism and the 'seq',
+'expert' and 'pipe' axes of the port's training step
+(reverb_tpu_torch/parallel/, train/trainer.py) against the JAX package's
+single-device step, f32 on the CPU over gloo.
 
 One world-2 and one world-4 process group are spawned once for the module
 (tests/torch_parallel_worker.py, `torch.set_num_threads(1)` in every rank,
@@ -10,7 +11,12 @@ on its rows of each global batch.  The forms: DDP, ZeRO-1/2, ZeRO-3 (a
 minimum size that splits the tiny model's large weights), TP 2, DP 2 × TP
 2 with ZeRO-1/2 (with Adam, with NovoGrad, whose per-leaf norms sum
 over both split axes, and with reverb_large's plain bitransformer
-decoder), and DDP with accum_grad 2 and a length-normalised loss.
+decoder), DDP with accum_grad 2 and a length-normalised loss, 'seq' 2,
+'expert' 2 (4 experts, 2 a token) and 'pipe' 2 (the two middle MoE
+blocks of four as stages, 2 microbatches, batch_norm conv modules) on
+one config, TP 2 over layer_norm conv modules, and at world 4 'pipe' 2 × TP 2 (six blocks, layer_norm: the composition of
+JAX's test_pp_composed_with_dp_tp_train_step_matches_single_device) and
+'seq' 2 × TP 2.
 Bounds are the JAX package's own for its sharded steps
 (tests/test_parallel_axes.py): loss and grad norm within rtol 1e-4, every
 updated parameter within 1e-4.  No dropout where the packages are
@@ -21,8 +27,10 @@ at width 128 with two 64-wide heads (K1/K4 and K5/K6 take their plain
 versions on the CPU); V = 24, so the vocabulary splits over two ranks.
 """
 
+import fcntl
 import json
 import os
+import pickle
 import socket
 import subprocess
 import sys
@@ -47,15 +55,23 @@ torch.set_num_threads(1)   # one intra-op thread a pytest-xdist worker
 D = 128
 CLIP = 5.0
 FORMS = ['ddp', 'zero12', 'zero3', 'tp2', 'dp2tp2', 'accum2',
-         'dp2tp2_novograd', 'dp2tp2_bitr']
+         'dp2tp2_novograd', 'dp2tp2_bitr', 'seq2', 'expert2', 'pipe2',
+         'tp2_ln', 'pipe2tp2', 'seq2tp2']
 WANT = {'accum2': 'accum', 'dp2tp2_novograd': 'novograd',
-        'dp2tp2_bitr': 'bitr'}
+        'dp2tp2_bitr': 'bitr', 'expert2': 'pipe_moe', 'pipe2': 'pipe_moe',
+        'tp2_ln': 'pipe_ln', 'pipe2tp2': 'pipe_ln'}
+# the config (and initial parameters) of each key: file names
+CONF_FILES = {'base': 'conf', 'accum': 'conf_accum',
+              'novograd': 'conf_novograd', 'bitr': 'conf_bitr',
+              'pipe_moe': 'conf_pipe_moe', 'pipe_ln': 'conf_pipe_ln'}
 
 
-def _conf(accum=False, novograd=False, decoder='lsl_bitransformer'):
+def _conf(accum=False, novograd=False, decoder='lsl_bitransformer',
+          num_blocks=2, **enc):
     conf = jpresets.reverb_config(output_size=D, attention_heads=2,
-                                  linear_units=96, num_blocks=2, dec_blocks=1,
-                                  r_blocks=1, vocab_size=24)
+                                  linear_units=96, num_blocks=num_blocks,
+                                  dec_blocks=1, r_blocks=1, vocab_size=24)
+    conf['encoder_conf'].update(enc)
     conf['decoder'] = decoder
     conf['optim_conf'] = {'lr': 1e-2, 'eps': 1e-3}
     conf['scheduler_conf'] = {'warmup_steps': 6}
@@ -82,8 +98,11 @@ def _params(conf):
     params = jam.init_params(jax.random.PRNGKey(0), jcfg, cmvn=cmvn)
     for layer in params['encoder']['encoders']:
         n = layer['norm']
-        n['running_mean'] = jnp.asarray(rng.randn(D).astype(np.float32) * .1)
-        n['running_var'] = jnp.asarray(rng.rand(D).astype(np.float32) + .5)
+        if 'running_mean' in n:
+            n['running_mean'] = jnp.asarray(
+                rng.randn(D).astype(np.float32) * .1)
+            n['running_var'] = jnp.asarray(rng.rand(D).astype(np.float32)
+                                           + .5)
     return params
 
 
@@ -114,27 +133,57 @@ def _jax_steps(conf, params, batches):
                                 {k: jnp.asarray(v) for k, v in b.items()},
                                 jnp.asarray(i), None)
         out.append(({k: float(v) for k, v in m.items()},
-                    flatten_params(params)))
+                    {k: np.asarray(v)
+                     for k, v in flatten_params(params).items()}))
     return out
 
 
 @pytest.fixture(scope='module')
 def runs(tmp_path_factory):
-    """The two process groups' results and JAX's steps."""
-    work = tmp_path_factory.mktemp('torch_parallel')
+    """The two process groups' results, the initial parameters (flat) and
+    JAX's steps, computed once a pytest run: under pytest-xdist the
+    first worker to get here computes them into the workers' shared
+    temporary directory under a lock, and the others read them."""
+    root = tmp_path_factory.getbasetemp()
+    if os.environ.get('PYTEST_XDIST_WORKER'):
+        root = root.parent
+    work = root / 'torch_parallel_runs'
+    with open(root / 'torch_parallel_runs.lock', 'w') as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not (work / 'runs.pkl').exists():
+            work.mkdir(exist_ok=True)
+            out = _compute_runs(work)
+            with open(work / 'runs.tmp', 'wb') as f:
+                pickle.dump(out, f)
+            os.replace(work / 'runs.tmp', work / 'runs.pkl')
+    with open(work / 'runs.pkl', 'rb') as f:
+        params, want = pickle.load(f)
+    return work, params, want
+
+
+def _compute_runs(work):
+    """Spawn the process groups into `work`, take JAX's steps meanwhile,
+    wait for the groups: ({key: initial flat parameters}, {key: JAX's
+    steps})."""
+    # the JAX package's single-device step ignores pipeline_stages (no
+    # 'pipe' axis), as does the port's without one (expert2, tp2_ln)
+    pipe = {'pipeline_stages': 2, 'pipeline_microbatches': 2}
     confs = {'base': _conf(), 'accum': _conf(accum=True),
              'novograd': _conf(novograd=True),
-             'bitr': _conf(decoder='bitransformer')}
+             'bitr': _conf(decoder='bitransformer'),
+             'pipe_moe': _conf(num_blocks=4, positionwise_layer_type='moe',
+                               n_expert=4, n_expert_per_token=2, **pipe),
+             'pipe_ln': _conf(num_blocks=6, cnn_module_norm='layer_norm',
+                              **pipe)}
     base = _params(confs['base'])     # accum and novograd start there too
-    params = {'base': base, 'accum': base, 'novograd': base,
-              'bitr': _params(confs['bitr'])}
+    params = {k: base if k in ('base', 'accum', 'novograd')
+              else _params(c) for k, c in confs.items()}
     batches = [_batch(i) for i in range(3)]
-    (work / 'conf.json').write_text(json.dumps(confs['base']))
-    (work / 'conf_accum.json').write_text(json.dumps(confs['accum']))
-    (work / 'conf_novograd.json').write_text(json.dumps(confs['novograd']))
-    (work / 'conf_bitr.json').write_text(json.dumps(confs['bitr']))
-    np.savez(work / 'init.npz', **flatten_params(params['base']))
-    np.savez(work / 'init_bitr.npz', **flatten_params(params['bitr']))
+    for key, name in CONF_FILES.items():
+        (work / f'{name}.json').write_text(json.dumps(confs[key]))
+        if key not in ('accum', 'novograd'):
+            np.savez(work / (name.replace('conf', 'init') + '.npz'),
+                     **flatten_params(params[key]))
     np.savez(work / 'batches.npz', **{f'{i}/{k}': v for i, b in
                                       enumerate(batches)
                                       for k, v in b.items()})
@@ -145,15 +194,13 @@ def runs(tmp_path_factory):
         [sys.executable, worker, str(rank), str(world), str(work)],
         env=env, stdout=subprocess.PIPE, stderr=subprocess.STDOUT)
         for world in (2, 4) for rank in range(world)]
-    want = {'base': _jax_steps(confs['base'], params['base'], batches),
-            'accum': _jax_steps(confs['accum'], params['base'], batches[:2]),
-            'novograd': _jax_steps(confs['novograd'], params['base'],
-                                   batches[:2]),
-            'bitr': _jax_steps(confs['bitr'], params['bitr'], batches[:2])}
+    want = {k: _jax_steps(c, params[k], batches if k == 'base'
+                          else batches[:2]) for k, c in confs.items()}
     logs = [p.communicate(timeout=900)[0].decode() for p in procs]
     for p, log in zip(procs, logs):
         assert p.returncode == 0, log[-4000:]
-    return work, params, want
+    return {k: {n: np.asarray(a) for n, a in flatten_params(v).items()}
+            for k, v in params.items()}, want
 
 
 def _result(work, form):
@@ -184,27 +231,34 @@ def test_sharded_step_matches_jax_single_device(runs, form):
     _assert_matches(got['metrics'], flat, want[WANT.get(form, 'base')][:2])
     # the clip engaged, and the parameters moved
     assert got['metrics'][0]['grad_norm'] > CLIP
-    start = flatten_params(params[WANT.get(form, 'base')])
+    start = params[WANT.get(form, 'base')]
     assert max(float(np.abs(v - np.asarray(start[k])).max())
                for k, v in flat.items()) > 1e-3
     # the layout really split what the form splits
     split = got['split']
-    assert (split['tp'] > 0) == form.startswith(('tp2', 'dp2tp2'))
+    assert (split['tp'] > 0) == ('tp2' in form)
     assert (split['zero3'] > 0) == (form == 'zero3')
     assert (split['zero'] > 0) == form.startswith(('zero', 'dp2tp2'))
+    assert (split['expert'] > 0) == ('expert' in form)
+    assert (split['pipe'] > 0) == ('pipe' in form)
+    # both steps ran split where the time axis is
+    assert split['seq_steps'] == {'split': 2 if 'seq' in form else 0,
+                                  'whole': 0}
 
 
-@pytest.mark.parametrize('form', ['zero3', 'tp2'])
+@pytest.mark.parametrize('form', ['zero3', 'tp2', 'pipe2', 'expert2'])
 def test_split_checkpoint_reloads_on_one_rank(runs, form):
-    """The gathered state saved under ZeRO-3 or TP loads into one rank's
-    model and optimizer: the parameters are the run's, whole, and the
-    moments have the parameters' whole shapes."""
+    """The gathered state saved under ZeRO-3, TP, 'pipe' or 'expert'
+    loads into one rank's model and optimizer: the parameters are the
+    run's, whole (every stage's layers, every expert), and the moments
+    have the parameters' whole shapes."""
     work, params, want = runs
     _, flat = _result(work, form)
-    conf = _conf()
+    key = WANT.get(form, 'base')
+    conf = json.loads((work / f'{CONF_FILES[key]}.json').read_text())
     model = tam.build_model(tam.ModelConfig.from_config(conf), 'cpu',
-                            convert.state_dict_from_jax(flatten_params(
-                                params['base'])), train=True)
+                            convert.state_dict_from_jax(params[key]),
+                            train=True)
     opt, _ = ttr.build_optimizer(ttr.TrainConfig.from_config(conf), model)
     info = tckpt.load_checkpoint(work / f'ckpt_{form}' / 'step_2.npz',
                                  model, opt)
@@ -237,20 +291,21 @@ def test_dropout_masks_differ_across_data_ranks(runs):
                                    'split_blocks_unsplit': True}
 
 
-def test_tp_dropout_matches_unsplit_step(runs):
-    """TP 2's two steps with dropout equal the unsplit port's two steps
-    with the same generator seed: the split layers drop the heads and
-    hidden units the unsplit layers drop.  The bounds are the sharded
-    steps' (JAX draws other masks, so the reference is the port's own
-    unsplit step)."""
+@pytest.mark.parametrize('form', ['tp2_dropout', 'seq2_dropout'])
+def test_tp_dropout_matches_unsplit_step(runs, form):
+    """TP 2's and 'seq' 2's two steps with dropout equal the unsplit
+    port's two steps with the same generator seed: the split layers drop
+    the heads, hidden units and time blocks the unsplit layers drop.  The
+    bounds are the sharded steps' (JAX draws other masks, so the
+    reference is the port's own unsplit step)."""
     work = runs[0]
-    got, flat = _result(work, 'tp2_dropout')
+    got, flat = _result(work, form)
     want = json.loads((work / 'unsplit_dropout.json').read_text())
     with np.load(work / 'unsplit_dropout.npz') as z:
         want_flat = {k: z[k] for k in z.files}
     _assert_matches(got['metrics'], flat,
                     [(m, want_flat) for m in want['metrics']])
-    assert got['split']['tp'] > 0
+    assert got['split']['tp'] > 0 or got['split']['seq_steps']['split'] == 2
     # dropout was on: the loss is not the dropout-free step's
     plain, _ = _result(work, 'tp2')
     assert abs(got['metrics'][0]['loss'] - plain['metrics'][0]['loss']) \
@@ -262,13 +317,18 @@ def test_unequal_rows_raise(runs):
     assert 'unequal batch rows [2, 1]' in checks['unequal']
 
 
-@pytest.mark.parametrize('axis,item', [('seq', 'item 14b'),
-                                       ('pipe', 'item 14b'),
-                                       ('expert', 'item 14b')])
-def test_unported_axes_raise(axis, item):
-    from reverb_tpu_torch.parallel.mesh import make_mesh
-    with pytest.raises(NotImplementedError, match=item):
-        make_mesh(**{axis: 2})
+@pytest.mark.parametrize('axis', ['seq', 'pipe', 'expert'])
+def test_axes_match_jax_device_layout(runs, axis):
+    """make_mesh(axis=2, model=2) over four ranks puts rank r where the
+    JAX package's make_mesh puts device r: the same coordinate along
+    every one of ('pipe', 'data', 'seq', 'expert', 'model')."""
+    from reverb_tpu.parallel import mesh as jmesh
+    got = json.loads((runs[0] / 'coords.json').read_text())[axis]
+    devices = jax.devices()[:4]
+    mesh = jmesh.make_mesh(**{axis: 2, 'model': 2}, devices=devices)
+    for r, d in enumerate(devices):
+        want = [int(i) for i in np.argwhere(mesh.devices == d)[0]]
+        assert got[r] == want, (r, got[r], want)
 
 
 def test_rules_match_jax():
@@ -285,7 +345,7 @@ def _free_port() -> int:
         return s.getsockname()[1]
 
 
-@pytest.mark.parametrize('launch', ['coordinator', 'torchrun'])
+@pytest.mark.parametrize('launch', ['coordinator', 'torchrun', 'pipe'])
 def test_bin_train_two_processes_match_one(tmp_path, launch):
     """Two processes of `bin.train`, each with half the batch (its
     partition of the list), give the losses, CV losses and checkpoints of
@@ -293,27 +353,40 @@ def test_bin_train_two_processes_match_one(tmp_path, launch):
     tests/test_multihost.py.  The processes join by `--coordinator
     file://... --num_processes 2 --process_id r`, or by torchrun's
     environment (RANK, WORLD_SIZE, LOCAL_RANK, MASTER_ADDR, MASTER_PORT).
-    The recipe of tests/test_torch_train_bin.py with the list, its shuffle
-    and the sort kept in order, so that the two ranks' batches are the one
-    process's batch (1.2 s utterances: one padded length)."""
+    'pipe': two GPipe stages (`--num_devices_pipe 2
+    --pipeline_microbatches 2`, a four-block encoder from the seed, both
+    ranks reading the whole batch) against the one process's layers in
+    order.  The recipe of tests/test_torch_train_bin.py with the list, its
+    shuffle and the sort kept in order, so that the two ranks' batches are
+    the one process's batch (1.2 s utterances: one padded length)."""
     import yaml
     from reverb_tpu_torch.bin import train as ttrain
     from test_torch_train_bin import _train_argv, _write_recipe
     cfg_path = _write_recipe(tmp_path)
+    pipe = launch == 'pipe'
 
     def argv(model_dir, batch_size):
-        return _train_argv(tmp_path, cfg_path, model_dir, '--device', 'cpu',
-                           '--override_config', 'dataset_conf.shuffle=false',
-                           '--override_config', 'dataset_conf.sort=false',
-                           '--override_config',
-                           'dataset_conf.list_shuffle=false',
-                           '--override_config',
-                           f'dataset_conf.batch_conf.batch_size={batch_size}')
+        out = _train_argv(tmp_path, cfg_path, model_dir, '--device', 'cpu',
+                          '--override_config', 'dataset_conf.shuffle=false',
+                          '--override_config', 'dataset_conf.sort=false',
+                          '--override_config',
+                          'dataset_conf.list_shuffle=false',
+                          '--override_config',
+                          f'dataset_conf.batch_conf.batch_size={batch_size}')
+        if pipe:       # four blocks from the seed, not the one-block init
+            i = out.index('--checkpoint')
+            out[i:i + 2] = ['--override_config', 'encoder_conf.num_blocks=4']
+        return out
     root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
     env = dict(os.environ, PYTHONPATH=root, OMP_NUM_THREADS='1')
     port = _free_port()
 
     def launch_args(rank):
+        if launch == 'pipe':
+            return ['--coordinator', f'file://{tmp_path}/pg',
+                    '--num_processes', '2', '--process_id', str(rank),
+                    '--num_devices_pipe', '2', '--pipeline_microbatches',
+                    '2'], env
         if launch == 'coordinator':
             return ['--coordinator', f'file://{tmp_path}/pg',
                     '--num_processes', '2', '--process_id', str(rank)], env
@@ -325,7 +398,7 @@ def test_bin_train_two_processes_match_one(tmp_path, launch):
         extra, penv = launch_args(rank)
         procs.append(subprocess.Popen(
             [sys.executable, '-m', 'reverb_tpu_torch.bin.train',
-             *argv(tmp_path / 'two', 2), *extra], env=penv,
+             *argv(tmp_path / 'two', 4 if pipe else 2), *extra], env=penv,
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT))
     ex = ttrain.main(argv(tmp_path / 'one', 4))
     logs = [p.communicate(timeout=600)[0].decode() for p in procs]
@@ -356,7 +429,7 @@ def test_bin_train_two_processes_match_one(tmp_path, launch):
 
 
 @pytest.mark.parametrize('extra,error,match', [
-    (['--num_devices_expert', '2'], NotImplementedError, 'item 14b'),
+    (['--num_devices_expert', '2'], ValueError, 'several processes'),
     (['--num_devices_model', '2'], ValueError, 'several processes'),
     (['--zero3'], ValueError, 'several processes')])
 def test_bin_train_refuses_what_one_process_cannot_split(tmp_path, extra,

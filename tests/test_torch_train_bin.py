@@ -386,29 +386,70 @@ def test_entry_points_default_to_cuda(recipe, tmp_path):
 
 
 @pytest.mark.parametrize('extra,match', [
-    # the mesh axes the port does not split (ROADMAP item 14b), also
-    # with the multi-process flags, which raise before any group forms
-    (['--num_devices_seq', '2'], 'item 14'),
-    (['--num_devices_pipe', '2'], 'item 14'),
-    (['--coordinator', 'localhost:1', '--num_devices_seq', '2'], 'item 14'),
-    (['--num_processes', '2', '--num_devices_pipe', '2'], 'item 14'),
-    (['--process_id', '1', '--pipeline_microbatches', '2'], 'item 14'),
-    (['--pipeline_microbatches', '4'], 'item 14'),
     (['--prng_impl', 'rbg'], "torch's generator"),
-    # a registry family, or distillation, over several processes (item
-    # 15.8)
-    (['--override_config', 'model=paraformer', '--num_processes', '2'],
-     'item 15.8'),
+    # a registry family, or distillation, under a split other than
+    # 'data' (item 15.8b), also with the multi-process flags, which raise
+    # before any group forms
+    (['--override_config', 'model=paraformer', '--num_devices_model', '2'],
+     'item 15.8b'),
+    (['--override_config', 'model=whisper', '--num_processes', '2',
+      '--num_devices_seq', '2'], 'item 15.8b'),
     (['--override_config', 'ts_conf.teacher_yaml=t.yaml',
-      '--num_processes', '2'], 'item 15.8'),
-    # an encoder key the JAX package reads and the port does not build
-    (['--override_config', 'encoder_conf.pipeline_stages=2'], 'item 14'),
+      '--num_devices_model', '2'], 'item 15.8b'),
 ])
 def test_train_unported_options_raise(recipe, tmp_path, extra, match):
     d, cfg_path = recipe
     with pytest.raises(NotImplementedError, match=match):
         ttrain.main(_train_argv(d, cfg_path, tmp_path / 'x', '--device',
                                 'cpu', *extra))
+
+
+@pytest.mark.parametrize('extra', [
+    # the mesh axes (ROADMAP item 14b), also with the multi-process flags
+    ['--num_devices_seq', '2'],
+    ['--num_devices_pipe', '2'],
+    ['--coordinator', 'localhost:1', '--num_devices_seq', '2'],
+    ['--num_processes', '2', '--num_devices_pipe', '2'],
+    ['--process_id', '1', '--pipeline_microbatches', '2'],
+    ['--pipeline_microbatches', '4'],
+    # a registry family, or distillation, over several processes (item
+    # 15.8: over 'data')
+    ['--override_config', 'model=paraformer', '--num_processes', '2'],
+    ['--override_config', 'ts_conf.teacher_yaml=t.yaml',
+     '--num_processes', '2'],
+])
+def test_train_parallel_options_accepted(recipe, tmp_path, extra):
+    """The options that raised until the 'seq', 'expert' and 'pipe' axes
+    and the families over 'data' were ported: bin.train's check accepts
+    them (tests/test_torch_parallel.py and
+    tests/test_torch_families_parallel.py train them)."""
+    from reverb_tpu_torch.utils.config import load_config, override_config
+    d, cfg_path = recipe
+    args = ttrain.get_args(_train_argv(d, cfg_path, tmp_path / 'x',
+                                       '--device', 'cpu', *extra))
+    configs = override_config(load_config(args.config), args.override_config)
+    ttrain.check_supported(args, configs)
+
+
+def test_pipeline_stages_in_one_process_train_in_order(recipe, tmp_path):
+    """encoder_conf.pipeline_stages 2 without a 'pipe' axis (one
+    process) trains the layers in order, as the JAX package does: the
+    metrics and checkpoints of the run without the key."""
+    d, cfg_path = recipe
+
+    def run(name, *extra):
+        argv = _train_argv(d, cfg_path, tmp_path / name, '--device', 'cpu',
+                           '--override_config', 'encoder_conf.num_blocks=4',
+                           '--max_epoch', '1', *extra)
+        i = argv.index('--checkpoint')        # four blocks from the seed
+        del argv[i:i + 2]
+        ttrain.main(argv)
+        return [{k: v for k, v in json.loads(line).items() if k != 'ts'}
+                for line in (tmp_path / name / 'metrics.jsonl').read_text()
+                .splitlines()]
+    want = run('plain')
+    got = run('staged', '--override_config', 'encoder_conf.pipeline_stages=2')
+    assert got == want and len(want) == 2
 
 
 @pytest.mark.parametrize('extra', [

@@ -8,11 +8,11 @@ group through a file in work_dir, then runs every form of its world in
 turn, from the same initial parameters: two sharded steps on its rows of
 each global batch (parallel/mesh.py:local_rows), after which rank 0
 writes the metrics and the gathered parameters (<form>.json, <form>.npz),
-and for the ZeRO-3 and TP forms a checkpoint of the gathered state.
-World 2 also takes TP 2's two steps with dropout beside the unsplit
-step's on the same generator seed, draws dropout masks, checks that
-unequal row counts raise and resumes the ZeRO-3 checkpoint under TP for a
-third step.
+and for the ZeRO-3, TP, pipeline and expert forms a checkpoint of the
+gathered state.  World 2 also takes TP 2's and 'seq' 2's two steps with
+dropout beside the unsplit step's on the same generator seed, draws
+dropout masks, checks that unequal row counts raise and resumes the
+ZeRO-3 checkpoint under TP for a third step.
 """
 
 import json
@@ -32,15 +32,39 @@ FORMS = {
         ('zero3', {'data': 2}, {'zero3': True, 'zero3_min_size': 8192},
          'conf.json'),
         ('tp2', {'data': 1, 'model': 2}, {'zero': True}, 'conf.json'),
-        ('accum2', {'data': 2}, {'zero': False}, 'conf_accum.json')],
+        ('accum2', {'data': 2}, {'zero': False}, 'conf_accum.json'),
+        # the encoder's time axis (LSL layers, batch_norm; 17 frames in
+        # blocks of 9, the last padded)
+        ('seq2', {'data': 1, 'seq': 2}, {'zero': True}, 'conf.json'),
+        # 4 MoE blocks (4 experts, 2 a token): two experts a rank
+        ('expert2', {'data': 1, 'expert': 2}, {'zero': True},
+         'conf_pipe_moe.json'),
+        # the same blocks, the two middle ones as 2 stages, 2 microbatches
+        ('pipe2', {'data': 1, 'pipe': 2}, {'zero': True},
+         'conf_pipe_moe.json'),
+        # TP over the conv modules' LayerNorms
+        ('tp2_ln', {'data': 1, 'model': 2}, {'zero': True},
+         'conf_pipe_ln.json')],
     4: [('dp2tp2', {'data': 2, 'model': 2}, {'zero': True}, 'conf.json'),
         # reverb_large's decoder (bitransformer: no language layers)
         ('dp2tp2_bitr', {'data': 2, 'model': 2}, {'zero': True},
          'conf_bitr.json'),
         # NovoGrad's per-leaf norms summed over both split axes
         ('dp2tp2_novograd', {'data': 2, 'model': 2}, {'zero': True},
-         'conf_novograd.json')],
+         'conf_novograd.json'),
+        # JAX's test_pp_composed_with_dp_tp_train_step_matches_single_device
+        # composition: 6 blocks, layer_norm conv modules, stages × TP
+        ('pipe2tp2', {'data': 1, 'pipe': 2, 'model': 2}, {'zero': True},
+         'conf_pipe_ln.json'),
+        ('seq2tp2', {'data': 1, 'seq': 2, 'model': 2}, {'zero': True},
+         'conf.json')],
 }
+# the initial parameters of each config (the others start at init.npz)
+INITS = {'conf_bitr.json': 'init_bitr.npz',
+         'conf_pipe_moe.json': 'init_pipe_moe.npz',
+         'conf_pipe_ln.json': 'init_pipe_ln.npz'}
+# the forms whose gathered state is saved as a checkpoint
+CKPT_FORMS = ('zero3', 'tp2', 'pipe2', 'expert2')
 
 
 def main(rank: int, world: int, work: str):
@@ -58,10 +82,8 @@ def main(rank: int, world: int, work: str):
     inits = {}
 
     def init_of(conf_name):
-        """The initial parameters of a config: init_bitr.npz for
-        conf_bitr.json, else init.npz."""
-        name = 'init_bitr.npz' if conf_name == 'conf_bitr.json' \
-            else 'init.npz'
+        """The initial parameters of a config (INITS)."""
+        name = INITS.get(conf_name, 'init.npz')
         if name not in inits:
             with np.load(f'{work}/{name}') as z:
                 inits[name] = {k: z[k] for k in z.files}
@@ -92,18 +114,23 @@ def main(rank: int, world: int, work: str):
                            for lay in sh.layouts.values()),
                  'zero3': sum(lay.zero3 for lay in sh.layouts.values()),
                  'zero': sum(lay.zero_axis is not None
+                             for lay in sh.layouts.values()),
+                 'expert': sum(lay.owner_axis == 'expert'
+                               for lay in sh.layouts.values()),
+                 'pipe': sum(lay.owner_axis == 'pipe'
                              for lay in sh.layouts.values())}
         step = ttr.make_train_step(cfg, opt, tc.accum_grad, tc.grad_clip,
                                    sharding=sh)
         metrics = [step(model, pm.put_batch(batches[i], mesh, 'cpu'), gen)
                    for i in steps]
+        split['seq_steps'] = dict(model.encoder.seq_steps)
         with sh.gathered():
             if rank == 0:
                 np.savez(f'{work}/{form}.npz', **convert.flat_from_state_dict(
                     model.state_dict()))
                 with open(f'{work}/{form}.json', 'w') as f:
                     json.dump({'metrics': metrics, 'split': split}, f)
-                if form in ('zero3', 'tp2'):
+                if form in CKPT_FORMS:
                     tckpt.save_checkpoint(f'{work}/ckpt_{form}', 'step_2',
                                           model, opt, {'step': 2})
         dist.barrier()
@@ -111,9 +138,24 @@ def main(rank: int, world: int, work: str):
     for form, axes, opts, conf_name in FORMS[world]:
         run(form, axes, opts, conf_name)
 
+    if world == 4:
+        # every rank's coordinates under 'seq', 'pipe' or 'expert' with
+        # 'model' (JAX's device layout: tests/test_torch_parallel.py)
+        coords = {}
+        for axis in ('seq', 'pipe', 'expert'):
+            mesh = pm.make_mesh(**{axis: 2, 'model': 2})
+            mine = torch.tensor([pm.axis_rank(mesh, a) for a in pm.AXES])
+            parts = [torch.empty_like(mine) for _ in range(world)]
+            dist.all_gather(parts, mine)
+            coords[axis] = [p.tolist() for p in parts]
+        if rank == 0:
+            with open(f'{work}/coords.json', 'w') as f:
+                json.dump(coords, f)
     if world == 2:
         # TP 2 with dropout, and on rank 0 the unsplit step, from one seed
         run('tp2_dropout', {'data': 1, 'model': 2}, {'zero': True},
+            'conf.json', seed=3)
+        run('seq2_dropout', {'data': 1, 'seq': 2}, {'zero': True},
             'conf.json', seed=3)
         if rank == 0:
             cfg, tc, model, opt = build('conf.json')
