@@ -62,9 +62,9 @@ with seeded random weights:
   one f32 chunk's encoder output with the kernels and with the plain
   versions (equal; joint_decoding also at ctc_weight 0.5, where it emits
   tokens), then one bf16 `transcribe_modes` call with all six on
-  the 164 s wav after a warm-up call — kernels K1, K5 (encoder and every
-  decoder step), K2 and K3 (once per encoder call, over the dense CTC
-  table) — and each mode alone, timed;
+  the 164 s wav after a one-chunk warm-up call — kernels K1, K5
+  (encoder and every decoder step), K2 and K3 (once per encoder call,
+  over the dense CTC table);
 - streaming (chunk 16, 16 left chunks): K2 resumed from a carried beam
   state against its plain version (records and all eight finals exactly,
   B in {1, 8}, T_hop in {1, 16, 33}, peaky and tied inputs); one 8 s
@@ -99,17 +99,18 @@ then the dataset path at reverb_large width in bf16, on a synthetic
 corpus (64 + 8 `speech_like` WAVs of 8-20.5 s, texts of 20-80 units of the
 10000-entry table, CMVN stats from their fbank):
 
-- recipe: `bin.train.main` in-process (dither 0.1, spec_aug, shuffle and
+- recipe (reverb_large's widths at RECIPE_LAYERS = 6 encoder layers):
+  `bin.train.main` in-process (dither 0.1, spec_aug, shuffle and
   sort, static batch 8, 4 workers, Adam with warmuplr, clip 50) for 6
   steps with a snapshot and CV every 3 steps, then CV and `epoch_0.npz`
-  (CMVN stats inside, finite cv_loss) — K1 = K4 = 18 and K5 = K6 = 120 a
-  step, K1 18 and K5 120 a CV batch; ms per step, the wait on the
+  (CMVN stats inside, finite cv_loss) — K1 = K4 = 6 and K5 = K6 = 60 a
+  step, K1 6 and K5 60 a CV batch; ms per step, the wait on the
   dataset iterator, audio-s/s, peak memory; one step of a
   use_dynamic_chunk copy of the config (K1 = K4 = 0: the chunk mask takes
-  the masked route; K5 = K6 = 120); then `bin.average_model` over the
+  the masked route; K5 = K6 = 60); then `bin.average_model` over the
   step-3 snapshot and epoch_0, `bin.get_loss` on the CV list (8 finite
-  lines; K1 18 and K5 120 an utterance) and `bin.recognize` with the
-  serving mode pair (K1 18, K2 = K3 = 1 a batch, plus one of each through
+  lines; K1 6 and K5 60 an utterance) and `bin.recognize` with the
+  serving mode pair (K1 6, K2 = K3 = 1 a batch, plus one of each through
   the uncapped tail; 8 rows a mode); then, in f32 on the epoch_0
   weights, the kernels against their plain versions on the recipe's own
   batches: every K1/K4/K5/K6 call of a loss + backward on the first
@@ -190,7 +191,8 @@ the serving model:
 
 then parallelism (parallel/, the sharded step of train/trainer.py):
 
-- parallel (reverb_large's widths at PAR_LAYERS = 6 encoder layers): at
+- parallel (reverb_large's widths at PAR_LAYERS = 4 encoder layers and
+  a 1 + 1-layer decoder): at
   world size 1 over NCCL, the sharded step (ZeRO and TP split nothing at
   one rank) against the unwrapped step in f32 at B = 2 with dropout
   (loss and grad norm within 1e-5 relative, parameters within 1e-5 after
@@ -201,7 +203,11 @@ then parallelism (parallel/, the sharded step of train/trainer.py):
   parallel/mesh.py:init_distributed): DDP, ZeRO-1/2, ZeRO-3, TP 2, 'seq'
   2, 'expert' 2 (8 experts, 2 a token), 'pipe' 2 (4 microbatches,
   layer_norm conv modules), TP 2 over layer_norm, wav2vec 2.0 and
-  teacher-student under DDP 2 (PAR_FORMS_N), each an f32 step held to the
+  teacher-student under DDP 2, and the registry families under the other
+  axes: the SANM Paraformer (SanmConfig()'s widths) and Whisper
+  (large-v3's) under TP 2, the Branchformer under 'seq' 2, a transducer
+  under 'pipe' 2 and wav2vec 2.0 under DDP 2 × accum_grad 2
+  (PAR_FORMS_N), each an f32 step held to the
   unwrapped one of its model on loss, grad norm and every parameter —
   within 1e-3 of the whole batch at once (the forms whose data axis is 1
   with dropout, but 'pipe': the split layers draw the unwrapped masks; at
@@ -209,8 +215,10 @@ then parallelism (parallel/, the sharded step of train/trainer.py):
   that bound) and, for the data-parallel reverb_large forms, within 1e-5
   of the batch as micro-batches of a rank's rows — rank 0's kernel calls
   held to their plain versions ('seq': K1 with Tq ≠ Tk, every step
-  split), and a bf16 step (reverb_large's held to the unwrapped bf16
-  step, PAR_BF16_TOL) with ms a step and peak memory per rank, every step
+  split), and a timed step with ms a step and peak memory per rank (the
+  f32 model's next step on one card over gloo; over NCCL a bf16 step at
+  B = 8, reverb_large's held to the unwrapped bf16 step, PAR_BF16_TOL),
+  every step
   of every rank launching what rank 0's unwrapped step launched ('pipe':
   each stage's region layers once a microbatch; its bubble share
   reported); a form that raises in a collective reported on its own
@@ -1333,15 +1341,18 @@ def transcribe_s(asr, wav, modes, **kwargs) -> tuple:
 def run_modes(dev, asr, wav, feats, audio_s):
     """The six CLI modes at reverb_large width: the f32 reference check,
     then the bf16 `transcribe_modes` call with all six on the 8-chunk
-    wav (after a warm-up call) with its launch counts asserted, then each
-    mode alone.  Returns (launches, encoder calls, seconds of the six-mode
-    call, {mode: seconds alone})."""
+    wav (after a one-chunk warm-up call) with its launch counts asserted.
+    Returns
+    (launches, encoder calls, seconds of the six-mode call)."""
     from reverb_tpu_torch.cli import reverb as rv
     from reverb_tpu_torch.ops import beam_scan as bs
     from reverb_tpu_torch.ops import flash_attention as fa
     from reverb_tpu_torch.ops import layer_norm as ln
     modes_reference_check(asr, feats, dev)
-    warm, _ = transcribe_s(asr, wav, CLI_MODES)
+    # the warm-up call on one chunk (the eight-chunk one took ~20 s)
+    warm_wav = wav.with_name('warm.wav')
+    write_wav(warm_wav, 400 + 160 * (CHUNK - 1), SEED + 1)
+    warm, _ = transcribe_s(asr, warm_wav, CLI_MODES)
     captured = []
     decode_fn = rv.decode_modes_fn
 
@@ -1390,14 +1401,10 @@ def run_modes(dev, asr, wav, feats, audio_s):
             for m, c in zip(CLI_MODES, outs)}
     if not rows['ctc_prefix_beam_search'] or not rows['attention_rescoring']:
         raise AssertionError(f'empty CTM on the six-mode path: {rows}')
-    alone = {m: transcribe_s(asr, wav, [m])[0] for m in CLI_MODES}
     log(f'modes: {audio_s:.2f} s of audio in {N_CHUNKS} chunks, bf16; '
-        f'six-mode transcribe_modes {wall:.3f} s (warm-up call {warm:.3f} '
-        f's); CTM rows {rows}')
-    log('modes: each mode alone (s per call): '
-        + ', '.join(f'{m} {t:.3f}' for m, t in alone.items())
-        + f'; on {smi_line()}')
-    return launches, n_enc, wall, alone
+        f'six-mode transcribe_modes {wall:.3f} s (one-chunk warm-up call '
+        f'{warm:.3f} s); CTM rows {rows}; on {smi_line()}')
+    return launches, n_enc, wall
 
 
 # ------------------------------ phase 10: streaming ------------------------------
@@ -2259,6 +2266,11 @@ def run_diar(dev, seed=SEED):
 
 RECIPE_TRAIN, RECIPE_CV = 64, 8          # WAVs of 8-20.5 s
 RECIPE_STEPS, RECIPE_B, RECIPE_SAVE = 6, 8, 3
+# reverb_large's widths at 6 encoder layers (LSL first and last), for the
+# all-phase run's time: its checkpoints and steps at 18 took ~3× as long;
+# 5 LayerNorms a layer and after_norm
+RECIPE_LAYERS = 6
+RECIPE_LN_ENC = 5 * RECIPE_LAYERS + 1
 RECIPE_MODES = ['ctc_prefix_beam_search', 'attention_rescoring']
 
 
@@ -2302,11 +2314,14 @@ def recipe_corpus(workdir: Path, seed: int) -> dict:
 
 def recipe_config(workdir: Path, dynamic_chunk: bool = False,
                   device_feats: bool = False) -> dict:
-    """presets.reverb_large() in bf16 with the char tokenizer over the
-    generated table, global CMVN, and the dataset_conf of the recipe
-    (with `device_feats`, the fbank, dither and SpecAugment in the step)."""
+    """presets.reverb_large() at RECIPE_LAYERS encoder layers in bf16 with
+    the char tokenizer over the generated table, global CMVN, and the
+    dataset_conf of the recipe (with `device_feats`, the fbank, dither and
+    SpecAugment in the step)."""
     from reverb_tpu_torch.models import presets
     configs = presets.reverb_large()
+    configs['encoder_conf'] = dict(configs['encoder_conf'],
+                                   num_blocks=RECIPE_LAYERS)
     configs.update({
         'dtype': 'bf16', 'tokenizer': 'char',
         'tokenizer_conf': {'symbol_table_path': str(workdir / 'units.txt'),
@@ -2429,8 +2444,9 @@ def recipe_train(dev, workdir: Path, seed: int,
     del ex
     gc.collect()
     torch.cuda.empty_cache()
-    per = LN_ENC + LN_DEC
-    want = {'K1': LAYERS_ENC * (steps + n_eval), 'K4': LAYERS_ENC * steps,
+    per = RECIPE_LN_ENC + LN_DEC
+    want = {'K1': RECIPE_LAYERS * (steps + n_eval),
+            'K4': RECIPE_LAYERS * steps,
             'K5': per * (steps + n_eval), 'K6': per * steps}
     log(f'recipe train{tag}: {steps} steps, {n_eval} CV batches (a CV with '
         f'each snapshot, every {RECIPE_SAVE} steps, and at the epoch end); '
@@ -2524,7 +2540,8 @@ def recipe_dynamic_chunk(dev, workdir: Path, seed: int) -> dict:
             h.remove()
     launches = {'K1': fa.LAUNCHES, 'K4': fa.BWD_LAUNCHES, 'K5': ln.LAUNCHES,
                 'K6': ln.BWD_LAUNCHES}
-    want = {'K1': 0, 'K4': 0, 'K5': LN_ENC + LN_DEC, 'K6': LN_ENC + LN_DEC}
+    want = {'K1': 0, 'K4': 0, 'K5': RECIPE_LN_ENC + LN_DEC,
+            'K6': RECIPE_LN_ENC + LN_DEC}
     log(f'recipe dynamic chunk: one step at B={len(batch["keys"])} (T '
         f'{batch["feats"].shape[1]}): {m}; {wall * 1e3:.1f} ms; launches '
         f'{launches}, expected {want} (LayerNorm calls seen {ln_calls[0]})')
@@ -2585,8 +2602,8 @@ def recipe_scripts(dev, workdir: Path) -> dict:
     rows = [r.split() for r in
             (workdir / 'loss.txt').read_text().splitlines()]
     launches = launch_counts()
-    want = {'K1': LAYERS_ENC * RECIPE_CV, 'K2': 0, 'K3': 0,
-            'K5': (LN_ENC + LN_DEC) * RECIPE_CV}
+    want = {'K1': RECIPE_LAYERS * RECIPE_CV, 'K2': 0, 'K3': 0,
+            'K5': (RECIPE_LN_ENC + LN_DEC) * RECIPE_CV}
     log(f'recipe get_loss: {len(rows)} lines in {res["get_loss_s"]:.1f} s, '
         f'first {rows[0] if rows else None}; launches {launches}, expected '
         f'{want}')
@@ -2622,7 +2639,7 @@ def recipe_scripts(dev, workdir: Path) -> dict:
     res['recognize_s'] = time.perf_counter() - t0
     launches = launch_counts()
     nb, nu = calls['decode'], calls['uncapped']
-    want = {'K1': LAYERS_ENC * nb, 'K2': nb + nu, 'K3': nb + nu,
+    want = {'K1': RECIPE_LAYERS * nb, 'K2': nb + nu, 'K3': nb + nu,
             'K5': seen['ln'][0]}
     texts = {m: (workdir / 'rec' / m / 'text').read_text(
         encoding='utf8').splitlines() for m in RECIPE_MODES}
@@ -2630,7 +2647,7 @@ def recipe_scripts(dev, workdir: Path) -> dict:
         f'in {res["recognize_s"]:.1f} s; launches {launches}, expected '
         f'{want}; rows {[len(t) for t in texts.values()]}; first '
         f'{texts[RECIPE_MODES[-1]][0][:80]!r}')
-    if nb != 1 or launches != want or seen['ln'][0] < LN_ENC * nb or \
+    if nb != 1 or launches != want or seen['ln'][0] < RECIPE_LN_ENC * nb or \
             any(len(t) != RECIPE_CV for t in texts.values()):
         raise AssertionError('recipe recognize')
     res.update(recognize_launches=launches, recognize_batches=nb,
@@ -5431,16 +5448,24 @@ def run_export(dev, asr, wav, feats, audio_s, workdir: Path):
 # ------------------------------ phase 19: parallelism ------------------------------
 
 # reverb_large's widths at PAR_LAYERS encoder layers (LSL first and last
-# around four middle ones), for every form (the all-phase run's time)
-PAR_LAYERS = 6
+# around two middle ones) and PAR_DEC decoder layers (one left, one
+# right), for every form (the all-phase run's time)
+PAR_LAYERS = 4
+PAR_DEC = {'num_blocks': 1, 'r_num_blocks': 1}
+PAR_LN_DEC = 3 * 2 + 2       # 3 LayerNorms a decoder layer, 2 after_norms
 # (name, mesh axes, Sharding options, model kind): the forms of two ranks
 # (gloo on one card; NCCL on two cards) and of four (NCCL on four cards).
 # Kinds (`par_configs`): 'base' reverb_large; 'moe' with the MoE
 # feed-forward, 8 experts, 2 a token; 'ln' with layer_norm conv modules and
 # a GPipe config of 2 stages in 4 microbatches (in order without a 'pipe'
 # axis); 'wav2vec2' the SSL family (its global code perplexity); 'ts' a
-# reverb_small-width student of a reverb_large teacher.  At one rank
-# ZeRO and TP split nothing, so world 1 runs the sharded step once
+# reverb_small-width student of a reverb_large teacher; the registry
+# families 'paraformer' (the SANM Paraformer at SanmConfig()'s widths,
+# PARA_LAYERS encoder and decoder blocks), 'whisper' (large-v3's widths,
+# 4 + 4 blocks), 'branchformer' (reverb_large's widths) and 'transducer'
+# (over the 'ln' conformer).  An `accum_grad` option is the step's, not
+# the Sharding's.  At one rank ZeRO and TP split nothing, so world 1 runs
+# the sharded step once
 PAR_FORMS_N = {2: (('ddp', {'data': 2}, {'zero': False}, 'base'),
                    ('zero12', {'data': 2}, {'zero': True}, 'base'),
                    ('zero3', {'data': 2}, {'zero3': True}, 'base'),
@@ -5451,24 +5476,37 @@ PAR_FORMS_N = {2: (('ddp', {'data': 2}, {'zero': False}, 'base'),
                    ('tp2_ln', {'model': 2}, {'zero': True}, 'ln'),
                    ('ddp2_wav2vec2', {'data': 2}, {'zero': False},
                     'wav2vec2'),
-                   ('ddp2_ts', {'data': 2}, {'zero': False}, 'ts')),
+                   ('ddp2_ts', {'data': 2}, {'zero': False}, 'ts'),
+                   ('tp2_paraformer', {'model': 2}, {'zero': True},
+                    'paraformer'),
+                   ('tp2_whisper', {'model': 2}, {'zero': True}, 'whisper'),
+                   ('seq2_branchformer', {'seq': 2}, {'zero': True},
+                    'branchformer'),
+                   ('pipe2_transducer', {'pipe': 2}, {'zero': True},
+                    'transducer'),
+                   ('ddp2_accum2_wav2vec2', {'data': 2},
+                    {'zero': False, 'accum_grad': 2}, 'wav2vec2')),
                4: (('dp2tp2', {'data': 2, 'model': 2}, {'zero': True},
                     'base'),
                    ('pipe2tp2', {'pipe': 2, 'model': 2}, {'zero': True},
                     'ln'),
                    ('seq2tp2', {'seq': 2, 'model': 2}, {'zero': True},
                     'base'))}
+# the kinds built by the registry (`init_model`) with their bundle's loss
+PAR_FAMILIES = ('wav2vec2', 'paraformer', 'whisper', 'branchformer',
+                'transducer')
+PAR_WHISPER_LAYERS = 4
 PAR_STEPS = 2                     # a step, then the timed one
-PAR_PIPE = {'stages': 2, 'microbatches': 4, 'region': 4}
+PAR_PIPE = {'stages': 2, 'microbatches': 4, 'region': PAR_LAYERS - 2}
 # the 'seq' forms' batches are padded to a frame count their two ranks
 # split: 2052 input frames, 512 subsampled (2051 gives 511)
 PAR_SEQ_FRAMES = 2052
 # the K1/K4/K5/K6 launches of a 'base' step, whatever the form (K1/K4 on
 # a TP rank's H/tp heads or a 'seq' rank's queries, K5/K6 on the
-# replicated rows): 5 LayerNorms a layer and after_norm, the decoder's 29
+# replicated rows): 5 LayerNorms a layer and after_norm, the decoder's
 PAR_STEP_LAUNCHES = {'K1': PAR_LAYERS, 'K4': PAR_LAYERS,
-                     'K5': 5 * PAR_LAYERS + 1 + LN_DEC,
-                     'K6': 5 * PAR_LAYERS + 1 + LN_DEC}
+                     'K5': 5 * PAR_LAYERS + 1 + PAR_LN_DEC,
+                     'K6': 5 * PAR_LAYERS + 1 + PAR_LN_DEC}
 # the f32 checks' optimizer: Adam's first step at lr 1e-3 (warm-up 1)
 # with eps 1e-3, so a parameter moves by up to 1e-3, in proportion to its
 # gradient below 1e-3, and agrees within PAR_F32_TOL only where its
@@ -5486,6 +5524,23 @@ PAR_F32_TOL = 1e-5
 # of its norm, the attention term's by ≈ 5e-7 (`row_split`), and a TP
 # rank's split GEMMs and sums feed it other roundings of its logits
 PAR_RANKS_F32_TOL = 1e-3
+# the kinds whose unwrapped f32 step is rough at the scale of one f32
+# ulp: the SANM Paraformer at random init, whose ReLU feed-forwards, CIF
+# fires and glancing draws make its gradient a piecewise function of its
+# input (moved by one ulp, the loss stays bit-equal and a leaf's gradient
+# moves by ≈ 1e-2 of its norm; a smooth activation takes the parameters'
+# move to 3e-7).  Their checks take PAR_ULP_CONF's optimizer, Adam with
+# eps far above any clipped gradient element, so that a parameter moves
+# by its gradient (Adam's first step is lr·g/(|g| + eps)) and no
+# difference saturates at 2·lr as under PAR_CHECK_CONF; each parameter's
+# update is compared with the reference's, ‖p − p_ref‖ / ‖p_ref − p_0‖,
+# and each metric is held to twice its floor in the same run (the
+# unwrapped step against itself with its input one ulp off, `par_refs`:
+# 'ulp') where that exceeds PAR_RANKS_F32_TOL.  A wrong gradient on any
+# leaf moves that leaf's update by its own size
+PAR_ULP_KINDS = ('paraformer',)
+PAR_ULP_CONF = {'optim_conf': {'lr': 1e3, 'eps': 1e3},
+                'scheduler_conf': {'warmup_steps': 1}}
 PAR_F32_B = 2
 # a bf16 step of two ranks against the unwrapped bf16 step on the same
 # batch: the two ranks' bf16 GEMMs run at other shapes (TP: the
@@ -5496,29 +5551,50 @@ PAR_BF16_TOL = {'loss': 5e-3, 'grad_norm': 5e-2}
 def par_configs(kind: str) -> dict:
     """The config of a PAR_FORMS_N model kind (the forms' comment)."""
     from reverb_tpu_torch.models import presets
+    if kind == 'paraformer':
+        configs = para_configs()
+        configs['encoder_conf'] = dict(configs['encoder_conf'],
+                                       num_blocks=PARA_LAYERS)
+        configs['decoder_conf'] = {'num_blocks': PARA_LAYERS}
+        configs['cif_conf'] = dict(configs['cif_conf'],
+                                   threshold=PARA_REF_THRESHOLD)
+        return configs
+    if kind == 'whisper':
+        return {'model': 'whisper', 'whisper_conf': dict(
+            WHISPER_CONF, n_audio_layer=PAR_WHISPER_LAYERS,
+            n_text_layer=PAR_WHISPER_LAYERS)}
     if kind == 'ts':
         configs = presets.reverb_config(vocab_size=VOCAB, **OBJ_TS_STUDENT)
     elif kind == 'wav2vec2':
         configs = objective_configs('wav2vec2', Path(tempfile.gettempdir()))
+    elif kind == 'transducer':
+        configs = transducer_configs()
     else:
         configs = presets_large()
     enc = dict(configs['encoder_conf'])
     if kind != 'ts':
         enc['num_blocks'] = PAR_LAYERS
+        configs = dict(configs, decoder_conf=dict(configs['decoder_conf'],
+                                                  **PAR_DEC))
     if kind == 'moe':
         enc.update(positionwise_layer_type='moe', n_expert=8,
                    n_expert_per_token=2)
-    if kind == 'ln':
+    if kind in ('ln', 'transducer'):
         enc.update(cnn_module_norm='layer_norm',
                    pipeline_stages=PAR_PIPE['stages'],
                    pipeline_microbatches=PAR_PIPE['microbatches'])
+    if kind == 'branchformer':
+        enc.update(FAM_ALT['branchformer'])
+        configs = dict(configs, encoder='branchformer',
+                       decoder='transformer')
     return dict(configs, encoder_conf=enc)
 
 
 def par_model(dev, kind: str, dtype, check: bool = False):
     """(model, optimizer, the family's loss or None) of a kind from seed
     SEED (the teacher of 'ts' from SEED + 1, frozen), with
-    PAR_CHECK_CONF's optimizer for an f32 check."""
+    PAR_CHECK_CONF's optimizer (PAR_ULP_CONF's for PAR_ULP_KINDS) for an
+    f32 check."""
     import torch
     from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
     from reverb_tpu_torch.models.registry import init_model
@@ -5526,9 +5602,10 @@ def par_model(dev, kind: str, dtype, check: bool = False):
     from reverb_tpu_torch.train.trainer import TrainConfig, build_optimizer
     configs = par_configs(kind)
     if check:
-        configs = {**configs, **PAR_CHECK_CONF}
+        configs = {**configs, **(PAR_ULP_CONF if kind in PAR_ULP_KINDS
+                                 else PAR_CHECK_CONF)}
     loss_fn = None
-    if kind == 'wav2vec2':
+    if kind in PAR_FAMILIES:
         bundle = init_model(dict(configs, dtype='bf16' if dtype ==
                                  torch.bfloat16 else 'fp32'),
                             torch.Generator(device=dev).manual_seed(SEED),
@@ -5555,9 +5632,23 @@ def par_model(dev, kind: str, dtype, check: bool = False):
 def par_batch(dev, kind: str, B: int, seed: int, seq: bool = False):
     """`train_batch` for a kind: a 'seq' form's padded to PAR_SEQ_FRAMES
     frames; wav2vec2's with its per-row draws (span masks, 100 negatives
-    a frame, gumbels), so that a data rank takes its rows' draws."""
+    a frame, gumbels), so that a data rank takes its rows' draws; the
+    transducer's `transducer_batch` (its joint's logits grow with U);
+    Whisper's 30 s of random log-mels and `whisper_batch`'s targets (f32:
+    the family has no bf16 route, its decoder's embeddings are f32, as
+    in the JAX package); the SANM Paraformer's targets from its own
+    vocabulary."""
     import torch
-    batch = train_batch(dev, B, seed, VOCAB)
+    if kind == 'whisper':
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        mel = torch.randn((B, 2 * WHISPER_CONF['n_audio_ctx'],
+                           WHISPER_CONF['n_mels']), generator=gen,
+                          device=dev)
+        return whisper_batch(dev, B, seed, mel)
+    if kind == 'transducer':
+        return transducer_batch(dev, B, seed, VOCAB)
+    batch = train_batch(dev, B, seed,
+                        PARA_VOCAB if kind == 'paraformer' else VOCAB)
     if seq:
         feats = batch['feats']
         batch['feats'] = torch.cat([feats, feats.new_zeros(
@@ -5621,22 +5712,24 @@ def counted_step(step, model, batch, gen, total) -> tuple:
 
 def sharded(model, opt, axes, opts, loss_fn=None):
     """The model and optimizer split over make_mesh(**axes) (the
-    `Sharding`), and their sharded step (accum 1 and clip 50; a family's
-    `loss_fn`)."""
+    `Sharding` of `opts`), and their sharded step (clip 50, the form's
+    accum_grad; a family's `loss_fn`)."""
     from reverb_tpu_torch.parallel import mesh as pm
     from reverb_tpu_torch.parallel.sharding import Sharding
     from reverb_tpu_torch.train.trainer import make_train_step
+    opts = dict(opts)
+    accum = opts.pop('accum_grad', 1)
     sh = Sharding(pm.make_mesh(**axes), **opts).apply(model, opt)
-    return sh, make_train_step(model.cfg, opt, 1, 50.0, sharding=sh,
+    return sh, make_train_step(model.cfg, opt, accum, 50.0, sharding=sh,
                                loss_fn=loss_fn)
 
 
-def timed_steps(step, model, batch, gen, total) -> tuple:
-    """PAR_STEPS counted steps: (first step's metrics, ms of the last,
-    each step's launches)."""
+def timed_steps(step, model, batch, gen, total, n=PAR_STEPS) -> tuple:
+    """n counted steps: (first step's metrics, ms of the last, each step's
+    launches)."""
     import torch
     metrics, walls, launches = [], [], []
-    for _ in range(PAR_STEPS):
+    for _ in range(n):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         m, got = counted_step(step, model, batch, gen, total)
@@ -5652,9 +5745,26 @@ def param_err(params, want) -> float:
                for p, w in zip(params, want))
 
 
-def worst_params(model, want, k=3) -> list:
+def update_errs(named, want, init) -> list:
+    """[(name, ‖p − w‖ / ‖w − p_0‖, ‖w − p_0‖)] of each parameter against
+    the reference `want` that moved from `init` in one step, worst
+    first (a parameter the reference left where it was: 0 if it stayed
+    too, else inf)."""
+    errs = []
+    for (n, p), w, p0 in zip(named, want, init):
+        p = p.detach().cpu()
+        moved = float((w - p0).norm())
+        gap = float((p - w).norm())
+        errs.append((n, gap / moved if moved else
+                     (0.0 if gap == 0 else math.inf), moved))
+    return sorted(errs, key=lambda e: -e[1])
+
+
+def worst_params(model, want, k=3, init=None) -> list:
     """The k parameters farthest from `want`: [(name, max abs error,
-    largest |value| of want)]."""
+    largest |value| of want)], or with `init` `update_errs`'."""
+    if init is not None:
+        return update_errs(model.named_parameters(), want, init)[:k]
     errs = [(n, float((p.detach() - w.to(p.device)).abs().max()),
              float(w.abs().max()))
             for (n, p), w in zip(model.named_parameters(), want)]
@@ -5791,10 +5901,13 @@ def parallel_world1(dev, seed) -> dict:
     return out
 
 
-def par_f32_rows(pipe: bool) -> int:
-    """The f32 check's rows: PAR_F32_B, or one a microbatch for a 'pipe'
-    form (so that its GPipe region runs)."""
-    return PAR_PIPE['microbatches'] if pipe else PAR_F32_B
+def par_f32_rows(axes, opts) -> int:
+    """The f32 check's rows: PAR_F32_B, one a microbatch for a 'pipe'
+    form (so that its GPipe region runs), one a micro-batch of each data
+    rank with accum_grad."""
+    if 'pipe' in axes:
+        return PAR_PIPE['microbatches']
+    return max(PAR_F32_B, axes.get('data', 1) * opts.get('accum_grad', 1))
 
 
 def form_dropout(axes) -> bool:
@@ -5818,8 +5931,10 @@ def parallel_child(spec: str) -> int:
       held to their plain versions (`checked_kernels`, with the (Tq, Tk)
       of every K1 call), and its metrics and gathered parameters compared
       with each reference of the form;
-    - bf16 at B = 8 (the rank's rows), no dropout: the first step's
-      metrics, ms of the last, peak GiB.
+    - a 'base' form, and every form under NCCL: bf16 at B = 8 (the
+      rank's rows), no dropout: the first step's metrics, ms of the
+      last; the other forms under gloo (one card): the f32 model's next
+      step, timed.  Peak GiB of the timed steps.
 
     Every step's launches are read, and 'seq' forms' split steps counted.
     Writes {form: results} or {form: error, whether it came from a
@@ -5847,11 +5962,11 @@ def parallel_child(spec: str) -> int:
         torch.cuda.empty_cache()
         model = opt = step = sh = None
         seq, pipe = 'seq' in axes, 'pipe' in axes
-        ref = refs.get((kind, seq, pipe), {})
+        ref = refs.get(par_ref_key(axes, opts, kind), {})
         res = out[name] = {}
         try:
-            f32_batch = par_batch(dev, kind, par_f32_rows(pipe), SEED + 1,
-                                  seq)
+            f32_batch = par_batch(dev, kind, par_f32_rows(axes, opts),
+                                  SEED + 1, seq)
             model, opt, loss_fn = par_model(dev, kind, torch.float32,
                                             check=True)
             sh, step = sharded(model, opt, axes, opts, loss_fn)
@@ -5865,33 +5980,55 @@ def parallel_child(spec: str) -> int:
             res['f32'] = {'metrics': m32, 'launches': got, 'dropout': drop,
                           'call_errs': errs, 'against': {},
                           'k1_tq_tk': sorted(shapes)}
-            keys = (('dropout', PAR_RANKS_F32_TOL),) if drop else (
-                ('whole', PAR_RANKS_F32_TOL),)
+            floor = ref.get('floor', {})
+            tol = {k: max(PAR_RANKS_F32_TOL, 2 * floor.get(k, 0.0))
+                   for k in ('loss', 'grad_norm', 'params')}
+            keys = (('dropout', tol),) if drop else (('whole', tol),)
             if kind == 'base' and set(axes) == {'data'}:
-                keys += (('rows', PAR_F32_TOL),)
+                keys += (('rows', dict.fromkeys(tol, PAR_F32_TOL)),)
+            init = ref.get('init')
             with sh.gathered():
                 for key, tol in keys if rank == 0 else ():
                     want, want_p = ref[key]
+                    worst = worst_params(model, want_p, init=init)
                     res['f32']['against'][key] = {
-                        'tol': tol,
+                        'tol': tol, 'update': init is not None,
                         'rel': {k: abs(m32[k] - want[k]) / abs(want[k])
                                 for k in ('loss', 'grad_norm')},
-                        'param_err': param_err(model.parameters(), want_p),
-                        'worst': worst_params(model, want_p)}
+                        'param_err': (worst[0][1] if init is not None else
+                                      param_err(model.parameters(), want_p)),
+                        'worst': worst}
             if rank == 0:
                 whole = ref['launches']
                 out['expect'][name] = (pipe_launches(whole)
                                        if 'pipe' in axes else whole)
-            del model, opt, step, sh
-            gc.collect()
-            torch.cuda.empty_cache()
-            torch.cuda.reset_peak_memory_stats(dev)
-            model, opt, loss_fn = par_model(dev, kind, torch.bfloat16)
-            sh, step = sharded(model, opt, axes, opts, loss_fn)
-            metrics, ms, launches = timed_steps(
-                step, model, pm.local_rows(par_batch(
-                    dev, kind, TRAIN_B, SEED + 2, seq), sh.mesh), None, total)
+            if backend == 'gloo' and kind != 'base':
+                # one card over gloo: the f32 model's next step is timed
+                # (the bf16 model and its steps are cut for the all-phase
+                # run's time, but for the 'base' forms, whose bf16 step is
+                # held to the unwrapped one; NCCL on several cards runs
+                # every form's), after a barrier: rank 0 compared the
+                # first step with its references meanwhile
+                dist.barrier()
+                torch.cuda.reset_peak_memory_stats(dev)
+                metrics, ms, launches = timed_steps(
+                    step, model, pm.local_rows(f32_batch, sh.mesh), gen,
+                    total, 1)
+                timed = ('f32', par_f32_rows(axes, opts))
+            else:
+                del model, opt, step, sh
+                gc.collect()
+                torch.cuda.empty_cache()
+                torch.cuda.reset_peak_memory_stats(dev)
+                model, opt, loss_fn = par_model(dev, kind, torch.bfloat16)
+                sh, step = sharded(model, opt, axes, opts, loss_fn)
+                metrics, ms, launches = timed_steps(
+                    step, model, pm.local_rows(par_batch(
+                        dev, kind, TRAIN_B, SEED + 2, seq), sh.mesh), None,
+                    total)
+                timed = ('bf16' if kind != 'whisper' else 'f32', TRAIN_B)
             res.update(metrics=metrics, ms=ms, launches=launches,
+                       timed=timed,
                        peak_gib=torch.cuda.max_memory_allocated(dev)
                        / 2**30,
                        seq_steps=dict(model.encoder.seq_steps))
@@ -5908,50 +6045,80 @@ def parallel_child(spec: str) -> int:
     return 0
 
 
+def par_ref_key(axes, opts, kind) -> tuple:
+    """What a form's unwrapped reference step depends on: (kind, 'seq'
+    form (its batch padded: the dropout masks' shapes follow the frames),
+    'pipe' form, accum_grad, the f32 check's rows)."""
+    return (kind, 'seq' in axes, 'pipe' in axes, opts.get('accum_grad', 1),
+            par_f32_rows(axes, opts))
+
+
 def par_refs(dev, world, total) -> dict:
-    """The unwrapped f32 steps (PAR_CHECK_CONF) on the whole f32 batch
-    that the multi-rank forms of `world` are held to, by model kind and
-    whether the batch is a 'seq' form's (padded: the dropout masks' shapes
-    follow the frames), {(kind, seq): {key: (metrics, parameters in host
-    memory, so the bf16 peaks stay the forms' own), 'launches': the
-    'whole' step's}} (and by whether it is a 'pipe' form's, of
-    `par_f32_rows` rows): 'whole' without dropout, 'dropout' with a generator
+    """The unwrapped f32 steps (`par_model`'s check) on the whole f32 batch
+    that the multi-rank forms of `world` are held to, by `par_ref_key`:
+    {key: {run: (metrics, parameters in host memory, so the bf16 peaks
+    stay the forms' own), 'launches': the 'whole' step's}}.  Runs: 'whole'
+    without dropout (at the forms' accum_grad), 'dropout' with a generator
     of seed 7 where a form draws dropout, and for the 'base' data-parallel
     forms 'rows': the batch as one micro-batch (accum_grad) for each data
     rank, no dropout — the row split's own arithmetic, which that form's
-    sums repeat."""
+    sums repeat.  For PAR_ULP_KINDS also 'init' (the parameters before
+    the step), 'ulp' (the held run with its input one ulp off) and
+    'floor' (how far 'ulp' lies from the held run, by metric)."""
     import torch
     from reverb_tpu_torch.train.trainer import make_train_step
     refs = {}
-    for kind, seq, pipe in dict.fromkeys(
-            (k, 'seq' in axes, 'pipe' in axes)
-            for _, axes, _, k in PAR_FORMS_N[world]):
-        forms = [axes for _, axes, _, k in PAR_FORMS_N[world]
-                 if k == kind and ('seq' in axes) == seq
-                 and ('pipe' in axes) == pipe]
-        runs = [('whole', 1, None)]
+    for ref in dict.fromkeys(par_ref_key(axes, opts, k)
+                             for _, axes, opts, k in PAR_FORMS_N[world]):
+        kind, seq, _, accum, rows = ref
+        forms = [axes for _, axes, opts, k in PAR_FORMS_N[world]
+                 if par_ref_key(axes, opts, k) == ref]
+        runs = [('whole', accum, None)]
         if any(form_dropout(axes) for axes in forms):
-            runs.append(('dropout', 1, 7))
+            runs.append(('dropout', accum, 7))
+        held = runs[-1]            # the run the forms are held to
+        if kind in PAR_ULP_KINDS:
+            runs.append(('ulp', accum, held[2]))
         runs += [('rows', n, None) for n in {
             axes['data'] for axes in forms
             if kind == 'base' and set(axes) == {'data'}}]
-        refs[kind, seq, pipe] = {}
-        batch = par_batch(dev, kind, par_f32_rows(pipe), SEED + 1, seq)
-        for key, accum, seed in runs:
+        refs[ref] = {}
+        batch = par_batch(dev, kind, rows, SEED + 1, seq)
+        for key, n, seed in runs:
             model, opt, loss_fn = par_model(dev, kind, torch.float32,
                                             check=True)
-            step = make_train_step(model.cfg, opt, accum, 50.0,
+            if kind in PAR_ULP_KINDS and 'init' not in refs[ref]:
+                names = [nm for nm, _ in model.named_parameters()]
+                refs[ref]['init'] = [p.detach().cpu()
+                                     for p in model.parameters()]
+            step = make_train_step(model.cfg, opt, n, 50.0,
                                    loss_fn=loss_fn)
             gen = None if seed is None else torch.Generator(
                 device=dev).manual_seed(seed)
-            metrics, got = counted_step(step, model, batch, gen, total)
-            refs[kind, seq, pipe][key] = (
+            b = batch if key != 'ulp' else dict(
+                batch, feats=batch['feats'] * (1 + 2 ** -23))
+            metrics, got = counted_step(step, model, b, gen, total)
+            refs[ref][key] = (
                 metrics, [p.detach().cpu() for p in model.parameters()])
             if key == 'whole':
-                refs[kind, seq, pipe]['launches'] = got
+                refs[ref]['launches'] = got
             del model, opt, step
             gc.collect()
             torch.cuda.empty_cache()
+        if 'ulp' in refs[ref]:
+            # the unwrapped step against itself with its input one ulp off
+            (m0, p0), (m1, p1) = refs[ref][held[0]], refs[ref]['ulp']
+            floor = {k: abs(m1[k] - m0[k]) / abs(m0[k])
+                     for k in ('loss', 'grad_norm')}
+            worst = update_errs(zip(names, p1), p0, refs[ref]['init'])
+            floor['params'] = worst[0][1]
+            refs[ref]['floor'] = floor
+            log(f'parallel {kind}: the unwrapped f32 step against itself '
+                f'with its input moved by one ulp: loss rel '
+                f'{floor["loss"]:.2e}, grad norm rel '
+                f'{floor["grad_norm"]:.2e}, worst updates (‖Δ‖ / ‖update‖) '
+                + ', '.join(f'{n} {e:.2e} of {w:.2e}' for n, e, w in
+                            worst[:3]))
     return refs
 
 
@@ -5977,10 +6144,11 @@ def parallel_ranks(backend: str, want: dict, world: int = 2) -> dict:
     """The run of `world` ranks over `backend`: processes of this script
     (all on cuda:0 under gloo; cuda:r under NCCL).  Each form's f32 step
     is held to the unwrapped f32 step of its kind (PAR_F32_TOL or
-    PAR_RANKS_F32_TOL on loss, grad norm and every parameter; rank 0's
-    kernel calls to RECIPE_CALL_TOL), a 'base' form's bf16 step to the
-    unwrapped bf16 step (PAR_BF16_TOL; the other kinds' bf16 steps are
-    timed, finite and equal across ranks), every rank's every step to the
+    PAR_RANKS_F32_TOL on loss, grad norm and every parameter, twice the
+    floor for PAR_ULP_KINDS; rank 0's kernel calls to RECIPE_CALL_TOL), a
+    'base' form's bf16 step to the unwrapped bf16 step (PAR_BF16_TOL;
+    the other timed steps finite and equal across ranks), every rank's
+    every step to the
     launches rank 0 expects of the form, 'seq' forms' K1 calls to Tq ≠ Tk
     and their steps to split, and the ranks to one another.  A 'pipe'
     form reports its bubble share, (S − 1)/(M + S − 1).  A form that
@@ -5999,73 +6167,92 @@ def parallel_ranks(backend: str, want: dict, world: int = 2) -> dict:
     ranks = [json.loads((Path(workdir) / f'rank{r}_{backend}.json')
                         .read_text()) for r in range(world)]
     where = 'one card' if backend == 'gloo' else f'{world} cards'
-    for name, axes, _, kind in PAR_FORMS_N[world]:
+    failed = []
+    for name, axes, opts, kind in PAR_FORMS_N[world]:
         rs = [r[name] for r in ranks]
         errors = [r['error'] for r in rs if 'error' in r]
         if errors:
             log(f'{what} on {where}: {name} cannot run: {errors[0]}')
             raise AssertionError(f'{what}: {name} failed')
-        expect = ranks[0]['expect'][name]
-        f32 = rs[0]['f32']
-        check_call_errs(f32['call_errs'], f'{what}: {name}, rank 0\'s f32 '
-                                          f'step')
-        m = rs[0]['metrics']
-        rel = {k: abs(m[k] - want[k]) / abs(want[k]) for k in PAR_BF16_TOL}
-        steps = [r['f32']['launches'] for r in rs] + [
-            got for r in rs for got in r['launches']]
-        extra = ''
-        if 'pipe' in axes:
-            S, M = PAR_PIPE['stages'], PAR_PIPE['microbatches']
-            extra = (f'; bubbles {S - 1} of {M + S - 1} ticks '
-                     f'({(S - 1) / (M + S - 1):.1%})')
-        if 'seq' in axes:
-            extra = (f'; K1 (Tq, Tk) {f32["k1_tq_tk"]}, split steps '
-                     f'{rs[0]["seq_steps"]}')
-            if not f32['k1_tq_tk'] or any(tq == tk for tq, tk in
-                                          f32['k1_tq_tk']) or \
-                    any(r['seq_steps']['whole'] for r in rs):
-                raise AssertionError(f'{what}: {name} did not split its '
-                                     f'time axis{extra}')
-        log(f'{what} on {where}: {name} ({kind}): f32 B='
-            f'{par_f32_rows("pipe" in axes)} '
-            f'({"with" if f32["dropout"] else "without"} dropout) against '
-            f'the unwrapped step '
-            + '; '.join(f'({key}, tolerance {a["tol"]:.0e}): loss rel '
-                        f'{a["rel"]["loss"]:.2e}, grad norm rel '
-                        f'{a["rel"]["grad_norm"]:.2e}, parameters within '
-                        f'{a["param_err"]:.2e} (worst: '
-                        + ', '.join(f'{n} {e:.2e} of {w:.2e}'
-                                    for n, e, w in a['worst']) + ')'
-                        for key, a in f32['against'].items())
-            + '; rank 0\'s calls against their plain versions, worst '
-            'share of scale '
-            + ', '.join(f'{n} {e:.2e}' for n, e in
-                        sorted(f32['call_errs'].items()))
-            + f'; bf16 B={TRAIN_B}: loss {m["loss"]:.5f}'
-            + (f' vs unwrapped {want["loss"]:.5f} (rel {rel["loss"]:.2e}), '
-               f'grad norm {m["grad_norm"]:.4f} vs {want["grad_norm"]:.4f} '
-               f'(rel {rel["grad_norm"]:.2e})' if kind == 'base' else
-               f', grad norm {m["grad_norm"]:.4f}')
-            + '; ms a step by rank '
-            + ' / '.join(f'{r["ms"]:.1f}' for r in rs) + ', peak GiB by rank '
-            + ' / '.join(f'{r["peak_gib"]:.2f}' for r in rs)
-            + f'; rank 0\'s launches a step {rs[0]["launches"][0]}{extra}')
-        if any(s != expect for s in steps):
-            raise AssertionError(f'{what}: {name}: launches a step {steps} '
-                                 f'!= {expect}')
-        if any(max(a['rel'].values()) > a['tol'] or a['param_err'] > a['tol']
-               for a in f32['against'].values()) or \
-                not f32['against'] or \
-                any(r['f32']['metrics'] != f32['metrics'] for r in rs):
-            raise AssertionError(f'{what}: {name}: the f32 step differs '
-                                 f'from the unwrapped one, or between '
-                                 f'ranks')
-        if (kind == 'base' and any(rel[k] > PAR_BF16_TOL[k] for k in rel)) \
-                or any(r['metrics'] != m for r in rs) or \
-                m['skipped'] != 0.0 or not math.isfinite(m['loss']):
-            raise AssertionError(f'{what}: {name} differs from the '
-                                 f'unwrapped step (tolerances '
-                                 f'{PAR_BF16_TOL}) or between ranks')
+        try:
+            expect = ranks[0]['expect'][name]
+            f32 = rs[0]['f32']
+            # the kernels the unwrapped step launches (no K1/K4 without
+            # rel-pos attention: the SANM Paraformer, Whisper)
+            check_call_errs(f32['call_errs'],
+                            f'{what}: {name}, rank 0\'s f32 step',
+                            [k for k, n in expect.items() if n])
+            m = rs[0]['metrics']
+            dtype, rows = rs[0]['timed']
+            # a reverb_large bf16 step is held to the unwrapped bf16 step
+            bf16_base = kind == 'base' and dtype == 'bf16'
+            rel = {k: abs(m[k] - want[k]) / abs(want[k])
+                   for k in PAR_BF16_TOL}
+            steps = [r['f32']['launches'] for r in rs] + [
+                got for r in rs for got in r['launches']]
+            extra = ''
+            if 'pipe' in axes:
+                S, M = PAR_PIPE['stages'], PAR_PIPE['microbatches']
+                extra = (f'; bubbles {S - 1} of {M + S - 1} ticks '
+                         f'({(S - 1) / (M + S - 1):.1%})')
+            if 'seq' in axes:
+                extra = (f'; K1 (Tq, Tk) {f32["k1_tq_tk"]}, split steps '
+                         f'{rs[0]["seq_steps"]}')
+                if not f32['k1_tq_tk'] or any(tq == tk for tq, tk in
+                                              f32['k1_tq_tk']) or \
+                        any(r['seq_steps']['whole'] for r in rs):
+                    raise AssertionError(f'{what}: {name} did not split its '
+                                         f'time axis{extra}')
+            log(f'{what} on {where}: {name} ({kind}): f32 B='
+                f'{par_f32_rows(axes, opts)} '
+                f'({"with" if f32["dropout"] else "without"} dropout) against '
+                f'the unwrapped step '
+                + '; '.join(f'({key}, tolerances '
+                            + ' / '.join(f'{t:.2e}' for t in
+                                         a['tol'].values())
+                            + f'): loss rel {a["rel"]["loss"]:.2e}, grad '
+                            f'norm rel {a["rel"]["grad_norm"]:.2e}, '
+                            + ('updates (‖Δ‖ / ‖update‖)' if a['update']
+                               else 'parameters')
+                            + f' within {a["param_err"]:.2e} (worst: '
+                            + ', '.join(f'{n} {e:.2e} of {w:.2e}'
+                                        for n, e, w in a['worst']) + ')'
+                            for key, a in f32['against'].items())
+                + '; rank 0\'s calls against their plain versions, worst '
+                'share of scale '
+                + ', '.join(f'{n} {e:.2e}' for n, e in
+                            sorted(f32['call_errs'].items()))
+                + f'; {dtype} B={rows} (timed): loss {m["loss"]:.5f}'
+                + (f' vs unwrapped {want["loss"]:.5f} (rel {rel["loss"]:.2e}), '
+                   f'grad norm {m["grad_norm"]:.4f} vs {want["grad_norm"]:.4f} '
+                   f'(rel {rel["grad_norm"]:.2e})' if bf16_base else
+                   f', grad norm {m["grad_norm"]:.4f}')
+                + '; ms a step by rank '
+                + ' / '.join(f'{r["ms"]:.1f}' for r in rs) + ', peak GiB by rank '
+                + ' / '.join(f'{r["peak_gib"]:.2f}' for r in rs)
+                + f'; rank 0\'s launches a step {rs[0]["launches"][0]}{extra}')
+            if any(s != expect for s in steps):
+                raise AssertionError(f'{what}: {name}: launches a step {steps} '
+                                     f'!= {expect}')
+            if any(a['param_err'] > a['tol']['params'] or
+                   any(a['rel'][k] > a['tol'][k] for k in a['rel'])
+                   for a in f32['against'].values()) or \
+                    not f32['against'] or \
+                    any(r['f32']['metrics'] != f32['metrics'] for r in rs):
+                raise AssertionError(f'{what}: {name}: the f32 step differs '
+                                     f'from the unwrapped one, or between '
+                                     f'ranks')
+            if (bf16_base and any(rel[k] > PAR_BF16_TOL[k] for k in rel)) \
+                    or any(r['metrics'] != m for r in rs) or \
+                    m['skipped'] != 0.0 or not math.isfinite(m['loss']):
+                raise AssertionError(f'{what}: {name} differs from the '
+                                     f'unwrapped step (tolerances '
+                                     f'{PAR_BF16_TOL}) or between ranks')
+        except AssertionError as e:     # every form is reported
+            log(f'{what} on {where}: {name} FAILED: {e}')
+            failed.append(name)
+    if failed:
+        raise AssertionError(f'{what}: {failed} failed (above)')
     total = {}
     for r in ranks:
         for n, v in r['total'].items():

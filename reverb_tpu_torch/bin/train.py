@@ -40,14 +40,18 @@ built by `models/registry.py:init_model` and trained through its bundle's
 loss.  A `ts_conf` (teacher-student distillation) builds its teacher from
 `teacher_yaml` and `teacher_checkpoint`, frozen, and trains the student on
 `train/teacher_student.py:ts_loss` (the teacher whole and frozen on
-every rank, outside the sharding).  Both train over 'data' (DDP, ZeRO-1/2
-and ZeRO-3: each loss is the rank's share of the global batch's,
-parallel/global_batch.py); under 'model', 'seq', 'expert' or 'pipe', or
-with accum_grad above 1 over several processes, they raise
-NotImplementedError (ROADMAP item 15.8b).  The MoE feed-forward
-(`encoder_conf.positionwise_layer_type: moe`) is a conformer option and
-trains as any conformer.  `--prng_impl` other than auto raises
-NotImplementedError.
+every rank, outside the sharding).  Both train under every axis, as the
+asr_model does: each loss is the rank's share of the global
+(micro-)batch's (parallel/global_batch.py, accum_grad too); under
+'model' the layers with a split form split and the rest run whole
+(parallel/sharding.py); under 'seq' the conformer and Branchformer
+encoders split their time axis and the others run whole on every rank;
+under 'expert' an MoE conformer splits its experts; under 'pipe' a
+conformer encoder whose config asks for the stages runs its GPipe
+region.  'seq' with 'pipe' raises NotImplementedError (ROADMAP item
+3).  The MoE feed-forward (`encoder_conf.positionwise_layer_type: moe`)
+is a conformer option and trains as any conformer.  `--prng_impl` other
+than auto raises NotImplementedError.
 """
 
 from __future__ import annotations
@@ -125,23 +129,17 @@ SPLIT_FLAGS = ('num_devices_model', 'num_devices_seq', 'num_devices_expert',
 
 
 def check_supported(args, configs):
-    """Raise NotImplementedError for what the port does not train (and
-    ValueError for an unknown model family)."""
+    """The family `configs` trains (`registry.model_kind`), before any
+    rendezvous: NotImplementedError for what the port does not train,
+    ValueError for an unknown family."""
     from reverb_tpu_torch.models.registry import model_kind
+    from reverb_tpu_torch.parallel.sharding import check_axes
     if args.prng_impl != 'auto':
         raise NotImplementedError(
             f"--prng_impl {args.prng_impl}: the JAX package's PRNG choice; "
             f"the port's dropout draws from torch's generator")
-    kind = model_kind(configs)
-    split = [f'--{f} {getattr(args, f)}' for f in SPLIT_FLAGS
-             if getattr(args, f) > 1]
-    if split and (kind != 'asr_model' or configs.get('ts_conf')):
-        what = (f'model {kind!r}' if kind != 'asr_model'
-                else 'ts_conf (teacher-student)')
-        raise NotImplementedError(
-            f'{what} under {", ".join(split)}: a registry family and a '
-            f"ts_conf train over 'data' only; their layers' split forms "
-            f'are ROADMAP item 15.8b')
+    check_axes(args.num_devices_seq, args.num_devices_pipe)
+    return model_kind(configs)
 
 
 def teacher_student_loss(ts_conf, dev):
@@ -184,7 +182,7 @@ def main(argv=None):
     from reverb_tpu_torch.frontend.cmvn import load_cmvn_from_configs
     from reverb_tpu_torch.frontend.device_feats import frontend_from_configs
     from reverb_tpu_torch.models.asr_model import ModelConfig, build_model
-    from reverb_tpu_torch.models.registry import init_model, model_kind
+    from reverb_tpu_torch.models.registry import init_model
     from reverb_tpu_torch.parallel.mesh import (axis_rank, axis_size,
                                                 dropout_generator,
                                                 init_distributed, make_mesh)
@@ -204,7 +202,7 @@ def main(argv=None):
     from reverb_tpu_torch.utils.tracking import init_tracking
 
     configs = override_config(load_config(args.config), args.override_config)
-    check_supported(args, configs)
+    kind = check_supported(args, configs)
     if args.num_devices_pipe > 1:
         # the GPipe region runs when encoder_conf.pipeline_stages is the
         # mesh's 'pipe' size (models/encoder.py), as in the JAX package
@@ -259,7 +257,6 @@ def main(argv=None):
                        partition=False)
 
     tc = TrainConfig.from_config(configs)
-    kind = model_kind(configs)
     loss_fn = None
     if kind != 'asr_model':
         # a registry family: its bundle's model and loss; the

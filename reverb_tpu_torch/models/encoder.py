@@ -515,6 +515,15 @@ class ConformerEncoderLayer(nn.Module):
         return x, new_att, new_cnn
 
 
+def count_seq_step(encoder, split: bool):
+    """Count a training forward of an encoder under 'seq' (its
+    `seq_split` set by parallel/sharding.py) in its `seq_steps`: split
+    over the group, or whole on every rank of it (JAX's numbers without
+    the memory saving)."""
+    if encoder.seq_split is not None and torch.is_grad_enabled():
+        encoder.seq_steps['split' if split else 'whole'] += 1
+
+
 def key_mask(kv_lens, x, mask=None):
     """`mask` when given, else the key-length mask (B, 1, T) of kv_lens."""
     if mask is not None:
@@ -605,6 +614,10 @@ class ConformerEncoder(nn.Module):
         self.seq_split = None
         self.pipe = None
         self.seq_steps = {'split': 0, 'whole': 0}
+        # True where the caller runs the layers one by one (the SSL
+        # objectives' ssl_encoder_blocks, as in the JAX package): no
+        # GPipe region then
+        self.whole_stack = False
         self.global_cmvn = GlobalCMVN(cfg.input_size) if with_cmvn else None
         self.embed = input_layer(cfg)
         if cfg.encoder_type == 'transformer':
@@ -626,9 +639,11 @@ class ConformerEncoder(nn.Module):
         (reverb_tpu/models/encoder.py:encoder_forward): the longest run of
         the homogeneous (non-LSL) middle stack whose length is a multiple
         of `stages`; None when the config asks for no pipeline of that
-        many stages or the run is shorter."""
+        many stages, the run is shorter, or the caller runs the layers
+        (`whole_stack`)."""
         cfg = self.cfg
-        if cfg.pipeline_stages <= 1 or cfg.pipeline_stages != stages:
+        if cfg.pipeline_stages <= 1 or cfg.pipeline_stages != stages or \
+                self.whole_stack:
             return None
         lo = 1 if cfg.num_langs > 0 else 0
         hi = cfg.num_blocks - 1 if cfg.num_langs > 0 else cfg.num_blocks
@@ -658,8 +673,7 @@ class ConformerEncoder(nn.Module):
               and cfg.selfattention_layer_type == 'rel_selfattn'
               and not chunked and not return_layers
               and block >= max(halo, 1))
-        if torch.is_grad_enabled():
-            self.seq_steps['split' if ok else 'whole'] += 1
+        count_seq_step(self, ok)
         return tpc.TimeSplit(group, rank, n, length) if ok else None
 
     def _run_region(self, xs, lo, hi, kv_lens, pos_emb, masks, generator,

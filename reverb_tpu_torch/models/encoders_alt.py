@@ -47,10 +47,11 @@ from reverb_tpu_torch.models.attention import (MultiHeadedAttention,
 from reverb_tpu_torch.models.encoder import (ConformerEncoderLayer,
                                              Conv2dSubsampling4,
                                              ConvolutionModule, EncoderConfig,
-                                             FeedForward)
+                                             FeedForward, count_seq_step)
 from reverb_tpu_torch.models.modules import (ACTIVATIONS, BatchNorm, Conv1d,
                                              Conv2d, LayerNorm, Linear,
                                              dropout, glu, swish)
+from reverb_tpu_torch.parallel import collectives as tpc
 
 
 def _key_mask(xs, xs_lens):
@@ -63,7 +64,16 @@ class _AltEncoder(nn.Module):
     """The global CMVN stats of an alternative-encoder model: a constant
     of the JAX package's loss closure (reverb_tpu/models/registry.py:
     _alt_encoder_bundle), so non-persistent buffers here (no state-dict
-    entry), set after construction by `set_cmvn`."""
+    entry), set after construction by `set_cmvn`.  Under 'seq'
+    (`seq_split`, parallel/sharding.py) the Branchformers split their time
+    axis; the Squeezeformer and the Efficient Conformer, whose layers
+    change the frame rate, run whole on every rank (`seq_steps` counts
+    both)."""
+
+    def __init__(self):
+        super().__init__()
+        self.seq_split = None
+        self.seq_steps = {'split': 0, 'whole': 0}
 
     def set_cmvn(self, mean, istd):
         dev = next(self.parameters()).device
@@ -96,17 +106,44 @@ class ConvolutionalGatingMLP(nn.Module):
                                    'conv': Conv1d(h, h, kernel, groups=h)})
         self.channel_proj2 = Linear(h, size)
 
-    def forward(self, x, generator=None):
+    def forward(self, x, generator=None, seq=None):
+        """x (B, T, D); under 'seq' (`seq`, a TimeSplit) this rank's time
+        block, the gate's conv reading its halo (`_gate_halo`) and the
+        dropout taking the block of the unsplit mask."""
         x = F.gelu(self.channel_proj1['0'](x))
         xr, xg = x.chunk(2, -1)
         k = self.kernel
-        if self.causal:
+        conv = self.csgu['conv']
+        if seq is not None:
+            xg = conv.depthwise(self._gate_halo(self.csgu['norm'](xg), seq),
+                                0)
+        elif self.causal:
             xg = self.csgu['norm'](F.pad(xg, (0, 0, k - 1, 0)))
-            xg = self.csgu['conv'].depthwise(xg, 0)
+            xg = conv.depthwise(xg, 0)
         else:
-            xg = self.csgu['conv'].depthwise(self.csgu['norm'](xg),
-                                             (k - 1) // 2)
-        return self.channel_proj2(dropout(xr * xg, self.rate, generator))
+            xg = conv.depthwise(self.csgu['norm'](xg), (k - 1) // 2)
+        return self.channel_proj2(dropout(
+            xr * xg, self.rate, generator,
+            None if seq is None else seq.entry(1)))
+
+    def _gate_halo(self, xg, seq):
+        """A 'seq' rank's normalised gate with its frames past the axis
+        zeroed (the unsplit conv pads zeros there) and the conv's halo
+        around it: k−1 frames of the previous block when causal, rank 0's
+        being the LayerNorm of zero frames, which is its bias (the
+        unsplit left pad enters the norm; no K5 launch for it), else
+        (k−1)/2 of each neighbour's."""
+        k = self.kernel
+        xg = torch.where(seq.valid(xg.device)[None, :, None], xg,
+                         torch.zeros((), dtype=xg.dtype, device=xg.device))
+        if not self.causal:
+            return seq.halo(xg, (k - 1) // 2, (k - 1) // 2)
+        xg = seq.halo(xg, k - 1, 0)
+        if seq.rank == 0:
+            edge = self.csgu['norm'].bias.to(xg.dtype).expand(
+                xg.shape[0], k - 1, xg.shape[2])
+            xg = torch.cat([edge, xg[:, k - 1:]], 1)
+        return xg
 
 
 # ------------------------------ branchformer ------------------------------
@@ -169,28 +206,31 @@ class BranchformerLayer(nn.Module):
             self.weight_proj1 = Linear(d, 1)
             self.weight_proj2 = Linear(d, 1)
 
-    def forward(self, x, kv_lens, pos_emb, mask_pad, generator=None):
+    def forward(self, x, kv_lens, pos_emb, mask_pad, generator=None,
+                seq=None):
+        """Under 'seq' (`seq`, a TimeSplit; rel-pos attention, a concat or
+        fixed average merge) x is this rank's time block: the attention
+        keeps its queries and gathers the keys and values (K1 with Tq the
+        block), the convs read halos, and each dropout takes its block of
+        the unsplit mask."""
         cfg = self.cfg
+        split = None if seq is None else seq.entry(1)
 
         def drop(v):
-            return dropout(v, cfg.dropout_rate, generator)
+            return dropout(v, cfg.dropout_rate, generator, split)
 
         if cfg.e_branchformer:
             x = x + 0.5 * drop(self.feed_forward_macaron(
-                self.norm_ff_macaron(x), generator))
+                self.norm_ff_macaron(x), generator, seq))
         xn = self.norm_mha(x)
-        x1 = drop(self.attn(xn, kv_lens, pos_emb) if self.rel
+        x1 = drop(self.attn(xn, kv_lens, pos_emb, seq=seq) if self.rel
                   else self.attn(xn, xn, xn, mask_pad))
-        x2 = drop(self.cgmlp(self.norm_mlp(x), generator))
+        x2 = drop(self.cgmlp(self.norm_mlp(x), generator, seq))
         if cfg.e_branchformer:
             cat = torch.cat([x1, x2], -1)
-            k = cfg.merge_conv_kernel
-            conv = self.depthwise_conv_fusion
-            merged = cat + (conv.depthwise(F.pad(cat, (0, 0, k - 1, 0)), 0)
-                            if cfg.causal else
-                            conv.depthwise(cat, (k - 1) // 2))
-            x = x + drop(self.merge_proj(merged))
-            x = x + 0.5 * drop(self.feed_forward(self.norm_ff(x), generator))
+            x = x + drop(self.merge_proj(cat + self._fusion(cat, seq)))
+            x = x + 0.5 * drop(self.feed_forward(self.norm_ff(x), generator,
+                                                 seq))
             return self.norm_final(x)
         if cfg.merge_method == 'concat':
             merged = self.merge_proj(torch.cat([x1, x2], -1))
@@ -218,6 +258,21 @@ class BranchformerLayer(nn.Module):
             raise ValueError(cfg.merge_method)
         return self.norm_final(x + drop(merged))
 
+    def _fusion(self, cat, seq):
+        """E-Branchformer's depthwise conv over the concatenated branches
+        (zero padded; under 'seq' the frames past the axis zeroed and the
+        neighbours' frames read as a halo)."""
+        k = self.cfg.merge_conv_kernel
+        conv = self.depthwise_conv_fusion
+        if seq is None:
+            return (conv.depthwise(F.pad(cat, (0, 0, k - 1, 0)), 0)
+                    if self.cfg.causal else conv.depthwise(cat, (k - 1) // 2))
+        left, right = (k - 1, 0) if self.cfg.causal else ((k - 1) // 2,) * 2
+        cat = torch.where(seq.valid(cat.device)[None, :, None], cat,
+                          torch.zeros((), dtype=cat.dtype,
+                                      device=cat.device))
+        return conv.depthwise(seq.halo(cat, left, right), 0)
+
 
 class BranchformerEncoder(_AltEncoder):
     """conv2d subsampling → Branchformer / E-Branchformer layers →
@@ -236,14 +291,41 @@ class BranchformerEncoder(_AltEncoder):
                                       for _ in range(cfg.num_blocks))
         self.after_norm = LayerNorm(cfg.output_size)
 
+    def _time_split(self, T: int):
+        """The TimeSplit of a forward of T input frames under 'seq', or
+        None when it runs whole: the split needs the frames to divide by
+        the group (JAX's `constrain`), rel-pos attention, a merge that
+        does not pool over time, and blocks as long as the convs' halos."""
+        if self.seq_split is None:
+            return None
+        cfg = self.cfg
+        group, rank, n = self.seq_split
+        length = ((T - 1) // 2 - 1) // 2
+        csgu = cfg.causal if cfg.e_branchformer else True
+        k = cfg.cgmlp_conv_kernel
+        halo = max(k - 1 if csgu else (k - 1) // 2,
+                   cfg.merge_conv_kernel - 1 if cfg.e_branchformer else 0)
+        ok = (T % n == 0 and cfg.pos_enc_layer_type == 'rel_pos'
+              and (cfg.e_branchformer or cfg.merge_method != 'learned_ave')
+              and -(-length // n) >= max(halo, 1))
+        count_seq_step(self, ok)
+        return tpc.TimeSplit(group, rank, n, length) if ok else None
+
     def forward(self, xs, xs_lens, generator=None):
-        """(B, T, F) → ((B, T', D), masks (B, 1, T'))."""
+        """(B, T, F) → ((B, T', D), masks (B, 1, T')).  Under 'seq' the
+        layers run on this rank's block of the subsampled frames and the
+        output is gathered."""
         masks = _key_mask(xs, xs_lens)
-        xs, pos_emb, masks = self.embed(self._cmvn(xs), masks, generator)
+        seq = self._time_split(xs.shape[1])
+        xs, pos_emb, masks = self.embed(self._cmvn(xs), masks, generator,
+                                        seq)
         kv_lens = masks[:, 0, :].sum(-1).to(torch.int32)
         for layer in self.encoders:
-            xs = layer(xs, kv_lens, pos_emb, masks, generator)
-        return self.after_norm(xs), masks
+            xs = layer(xs, kv_lens, pos_emb, masks, generator, seq)
+        xs = self.after_norm(xs)
+        if seq is not None:
+            xs = seq.gather(xs)[:, :seq.length]
+        return xs, masks
 
 
 # ------------------------------ squeezeformer ------------------------------
@@ -327,7 +409,7 @@ class SqueezeformerAttention(RelPositionMultiHeadedAttention):
             bd = rel_shift(bd)
         scores = (ac + bd) / math.sqrt(q.shape[-1])
         ctx = _masked_softmax_av(scores, mask[:, None], v, self.rate,
-                                 generator)
+                                 generator, self.tp_split)
         return self.linear_out(_merge_heads(ctx))
 
 
@@ -404,6 +486,7 @@ class SqueezeformerEncoder(_AltEncoder):
 
     def forward(self, xs, xs_lens, generator=None):
         cfg = self.cfg
+        count_seq_step(self, False)
         masks = _key_mask(xs, xs_lens)
         x4 = torch.relu(self.embed['pw_conv'](self._cmvn(xs)[:, None]))
         x4 = torch.relu(self.embed['dw_conv'](x4))
@@ -451,7 +534,10 @@ class GroupedRelPositionMultiHeadedAttention(RelPositionMultiHeadedAttention):
     (d_k → d_k·g per head), the mask strided ::g, scores scaled by
     √(d_k·g), the context un-grouped and trimmed
     (efficient_conformer/attention.py:28-260); pos_bias_u/v are
-    (h, d_k·g).  No rel_shift.  Plain matmuls and an f32 masked softmax."""
+    (h, d_k·g).  No rel_shift.  Plain matmuls and an f32 masked softmax.
+    A grouped head reads g consecutive frames of every channel, not a
+    block of channels, so under 'model' the layer runs whole on every
+    rank (parallel/sharding.py:_whole_form)."""
 
     def __init__(self, n_head: int, n_feat: int, group_size: int):
         super().__init__(n_head, n_feat, True)
@@ -603,6 +689,7 @@ class EfficientConformerEncoder(_AltEncoder):
 
     def forward(self, xs, xs_lens, generator=None):
         cfg = self.cfg
+        count_seq_step(self, False)
         masks = _key_mask(xs, xs_lens)
         xs, pos_emb, masks = self.embed(self._cmvn(xs), masks, generator)
         att_mask = masks & masks.transpose(1, 2)

@@ -399,7 +399,9 @@ def sanm_paraformer_loss(model, batch: Dict, generator=None) -> Dict:
         given = {'u': batch['glance_u']} if 'glance_u' in batch else {}
         replace = glancing_replace(tgt_mask, target_num, generator, dev,
                                    **given)
-        gt_emb = model.decoder.embed['0'].weight[labels.to(torch.int64)]
+        # the embedding layer's lookup (its rows are a 'model' rank's
+        # block of the vocabulary under tensor parallelism)
+        gt_emb = model.decoder.embed['0'](labels.to(torch.int64))
         sematic = torch.where(replace[:, :, None], gt_emb.to(acoustic.dtype),
                               acoustic)
         sematic = torch.where(tgt_mask[:, :, None], sematic, zero)

@@ -40,8 +40,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from reverb_tpu_torch.models.attention import _masked_softmax
+from reverb_tpu_torch.models.encoder import count_seq_step
 from reverb_tpu_torch.models.modules import (Conv1d, Embedding, LayerNorm,
                                              Linear, dropout)
+from reverb_tpu_torch.parallel import collectives as tpc
 
 
 @dataclasses.dataclass(frozen=True)
@@ -104,15 +106,15 @@ def pad_mask(lens, T: int):
 # ---------------------------- fsmn / attention ----------------------------
 
 def fsmn(block: Conv1d, v, mask_pad, pad, rate: float = 0.0,
-         generator=None):
+         generator=None, split=None):
     """FSMN memory: mask → depthwise conv (asymmetric pad (left, right), no
     bias) → + its input → dropout → mask.  v (B, T, C), mask_pad (B, 1, T)
-    bool."""
+    bool; `split` as in modules.keep_mask (a 'model' rank's channels)."""
     m = mask_pad[:, 0, :, None].to(v.dtype)
     v = v * m
     y = F.conv1d(F.pad(v.transpose(1, 2), pad), block.weight.to(v.dtype),
                  groups=block.groups).transpose(1, 2)
-    return dropout(y + v, rate, generator) * m
+    return dropout(y + v, rate, generator, split) * m
 
 
 def _heads(x, h: int):
@@ -121,7 +123,14 @@ def _heads(x, h: int):
 
 
 class MultiHeadedAttentionSANM(nn.Module):
-    """softmax(qkᵀ/√dk)·v → linear_out, plus the fsmn memory over v."""
+    """softmax(qkᵀ/√dk)·v → linear_out, plus the fsmn memory over v.
+
+    Split over a 'model' group (parallel/sharding.py; `tp_split` = (-1,
+    rank, n)) a rank holds its heads' rows of each third of linear_q_k_v,
+    the fsmn taps of its v channels and linear_out's columns of them: its
+    memory enters the row-parallel sum at its channels, so the sum is the
+    unsplit output, and the memory's dropout keeps the rank's channels of
+    the unsplit mask."""
 
     def __init__(self, n_head: int, in_feat: int, n_feat: int, kernel: int,
                  pad, rate: float):
@@ -133,23 +142,33 @@ class MultiHeadedAttentionSANM(nn.Module):
         self.fsmn_block = Conv1d(n_feat, n_feat, kernel, groups=n_feat,
                                  bias=False)
         self.linear_out = Linear(n_feat, n_feat)
+        self.tp_split = None
 
     def forward(self, x, mask, mask_pad, generator=None):
         """x (B, T, in); mask (B, T, T) bool; mask_pad (B, 1, T) bool."""
         B, T, _ = x.shape
         q, k, v = self.linear_q_k_v(x).chunk(3, dim=-1)
         mem = fsmn(self.fsmn_block, v, mask_pad, self.pad, self.rate,
-                   generator)
+                   generator, self.tp_split)
         q, k, v = _heads(q, self.h), _heads(k, self.h), _heads(v, self.h)
         scores = torch.matmul(q, k.transpose(-1, -2)) / math.sqrt(q.shape[-1])
         att = _masked_softmax(scores, mask[:, None], x.dtype)
         ctx = torch.matmul(att, v).transpose(1, 2).reshape(B, T, -1)
-        return self.linear_out(ctx) + mem
+        if self.tp_split is None:
+            return self.linear_out(ctx) + mem
+        _, rank, n = self.tp_split
+        out = self.linear_out
+        c = mem.shape[-1]
+        part = F.linear(ctx, out.weight.to(ctx.dtype)) + F.pad(
+            mem, (rank * c, (n - rank - 1) * c))
+        return tpc.reduce_out(part, out.tp[1]) + out.bias.to(ctx.dtype)
 
 
 class MultiHeadAttentionCross(nn.Module):
     """Cross-attention: q from the decoder stream, one fused k‖v projection
-    of the encoder memory; q is scaled by dk^-½ before the product."""
+    of the encoder memory; q is scaled by dk^-½ before the product.  Split
+    over a 'model' group a rank holds its heads' rows of linear_q and of
+    each half of linear_k_v (parallel/sharding.py)."""
 
     def __init__(self, n_head: int, n_feat: int, target_size: int):
         super().__init__()
@@ -172,11 +191,16 @@ class MultiHeadAttentionCross(nn.Module):
 
 # ------------------------------ encoder ------------------------------
 
-class _FeedForward(nn.Module):
+class FeedForwardSANM(nn.Module):
+    """The encoder layer's w_1 and w_2 (the layer applies them); split
+    over a 'model' group (`tp_split` = (-1, rank, n)) a rank holds its
+    hidden units and drops them with its block of the unsplit mask."""
+
     def __init__(self, d: int, hidden: int):
         super().__init__()
         self.w_1 = Linear(d, hidden)
         self.w_2 = Linear(hidden, d)
+        self.tp_split = None
 
 
 class AliEncoderLayer(nn.Module):
@@ -190,7 +214,8 @@ class AliEncoderLayer(nn.Module):
         self.self_attn = MultiHeadedAttentionSANM(
             cfg.attention_heads, in_size, cfg.output_size, cfg.kernel_size,
             cfg.fsmn_pad, cfg.dropout_rate)
-        self.feed_forward = _FeedForward(cfg.output_size, cfg.linear_units)
+        self.feed_forward = FeedForwardSANM(cfg.output_size,
+                                            cfg.linear_units)
         self.norm1 = LayerNorm(in_size)
         self.norm2 = LayerNorm(cfg.output_size)
 
@@ -199,7 +224,8 @@ class AliEncoderLayer(nn.Module):
                                      generator), self.rate, generator)
         x = att if self.resize else x + att
         ff = self.feed_forward
-        h = dropout(torch.relu(ff.w_1(self.norm2(x))), self.rate, generator)
+        h = dropout(torch.relu(ff.w_1(self.norm2(x))), self.rate, generator,
+                    ff.tp_split)
         return x + dropout(ff.w_2(h), self.rate, generator)
 
 
@@ -207,11 +233,16 @@ class SanmEncoder(nn.Module):
     """LFR → CMVN → x·√output_size + whisper sinusoids (from row 1) →
     encoders0 → encoders → after_norm.  The CMVN stats over the post-LFR
     dim are non-persistent buffers (`set_cmvn`): the JAX package keeps
-    them outside the parameters, a constant of its loss and forward."""
+    them outside the parameters, a constant of its loss and forward.
+    Under 'seq' (`seq_split`, parallel/sharding.py) it runs whole on every
+    rank (the LFR stacking and the fsmn memory have no split form;
+    `seq_steps` counts the forwards)."""
 
     def __init__(self, cfg: SanmConfig):
         super().__init__()
         self.cfg = cfg
+        self.seq_split = None
+        self.seq_steps = {'split': 0, 'whole': 0}
         self.encoders0 = nn.ModuleList([AliEncoderLayer(cfg,
                                                         cfg.input_size)])
         self.encoders = nn.ModuleList(
@@ -232,6 +263,7 @@ class SanmEncoder(nn.Module):
         """feats raw (B, T, 80) fbank, feats_lens (B,) → (out (B, T', D),
         mask (B, 1, T') bool)."""
         cfg = self.cfg
+        count_seq_step(self, False)
         x, lens = lfr(feats, feats_lens, cfg.lfr_m, cfg.lfr_n)
         if self.cmvn_mean is not None:
             x = (x - self.cmvn_mean.to(x.dtype)) * self.cmvn_istd.to(x.dtype)
@@ -249,7 +281,10 @@ class SanmEncoder(nn.Module):
 # ------------------------------ decoder ------------------------------
 
 class FeedForwardDecoderSANM(nn.Module):
-    """w_2(LayerNorm(dropout(relu(w_1 x)))), w_2 without bias."""
+    """w_2(LayerNorm(dropout(relu(w_1 x)))), w_2 without bias.  Split over
+    a 'model' group (`tp_split`, parallel/sharding.py) a rank holds its
+    hidden units, and the LayerNorm normalises the ranks' units gathered
+    (`LayerNorm.tp`, kernel K5 on the whole rows)."""
 
     def __init__(self, d: int, hidden: int, rate: float):
         super().__init__()
@@ -257,9 +292,11 @@ class FeedForwardDecoderSANM(nn.Module):
         self.w_1 = Linear(d, hidden)
         self.w_2 = Linear(hidden, d, bias=False)
         self.norm = LayerNorm(hidden)
+        self.tp_split = None
 
     def forward(self, x, generator=None):
-        h = dropout(torch.relu(self.w_1(x)), self.rate, generator)
+        h = dropout(torch.relu(self.w_1(x)), self.rate, generator,
+                    self.tp_split)
         return self.w_2(self.norm(h))
 
 

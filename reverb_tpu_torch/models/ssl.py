@@ -31,6 +31,7 @@ import torch
 from torch import nn
 
 from reverb_tpu_torch.models.asr_model import ASRModel, ModelConfig
+from reverb_tpu_torch.models.encoder import count_seq_step
 from reverb_tpu_torch.models.modules import Linear
 from reverb_tpu_torch.parallel import global_batch as gb
 
@@ -118,6 +119,9 @@ class Wav2vec2Model(ASRModel):
                  with_cmvn: bool = False):
         super().__init__(cfg, with_cmvn)
         self.wcfg, self.bcfg = wcfg, bcfg
+        # the losses run the encoder's layers themselves
+        # (`ssl_encoder_blocks`): no GPipe region, whole under 'seq'
+        self.encoder.whole_stack = True
         G, C = wcfg.num_codebooks, wcfg.codebook_size
         self.vq_proj = Linear(wcfg.encoder_output_size, G * C)
         self.vq_codebook = nn.Parameter(torch.empty(
@@ -276,6 +280,7 @@ def ssl_encoder_blocks(model, xs, masks, pos_emb, split=None):
     then after_norm.  Returns (the output after `split` blocks, the final
     output); without a split both are the final output."""
     enc = model.encoder
+    count_seq_step(enc, False)
     kv_lens = masks[:, 0, :].sum(-1).to(torch.int32)
     mid = None
     for i, layer in enumerate(enc.encoders):

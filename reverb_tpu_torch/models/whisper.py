@@ -34,6 +34,7 @@ from torch import nn
 
 from reverb_tpu_torch.models.attention import MultiHeadedAttention
 from reverb_tpu_torch.models.embedding import pe_table
+from reverb_tpu_torch.models.encoder import count_seq_step
 from reverb_tpu_torch.models.modules import (Conv1d, Embedding, LayerNorm,
                                              Linear)
 
@@ -56,11 +57,14 @@ def _gelu(x):
     return F.gelu(x)          # exact erf, as jax.nn.gelu(approximate=False)
 
 
-class _MLP(nn.Module):
+class MLP(nn.Module):
     def __init__(self, d: int):
         super().__init__()
         self.w_1 = Linear(d, 4 * d)
         self.w_2 = Linear(4 * d, d)
+        # (-1, rank, n) when the hidden units are split over a 'model'
+        # group (parallel/sharding.py: w_1 by columns, w_2 by rows)
+        self.tp_split = None
 
     def forward(self, x):
         return self.w_2(_gelu(self.w_1(x)))
@@ -73,7 +77,7 @@ class WhisperBlock(nn.Module):
         super().__init__()
         self.self_attn = MultiHeadedAttention(heads, d, key_bias=False)
         self.norm1 = LayerNorm(d)
-        self.mlp = _MLP(d)
+        self.mlp = MLP(d)
         self.norm_mlp = LayerNorm(d)
         if cross:
             self.cross_attn = MultiHeadedAttention(heads, d, key_bias=False)
@@ -88,9 +92,15 @@ class WhisperBlock(nn.Module):
 
 
 class WhisperEncoder(nn.Module):
+    """Under 'seq' (`seq_split`, parallel/sharding.py) it runs whole on
+    every rank (the stride-2 conv front and the plain attention have no
+    split form; `seq_steps` counts the forwards)."""
+
     def __init__(self, cfg: WhisperConfig, pos_rows: int = 0):
         super().__init__()
         self.cfg = cfg
+        self.seq_split = None
+        self.seq_steps = {'split': 0, 'whole': 0}
         d = cfg.n_audio_state
         self.conv1 = Conv1d(cfg.n_mels, d, 3)
         self.conv2 = Conv1d(d, d, 3)
@@ -111,6 +121,7 @@ class WhisperEncoder(nn.Module):
 
     def forward(self, mel):
         """mel (B, T, n_mels) → (B, T', D), T' = (T − 1) // 2 + 1."""
+        count_seq_step(self, False)
         x = mel.transpose(1, 2)
         for conv, stride in ((self.conv1, 1), (self.conv2, 2)):
             x = _gelu(F.conv1d(x, conv.weight.to(x.dtype),

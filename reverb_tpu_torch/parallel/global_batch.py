@@ -19,13 +19,22 @@ the ranks' losses and metrics summed over 'data' are the global batch's:
 - `norms(batch)`: the global rows and tokens of an asr_model's loss
   (models/asr_model.py:compute_loss's `norm`).
 
-Outside `data_shard` each helper is the identity of one process.
+Outside `data_shard` each helper is the identity of one process.  The
+helpers sum over 'data' only: the ranks of one data coordinate ('model',
+'seq', 'expert' and 'pipe' groups) hold the same rows, and the trainer's
+`loss_scale` and gradient sums (parallel/sharding.py) cover them.
+
+With gradient accumulation the global batch's micro-batch j is JAX's:
+its rows [j·B/accum, (j+1)·B/accum) of the ranks' rows in rank order.
+`regroup` gives each data rank its block of each micro-batch, so that the
+helpers, inside micro-batch j, sum over exactly JAX's micro-batch j
+(its denominators, wav2vec 2.0's code marginal, one draw of data rank 0).
 """
 
 from __future__ import annotations
 
 import contextlib
-from typing import Dict, Optional
+from typing import Dict, List, Optional
 
 import torch
 import torch.distributed as dist
@@ -119,3 +128,53 @@ def norms(batch: Dict) -> Optional[Dict]:
     counts = total(torch.stack([torch.as_tensor(B, device=tokens.device),
                                 tokens.to(torch.int64)]))
     return {'rows': int(counts[0]), 'tokens': int(counts[1])}
+
+
+def regroup(chunks: List[Dict], group, ranks: List[int],
+            rank: int) -> List[Dict]:
+    """This data rank's block of each micro-batch of the global batch.
+
+    `chunks` are the rank's rows cut into accum equal micro-batches (its
+    global chunks c = rank·accum + i, i < accum); `group` the data
+    group, `ranks` its global ranks in data order, `rank` this rank's
+    data coordinate.  Micro-batch j of the global batch is the chunks
+    [j·N, (j+1)·N) for N data ranks, so this rank takes chunk j·N + rank,
+    which data rank (j·N + rank) // accum holds: the chunks travel
+    point to point, each with its own shapes (a rank's batch may be
+    padded to other lengths), through host memory under gloo.  Every
+    rank holds as many rows (train/trainer.py checks)."""
+    N, accum = len(ranks), len(chunks)
+    keys = sorted(chunks[0])
+    meta = [[(k, tuple(c[k].shape), c[k].dtype) for k in keys]
+            for c in chunks]
+    metas = [None] * N
+    dist.all_gather_object(metas, meta, group=group)
+    host = dist.get_backend(group) == 'gloo'
+    dev = chunks[0]['feats'].device
+    ops, out, recv = [], [None] * accum, []
+    for i, chunk in enumerate(chunks):           # what this rank sends
+        c = rank * accum + i
+        dst, j = c % N, c // N
+        if dst == rank:
+            out[j] = chunk
+            continue
+        for k in keys:
+            t = chunk[k].contiguous()
+            ops.append(dist.P2POp(dist.isend, t.cpu() if host else t,
+                                  ranks[dst], group))
+    for j in range(accum):                       # what it receives
+        src, i = divmod(j * N + rank, accum)
+        if src == rank:
+            continue
+        bufs = {k: torch.empty(shape, dtype=dtype,
+                               device='cpu' if host else dev)
+                for k, shape, dtype in metas[src][i]}
+        for k in keys:
+            ops.append(dist.P2POp(dist.irecv, bufs[k], ranks[src], group))
+        recv.append((j, bufs))
+    if ops:
+        for w in dist.batch_isend_irecv(ops):
+            w.wait()
+    for j, bufs in recv:
+        out[j] = {k: v.to(dev) for k, v in bufs.items()}
+    return out

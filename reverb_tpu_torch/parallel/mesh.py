@@ -182,7 +182,7 @@ TP_RULES = [
     (r'.*pointwise_conv2\.weight$', (None, 'model', None)),
     # the port's row: the conv module's BatchNorm with its channels (a
     # LayerNorm there stays replicated, as JAX's table leaves it:
-    # parallel/sharding.py passes its paths as `replicated`)
+    # parallel/sharding.py gives its paths the layout () in `overrides`)
     (r'.*\.norm\.(weight|bias|running_mean|running_var)$', ('model',)),
     # vocab projections: column-parallel over vocab
     (r'.*output_layer\.weight$', ('model', None)),
@@ -202,8 +202,9 @@ def param_pspec(path: str, ndim: int) -> Tuple:
     return ()
 
 
-def _full_spec(path, shape, replicated=()):
-    spec = [] if path in replicated else list(param_pspec(path, len(shape)))
+def _full_spec(path, shape, overrides=None):
+    spec = list(overrides[path] if overrides and path in overrides
+                else param_pspec(path, len(shape)))
     return spec + [None] * (len(shape) - len(spec))
 
 
@@ -216,17 +217,19 @@ def _free_data_axis(spec, shape, data_size: int) -> Optional[int]:
 
 def param_shardings(shapes: Dict[str, Sequence[int]], mesh,
                     zero3: bool = False, zero3_min_size: int = 65536,
-                    replicated=()) -> Dict[str, Tuple]:
+                    overrides=None) -> Dict[str, Tuple]:
     """{JAX path: layout} of the parameters {JAX path: global shape}: the
     rule's 'model' axis, and with `zero3` 'data' on the first free
     divisible axis of every parameter of at least `zero3_min_size`
-    elements (reverb_tpu/parallel/mesh.py:param_shardings).  The paths in
-    `replicated` take no rule (a conv module's LayerNorm, which the
-    port's BatchNorm row would otherwise match)."""
+    elements (reverb_tpu/parallel/mesh.py:param_shardings).  `overrides`
+    {path: layout} replaces the rule's layout of a path (the port's split
+    forms and what it keeps whole, parallel/sharding.py: a conv module's
+    LayerNorm, which the port's BatchNorm row would otherwise match,
+    takes ())."""
     data_size = axis_size(mesh, 'data')
     out = {}
     for path, shape in shapes.items():
-        spec = _full_spec(path, shape, replicated)
+        spec = _full_spec(path, shape, overrides)
         if zero3 and int(np.prod(shape)) >= zero3_min_size:
             ax = _free_data_axis(spec, shape, data_size)
             if ax is not None:
@@ -236,7 +239,7 @@ def param_shardings(shapes: Dict[str, Sequence[int]], mesh,
 
 
 def opt_state_shardings(shapes: Dict[str, Sequence[int]], mesh,
-                        zero: bool = True, replicated=()) -> Dict[str, Tuple]:
+                        zero: bool = True, overrides=None) -> Dict[str, Tuple]:
     """{JAX path: layout} of each parameter's moments: the rule's 'model'
     axis, and with `zero` (ZeRO-1/2) 'data' on the first free divisible
     axis; 0-d leaves are replicated
@@ -247,7 +250,7 @@ def opt_state_shardings(shapes: Dict[str, Sequence[int]], mesh,
         if len(shape) == 0:
             out[path] = ()
             continue
-        spec = _full_spec(path, shape, replicated)
+        spec = _full_spec(path, shape, overrides)
         if zero:
             ax = _free_data_axis(spec, shape, data_size)
             if ax is not None:

@@ -6,19 +6,24 @@ collectives XLA then inserts into the jitted step.  `Sharding.apply` takes
 a model and optimizer that hold the whole single-process state (the same
 on every rank) and, in place:
 
-- tensor parallelism over 'model' (`mesh.TP_RULES`): each split parameter
-  keeps its rank's block, and its layer runs split (models/modules.py
-  `tp`; attention keeps its rank's heads, the depthwise conv its
-  channels, a conv module's LayerNorm normalises the gathered channels).
-  The GLU after `pointwise_conv1` pairs channel i with channel
-  i + C, so a rank keeps rows [rC/n, (r+1)C/n) of both halves.  The
+- tensor parallelism over 'model' (`mesh.TP_RULES`, completed block by
+  block by `_BLOCK_SPECS`: a block the rules split in part splits whole,
+  and what `_whole_form` names stays whole): each split parameter keeps
+  its rank's block, and its layer runs split (models/modules.py `tp`;
+  attention keeps its rank's heads, the depthwise conv its channels, a
+  conv module's or the SANM feed-forward's LayerNorm normalises the
+  gathered channels).  A fused projection (`_FUSED`: the GLU's pointwise_conv1,
+  SANM's linear_q_k_v and linear_k_v) keeps the rank's block of each
+  part.  A parameter the rules split outside any split form raises.  The
   dropout of a split activation (attention probabilities on the rank's
   heads, the FFN's hidden units) keeps the rank's block of the unsplit
   mask (models/modules.py `keep_mask`): the ranks of a 'model' group
   share one generator, so masks neither repeat across the group's
   blocks nor differ from the unsplit model's;
-- 'seq': the encoder's time axis split over the group (models/encoder.py
-  `seq_split`);
+- 'seq': the encoder's time axis split over the group (`seq_split` of
+  the conformer and Branchformer encoders, models/encoder.py and
+  models/encoders_alt.py; the other encoders run whole on every rank and
+  count it in `seq_steps`);
 - 'expert': each rank keeps the experts [rE/n, (r+1)E/n) of every MoE
   feed-forward (models/encoder.py `expert_split`);
 - 'pipe': the encoder's GPipe region (`ConformerEncoder.pipe_region`),
@@ -42,7 +47,12 @@ is gathered; a replicated parameter's gradient (and a 'model'- or
 'expert'-split one's block) is then summed over ('data', 'seq', 'pipe'),
 and a stage's region layer's over ('data', 'seq').  'model' and 'expert'
 need no sum: their collectives (`copy_in`) give every rank the whole
-gradient of what it holds.  The global norm sums the squares of split
+gradient of what it holds.  Under 'expert' the replicated parameters'
+gradients are averaged over the group all the same: each rank computes
+them whole, with its own roundings of the card's nondeterministic
+backward kernels (CTC's atomics), and copies that must stay one would
+drift apart step by step (under 'model' the replicated gradients meet
+in `copy_in`'s sums).  The global norm sums the squares of split
 gradients over their axis (`global_norm`), so every rank takes the same
 clip and skip decision.  `gathered()` gives the single-process layout for
 a checkpoint.
@@ -64,6 +74,84 @@ from reverb_tpu_torch.parallel.mesh import (AXES, axis_group, axis_rank,
                                             param_shardings)
 
 _BUCKET = 1 << 25          # elements a gradient all-reduce moves at once
+
+# The port's split forms beyond mesh.TP_RULES (the JAX package's table,
+# under which GSPMD computes any layout whole).  Eager layers need a block
+# split whole or not at all, so a block of which the rules split a part
+# splits whole (`_block_layouts`): an attention's head-bearing projections
+# by heads (its fused ones part by part, `_FUSED`; the SANM fsmn memory on
+# the rank's v channels) and its output by rows; a feed-forward's w_1 by
+# columns and w_2 by rows.  Whisper's MLP, which no rule names, splits as
+# a feed-forward too.  What the rules match and the port keeps whole, on
+# every rank (`_whole_form`): a LayerNorm (whose split neighbours
+# normalise the gathered channels, `LayerNorm.tp`) and the Efficient
+# Conformer's grouped attention (a grouped head reads g frames of every
+# channel, no block of the projections' channels).  Every other parameter
+# the rules split must lie in a layer with a split form (`Sharding.apply`
+# raises).
+_COL, _COL_B, _ROW = ('model', None), ('model',), (None, 'model')
+_BLOCK_SPECS = {
+    'attention': {
+        **{f'{lin}.{w}': spec
+           for lin in ('linear_q', 'linear_k', 'linear_v', 'linear_q_k_v',
+                       'linear_k_v')
+           for w, spec in (('weight', _COL), ('bias', _COL_B))},
+        'linear_pos.weight': _COL, 'pos_bias_u': _COL, 'pos_bias_v': _COL,
+        'fsmn_block.weight': ('model', None, None),
+        'linear_out.weight': _ROW},
+    'feed_forward': {'w_1.weight': _COL, 'w_1.bias': _COL_B,
+                     'w_2.weight': _ROW}}
+# fused projections: {name: parts}, a rank keeping its block of each part
+# (the GLU pairs channel i with i + C after pointwise_conv1)
+_FUSED = {'pointwise_conv1': 2, 'linear_q_k_v': 3, 'linear_k_v': 2}
+
+
+def _whole_form(m) -> bool:
+    """Whether `m` is kept whole on every rank (the comment above)."""
+    from reverb_tpu_torch.models.encoders_alt import (
+        GroupedRelPositionMultiHeadedAttention)
+    from reverb_tpu_torch.models.modules import LayerNorm
+    return isinstance(m, (LayerNorm, GroupedRelPositionMultiHeadedAttention))
+
+
+def _block_kind(m) -> Optional[str]:
+    """'attention' or 'feed_forward' for the blocks with a split form."""
+    from reverb_tpu_torch.models.attention import MultiHeadedAttention
+    from reverb_tpu_torch.models.encoder import FeedForward
+    from reverb_tpu_torch.models import sanm, whisper
+    if isinstance(m, (MultiHeadedAttention, sanm.MultiHeadedAttentionSANM,
+                      sanm.MultiHeadAttentionCross)):
+        return 'attention'
+    if isinstance(m, (FeedForward, sanm.FeedForwardSANM, whisper.MLP,
+                      sanm.FeedForwardDecoderSANM)):
+        return 'feed_forward'
+    return None
+
+
+def _block_layouts(model) -> Dict[str, tuple]:
+    """{JAX path: layout} where the port's layout is not the rule's: every
+    parameter of the blocks that split whole (those of which a rule
+    splits a part, and Whisper's MLP), and () for every parameter of what
+    it keeps whole (`_whole_form`)."""
+    from reverb_tpu_torch.models import whisper
+    from reverb_tpu_torch.parallel.mesh import param_pspec
+    out = {}
+    for mn, m in model.named_modules():
+        if _whole_form(m):
+            out.update({tree_key(f'{mn}.{pn}'): ()
+                        for pn, _ in m.named_parameters()})
+            continue
+        kind = _block_kind(m)
+        if kind is None:
+            continue
+        spec = _BLOCK_SPECS[kind]
+        own = {tree_key(f'{mn}.{pn}'): (spec[pn], p.dim())
+               for pn, p in m.named_parameters() if pn in spec}
+        if isinstance(m, whisper.MLP) or any(
+                'model' in param_pspec(path, nd)
+                for path, (_, nd) in own.items()):
+            out.update({path: lay for path, (lay, _) in own.items()})
+    return out
 
 
 @dataclasses.dataclass
@@ -103,6 +191,14 @@ def _sum_buckets(grads: List[torch.Tensor], group):
         i = j
 
 
+def check_axes(seq: int, pipe: int):
+    """Raise NotImplementedError for axis sizes the port cannot combine."""
+    if seq > 1 and pipe > 1:
+        raise NotImplementedError(
+            "'seq' and 'pipe' together: the GPipe region's stages would "
+            "each split their time axis (not ported: ROADMAP item 3)")
+
+
 class Sharding:
     """The layout of one model and optimizer over `mesh` (module
     docstring): 'model' the tensor-parallel axis, 'data' the
@@ -119,10 +215,7 @@ class Sharding:
         self.zero3_min_size = zero3_min_size
         self.sizes = {a: axis_size(mesh, a) for a in AXES}
         self.coords = {a: axis_rank(mesh, a) for a in AXES}
-        if self.sizes['seq'] > 1 and self.sizes['pipe'] > 1:
-            raise NotImplementedError(
-                "'seq' and 'pipe' together: the GPipe region's stages "
-                "would each split their time axis (not ported)")
+        check_axes(self.sizes['seq'], self.sizes['pipe'])
         self.data_size = self.sizes['data']
         self.data_rank = self.coords['data']
         self.tp_size = self.sizes['model']
@@ -132,6 +225,13 @@ class Sharding:
         # the gradient sums' groups (collective: every rank makes both)
         self.replica_group = axis_group(mesh, ('pipe', 'data', 'seq'))
         self.stage_group = axis_group(mesh, ('data', 'seq'))
+        # a replicated parameter's gradient under 'expert' is averaged over
+        # the group too (each rank computed it whole; on the card their
+        # roundings differ, and the copies must not drift apart)
+        self.shared_group = (axis_group(mesh, ('pipe', 'data', 'seq',
+                                               'expert'))
+                             if self.sizes['expert'] > 1
+                             else self.replica_group)
         self.loss_scale = 1.0 / (self.sizes['seq'] * self.sizes['pipe'])
         self.layouts: Dict[str, ParamLayout] = {}
         self.model = None
@@ -146,16 +246,17 @@ class Sharding:
             self.coords[lay.owner_axis] == lay.owner
 
     def _tp_index(self, name, n, device):
+        """This rank's rows of the `n` rows a 'model'-split parameter
+        splits: its block of each part of a fused projection (`_FUSED`),
+        else its contiguous block."""
         tp, r = self.tp_size, self.tp_rank
-        if name.endswith(('pointwise_conv1.weight', 'pointwise_conv1.bias')):
-            c = n // 2
-            if c % tp:
-                raise ValueError(f'{name}: {c} GLU channels over {tp} ranks')
-            blk = torch.arange(r * (c // tp), (r + 1) * (c // tp))
-            return torch.cat([blk, blk + c]).to(device)
-        if n % tp:
-            raise ValueError(f'{name}: {n} rows over {tp} ranks')
-        return torch.arange(r * (n // tp), (r + 1) * (n // tp), device=device)
+        parts = next((k for sub, k in _FUSED.items()
+                      if name.endswith((f'{sub}.weight', f'{sub}.bias'))), 1)
+        c = n // parts
+        if c % tp:
+            raise ValueError(f'{name}: {c} rows a part over {tp} ranks')
+        blk = torch.arange(r * (c // tp), (r + 1) * (c // tp))
+        return torch.cat([blk + i * c for i in range(parts)]).to(device)
 
     def _owners(self, model) -> Dict[str, tuple]:
         """{parameter name: (axis, coordinate of the rank that keeps it)}
@@ -191,18 +292,12 @@ class Sharding:
         return out
 
     def _layouts(self, model):
-        from reverb_tpu_torch.models.modules import LayerNorm
         shapes = {tree_key(n): tuple(p.shape)
                   for n, p in model.named_parameters()}
-        # a LayerNorm stays replicated (the port's BatchNorm row of
-        # TP_RULES would match a conv module's)
-        replicated = {tree_key(f'{mn}.{pn}')
-                      for mn, m in model.named_modules()
-                      if isinstance(m, LayerNorm)
-                      for pn, _ in m.named_parameters(recurse=False)}
+        overrides = _block_layouts(model)
         pspec = param_shardings(shapes, self.mesh, self.zero3,
-                                self.zero3_min_size, replicated)
-        mspec = opt_state_shardings(shapes, self.mesh, self.zero, replicated)
+                                self.zero3_min_size, overrides)
+        mspec = opt_state_shardings(shapes, self.mesh, self.zero, overrides)
         owners = self._owners(model)
         out = {}
         for name, p in model.named_parameters():
@@ -223,59 +318,92 @@ class Sharding:
             out[name] = lay
         return out
 
-    def _split_layers(self, model):
-        """Give each split layer its rank's share of the work."""
-        from reverb_tpu_torch.models.attention import MultiHeadedAttention
+    def _split_layers(self, model) -> set:
+        """Give each split layer its rank's share of the work; returns
+        the names of the 'model'-split parameters whose layers took a
+        split form."""
         from reverb_tpu_torch.models.encoder import (ConformerEncoder,
-                                                     ConvolutionModule,
-                                                     FeedForward,
                                                      MoEFeedForward)
-        from reverb_tpu_torch.models.modules import (Conv1d, Embedding,
-                                                     LayerNorm, Linear)
         from reverb_tpu_torch.parallel.pipeline import PipeStage
-        tp, sizes, coords = self.tp_size, self.sizes, self.coords
+        sizes, coords = self.sizes, self.coords
+        claimed = set()
         for mname, m in model.named_modules():
-            lay = self.layouts.get(f'{mname}.weight')
-            if isinstance(m, ConformerEncoder):
-                if sizes['seq'] > 1:
-                    m.seq_split = (self.mesh.get_group('seq'),
-                                   coords['seq'], sizes['seq'])
-                if sizes['pipe'] > 1 and m.pipe_region(sizes['pipe']):
-                    m.pipe = PipeStage(self.mesh.get_group('pipe'),
-                                       coords['pipe'], sizes['pipe'],
-                                       axis_ranks(self.mesh, 'pipe'),
-                                       m.cfg.pipeline_microbatches)
-                    self.encoder = m
+            if sizes['seq'] > 1 and hasattr(m, 'seq_split'):
+                # an encoder: split where its forward can, else counted
+                # whole (models/encoder.py:count_seq_step)
+                m.seq_split = (self.mesh.get_group('seq'), coords['seq'],
+                               sizes['seq'])
+            if isinstance(m, ConformerEncoder) and sizes['pipe'] > 1 and \
+                    m.pipe_region(sizes['pipe']):
+                m.pipe = PipeStage(self.mesh.get_group('pipe'),
+                                   coords['pipe'], sizes['pipe'],
+                                   axis_ranks(self.mesh, 'pipe'),
+                                   m.cfg.pipeline_microbatches)
+                self.encoder = m
             if isinstance(m, MoEFeedForward) and sizes['expert'] > 1:
                 m.expert_split = (self.mesh.get_group('expert'),
                                   coords['expert'], sizes['expert'])
-            if isinstance(m, ConvolutionModule) and tp > 1 and \
-                    isinstance(m.norm, LayerNorm) and self.layouts[
-                        f'{mname}.pointwise_conv1.weight'].tp_axis is not None:
-                m.norm.tp = (self.tp_group, self.tp_rank, tp)
-            if isinstance(m, MultiHeadedAttention):
-                if m.h % tp:
-                    raise ValueError(f'{mname}: {m.h} heads over {tp} ranks')
-                m.h //= tp
-                if tp > 1:
-                    m.tp_split = (1, self.tp_rank, tp)
-            if isinstance(m, FeedForward) and tp > 1 and \
-                    self.layouts[f'{mname}.w_1.weight'].tp_axis is not None:
-                m.tp_split = (-1, self.tp_rank, tp)
-            if lay is None or lay.tp_axis is None:
-                continue
-            if isinstance(m, Conv1d) and m.groups > 1:
-                m.groups //= tp
-                continue
-            if isinstance(m, Embedding):
-                mode = 'vocab'
-            elif isinstance(m, (Linear, Conv1d)):
-                mode = ('row' if lay.tp_axis == 1 else
-                        'vocab' if mname.endswith(('output_layer', 'ctc_lo'))
-                        else 'col')
-            else:
-                continue
-            m.tp = (mode, self.tp_group, self.tp_rank)
+            if self.tp_size > 1:
+                claimed |= self._tp_form(mname, m)
+        return claimed
+
+    def _split(self, name) -> bool:
+        lay = self.layouts.get(name)
+        return lay is not None and lay.tp_axis is not None
+
+    def _tp_linear(self, m, name, vocab: bool = False):
+        """A split Linear or pointwise Conv1d: row-parallel where its
+        input axis is split, else column- (or vocabulary-) parallel."""
+        mode = ('row' if self.layouts[f'{name}.weight'].tp_axis == 1
+                else 'vocab' if vocab else 'col')
+        m.tp = (mode, self.tp_group, self.tp_rank)
+
+    def _tp_form(self, mname, m) -> set:
+        """The split form of module `m` (named `mname`) over 'model', if
+        the layout splits it: the names of its split parameters (empty
+        when it has no form, or nothing of it is split)."""
+        from reverb_tpu_torch.models.encoder import ConvolutionModule
+        from reverb_tpu_torch.models.modules import (Conv1d, Embedding,
+                                                     LayerNorm, Linear)
+        tp, r = self.tp_size, self.tp_rank
+        pre = f'{mname}.' if mname else ''
+        split = {pre + pn for pn, _ in m.named_parameters()
+                 if self._split(pre + pn)}
+        kind = _block_kind(m)
+        if not split:
+            return set()
+        if kind == 'attention':
+            if m.h % tp:
+                raise ValueError(f'{mname}: {m.h} heads over {tp} ranks')
+            m.h //= tp
+            m.tp_split = (-1 if hasattr(m, 'fsmn_block') else 1, r, tp)
+            for cn, c in m.named_children():
+                if isinstance(c, Linear):
+                    self._tp_linear(c, pre + cn)
+                elif isinstance(c, Conv1d):          # the fsmn memory
+                    c.groups //= tp
+        elif kind == 'feed_forward':
+            m.tp_split = (-1, r, tp)
+            self._tp_linear(m.w_1, pre + 'w_1')
+            self._tp_linear(m.w_2, pre + 'w_2')
+            if isinstance(getattr(m, 'norm', None), LayerNorm):
+                m.norm.tp = (self.tp_group, r, tp)
+        elif isinstance(m, ConvolutionModule):
+            self._tp_linear(m.pointwise_conv1, pre + 'pointwise_conv1')
+            m.depthwise_conv.groups //= tp
+            if isinstance(m.norm, LayerNorm):
+                m.norm.tp = (self.tp_group, r, tp)
+            self._tp_linear(m.pointwise_conv2, pre + 'pointwise_conv2')
+        elif isinstance(m, Linear) and \
+                mname.endswith(('output_layer', 'ctc_lo')):
+            self._tp_linear(m, mname, vocab=True)
+        elif isinstance(m, Embedding):
+            m.tp = ('vocab', self.tp_group, r)
+        else:
+            # a child of a block above, or a parameter the rules split
+            # outside any split form (`apply` raises for it)
+            return set()
+        return split
 
     def _local(self, name, t):
         """The TP block, then the ZeRO block, of a whole-shaped tensor
@@ -306,7 +434,14 @@ class Sharding:
         self.model, self.optimizer = model, optimizer
         self.device = next(model.parameters()).device
         self.layouts = self._layouts(model)
-        self._split_layers(model)
+        claimed = self._split_layers(model)
+        loose = sorted({n.rsplit('.', 1)[0] for n in self.layouts
+                        if self._split(n) and n not in claimed})
+        if loose:
+            raise ValueError(
+                f"{', '.join(loose)}: the 'model' rules split parameters "
+                f'of these modules, which have no split form (add one, '
+                f'or keep the module whole: parallel/sharding.py)')
         with torch.no_grad():
             for name, p in model.named_parameters():
                 lay = self.layouts[name]
@@ -384,19 +519,27 @@ class Sharding:
     def reduce_grads(self, grads: List[torch.Tensor]):
         """Sum the gradients (aligned with model.parameters()) in place:
         over ('data', 'seq', 'pipe'), a region layer's over ('data',
-        'seq') where its stage alone computed it (module docstring).
+        'seq') where its stage alone computed it, a replicated one's
+        averaged over 'expert' too (module docstring).
         Frozen parameters (requires_grad off: LoRA's base) take part in
         no sum.  A region layer of another stage, gathered for a step
         that ran the region in order, leaves an empty gradient."""
         by_group: Dict[int, tuple] = {}
+        shared = []
         for (name, p), g in zip(self.model.named_parameters(), grads):
             if not p.requires_grad:
                 continue
-            staged = (self.layouts[name].owner_axis == 'pipe'
-                      and not self._region_whole)
-            group = self.stage_group if staged else self.replica_group
+            owner = self.layouts[name].owner_axis
+            staged = owner == 'pipe' and not self._region_whole
+            group = (self.stage_group if staged else
+                     self.shared_group if owner is None else
+                     self.replica_group)
+            if owner is None:
+                shared.append(g)
             if group is not None:
                 by_group.setdefault(id(group), (group, []))[1].append(g)
+        if self.sizes['expert'] > 1:
+            torch._foreach_div_(shared, float(self.sizes['expert']))
         for group, gs in by_group.values():
             _sum_buckets(gs, group)
         if self._region_whole:

@@ -34,6 +34,7 @@ from reverb_tpu_torch.frontend.device_feats import (FrontendSpec,
                                                     apply_frontend)
 from reverb_tpu_torch.models.asr_model import ModelConfig, compute_loss
 from reverb_tpu_torch.parallel import global_batch as gb
+from reverb_tpu_torch.parallel.mesh import axis_ranks
 from reverb_tpu_torch.train.scheduler import build_scheduler
 
 
@@ -299,50 +300,34 @@ def build_optimizer(tc: TrainConfig, model: torch.nn.Module):
 _WHOLE_BATCH_KEYS = ('cv_list', 'cv_list_lengths')
 
 
-def _micro_batches(batch: Dict, n: int):
+def _micro_batches(batch: Dict, n: int, sharding=None) -> List[Dict]:
     """Split every per-utterance tensor of the batch along its leading
-    axis into n equal micro-batches; the context phrases go to each."""
+    axis into n equal micro-batches; the context phrases go to each.
+    Over several data ranks, this rank's block of each micro-batch of the
+    global batch, as JAX's scan cuts it (global_batch.regroup)."""
     B = batch['feats'].shape[0]
     if B % n:
         raise ValueError(f'batch {B} does not split into {n} micro-batches')
     m = B // n
-    for i in range(n):
-        yield {k: v if k in _WHOLE_BATCH_KEYS else v[i * m:(i + 1) * m]
-               for k, v in batch.items()}
+    chunks = [{k: v if k in _WHOLE_BATCH_KEYS else v[i * m:(i + 1) * m]
+               for k, v in batch.items()} for i in range(n)]
+    if n == 1 or sharding is None or sharding.data_size == 1:
+        return chunks
+    return gb.regroup(chunks, sharding.data_group,
+                      axis_ranks(sharding.mesh, 'data'), sharding.data_rank)
 
 
-def _global_norms(batch: Dict, accum: int, sharding) -> List[Dict]:
-    """The denominators of the JAX package's micro-batches, for each of
-    this rank's micro-batches.
-
-    JAX splits the GLOBAL batch (the ranks' rows in rank order) into accum
-    micro-batches of B/accum rows and normalises each one's losses and
-    accuracy by its own rows (or tokens: target length + 1 a row, eos
-    included).  Rank r's micro-batch j is the global chunk c = r·accum + j
-    of B/(accum·N) rows, which lies in JAX's micro-batch c // N; its
-    losses take that micro-batch's denominators, so that the sums over
-    ranks and micro-batches, / accum, are JAX's step.  The ranks' row
-    counts must agree (checked here)."""
-    B = batch['feats'].shape[0]
-    counts = torch.stack(
-        [torch.tensor(B, device=batch['feats'].device)]
-        + [(m['target_lengths'] + 1).sum()
-           for m in _micro_batches(batch, accum)]).to(torch.int64)
-    parts = [torch.empty_like(counts) for _ in range(sharding.data_size)]
-    torch.distributed.all_gather(parts, counts, group=sharding.data_group)
-    table = torch.stack(parts).cpu()
-    rows = [int(x) for x in table[:, 0]]
+def _check_rows(batch: Dict, sharding):
+    """Every data rank must hold as many rows: JAX's global batch is one
+    array split over 'data', and its micro-batches are blocks of it."""
+    B = torch.tensor([batch['feats'].shape[0]],
+                     device=batch['feats'].device)
+    parts = [torch.empty_like(B) for _ in range(sharding.data_size)]
+    torch.distributed.all_gather(parts, B, group=sharding.data_group)
+    rows = [int(t) for t in parts]
     if len(set(rows)) != 1:
         raise ValueError(f'ranks hold unequal batch rows {rows}: the loss '
                          f'is a mean over the global batch')
-    N = sharding.data_size
-    tokens = table[:, 1:].reshape(-1)          # by chunk c = r·accum + j
-    out = []
-    for j in range(accum):
-        k = (sharding.data_rank * accum + j) // N
-        out.append({'rows': B * N // accum,
-                    'tokens': int(tokens[k * N:(k + 1) * N].sum())})
-    return out
 
 
 def _detached(v):
@@ -376,47 +361,38 @@ def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
 
     With a `sharding` (parallel/sharding.py, applied to the model and the
     optimizer) the step is one rank's part of the JAX package's step over
-    its mesh: the batch is this rank's rows, each micro-batch's losses are
-    normalised by the global micro-batch's rows or tokens
-    (`_global_norms`), the gradients are summed over 'data' once, after
+    its mesh: the batch is this rank's rows, regrouped with accum_grad > 1
+    so that its micro-batch j is its block of the global batch's (JAX's)
+    micro-batch j (`_micro_batches`); each micro-batch's loss runs inside
+    `global_batch.data_shard`, which gives it the global micro-batch's
+    rows, tokens, denominators and statistics and data rank 0's draws
+    (the asr_model's `norm`, a family's `loss_fn`), so that the ranks'
+    losses sum to JAX's; the gradients are summed over 'data' once, after
     the last micro-batch, the norm is the whole model's, and the metrics
     are the global means, the same on every rank.  `generator` is this
     rank's own (seeded by its data coordinate: ranks of one data
     coordinate draw the same masks, as their activations are one).  Each
     micro-batch's loss is scaled by `sharding.loss_scale` for the
-    backward ('seq' and 'pipe' ranks each compute it whole).  A family's
-    `loss_fn` runs inside `global_batch.data_shard`, which gives it the
-    global batch's denominators and statistics (data parallelism only:
-    its layers have no split forms, ROADMAP item 15.8b); so does the
-    asr_model's loss, for its batch-level draws."""
-
-    if loss_fn is not None and sharding is not None:
-        split = [a for a in ('model', 'seq', 'expert', 'pipe')
-                 if sharding.sizes[a] > 1]
-        if split or accum_grad > 1:
-            raise NotImplementedError(
-                f"a registry family or a ts_conf under "
-                f"{split or 'accum_grad > 1'}: its global-batch "
-                f"denominators are summed over 'data' for one micro-batch "
-                f"(ROADMAP item 15.8b)")
+    backward ('seq' and 'pipe' ranks each compute it whole)."""
 
     def train_step(model, batch, generator=None) -> Dict[str, float]:
         if model.cfg != cfg:
             raise ValueError('train_step: the model has another config')
-        norms = [None] * accum_grad
         if sharding is not None:
+            if sharding.data_size > 1:
+                _check_rows(batch, sharding)
             sharding.gather_params(batch['feats'].shape[0] // accum_grad)
-            norms = _global_norms(batch, accum_grad, sharding)
         params = optimizer.params
         for p in params:
             p.grad = None
         sums: Dict[str, float] = {}
-        for micro, norm in zip(_micro_batches(batch, accum_grad), norms):
+        for micro in _micro_batches(batch, accum_grad, sharding):
             if frontend is not None:
                 micro = apply_frontend(micro, frontend, generator)
             with (contextlib.nullcontext() if sharding is None else
                   gb.data_shard(sharding.data_group, sharding.data_size)):
-                out = (compute_loss(model, micro, generator, norm=norm)
+                out = (compute_loss(model, micro, generator,
+                                    norm=gb.norms(micro))
                        if loss_fn is None
                        else loss_fn(model, micro, generator))
             loss = out['loss']

@@ -143,11 +143,10 @@ def test_bin_train_trains_and_resumes(base, tmp_path, monkeypatch, family):
     ('squeezeformer', '--num_devices_seq')])
 def test_bin_train_refuses_a_family_over_several_processes(base, tmp_path,
                                                            family, split):
-    """A registry family trains over 'data' only (its layers have no split
-    forms: ROADMAP item 15.8b): over processes split along 'model' or
-    'seq' it raises before any process group forms
-    (tests/test_torch_families_parallel.py trains the families under
-    DDP and ZeRO)."""
+    """A registry family splits over 'model' or 'seq' in several
+    processes only (tests/test_torch_families_axes.py trains every family
+    under each axis): in one process the split flag raises ValueError
+    before any step, as for the asr_model."""
     d, conf = base
     conf = json.loads(json.dumps(conf))
     extra = json.loads(json.dumps(FAMILIES[family]))
@@ -155,7 +154,6 @@ def test_bin_train_refuses_a_family_over_several_processes(base, tmp_path,
     conf.update(extra)
     cfg_path = tmp_path / 'train.yaml'
     cfg_path.write_text(yaml.safe_dump(conf))
-    with pytest.raises(NotImplementedError, match='item 15.8b'):
+    with pytest.raises(ValueError, match='several processes'):
         ttrain.main(_argv(d, cfg_path, tmp_path / 'exp', d / 'init.npz', 1)
-                    + ['--num_processes', '2', '--process_id', '1', split,
-                       '2'])
+                    + [split, '2'])
