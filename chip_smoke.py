@@ -207,7 +207,12 @@ then parallelism (parallel/, the sharded step of train/trainer.py):
   axes: the SANM Paraformer (SanmConfig()'s widths) and Whisper
   (large-v3's) under TP 2, the Branchformer under 'seq' 2, a transducer
   under 'pipe' 2 and wav2vec 2.0 under DDP 2 × accum_grad 2
-  (PAR_FORMS_N), each an f32 step held to the
+  (PAR_FORMS_N); then four ranks on the one card over gloo: the GPipe
+  region under 'seq' and 'expert' — 'pipe' 2 × 'seq' 2 (layer_norm
+  conv modules; every stage on the rank's time block), 'pipe' 2 ×
+  'expert' 2 (the MoE model, the region layers' experts split inside
+  each stage) and the transducer under 'pipe' 2 × 'seq' 2
+  (PAR_FORMS_REGION); each an f32 step held to the
   unwrapped one of its model on loss, grad norm and every parameter —
   within 1e-3 of the whole batch at once (the forms whose data axis is 1
   with dropout, but 'pipe': the split layers draw the unwrapped masks; at
@@ -223,8 +228,8 @@ then parallelism (parallel/, the sharded step of train/trainer.py):
   each stage's region layers once a microbatch; its bubble share
   reported); a form that raises in a collective reported on its own
   line, and the phase failed; the same over NCCL where there are
-  two cards, and DP 2 × TP 2, 'pipe' 2 × TP 2 and 'seq' 2 × TP 2 over
-  NCCL where there are four; and
+  two cards, and DP 2 × TP 2, 'pipe' 2 × TP 2, 'seq' 2 × TP 2 and
+  PAR_FORMS_REGION over NCCL where there are four; and
   `ReverbASR(data_parallel=device_count)` on the serving file, its CTM
   byte-identical to one replica's decoding the same row blocks.
 
@@ -5492,6 +5497,24 @@ PAR_FORMS_N = {2: (('ddp', {'data': 2}, {'zero': False}, 'base'),
                     'ln'),
                    ('seq2tp2', {'seq': 2, 'model': 2}, {'zero': True},
                     'base'))}
+# 'seq' and 'expert' inside the GPipe region: each stage on the rank's time
+# block, the region layers' experts split inside each stage (four ranks:
+# over gloo on one card as well as over NCCL on four)
+PAR_FORMS_REGION = (('pipe2seq2', {'pipe': 2, 'seq': 2}, {'zero': True},
+                     'ln'),
+                    ('pipe2expert2', {'pipe': 2, 'expert': 2},
+                     {'zero': True}, 'moe'),
+                    ('pipe2seq2_transducer', {'pipe': 2, 'seq': 2},
+                     {'zero': True}, 'transducer'))
+PAR_FORMS_N[4] += PAR_FORMS_REGION
+
+
+def par_forms(backend: str, world: int) -> tuple:
+    """The forms of a run of `world` ranks over `backend`: four ranks on
+    one card over gloo run PAR_FORMS_REGION alone (the other four-rank
+    forms need no more than what their two-rank forms check there)."""
+    return (PAR_FORMS_REGION if backend == 'gloo' and world == 4
+            else PAR_FORMS_N[world])
 # the kinds built by the registry (`init_model`) with their bundle's loss
 PAR_FAMILIES = ('wav2vec2', 'paraformer', 'whisper', 'branchformer',
                 'transducer')
@@ -5580,8 +5603,9 @@ def par_configs(kind: str) -> dict:
         enc.update(positionwise_layer_type='moe', n_expert=8,
                    n_expert_per_token=2)
     if kind in ('ln', 'transducer'):
-        enc.update(cnn_module_norm='layer_norm',
-                   pipeline_stages=PAR_PIPE['stages'],
+        enc.update(cnn_module_norm='layer_norm')
+    if kind in ('ln', 'transducer', 'moe'):
+        enc.update(pipeline_stages=PAR_PIPE['stages'],
                    pipeline_microbatches=PAR_PIPE['microbatches'])
     if kind == 'branchformer':
         enc.update(FAM_ALT['branchformer'])
@@ -5674,14 +5698,17 @@ def par_batch(dev, kind: str, B: int, seed: int, seq: bool = False):
     return batch
 
 
-def pipe_launches(whole: dict) -> dict:
+def pipe_launches(whole: dict, kind: str) -> dict:
     """A 'pipe' rank's launches a step from the unwrapped step's: each
     stage runs its region/S layers on each of M microbatches (6 LayerNorms
-    a layer with a layer_norm conv module) and the layers around the
-    region whole."""
+    a layer with a layer_norm conv module, 5 with batch_norm) and the
+    layers around the region whole (a 'seq' rank on its time block: the
+    same launches)."""
     n, S, M = PAR_PIPE['region'], PAR_PIPE['stages'], \
         PAR_PIPE['microbatches']
-    per = {'K1': 1, 'K4': 1, 'K5': 6, 'K6': 6}
+    ln = 6 if par_configs(kind)['encoder_conf'].get(
+        'cnn_module_norm') == 'layer_norm' else 5
+    per = {'K1': 1, 'K4': 1, 'K5': ln, 'K6': ln}
     return {k: v - n * per[k] + n // S * M * per[k]
             for k, v in whole.items()}
 
@@ -5922,7 +5949,7 @@ def parallel_child(spec: str) -> int:
     """One rank of a multi-rank run (`--parallel-child rank,world,backend,
     dir`), through `parallel.mesh.init_distributed`.  Rank 0 first takes
     the unwrapped f32 steps the forms are held to (`par_refs`).  Then
-    every form of PAR_FORMS_N[world] in turn:
+    every form of `par_forms(backend, world)` in turn:
 
     - f32 (TF32 off) at B = PAR_F32_B, PAR_CHECK_CONF's optimizer, the
       rank's rows; dropout from `dropout_generator(7, ...)` where
@@ -5955,9 +5982,10 @@ def parallel_child(spec: str) -> int:
         f'file://{workdir}/pg_{backend}', world, rank,
         f'cuda:{rank if backend == "nccl" else 0}', backend=backend)
     total = {}
-    refs = par_refs(dev, world, total) if rank == 0 else {}
+    refs = par_refs(dev, par_forms(backend, world), total) \
+        if rank == 0 else {}
     out = {'expect': {}}
-    for name, axes, opts, kind in PAR_FORMS_N[world]:
+    for name, axes, opts, kind in par_forms(backend, world):
         gc.collect()
         torch.cuda.empty_cache()
         model = opt = step = sh = None
@@ -6000,7 +6028,7 @@ def parallel_child(spec: str) -> int:
                         'worst': worst}
             if rank == 0:
                 whole = ref['launches']
-                out['expect'][name] = (pipe_launches(whole)
+                out['expect'][name] = (pipe_launches(whole, kind)
                                        if 'pipe' in axes else whole)
             if backend == 'gloo' and kind != 'base':
                 # one card over gloo: the f32 model's next step is timed
@@ -6053,9 +6081,9 @@ def par_ref_key(axes, opts, kind) -> tuple:
             par_f32_rows(axes, opts))
 
 
-def par_refs(dev, world, total) -> dict:
+def par_refs(dev, forms, total) -> dict:
     """The unwrapped f32 steps (`par_model`'s check) on the whole f32 batch
-    that the multi-rank forms of `world` are held to, by `par_ref_key`:
+    that the multi-rank `forms` are held to, by `par_ref_key`:
     {key: {run: (metrics, parameters in host memory, so the bf16 peaks
     stay the forms' own), 'launches': the 'whole' step's}}.  Runs: 'whole'
     without dropout (at the forms' accum_grad), 'dropout' with a generator
@@ -6069,18 +6097,18 @@ def par_refs(dev, world, total) -> dict:
     from reverb_tpu_torch.train.trainer import make_train_step
     refs = {}
     for ref in dict.fromkeys(par_ref_key(axes, opts, k)
-                             for _, axes, opts, k in PAR_FORMS_N[world]):
+                             for _, axes, opts, k in forms):
         kind, seq, _, accum, rows = ref
-        forms = [axes for _, axes, opts, k in PAR_FORMS_N[world]
-                 if par_ref_key(axes, opts, k) == ref]
+        meshes = [axes for _, axes, opts, k in forms
+                  if par_ref_key(axes, opts, k) == ref]
         runs = [('whole', accum, None)]
-        if any(form_dropout(axes) for axes in forms):
+        if any(form_dropout(axes) for axes in meshes):
             runs.append(('dropout', accum, 7))
         held = runs[-1]            # the run the forms are held to
         if kind in PAR_ULP_KINDS:
             runs.append(('ulp', accum, held[2]))
         runs += [('rows', n, None) for n in {
-            axes['data'] for axes in forms
+            axes['data'] for axes in meshes
             if kind == 'base' and set(axes) == {'data'}}]
         refs[ref] = {}
         batch = par_batch(dev, kind, rows, SEED + 1, seq)
@@ -6168,7 +6196,7 @@ def parallel_ranks(backend: str, want: dict, world: int = 2) -> dict:
                         .read_text()) for r in range(world)]
     where = 'one card' if backend == 'gloo' else f'{world} cards'
     failed = []
-    for name, axes, opts, kind in PAR_FORMS_N[world]:
+    for name, axes, opts, kind in par_forms(backend, world):
         rs = [r[name] for r in ranks]
         errors = [r['error'] for r in rs if 'error' in r]
         if errors:
@@ -6313,13 +6341,19 @@ def parallel_serve(asr, wav) -> dict:
 
 def run_parallel(dev, seed=SEED) -> dict:
     """Phase `parallel` (the serving check runs in the serving block):
-    world size 1 over NCCL, two ranks on one card over gloo, two ranks
-    over NCCL where there are two cards."""
+    world size 1 over NCCL, two ranks on one card over gloo, four ranks
+    on one card over gloo (PAR_FORMS_REGION), two and four ranks over
+    NCCL where there are the cards."""
     import torch
     smi = smi_line()
     t0 = time.perf_counter()
     res = {'world1': parallel_world1(dev, seed)}
     res['gloo'] = parallel_ranks('gloo', res['world1']['unwrapped_bf16'])
+    t1 = time.perf_counter()
+    res['gloo4'] = parallel_ranks('gloo', res['world1']['unwrapped_bf16'],
+                                  4)
+    log(f'parallel gloo x4 (the GPipe region under \'seq\' and '
+        f'\'expert\'): {time.perf_counter() - t1:.1f} s on {smi}')
     n = torch.cuda.device_count()
     for world in (2, 4):
         if n >= world:
@@ -8318,11 +8352,12 @@ def main():
         f'{int8["peaks"]["bf16"] / 2**30:.2f}); export {export["export_s"]:.1f}'
         f' s, aot {export["aot_s"]:.1f} s; the sharded bf16 step at world '
         f'1 {par["world1"]["bf16"]["ms"]:.1f} ms '
-        f'{par["world1"]["bf16"]["peak_gib"]:.2f} GiB; two ranks on one '
-        f'card over gloo: '
+        f'{par["world1"]["bf16"]["peak_gib"]:.2f} GiB; two and four '
+        f'ranks on one card over gloo: '
         + ', '.join(f'{n} ' + (f'{r["ms"]:.1f} ms {r["peak_gib"]:.2f} GiB'
                                if 'ms' in r else 'cannot run')
-                    for n, r in par['gloo']['ranks'][0].items()
+                    for run in ('gloo', 'gloo4')
+                    for n, r in par[run]['ranks'][0].items()
                     if n not in ('total', 'expect'))
         + f'; data_parallel={par_serve["n"]} serving '
         f'{par_serve["wall"]:.4f} s; families {families["wall_s"]:.1f} s: '
@@ -8455,7 +8490,7 @@ def kernel_records(k1, sdpa, fwd_err, bt, k4, lnr, launches, n_calls,
     runs = {'parallel_world1_f32_step': w1['f32']['launches'],
             'parallel_world1_step': w1['bf16']['launches']}
     totals = [w1['total'], par_serve['total']]
-    for run in ('gloo', 'nccl2', 'nccl4'):
+    for run in ('gloo', 'gloo4', 'nccl2', 'nccl4'):
         if run not in par:
             continue
         totals.append(par[run]['total'])

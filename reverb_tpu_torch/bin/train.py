@@ -48,10 +48,12 @@ asr_model does: each loss is the rank's share of the global
 encoders split their time axis and the others run whole on every rank;
 under 'expert' an MoE conformer splits its experts; under 'pipe' a
 conformer encoder whose config asks for the stages runs its GPipe
-region.  'seq' with 'pipe' raises NotImplementedError (ROADMAP item
-3).  The MoE feed-forward (`encoder_conf.positionwise_layer_type: moe`)
-is a conformer option and trains as any conformer.  `--prng_impl` other
-than auto raises NotImplementedError.
+region, and trains it under 'seq' and 'expert' as well (each stage on
+the rank's time block, its experts split inside the stage): every mix of
+the four axes trains, as in the JAX package.  The MoE feed-forward
+(`encoder_conf.positionwise_layer_type: moe`) is a conformer option and
+trains as any conformer.  `--prng_impl` other than auto raises
+NotImplementedError.
 """
 
 from __future__ import annotations
@@ -133,12 +135,10 @@ def check_supported(args, configs):
     rendezvous: NotImplementedError for what the port does not train,
     ValueError for an unknown family."""
     from reverb_tpu_torch.models.registry import model_kind
-    from reverb_tpu_torch.parallel.sharding import check_axes
     if args.prng_impl != 'auto':
         raise NotImplementedError(
             f"--prng_impl {args.prng_impl}: the JAX package's PRNG choice; "
             f"the port's dropout draws from torch's generator")
-    check_axes(args.num_devices_seq, args.num_devices_pipe)
     return model_kind(configs)
 
 

@@ -605,7 +605,11 @@ class ConformerEncoder(nn.Module):
     - 'pipe' (`pipe`, a parallel/pipeline.py:PipeStage): `pipe_region`'s
       layers run as GPipe stages when the batch divides into the
       microbatches, else in order (the stage's layers gathered first,
-      parallel/sharding.py:gather_params)."""
+      parallel/sharding.py:gather_params).  With 'seq' too, each stage
+      runs its layers on the rank's time block of each microbatch (the
+      stages of one 'seq' coordinate pass those blocks on), and with
+      'expert' its MoE layers split their experts over the stage's
+      'expert' group."""
 
     def __init__(self, cfg: EncoderConfig, with_cmvn: bool = False):
         super().__init__()
@@ -676,15 +680,18 @@ class ConformerEncoder(nn.Module):
         count_seq_step(self, ok)
         return tpc.TimeSplit(group, rank, n, length) if ok else None
 
-    def _run_region(self, xs, lo, hi, kv_lens, pos_emb, masks, generator,
-                    chunk_masks):
+    def _run_region(self, xs, lo, hi, kv_lens, pos_emb, mask_pad,
+                    generator, chunk_masks, seq=None):
         """Layers [lo, hi) as GPipe stages over 'pipe'
         (parallel/pipeline.py:gpipe).  With a generator one seed is drawn
         for each region layer on every stage (so the main stream stays one
         for the layers and the decoder after), and a layer's dropout on
         microbatch m draws from a generator seeded by (its seed, m), as
         JAX folds the microbatch index into each layer's key; a stage's
-        recomputation (gradient_checkpointing) draws the same masks."""
+        recomputation (gradient_checkpointing) draws the same masks.
+        Under 'seq' (`seq`) xs and mask_pad are the rank's time blocks,
+        and each layer's dropout the rank's block of the unsplit mask of
+        its microbatch."""
         from reverb_tpu_torch.parallel.pipeline import gpipe, mb_generator
         st = self.pipe
         per = (hi - lo) // st.size
@@ -696,14 +703,15 @@ class ConformerEncoder(nn.Module):
                                   generator=generator,
                                   device=generator.device).tolist()
             seeds = seeds[first - lo:first - lo + per]
+        split = () if seq is None else (seq,)
 
         def stage_fn(h, m, kv, mp, cm):
             for j, layer in enumerate(layers):
                 g = None if seeds is None else mb_generator(
                     seeds[j], m, h.device)
-                h = layer(h, kv, pos_emb, mp, None, g, cm)
+                h = layer(h, kv, pos_emb, mp, None, g, cm, *split)
             return h
-        return gpipe(stage_fn, xs, st, (kv_lens, masks, chunk_masks),
+        return gpipe(stage_fn, xs, st, (kv_lens, mask_pad, chunk_masks),
                      self.cfg.gradient_checkpointing,
                      [p for layer in layers for p in layer.parameters()])
 
@@ -765,7 +773,8 @@ class ConformerEncoder(nn.Module):
             if region is not None and region[0] <= i < region[1]:
                 if i == region[0]:
                     xs = self._run_region(xs, *region, kv_lens, pos_emb,
-                                          masks, generator, chunk_masks)
+                                          mask_pad, generator, chunk_masks,
+                                          seq)
                 continue
             args = (xs, kv_lens, pos_emb, mask_pad, cat_embs, generator,
                     chunk_masks) + (() if seq is None else (seq,))

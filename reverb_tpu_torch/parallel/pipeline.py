@@ -24,6 +24,15 @@ scaled by 1/S (train/trainer.py), so the sum is the loss's.  The region's
 input takes its gradient on stage 0 alone (zero elsewhere), so the
 layers before the region, summed over 'pipe', take theirs once.  Every
 rank issues the same collectives in the same order.
+
+The schedule runs on whatever block of the batch's rows a rank holds: a
+'pipe' group joins the stages of one coordinate along every other axis
+(parallel/mesh.py:axis_ranks), so under 'seq' stage s passes its time
+block (B/M, T/n, D) to the next stage's rank of the same block, and the
+stage's 'seq' and 'expert' collectives (the K/V gather, the conv halo,
+the experts' sums) run inside `stage_fn`, among the ranks of one stage,
+which run the same ticks; a recomputation in the backward re-issues them
+in the same order on each.
 """
 
 from __future__ import annotations

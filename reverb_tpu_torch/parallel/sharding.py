@@ -29,7 +29,10 @@ on every rank) and, in place:
 - 'pipe': the encoder's GPipe region (`ConformerEncoder.pipe_region`),
   stage s keeping its layers; a batch that does not divide into the
   microbatches runs the region in order, its layers gathered for that
-  step (`gather_params`);
+  step (`gather_params`).  The region composes with the other axes:
+  under 'seq' each stage runs its layers on the rank's time block, and
+  under 'expert' an expert of a region layer is kept by one stage and
+  one 'expert' rank (`ParamLayout.owners` holds both);
 - ZeRO-1/2 over 'data' (`zero`): each moment keeps its rank's block of the
   first free divisible axis; the optimizer updates that block of its
   parameter, and the blocks are all-gathered after the update;
@@ -47,15 +50,16 @@ is gathered; a replicated parameter's gradient (and a 'model'- or
 'expert'-split one's block) is then summed over ('data', 'seq', 'pipe'),
 and a stage's region layer's over ('data', 'seq').  'model' and 'expert'
 need no sum: their collectives (`copy_in`) give every rank the whole
-gradient of what it holds.  Under 'expert' the replicated parameters'
-gradients are averaged over the group all the same: each rank computes
-them whole, with its own roundings of the card's nondeterministic
-backward kernels (CTC's atomics), and copies that must stay one would
-drift apart step by step (under 'model' the replicated gradients meet
-in `copy_in`'s sums).  The global norm sums the squares of split
-gradients over their axis (`global_norm`), so every rank takes the same
-clip and skip decision.  `gathered()` gives the single-process layout for
-a checkpoint.
+gradient of what it holds.  Under 'expert' the gradients of what the
+group's ranks all hold are averaged over the group all the same (a
+region layer's inside its stage, over ('data', 'seq', 'expert')): each
+rank computes them whole, with its own roundings of the card's
+nondeterministic backward kernels (CTC's atomics), and copies that must
+stay one would drift apart step by step (under 'model' the replicated
+gradients meet in `copy_in`'s sums).  The global norm sums the squares
+of split gradients over each axis they are split on (`global_norm`), so
+every rank takes the same clip and skip decision.  `gathered()` gives
+the single-process layout for a checkpoint.
 """
 
 from __future__ import annotations
@@ -160,9 +164,16 @@ class ParamLayout:
     tp_index: Optional[torch.Tensor] = None  # this rank's rows of tp_axis
     zero_axis: Optional[int] = None          # moments split over 'data'
     zero3: bool = False                      # the parameter stored split
-    owner_axis: Optional[str] = None         # kept by one 'expert'/'pipe' rank
-    owner: int = 0                           # ... of this coordinate
+    # ((axis, coordinate), ...): kept only by the ranks at these
+    # coordinates of 'pipe' (a region layer's stage) and 'expert' (an
+    # expert's rank), in that order; () on every rank
+    owners: tuple = ()
     full: tuple = ()                         # the single-process shape
+
+    def owner(self, axis: str) -> Optional[int]:
+        """The coordinate along `axis` of the ranks that keep it, or None
+        when every coordinate does."""
+        return dict(self.owners).get(axis)
 
 
 def _all_gather(t, axis: int, group) -> torch.Tensor:
@@ -191,14 +202,6 @@ def _sum_buckets(grads: List[torch.Tensor], group):
         i = j
 
 
-def check_axes(seq: int, pipe: int):
-    """Raise NotImplementedError for axis sizes the port cannot combine."""
-    if seq > 1 and pipe > 1:
-        raise NotImplementedError(
-            "'seq' and 'pipe' together: the GPipe region's stages would "
-            "each split their time axis (not ported: ROADMAP item 3)")
-
-
 class Sharding:
     """The layout of one model and optimizer over `mesh` (module
     docstring): 'model' the tensor-parallel axis, 'data' the
@@ -215,23 +218,19 @@ class Sharding:
         self.zero3_min_size = zero3_min_size
         self.sizes = {a: axis_size(mesh, a) for a in AXES}
         self.coords = {a: axis_rank(mesh, a) for a in AXES}
-        check_axes(self.sizes['seq'], self.sizes['pipe'])
         self.data_size = self.sizes['data']
         self.data_rank = self.coords['data']
         self.tp_size = self.sizes['model']
         self.tp_rank = self.coords['model']
         self.data_group = mesh.get_group('data')
         self.tp_group = mesh.get_group('model')
-        # the gradient sums' groups (collective: every rank makes both)
-        self.replica_group = axis_group(mesh, ('pipe', 'data', 'seq'))
-        self.stage_group = axis_group(mesh, ('data', 'seq'))
-        # a replicated parameter's gradient under 'expert' is averaged over
-        # the group too (each rank computed it whole; on the card their
-        # roundings differ, and the copies must not drift apart)
-        self.shared_group = (axis_group(mesh, ('pipe', 'data', 'seq',
-                                               'expert'))
-                             if self.sizes['expert'] > 1
-                             else self.replica_group)
+        # the gradient sums' groups (`_grad_axes`; collective: every rank
+        # makes each, in one order)
+        self._groups = {}
+        for pipe in (True, False):
+            for expert in (True, False):
+                self._group(('data', 'seq') + ('pipe',) * pipe
+                            + ('expert',) * expert)
         self.loss_scale = 1.0 / (self.sizes['seq'] * self.sizes['pipe'])
         self.layouts: Dict[str, ParamLayout] = {}
         self.model = None
@@ -241,9 +240,16 @@ class Sharding:
 
     # ------------------------------ layout ------------------------------
 
+    def _group(self, axes):
+        """The group of the ranks that differ from this one only along
+        `axes` (cached by the axes of more than one rank)."""
+        key = tuple(a for a in AXES if a in axes and self.sizes[a] > 1)
+        if key not in self._groups:
+            self._groups[key] = axis_group(self.mesh, key)
+        return self._groups[key]
+
     def _keeps(self, lay: ParamLayout) -> bool:
-        return lay.owner_axis is None or \
-            self.coords[lay.owner_axis] == lay.owner
+        return all(self.coords[a] == c for a, c in lay.owners)
 
     def _tp_index(self, name, n, device):
         """This rank's rows of the `n` rows a 'model'-split parameter
@@ -259,9 +265,9 @@ class Sharding:
         return torch.cat([blk + i * c for i in range(parts)]).to(device)
 
     def _owners(self, model) -> Dict[str, tuple]:
-        """{parameter name: (axis, coordinate of the rank that keeps it)}
-        of the experts ('expert') and the GPipe region's layers
-        ('pipe')."""
+        """{parameter name: ((axis, coordinate of the ranks that keep
+        it), ...)} of the GPipe region's layers ('pipe') and the experts
+        ('expert'; an expert of a region layer has both)."""
         from reverb_tpu_torch.models.encoder import (ConformerEncoder,
                                                      MoEFeedForward)
         out = {}
@@ -274,8 +280,8 @@ class Sharding:
                                      f'ranks')
                 for e, ex in enumerate(m.experts):
                     for pn, _ in ex.named_parameters():
-                        out[f'{mname}.experts.{e}.{pn}'] = (
-                            'expert', e // (E // n_exp))
+                        out.setdefault(f'{mname}.experts.{e}.{pn}', []) \
+                            .append(('expert', e // (E // n_exp)))
             region = (m.pipe_region(n_pipe) if n_pipe > 1 and
                       isinstance(m, ConformerEncoder) else None)
             if region is not None:
@@ -283,13 +289,10 @@ class Sharding:
                 per = (hi - lo) // n_pipe
                 for i in range(lo, hi):
                     for pn, _ in m.encoders[i].named_parameters():
-                        key = f'{mname}.encoders.{i}.{pn}'
-                        if key in out:
-                            raise NotImplementedError(
-                                f'{key}: experts inside a GPipe stage '
-                                f"('expert' with 'pipe')")
-                        out[key] = ('pipe', (i - lo) // per)
-        return out
+                        out.setdefault(f'{mname}.encoders.{i}.{pn}', []) \
+                            .append(('pipe', (i - lo) // per))
+        return {k: tuple(sorted(v, key=lambda o: AXES.index(o[0])))
+                for k, v in out.items()}
 
     def _layouts(self, model):
         shapes = {tree_key(n): tuple(p.shape)
@@ -303,8 +306,7 @@ class Sharding:
         for name, p in model.named_parameters():
             path = tree_key(name)
             lay = ParamLayout(full=tuple(p.shape))
-            if name in owners:
-                lay.owner_axis, lay.owner = owners[name]
+            lay.owners = owners.get(name, ())
             if self.tp_size > 1 and 'model' in pspec[path]:
                 lay.tp_axis = pspec[path].index('model')
                 lay.tp_index = self._tp_index(name, p.shape[lay.tp_axis],
@@ -470,32 +472,45 @@ class Sharding:
 
     def _region_params(self):
         return [(n, p) for n, p in self.model.named_parameters()
-                if self.layouts[n].owner_axis == 'pipe']
+                if self.layouts[n].owner('pipe') is not None]
 
-    def _from_owner(self, lay, t, shape):
-        """The kept tensor `t` broadcast from its owner over its axis;
-        `shape` is what the other ranks receive."""
-        buf = t.contiguous() if self._keeps(lay) else t.new_empty(shape)
-        src = axis_ranks(self.mesh, lay.owner_axis)[lay.owner]
-        dist.broadcast(buf, src=src, group=self.mesh.get_group(
-            lay.owner_axis))
-        return buf
+    def _from_owners(self, lay, t, shape, axes=('pipe', 'expert')):
+        """The kept tensor `t` broadcast from its owners along each of
+        `axes` in turn; `shape` is what the other ranks receive.  Along
+        one axis only the groups that sit at the owners' coordinates of
+        the later axes take part (they alone hold it by then), so after
+        the last axis every rank holds it."""
+        todo = [(a, c) for a, c in lay.owners if a in axes]
+        held = all(self.coords[a] == c for a, c in todo)
+        for k, (a, c) in enumerate(todo):
+            if any(self.coords[b] != d for b, d in todo[k + 1:]):
+                continue
+            buf = t.contiguous() if held else t.new_empty(shape)
+            dist.broadcast(buf, src=axis_ranks(self.mesh, a)[c],
+                           group=self.mesh.get_group(a))
+            t, held = buf, True
+        return t
 
     def gather_params(self, rows: Optional[int] = None):
         """ZeRO-3: every split parameter back to its whole (TP-local)
         shape, for a forward.  Under 'pipe', also every stage's region
         layers on every stage when a batch of `rows` does not run the
-        GPipe region (None: whatever the batch, for an evaluation)."""
+        GPipe region (None: whatever the batch, for an evaluation); under
+        'expert' a rank gathers only its own experts of them."""
         self._gather_zero3()
         if self.encoder is not None and (
                 rows is None or not self.encoder.pipe_engages(rows)):
             with torch.no_grad():
                 for name, p in self._region_params():
                     lay = self.layouts[name]
+                    e = lay.owner('expert')
+                    if e is not None and e != self.coords['expert']:
+                        continue
                     shape = list(lay.full)
                     if lay.tp_axis is not None:
                         shape[lay.tp_axis] = len(lay.tp_index)
-                    p.data = self._from_owner(lay, p.data, shape)
+                    p.data = self._from_owners(lay, p.data, shape,
+                                               ('pipe',))
             self._region_whole = True
 
     def _gather_zero3(self):
@@ -516,26 +531,30 @@ class Sharding:
                         p.data = p.data.new_empty(0)
                 self._region_whole = False
 
+    def _grad_axes(self, lay: ParamLayout) -> tuple:
+        """The axes a parameter's gradient is summed over: ('data',
+        'seq'), 'pipe' unless its stage alone computed it, 'expert' unless
+        it is an expert (module docstring)."""
+        staged = lay.owner('pipe') is not None and not self._region_whole
+        return ('data', 'seq') + ('pipe',) * (not staged) + \
+            ('expert',) * (lay.owner('expert') is None)
+
     def reduce_grads(self, grads: List[torch.Tensor]):
-        """Sum the gradients (aligned with model.parameters()) in place:
-        over ('data', 'seq', 'pipe'), a region layer's over ('data',
-        'seq') where its stage alone computed it, a replicated one's
-        averaged over 'expert' too (module docstring).
-        Frozen parameters (requires_grad off: LoRA's base) take part in
-        no sum.  A region layer of another stage, gathered for a step
-        that ran the region in order, leaves an empty gradient."""
+        """Sum the gradients (aligned with model.parameters()) in place
+        over `_grad_axes`, averaged over 'expert' where that is one of
+        them (module docstring).  Frozen parameters (requires_grad off:
+        LoRA's base) take part in no sum.  A region layer of another
+        stage, gathered for a step that ran the region in order, leaves
+        an empty gradient."""
         by_group: Dict[int, tuple] = {}
         shared = []
         for (name, p), g in zip(self.model.named_parameters(), grads):
             if not p.requires_grad:
                 continue
-            owner = self.layouts[name].owner_axis
-            staged = owner == 'pipe' and not self._region_whole
-            group = (self.stage_group if staged else
-                     self.shared_group if owner is None else
-                     self.replica_group)
-            if owner is None:
+            axes = self._grad_axes(self.layouts[name])
+            if 'expert' in axes:
                 shared.append(g)
+            group = self._group(axes)
             if group is not None:
                 by_group.setdefault(id(group), (group, []))[1].append(g)
         if self.sizes['expert'] > 1:
@@ -545,7 +564,7 @@ class Sharding:
         if self._region_whole:
             for i, (name, _) in enumerate(self.model.named_parameters()):
                 lay = self.layouts[name]
-                if lay.owner_axis == 'pipe' and not self._keeps(lay):
+                if lay.owner('pipe') is not None and not self._keeps(lay):
                     grads[i] = grads[i].new_empty(0)
 
     def sum_over_data(self, values: Dict) -> Dict[str, float]:
@@ -567,14 +586,16 @@ class Sharding:
     def global_norm(self, grads: List[torch.Tensor]) -> torch.Tensor:
         """‖g‖ of the whole model's gradient (0-d): the squares of the
         'model'-split gradients summed over 'model', of the experts over
-        'expert' and of the region layers over 'pipe'; each rank holds
-        the whole gradient of the rest after `reduce_grads`."""
+        'expert' and of the region layers over 'pipe' (a region layer's
+        expert over both); each rank holds the whole gradient of the rest
+        after `reduce_grads`."""
         lays = [self.layouts[n] for n, _ in self.model.named_parameters()]
         sq = [n * n for n in torch._foreach_norm(grads)]
         for axis, split in (
                 ('model', [lay.tp_axis is not None for lay in lays]),
-                ('expert', [lay.owner_axis == 'expert' for lay in lays]),
-                ('pipe', [lay.owner_axis == 'pipe' for lay in lays])):
+                ('expert', [lay.owner('expert') is not None
+                            for lay in lays]),
+                ('pipe', [lay.owner('pipe') is not None for lay in lays])):
             if self.sizes[axis] > 1 and any(split):
                 sq = list(self._sum_over(sq, split,
                                          self.mesh.get_group(axis)))
@@ -631,16 +652,17 @@ class Sharding:
 
     def _whole(self, name, t, data: bool = True):
         """A moment's block (TP, then ZeRO; none where another 'expert' or
-        'pipe' rank keeps it) → its whole tensor; a parameter's with
-        `data` False (whole over 'data' already)."""
+        'pipe' rank keeps it) → its whole tensor, on every rank (from its
+        owners along 'pipe' and 'expert'); a parameter's with `data`
+        False (whole over 'data' already)."""
         lay = self.layouts[name]
         if self._keeps(lay) and t.dim():
             if data and lay.zero_axis is not None:
                 t = _all_gather(t, lay.zero_axis, self.data_group)
             if lay.tp_axis is not None:
                 t = self._whole_tp(name, t)
-        if lay.owner_axis is not None:
-            t = self._from_owner(lay, t, lay.full if t.dim() else ())
+        if lay.owners:
+            t = self._from_owners(lay, t, lay.full if t.dim() else ())
         return t
 
     @contextlib.contextmanager
@@ -664,7 +686,7 @@ class Sharding:
                         moments.append(list(ms))
                         for j, name in enumerate(names):
                             if ms[j].dim() or \
-                                    self.layouts[name].owner_axis:
+                                    self.layouts[name].owners:
                                 ms[j] = self._whole(name, ms[j])
             yield
         finally:

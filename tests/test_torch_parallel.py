@@ -14,9 +14,14 @@ over both split axes, and with reverb_large's plain bitransformer
 decoder), DDP with accum_grad 2 and a length-normalised loss, 'seq' 2,
 'expert' 2 (4 experts, 2 a token) and 'pipe' 2 (the two middle MoE
 blocks of four as stages, 2 microbatches, batch_norm conv modules) on
-one config, TP 2 over layer_norm conv modules, and at world 4 'pipe' 2 × TP 2 (six blocks, layer_norm: the composition of
-JAX's test_pp_composed_with_dp_tp_train_step_matches_single_device) and
-'seq' 2 × TP 2.
+one config, TP 2 over layer_norm conv modules, and at world 4 'pipe' 2 ×
+TP 2 (six blocks, layer_norm: the composition of JAX's
+test_pp_composed_with_dp_tp_train_step_matches_single_device), 'seq' 2 ×
+TP 2, 'pipe' 2 × 'seq' 2 (every stage on the rank's time block, the same
+six blocks) and 'pipe' 2 × 'expert' 2 (the MoE blocks, the region
+layers' experts split inside each stage).  The JAX package composes both
+of the last two under GSPMD; no test of its own covers them, so they are
+held to its single-device step as the others are.
 Bounds are the JAX package's own for its sharded steps
 (tests/test_parallel_axes.py): loss and grad norm within rtol 1e-4, every
 updated parameter within 1e-4.  No dropout where the packages are
@@ -47,6 +52,7 @@ from reverb_tpu.models import presets as jpresets
 from reverb_tpu.train import trainer as jtr
 from reverb_tpu_torch import convert
 from reverb_tpu_torch.models import asr_model as tam
+from reverb_tpu_torch.parallel.mesh import AXES
 from reverb_tpu_torch.train import checkpoint as tckpt
 from reverb_tpu_torch.train import trainer as ttr
 
@@ -56,10 +62,11 @@ D = 128
 CLIP = 5.0
 FORMS = ['ddp', 'zero12', 'zero3', 'tp2', 'dp2tp2', 'accum2',
          'dp2tp2_novograd', 'dp2tp2_bitr', 'seq2', 'expert2', 'pipe2',
-         'tp2_ln', 'pipe2tp2', 'seq2tp2']
+         'tp2_ln', 'pipe2tp2', 'seq2tp2', 'pipe2seq2', 'pipe2expert2']
 WANT = {'accum2': 'accum', 'dp2tp2_novograd': 'novograd',
         'dp2tp2_bitr': 'bitr', 'expert2': 'pipe_moe', 'pipe2': 'pipe_moe',
-        'tp2_ln': 'pipe_ln', 'pipe2tp2': 'pipe_ln'}
+        'tp2_ln': 'pipe_ln', 'pipe2tp2': 'pipe_ln', 'pipe2seq2': 'pipe_ln',
+        'pipe2expert2': 'pipe_moe'}
 # the config (and initial parameters) of each key: file names
 CONF_FILES = {'base': 'conf', 'accum': 'conf_accum',
               'novograd': 'conf_novograd', 'bitr': 'conf_bitr',
@@ -241,17 +248,22 @@ def test_sharded_step_matches_jax_single_device(runs, form):
     assert (split['zero'] > 0) == form.startswith(('zero', 'dp2tp2'))
     assert (split['expert'] > 0) == ('expert' in form)
     assert (split['pipe'] > 0) == ('pipe' in form)
+    # an expert of a region layer kept by one stage and one 'expert' rank
+    assert (split['stage_expert'] > 0) == ('pipe' in form and
+                                           'expert' in form)
     # both steps ran split where the time axis is
     assert split['seq_steps'] == {'split': 2 if 'seq' in form else 0,
                                   'whole': 0}
 
 
-@pytest.mark.parametrize('form', ['zero3', 'tp2', 'pipe2', 'expert2'])
+@pytest.mark.parametrize('form', ['zero3', 'tp2', 'pipe2', 'expert2',
+                                  'pipe2expert2'])
 def test_split_checkpoint_reloads_on_one_rank(runs, form):
-    """The gathered state saved under ZeRO-3, TP, 'pipe' or 'expert'
-    loads into one rank's model and optimizer: the parameters are the
-    run's, whole (every stage's layers, every expert), and the moments
-    have the parameters' whole shapes."""
+    """The gathered state saved under ZeRO-3, TP, 'pipe', 'expert' or
+    both (an expert of a region layer on one of four ranks) loads into
+    one rank's model and optimizer: the parameters are the run's, whole
+    (every stage's layers, every expert), and the moments have the
+    parameters' whole shapes."""
     work, params, want = runs
     _, flat = _result(work, form)
     key = WANT.get(form, 'base')
@@ -291,23 +303,36 @@ def test_dropout_masks_differ_across_data_ranks(runs):
                                    'split_blocks_unsplit': True}
 
 
-@pytest.mark.parametrize('form', ['tp2_dropout', 'seq2_dropout'])
+# a split form with dropout: (the step it equals, the form's step without
+# dropout)
+DROPOUT_REFS = {'tp2_dropout': ('unsplit_dropout', 'tp2'),
+                'seq2_dropout': ('unsplit_dropout', 'tp2'),
+                'pipe2seq2_dropout': ('pipe2_dropout', 'pipe2seq2')}
+
+
+@pytest.mark.parametrize('form', list(DROPOUT_REFS))
 def test_tp_dropout_matches_unsplit_step(runs, form):
     """TP 2's and 'seq' 2's two steps with dropout equal the unsplit
     port's two steps with the same generator seed: the split layers drop
-    the heads, hidden units and time blocks the unsplit layers drop.  The
-    bounds are the sharded steps' (JAX draws other masks, so the
-    reference is the port's own unsplit step)."""
+    the heads, hidden units and time blocks the unsplit layers drop.
+    'pipe' 2 × 'seq' 2's equal 'pipe' 2's (whose stages draw per layer
+    and microbatch, parallel/pipeline.py:mb_generator): each stage's
+    layers drop the time blocks of those masks.  The bounds are the
+    sharded steps' (JAX draws other masks, so the reference is the
+    port's own step)."""
     work = runs[0]
+    ref, nodrop = DROPOUT_REFS[form]
     got, flat = _result(work, form)
-    want = json.loads((work / 'unsplit_dropout.json').read_text())
-    with np.load(work / 'unsplit_dropout.npz') as z:
+    want = json.loads((work / f'{ref}.json').read_text())
+    with np.load(work / f'{ref}.npz') as z:
         want_flat = {k: z[k] for k in z.files}
     _assert_matches(got['metrics'], flat,
                     [(m, want_flat) for m in want['metrics']])
     assert got['split']['tp'] > 0 or got['split']['seq_steps']['split'] == 2
+    if 'pipe' in form:
+        assert got['split']['pipe'] > 0 and want['split']['pipe'] > 0
     # dropout was on: the loss is not the dropout-free step's
-    plain, _ = _result(work, 'tp2')
+    plain, _ = _result(work, nodrop)
     assert abs(got['metrics'][0]['loss'] - plain['metrics'][0]['loss']) \
         > 1e-3
 
@@ -329,6 +354,25 @@ def test_axes_match_jax_device_layout(runs, axis):
     for r, d in enumerate(devices):
         want = [int(i) for i in np.argwhere(mesh.devices == d)[0]]
         assert got[r] == want, (r, got[r], want)
+
+
+@pytest.mark.parametrize('axis', ['seq', 'expert'])
+def test_pipe_group_joins_one_coordinate(runs, axis):
+    """Under make_mesh(pipe=2, axis=2) a rank's 'pipe' group, the ranks
+    its GPipe stage sends to and receives from, holds one rank of each
+    stage, in stage order, at the rank's own coordinate along `axis` (and
+    every other axis): a stage passes its time block, or runs its
+    experts, for the next stage's rank of the same block or experts."""
+    got = json.loads((runs[0] / 'coords.json').read_text())[f'pipe_{axis}']
+    coords, groups = got['coords'], got['pipe_group']
+    pipe = AXES.index('pipe')
+    for r, group in enumerate(groups):
+        assert r in group and len(group) == 2
+        assert [coords[g][pipe] for g in group] == [0, 1]
+        for g in group:
+            assert [c for i, c in enumerate(coords[g]) if i != pipe] == \
+                [c for i, c in enumerate(coords[r]) if i != pipe]
+    assert len({tuple(g) for g in groups}) == 2
 
 
 def test_rules_match_jax():

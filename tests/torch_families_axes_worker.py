@@ -116,7 +116,7 @@ def main(rank: int, work: str):
                'tp_split': sum(lay.tp_axis is not None
                                for lay in sh.layouts.values()),
                'pipe_region': sh.encoder is not None,
-               'experts_split': sum(lay.owner_axis == 'expert'
+               'experts_split': sum(lay.owner('expert') is not None
                                     for lay in sh.layouts.values())}
         with sh.gathered():
             if rank == 0:

@@ -10,9 +10,10 @@ each global batch (parallel/mesh.py:local_rows), after which rank 0
 writes the metrics and the gathered parameters (<form>.json, <form>.npz),
 and for the ZeRO-3, TP, pipeline and expert forms a checkpoint of the
 gathered state.  World 2 also takes TP 2's and 'seq' 2's two steps with
-dropout beside the unsplit step's on the same generator seed, draws
-dropout masks, checks that unequal row counts raise and resumes the
-ZeRO-3 checkpoint under TP for a third step.
+dropout beside the unsplit step's on the same generator seed, and 'pipe'
+2's with dropout, draws dropout masks, checks that unequal row counts
+raise and resumes the ZeRO-3 checkpoint under TP for a third step; world
+4 takes 'pipe' 2 × 'seq' 2's two steps with dropout.
 """
 
 import json
@@ -57,14 +58,20 @@ FORMS = {
         ('pipe2tp2', {'data': 1, 'pipe': 2, 'model': 2}, {'zero': True},
          'conf_pipe_ln.json'),
         ('seq2tp2', {'data': 1, 'seq': 2, 'model': 2}, {'zero': True},
-         'conf.json')],
+         'conf.json'),
+        # every stage on the rank's time block (the pipe2tp2 blocks)
+        ('pipe2seq2', {'data': 1, 'pipe': 2, 'seq': 2}, {'zero': True},
+         'conf_pipe_ln.json'),
+        # the region layers' experts split inside each stage
+        ('pipe2expert2', {'data': 1, 'pipe': 2, 'expert': 2},
+         {'zero': True}, 'conf_pipe_moe.json')],
 }
 # the initial parameters of each config (the others start at init.npz)
 INITS = {'conf_bitr.json': 'init_bitr.npz',
          'conf_pipe_moe.json': 'init_pipe_moe.npz',
          'conf_pipe_ln.json': 'init_pipe_ln.npz'}
 # the forms whose gathered state is saved as a checkpoint
-CKPT_FORMS = ('zero3', 'tp2', 'pipe2', 'expert2')
+CKPT_FORMS = ('zero3', 'tp2', 'pipe2', 'expert2', 'pipe2expert2')
 
 
 def main(rank: int, world: int, work: str):
@@ -115,10 +122,13 @@ def main(rank: int, world: int, work: str):
                  'zero3': sum(lay.zero3 for lay in sh.layouts.values()),
                  'zero': sum(lay.zero_axis is not None
                              for lay in sh.layouts.values()),
-                 'expert': sum(lay.owner_axis == 'expert'
+                 'expert': sum(lay.owner('expert') is not None
                                for lay in sh.layouts.values()),
-                 'pipe': sum(lay.owner_axis == 'pipe'
-                             for lay in sh.layouts.values())}
+                 'pipe': sum(lay.owner('pipe') is not None
+                             for lay in sh.layouts.values()),
+                 # experts kept by one stage and one 'expert' rank
+                 'stage_expert': sum(len(lay.owners) == 2
+                                     for lay in sh.layouts.values())}
         step = ttr.make_train_step(cfg, opt, tc.accum_grad, tc.grad_clip,
                                    sharding=sh)
         metrics = [step(model, pm.put_batch(batches[i], mesh, 'cpu'), gen)
@@ -139,15 +149,32 @@ def main(rank: int, world: int, work: str):
         run(form, axes, opts, conf_name)
 
     if world == 4:
+        # 'pipe' 2 × 'seq' 2 with dropout (world 2 takes the 'pipe' 2 step
+        # it equals)
+        run('pipe2seq2_dropout', {'data': 1, 'pipe': 2, 'seq': 2},
+            {'zero': True}, 'conf_pipe_ln.json', seed=3)
         # every rank's coordinates under 'seq', 'pipe' or 'expert' with
         # 'model' (JAX's device layout: tests/test_torch_parallel.py)
         coords = {}
-        for axis in ('seq', 'pipe', 'expert'):
-            mesh = pm.make_mesh(**{axis: 2, 'model': 2})
-            mine = torch.tensor([pm.axis_rank(mesh, a) for a in pm.AXES])
+
+        def gathered(values):
+            mine = torch.tensor(values)
             parts = [torch.empty_like(mine) for _ in range(world)]
             dist.all_gather(parts, mine)
-            coords[axis] = [p.tolist() for p in parts]
+            return [p.tolist() for p in parts]
+        for axis in ('seq', 'pipe', 'expert'):
+            mesh = pm.make_mesh(**{axis: 2, 'model': 2})
+            coords[axis] = gathered([pm.axis_rank(mesh, a)
+                                     for a in pm.AXES])
+        # under 'pipe' with 'seq' or 'expert': each rank's coordinates and
+        # the global ranks of its 'pipe' group in stage order (the ranks
+        # a stage sends to and receives from)
+        for axis in ('seq', 'expert'):
+            mesh = pm.make_mesh(pipe=2, **{axis: 2})
+            coords[f'pipe_{axis}'] = {
+                'coords': gathered([pm.axis_rank(mesh, a)
+                                    for a in pm.AXES]),
+                'pipe_group': gathered(pm.axis_ranks(mesh, 'pipe'))}
         if rank == 0:
             with open(f'{work}/coords.json', 'w') as f:
                 json.dump(coords, f)
@@ -157,6 +184,8 @@ def main(rank: int, world: int, work: str):
             'conf.json', seed=3)
         run('seq2_dropout', {'data': 1, 'seq': 2}, {'zero': True},
             'conf.json', seed=3)
+        run('pipe2_dropout', {'data': 1, 'pipe': 2}, {'zero': True},
+            'conf_pipe_ln.json', seed=3)
         if rank == 0:
             cfg, tc, model, opt = build('conf.json')
             step = ttr.make_train_step(cfg, opt, tc.accum_grad, tc.grad_clip)
