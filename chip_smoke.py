@@ -268,9 +268,11 @@ weights:
   (config.yaml, 8404 units, final.pt); `cli/transcribe.main([wav, '-m',
   dir, '--paraformer', '-t'])` on a 60 s WAV, a first call with every K5
   call held to its plain version and a timed second call (the CLI's wall,
-  transcribe() alone, its encoder, CIF loop and decoder), K5 167 a call;
+  transcribe() alone), K5 167 a call;
   the same call through the plain versions: text, tokens and times equal,
-  confidences within 1e-5.  Its f32 reference step at full depth (B = 2;
+  confidences within 1e-5; a fourth call under torch.profiler, whose
+  `paraformer.*` spans give the encoder, CIF loop, decoder and search
+  their host ms and the device ms of the work launched inside them.  Its f32 reference step at full depth (B = 2;
   every K5/K6 call against its plain version, the gradient against f64)
   and `bin.train.main` in bf16 at B = 8 of 1600-2051 frames (K5 234 and
   K6 167 a step: the sampler's frozen decoder pass adds 67 K5); then the
@@ -7152,10 +7154,10 @@ def para_serve(dev, seed, workdir: Path) -> dict:
     `cli/transcribe.main([wav, '-m', dir, '--paraformer', '-t'])` on a 60 s
     WAV: a first call with every K5 call held to its plain version, a
     second call timed (the CLI's wall with its model load, transcribe()
-    alone, and its encoder / CIF loop / decoder), each launching K5
-    PARA_LN_ENC + PARA_LN_DEC times and nothing else; then the same call
-    with the plain versions: text, tokens and times equal, confidences
-    within 1e-5."""
+    alone), each launching K5 PARA_LN_ENC + PARA_LN_DEC times and nothing
+    else; then the same call with the plain versions: text, tokens and
+    times equal, confidences within 1e-5; then the call once more under
+    torch.profiler, read by its spans (para_phases)."""
     import contextlib
     import gc
     import io
@@ -7204,8 +7206,7 @@ def para_serve(dev, seed, workdir: Path) -> dict:
             t1 = time.perf_counter()
             out = orig(self, *a, **k)
             torch.cuda.synchronize()
-            inner.update(s=time.perf_counter() - t1,
-                         phases=dict(self.last_phases), ln=calls[0])
+            inner.update(s=time.perf_counter() - t1, ln=calls[0])
         finally:
             for h in hooks:
                 h.remove()
@@ -7214,11 +7215,16 @@ def para_serve(dev, seed, workdir: Path) -> dict:
             'cuda']
     runs, errs = [], {}
     for name, table in (('checked', checked_kernels(errs)),
-                        ('timed', {}), ('plain', plain_versions())):
+                        ('timed', {}), ('plain', plain_versions()),
+                        ('traced', {})):
         diar_zero_launch_counts()
+        prof = (torch.profiler.profile(activities=[
+            torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA])
+            if name == 'traced' else contextlib.nullcontext())
         t1 = time.perf_counter()
         with swapped({(pm.Paraformer, 'transcribe'): timed, **table}), \
-                contextlib.redirect_stdout(io.StringIO()) as out:
+                contextlib.redirect_stdout(io.StringIO()) as out, prof:
             res = transcribe.main(argv)
         wall = time.perf_counter() - t1
         if json.loads(out.getvalue().splitlines()[-1]) != json.loads(
@@ -7243,26 +7249,64 @@ def para_serve(dev, seed, workdir: Path) -> dict:
         raise AssertionError('paraformer: the plain run launched K5')
     worst = para_same(runs[1]['res'], runs[2]['res'])
     para_same(runs[0]['res'], runs[1]['res'])
+    para_same(runs[3]['res'], runs[1]['res'])
+    phases = para_phases(prof, workdir / 'para_trace.json')
     t = runs[1]
-    ph = t['phases']
     n_tok = len(t['res']['tokens'])
     log(f'paraformer serving ({PARA_AUDIO_S:.0f} s, {n_tok} tokens): '
         f'second CLI call {t["wall_s"]:.3f} s with the model load, '
         f'transcribe() {t["s"] * 1e3:.1f} ms (xRT '
-        f'{PARA_AUDIO_S / t["s"]:.1f}): encoder {ph["encoder"] * 1e3:.1f} ms, '
-        f'CIF loop {ph["cif"] * 1e3:.1f} ms, decoder and tp branch '
-        f'{ph["decoder"] * 1e3:.1f} ms, tp peaks loop and greedy search '
-        f'{ph["peaks_and_search"] * 1e3:.1f} ms; K5 '
-        f'{t["launches"]["K5"]} a call; '
+        f'{PARA_AUDIO_S / t["s"]:.1f}); K5 {t["launches"]["K5"]} a call; '
         f'the plain versions give the same text, tokens and times '
         f'(confidences within {worst:.1e}); first call {runs[0]["s"]:.3f} s')
+    log('paraformer serving, traced call by span (host ms / device ms): '
+        + ', '.join(f'{k} {h:.1f} / ' + ('not measured' if d is None
+                                          else f'{d:.1f}')
+                    for k, (h, d) in phases.items()))
     return {'params': n_params, 'tokens': n_tok, 'calls': runs[:2],
             'walls': [r['wall_s'] for r in runs],
             'transcribe_s': [r['s'] for r in runs],
-            'phases': ph, 'launches': t['launches'],
+            'phases': phases, 'launches': t['launches'],
             'total': {n: runs[0]['launches'][n] + runs[1]['launches'][n]
                       for n in runs[1]['launches']}, 'conf_err': worst,
             'call_errs': errs}
+
+
+def para_phases(prof, path: Path) -> dict:
+    """{phase: (host ms, device ms)} of the `paraformer.*` spans
+    (utils/profiling.py:span) in a profiled transcribe: each span's own
+    length on the host, and the device time of the kernels and copies
+    whose host launch lies inside it (None where the trace holds no
+    device event, as the profiler has returned on the H100).  It raises
+    where a span is missing."""
+    prof.export_chrome_trace(str(path))
+    events = json.loads(path.read_text())
+    path.unlink()
+    events = events['traceEvents'] if isinstance(events, dict) else events
+    spans, launch, device = {}, {}, []
+    for e in events:
+        if e.get('ph') != 'X':
+            continue
+        cat, args = e.get('cat', ''), e.get('args') or {}
+        ts, end = float(e['ts']), float(e['ts']) + float(e.get('dur', 0))
+        if e['name'].startswith('span:paraformer.'):
+            spans[e['name'][16:]] = (ts, end)
+        elif cat in ('cuda_runtime', 'cuda_driver') and 'correlation' in args:
+            launch[args['correlation']] = ts
+        elif cat in ('kernel', 'gpu_memcpy', 'gpu_memset'):
+            device.append((end - ts, args.get('correlation')))
+    names = ('encoder', 'cif', 'decoder', 'search')
+    if set(spans) != set(names):
+        raise AssertionError(f'paraformer: the traced call has the spans '
+                             f'{sorted(spans)}')
+    out = {}
+    for n in names:
+        s, e = spans[n]
+        out[n] = ((e - s) / 1e3, sum(
+            us for us, corr in device
+            if corr in launch and s <= launch[corr] <= e) / 1e3
+            if device else None)
+    return out
 
 
 def para_reference(dev, seed, configs, what, kernels) -> dict:
@@ -8366,8 +8410,8 @@ def main():
         + ', '.join(f'{k} step {r["ms"]:.1f} ms'
                     for k, r in families['alt'].items())
         + f'; paraformer {para["wall_s"]:.1f} s: transcribe --paraformer '
-        f'{para["serve"]["transcribe_s"][1]:.3f} s for {PARA_AUDIO_S:.0f} s '
-        f'(CIF loop {para["serve"]["phases"]["cif"] * 1e3:.1f} ms), SANM '
+        f'{para["serve"]["transcribe_s"][1]:.3f} s for {PARA_AUDIO_S:.0f} s, '
+        f'SANM '
         f'bin.train {para["bin_train"]["step_ms"]:.1f} ms/step, conformer '
         f'Paraformer step {para["conformer"]["ms"]:.1f} ms, transformer step '
         f'{para["transformer"]["ms"]:.1f} ms, transformer serving '

@@ -12,17 +12,17 @@ The fbank frames are zero-padded to a multiple of `_FEAT_BUCKET` and the
 decoder's token buffer holds `_MAX_TOKENS`, as in the JAX package: the
 timestamp BiLSTM and the CIF conv read the padded tail, so other paddings
 would give other times and token counts.  The model runs on `device`
-(default cuda; raises without a card), in f32.  Each `transcribe` records
-the host-clock seconds of its encoder, CIF loop, decoder (with the tp
-branch) and of the tp peaks' loop with the greedy search in
-`last_phases` (each ended by a device synchronisation or a host read).
+(default cuda; raises without a card), in f32.  Under a torch profiler a
+`transcribe` shows its encoder, CIF loop, decoder (with the tp branch)
+and the tp peaks' loop with the greedy search as the spans
+`paraformer.encoder`, `.cif`, `.decoder` and `.search`
+(utils/profiling.py:span).
 """
 
 from __future__ import annotations
 
 import math
 import os
-import time
 from pathlib import Path
 
 import numpy as np
@@ -31,6 +31,7 @@ import torch
 from reverb_tpu_torch.frontend.audio import load_for_asr
 from reverb_tpu_torch.frontend.fbank import (FbankConfig, compute_fbank,
                                              num_frames)
+from reverb_tpu_torch.utils.profiling import span
 
 # the decoder's token buffer; ~20 tokens/s of speech headroom
 _MAX_TOKENS = 512
@@ -88,7 +89,6 @@ class Paraformer:
         # 10 ms mel frames → LFR n → ×upsample_times tp frames
         self.tp_frame_rate = (0.01 * self.scfg.lfr_n
                               / self.cif_cfg.upsample_times)
-        self.last_phases = {}
 
     @staticmethod
     def _find_checkpoint(model_dir: Path) -> Path:
@@ -124,7 +124,6 @@ class Paraformer:
 
         wave = load_for_asr(audio_file, self.resample_rate)
         T = num_frames(len(wave), self.fbank)
-        phases = {}
         with torch.inference_mode():
             feats = compute_fbank(torch.from_numpy(wave).to(self.device),
                                   self.fbank, n_frames=T)
@@ -132,14 +131,12 @@ class Paraformer:
             feats = torch.nn.functional.pad(feats, (0, 0, 0, Tb - T))[None]
             lens = torch.tensor([T], dtype=torch.int32, device=self.device)
             logp, out_lens, tp_alphas = self.model.forward_paraformer(
-                feats, lens, _MAX_TOKENS, timing=phases)
-            clock = time.perf_counter()
-            peaks = cif_peaks_from_tp(tp_alphas, out_lens,
-                                      self.cif_cfg.threshold)
-            res = paraformer_greedy_search(logp, out_lens,
-                                           cif_peaks=peaks)[0]
-            phases['peaks_and_search'] = time.perf_counter() - clock
-        self.last_phases = phases
+                feats, lens, _MAX_TOKENS)
+            with span('paraformer.search'):
+                peaks = cif_peaks_from_tp(tp_alphas, out_lens,
+                                          self.cif_cfg.threshold)
+                res = paraformer_greedy_search(logp, out_lens,
+                                               cif_peaks=peaks)[0]
         tokens = self.tokenizer.ids2tokens(res.tokens)
         result = {'confidence': res.confidence,
                   'text': paraformer_beautify_result(tokens)}

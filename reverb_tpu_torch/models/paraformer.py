@@ -29,7 +29,6 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -37,6 +36,7 @@ from torch import nn
 
 from reverb_tpu_torch.models.modules import Conv1d, Linear
 from reverb_tpu_torch.parallel import global_batch as gb
+from reverb_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass(frozen=True)
@@ -275,61 +275,33 @@ class SanmParaformer(nn.Module):
         self.ctc = CTC(scfg.vocab_size, scfg.output_size) if with_ctc \
             else None
 
-    def forward_paraformer(self, feats, feats_lens, max_tokens: int = 512,
-                           timing: Optional[dict] = None):
+    def forward_paraformer(self, feats, feats_lens, max_tokens: int = 512):
         """Encoder → CIF (inference tail) → one decoder pass → log-softmax
         (reverb_tpu/models/sanm.py:sanm_forward_paraformer).  Returns
         (log-probs (B, max_tokens, V) f32, token counts (B,) int32, tp α
-        (B, T·u): zeros without the tp branch).  `timing`, when given, gets
-        the host-clock seconds of 'encoder', 'cif' and 'decoder' (each
-        ended by a device synchronisation)."""
+        (B, T·u): zeros without the tp branch).  Its phases are the spans
+        `paraformer.encoder`, `paraformer.cif` and `paraformer.decoder`
+        (utils/profiling.py:span)."""
         cif = self.cif
-        clock = _Clock(timing, feats.device)
-        enc, mask = self.encoder(feats, feats_lens)
-        clock.mark('encoder')
-        alphas = cif_alphas(self.predictor, enc, mask)
-        hidden = enc
-        if cif.tail_threshold > 0.0:
-            hidden, alphas, token_num = cif_tail_process(
-                enc, alphas, mask[:, 0, :], cif.tail_threshold)
-        else:
-            token_num = torch.floor(alphas.sum(-1))
-        token_num = torch.clamp(token_num.to(torch.int32), max=max_tokens)
-        fired, _ = cif_fire(hidden, alphas, max_tokens, cif.threshold)
-        clock.mark('cif')
-        logits = self.decoder(enc, mask, fired, token_num)
-        logp = torch.log_softmax(logits.to(torch.float32), -1)
-        if self.predictor.with_tp:
-            tp = tp_alphas_forward(self.predictor, enc, mask)
-        else:
-            tp = torch.zeros((enc.shape[0],
-                              enc.shape[1] * cif.upsample_times),
-                             device=enc.device)
-        clock.mark('decoder')
+        with span('paraformer.encoder'):
+            enc, mask = self.encoder(feats, feats_lens)
+        with span('paraformer.cif'):
+            alphas = cif_alphas(self.predictor, enc, mask)
+            hidden = enc
+            if cif.tail_threshold > 0.0:
+                hidden, alphas, token_num = cif_tail_process(
+                    enc, alphas, mask[:, 0, :], cif.tail_threshold)
+            else:
+                token_num = torch.floor(alphas.sum(-1))
+            token_num = torch.clamp(token_num.to(torch.int32), max=max_tokens)
+            fired, _ = cif_fire(hidden, alphas, max_tokens, cif.threshold)
+        with span('paraformer.decoder'):
+            logits = self.decoder(enc, mask, fired, token_num)
+            logp = torch.log_softmax(logits.to(torch.float32), -1)
+            if self.predictor.with_tp:
+                tp = tp_alphas_forward(self.predictor, enc, mask)
+            else:
+                tp = torch.zeros((enc.shape[0],
+                                  enc.shape[1] * cif.upsample_times),
+                                 device=enc.device)
         return logp, token_num, tp
-
-
-class _Clock:
-    """Host-clock marks of `forward_paraformer`, each after a device
-    synchronisation; a no-op without a dict to fill."""
-
-    def __init__(self, out: Optional[dict], device):
-        self.out = out
-        self.device = device
-        if out is not None:
-            import time
-            self._time = time.perf_counter
-            self._sync()
-            self.t = self._time()
-
-    def _sync(self):
-        if self.device.type == 'cuda':
-            torch.cuda.synchronize(self.device)
-
-    def mark(self, name: str):
-        if self.out is None:
-            return
-        self._sync()
-        now = self._time()
-        self.out[name] = now - self.t
-        self.t = now

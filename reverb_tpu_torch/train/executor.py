@@ -37,6 +37,7 @@ from reverb_tpu_torch.data.pipeline import mystats
 from reverb_tpu_torch.parallel.mesh import put_batch
 from reverb_tpu_torch.train.checkpoint import (save_checkpoint,
                                                should_force_snapshot)
+from reverb_tpu_torch.utils.profiling import span
 
 
 def _device_batch(batch: Dict, device) -> Dict:
@@ -79,18 +80,23 @@ class Executor:
               cv_dataset: Optional[Iterable] = None,
               max_steps: Optional[int] = None):
         """One pass over `dataset` (or up to `max_steps` steps in all);
-        the model and optimizer are updated in place."""
+        the model and optimizer are updated in place.  The wait for each
+        batch and its copy to the device are the span `train.data`
+        (utils/profiling.py:span); the profiler's window opens after it,
+        so its trace holds the data of every step but its first."""
         t0 = time.time()
-        for batch in dataset:
-            if max_steps is not None and self.step >= max_steps:
-                break
+        batches = iter(dataset)
+        while max_steps is None or self.step < max_steps:
+            with span('train.data'):
+                batch = next(batches, None)
+                if batch is None:
+                    break
+                on_device = _device_batch(batch, self.device)
             if self.watchdog is not None:
                 self.watchdog.check()
             if self.profiler is not None:
                 self.profiler.maybe_start(self.step)
-            metrics = self.train_step(model,
-                                      _device_batch(batch, self.device),
-                                      generator)
+            metrics = self.train_step(model, on_device, generator)
             if self.profiler is not None:
                 self.profiler.maybe_stop(self.step)
             self.step += 1

@@ -36,6 +36,7 @@ from reverb_tpu_torch.models.asr_model import ModelConfig, compute_loss
 from reverb_tpu_torch.parallel import global_batch as gb
 from reverb_tpu_torch.parallel.mesh import axis_ranks
 from reverb_tpu_torch.train.scheduler import build_scheduler
+from reverb_tpu_torch.utils.profiling import span
 
 
 @dataclasses.dataclass
@@ -373,11 +374,22 @@ def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
     rank's own (seeded by its data coordinate: ranks of one data
     coordinate draw the same masks, as their activations are one).  Each
     micro-batch's loss is scaled by `sharding.loss_scale` for the
-    backward ('seq' and 'pipe' ranks each compute it whole)."""
+    backward ('seq' and 'pipe' ranks each compute it whole).
+
+    Under a torch profiler the step is the span `train.step`
+    (utils/profiling.py:span) holding, per micro-batch, `train.forward`
+    (front end and loss) and `train.backward`; then `train.grad_sync`
+    (with a sharding), `train.grad_norm` (the accumulation divide, the
+    global norm, its read and the clip scale) and `train.optimizer`.
+    The spans change no arithmetic and no launch."""
 
     def train_step(model, batch, generator=None) -> Dict[str, float]:
         if model.cfg != cfg:
             raise ValueError('train_step: the model has another config')
+        with span('train.step'):
+            return _step(model, batch, generator)
+
+    def _step(model, batch, generator):
         if sharding is not None:
             if sharding.data_size > 1:
                 _check_rows(batch, sharding)
@@ -387,38 +399,43 @@ def make_train_step(cfg: ModelConfig, optimizer: _Optimizer,
             p.grad = None
         sums: Dict[str, float] = {}
         for micro in _micro_batches(batch, accum_grad, sharding):
-            if frontend is not None:
-                micro = apply_frontend(micro, frontend, generator)
-            with (contextlib.nullcontext() if sharding is None else
-                  gb.data_shard(sharding.data_group, sharding.data_size)):
-                out = (compute_loss(model, micro, generator,
-                                    norm=gb.norms(micro))
-                       if loss_fn is None
-                       else loss_fn(model, micro, generator))
-            loss = out['loss']
-            if sharding is not None and sharding.loss_scale != 1.0:
-                loss = loss * sharding.loss_scale
-            loss.backward()
+            with span('train.forward'):
+                if frontend is not None:
+                    micro = apply_frontend(micro, frontend, generator)
+                with (contextlib.nullcontext() if sharding is None else
+                      gb.data_shard(sharding.data_group, sharding.data_size)):
+                    out = (compute_loss(model, micro, generator,
+                                        norm=gb.norms(micro))
+                           if loss_fn is None
+                           else loss_fn(model, micro, generator))
+                loss = out['loss']
+                if sharding is not None and sharding.loss_scale != 1.0:
+                    loss = loss * sharding.loss_scale
+            with span('train.backward'):
+                loss.backward()
             for k, v in out.items():
                 sums[k] = sums.get(k, 0.0) + _detached(v)
         grads = [p.grad if p.grad is not None else torch.zeros_like(p)
                  for p in params]
         if sharding is not None:
-            sharding.reduce_grads(grads)
-            sums = sharding.sum_over_data(sums)
-        if accum_grad > 1:
-            torch._foreach_div_(grads, float(accum_grad))
-        if sharding is not None:
-            grad_norm = float(sharding.global_norm(grads))
-        else:
-            grad_norm = float(torch.linalg.vector_norm(
-                torch.stack(torch._foreach_norm(grads))))
-        finite = np.isfinite(grad_norm)
-        if finite:
+            with span('train.grad_sync'):
+                sharding.reduce_grads(grads)
+                sums = sharding.sum_over_data(sums)
+        with span('train.grad_norm'):
+            if accum_grad > 1:
+                torch._foreach_div_(grads, float(accum_grad))
+            if sharding is not None:
+                grad_norm = float(sharding.global_norm(grads))
+            else:
+                grad_norm = float(torch.linalg.vector_norm(
+                    torch.stack(torch._foreach_norm(grads))))
+            finite = np.isfinite(grad_norm)
             scale = 1.0
-            if grad_clip > 0.0 and grad_norm >= grad_clip:
+            if finite and grad_clip > 0.0 and grad_norm >= grad_clip:
                 scale = float(np.float32(grad_clip) / np.float32(grad_norm))
-            optimizer.step(grads, scale)
+        if finite:
+            with span('train.optimizer'):
+                optimizer.step(grads, scale)
         for p in params:
             p.grad = None
         if sharding is not None:

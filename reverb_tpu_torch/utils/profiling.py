@@ -9,12 +9,36 @@ or chrome://tracing) into `logdir`:
     prof = ProfileWindow(logdir, start_step=10, num_steps=5)
     for ...:
         prof.maybe_start(step); ...; prof.maybe_stop(step)
+
+`span(name)` marks a phase of the program in that trace:
+
+    with span('train.forward'):
+        ...
+
+While a torch profiler records (this window, or any other), it is a
+`span:<name>` range on the host's timeline, on the clock the profiler
+aligns the card's kernels to; the ranges opened inside it nest in it.
+Otherwise it does nothing, at the cost of one check.  It never
+synchronises with the device or reads from it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
+
+import torch
+
+_OFF = contextlib.nullcontext()
+
+
+def span(name: str):
+    """A `span:<name>` range in the recording profiler's trace, or a
+    no-op context when no profiler records."""
+    if torch.autograd._profiler_enabled():
+        return torch.profiler.record_function('span:' + name)
+    return _OFF
 
 
 class ProfileWindow:
@@ -37,7 +61,6 @@ class ProfileWindow:
     def maybe_start(self, step: int):
         if (self.logdir and not self.done and not self._active
                 and self.start_step <= step < self.stop_step):
-            import torch
             from torch.profiler import ProfilerActivity, profile
             acts = [ProfilerActivity.CPU]
             if torch.cuda.is_available():
@@ -58,7 +81,6 @@ class ProfileWindow:
             self._finish()
 
     def _finish(self):
-        import torch
         if torch.cuda.is_available():
             torch.cuda.synchronize()
         prof, self._prof = self._prof, None

@@ -313,7 +313,8 @@ def cli_dirs(tmp_path_factory):
 def test_transcribe_paraformer_matches_jax(cli_dirs, kind, monkeypatch):
     """`transcribe --paraformer -t`: the port's result dict is JAX's (text,
     tokens and times exactly, confidences within 1e-5).  Both packages
-    read the port's fbank, so the comparison starts at the model."""
+    read the port's fbank, so the comparison starts at the model.  Under
+    the profiler a transcribe shows its four phases' spans in order."""
     from reverb_tpu.cli import paraformer_model as jpm
     from reverb_tpu.cli import transcribe as jtr
     from reverb_tpu_torch.cli import paraformer_model as tpm
@@ -342,10 +343,14 @@ def test_transcribe_paraformer_matches_jax(cli_dirs, kind, monkeypatch):
         assert math.isclose(g['confidence'], w['confidence'], rel_tol=0,
                             abs_tol=1e-5)
     model = tpm.load_model(str(dirs[kind]), device='cpu')
-    assert set(model.last_phases) == set()
-    model.transcribe(str(wav))
-    assert set(model.last_phases) == {'encoder', 'cif', 'decoder',
-                                      'peaks_and_search'}
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        model.transcribe(str(wav))
+    spans = sorted((e.time_range.start, e.name) for e in prof.events()
+                   if e.name.startswith('span:'))
+    assert [n for _, n in spans] == [
+        'span:paraformer.encoder', 'span:paraformer.cif',
+        'span:paraformer.decoder', 'span:paraformer.search']
     with pytest.raises(NotImplementedError, match='Align'):
         model.align(str(wav), 'w1')
 
